@@ -8,7 +8,10 @@ one, or when run outside the repository (it imports the port from
 ``src/``).  It imports neither jax nor the JAX package.  Phases, each
 printed as JSON lines:
 
-  1. device   — ``nvidia-smi`` name and power limit of card 0.
+  1. device   — ``nvidia-smi`` name and power limit of card 0.  The flash
+     attention kernel (K4, CUDA C++) starts building with nvcc in a
+     thread, from ``src/repro_torch/kernels/flash_attention/csrc`` into
+     ``build/kernels``, while the Triton kernels compile and run.
   2. kernels  — builds the Triton echo-aggregate kernel from the source in
      ``src/`` (at its first launch, into ``build/triton``), calls the
      checked wrappers on tensors on the card and holds each result
@@ -16,27 +19,56 @@ printed as JSON lines:
      float32 and 5e-2 for bfloat16 (tests/test_kernels.py's bounds); an
      all-zero mask must return the previous global exactly.  Variants:
      K1 the fused FedAWE update, K2 with non-binary upload weights, K3
-     without the empty-round guard.
-  3. main path — ``repro_torch.launch.train`` in-process with
-     ``--strategy fedawe --dynamics sine --flat-state --use-kernel
-     --chunk-rounds 16 --rounds 64 --m 100 --s 5 --batch 32`` on the
-     full-width CNN (N = 27 370), with every launch count set to 0 just
-     before it: K1 must launch once per round and every loss be finite.
-     The same flags without ``--use-kernel`` must give identical
-     ``n_active`` histories and a final global within 1e-4.
-  4. numbers  — kernel, plain-version and two-matvec times at the
+     without the empty-round guard.  Then K4 (ptxas's register and spill
+     report printed) against its plain version in float32 and bfloat16:
+     the six cases of tests/test_kernels.py:84-91, the window's lower
+     edge, the dtype case of :108, gemma2-2b's attention (B 2, H 8, K 4,
+     L = S = 8192, D 256, soft-cap 50) windowed (4096) and global, and a
+     suffix (L 1024, S 8192), within 1e-4 (float32) and 3e-2 (bfloat16).
+  3. main paths, each with every launch count set to 0 just before it
+     and read just after:
+     a. FL training — ``repro_torch.launch.train`` in-process with
+        ``--strategy fedawe --dynamics sine --flat-state --use-kernel
+        --chunk-rounds 16 --rounds 64 --m 100 --s 5 --batch 32`` on the
+        full-width CNN (N = 27 370): K1 must launch once per round and
+        every loss be finite.  The same flags without ``--use-kernel``
+        must give identical ``n_active`` histories and a final global
+        within 1e-4.
+     b. LM serving — gemma2-2b at its published widths in bfloat16 with
+        ``attn_backend="flash"``, random weights from a seed: ``prefill``
+        of B = 2 prompts of 8192 tokens into a cache of 8192 + 16, then 16
+        greedy ``serve_step``s.  K4 must launch exactly 26 times (once
+        per layer) in the prefill and never in decode; every logit
+        finite.
+     c. the same prefill through ``attn_backend="xla"`` (q-chunked at
+        512): in float32 (B 1, 10.4 GB of weights) logits and cache
+        contents within 1e-3 — 26 layers of reordered sums, where the
+        reference's own flash-vs-xla test allows 2e-4 at 4 layers; in
+        bfloat16 (B 2) the end-to-end differences are printed, and each
+        layer's attention output, kernel against xla branch on the same
+        layer input, must agree within 5e-2 (the two round the softmax
+        probabilities to bf16 at different points, before and after
+        normalising, and that compounds through the layers); and, small,
+        reduced gemma2-2b prefill then decode against the full forward
+        within 1e-3.
+  4. numbers  — K1-K3: kernel, plain-version and two-matvec times at the
      main-path shape (CUDA graphs of calls over rotating operands larger
      than the 50 MB L2), at a 2 GB shape, the HBM bound, ms per round of
-     the chunked main path with and without the kernel (CUDA events, in
-     turns), the round's pieces timed alone (PRNG draws, sampler, local
-     SGD, server update), and a profiler breakdown of one chunk; each
-     line carries the card's name and power limit.
+     the chunked FL path with and without the kernel (CUDA events, in
+     turns), the round's pieces timed alone, a profiler breakdown of one
+     chunk.  K4 at gemma2-2b's two shapes: kernel, plain version, the
+     compiled flex_attention yardstick and SDPA (no soft-cap or window)
+     in CUDA events, the bound in tensor-core flops; prefill ms and
+     decode ms per step of the LM path and a profiler breakdown of one
+     prefill and one decode step.  Each line carries the card's name and
+     power limit.
   5. the ``{"kernels": [...]}`` line; the last line is
      ``{"ok": true, "device": {...}}``.
 
 No phase catches its own failure: any exception ends the run with a
 non-zero exit code and no result line.
 """
+import concurrent.futures
 import json
 import math
 import os
@@ -394,6 +426,471 @@ def profile_chunk(torch, timing, round_ms):
 
 
 # ---------------------------------------------------------------------------
+# K4: flash attention against its plain version, and its numbers
+# ---------------------------------------------------------------------------
+
+#: tests/test_kernels.py:84-91 (six cases) and the window's lower edge,
+#: (B, H, K, L, S, D, window, softcap, causal)
+FLASH_CASES = [
+    (2, 4, 4, 64, 64, 32, None, 0.0, True),
+    (1, 4, 2, 32, 64, 16, None, 0.0, True),
+    (2, 2, 2, 64, 64, 32, 24, 0.0, True),
+    (1, 2, 1, 64, 64, 64, None, 20.0, True),
+    (1, 2, 2, 64, 64, 32, None, 0.0, False),
+    (1, 8, 4, 128, 128, 64, 48, 30.0, True),
+    (1, 4, 2, 64, 64, 32, 5, 0.0, True),
+    (1, 4, 2, 64, 64, 32, None, 0.0, True),        # the dtype case :108
+]
+#: gemma2-2b's attention at the main path's prefill (B 2, L = S = 8192):
+#: windowed (local layers) and global, then a suffix with S > L
+GEMMA_ATTN = [(2, 8, 4, 8192, 8192, 256, 4096, 50.0, True),
+              (2, 8, 4, 8192, 8192, 256, None, 50.0, True),
+              (2, 8, 4, 1024, 8192, 256, 4096, 50.0, True)]
+FLASH_TOL = {"float32": 1e-4, "bfloat16": 3e-2}  # tests/test_kernels.py
+BF16_FLOP_PER_S = 989e12
+LM_B, LM_L, LM_NEW, LM_LAYERS = 2, 8192, 16, 26
+#: flash vs xla prefill at full width: float32 end to end, 26 layers of
+#: reordered sums (the reference's own test allows 2e-4 at 4 layers);
+#: bfloat16 layer by layer on the same layer inputs (one attention call's
+#: rounding: bf16 ulps of outputs up to 4-8)
+LM_TOL_F32 = 1e-3
+LM_TOL_BF16_LAYER = 5e-2
+
+
+def flash_inputs(torch, case, dtype, seed):
+    """Model-layout q [B, L, H, D], k and v [B, S, K, D] on the card."""
+    B, H, K, L, S, D = case[:6]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    return rand(B, L, H, D), rand(B, S, K, D), rand(B, S, K, D)
+
+
+def flash_kw(case):
+    return dict(window=case[6], softcap=case[7], causal=case[8])
+
+
+def check_flash(torch, fops, fref):
+    """Every case, float32 and bfloat16: one wrapper call (exactly one
+    launch), the plain version on the same tensors, the stated bound.
+    Returns the largest error of the main path's cases (bfloat16 at the
+    gemma2-2b shapes)."""
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        for i, case in enumerate(FLASH_CASES + GEMMA_ATTN):
+            q, k, v = flash_inputs(torch, case, dtype, seed=300 + i)
+            before = fops.flash_mha.launches
+            out = fops.flash_mha(q, k, v, **flash_kw(case))
+            torch.cuda.synchronize()
+            launched = fops.flash_mha.launches - before
+            plain = fref.flash_mha_ref(q, k, v, **flash_kw(case))
+            torch.cuda.synchronize()
+            err = (out.float() - plain.float()).abs().max().item()
+            tol = FLASH_TOL[name]
+            ok = (launched == 1 and out.shape == q.shape
+                  and out.dtype == dtype
+                  and bool(torch.isfinite(out).all())
+                  and torch.allclose(out.float(), plain.float(), rtol=tol,
+                                     atol=tol))
+            emit(dict(phase="kernel_check", kernel="K4", shape=case[:6],
+                      window=case[6], softcap=case[7], causal=case[8],
+                      dtype=name, launches=launched, max_abs_err=err,
+                      tol=tol, ok=ok))
+            if not ok:
+                raise AssertionError(f"flash attention at {case} {name} "
+                                     "disagrees with its plain version")
+            if case in GEMMA_ATTN[:2] and dtype == torch.bfloat16:
+                worst = max(worst, err)
+            del q, k, v, out, plain
+    torch.cuda.empty_cache()
+    return worst
+
+
+def live_pairs(L, S, causal, window):
+    """(query, key) pairs the masks leave, for end-aligned queries."""
+    n = 0
+    for i in range(L):
+        p = i + S - L
+        hi = min(p, S - 1) if causal else S - 1
+        lo = max(0, p - window + 1) if window else 0
+        n += max(0, hi - lo + 1)
+    return n
+
+
+def flash_bound(case, esize, flop_per_s):
+    """Least time in ms: q, k, v read once and the output written once
+    over the HBM rate, against 4 * D flops per live (query, key) pair per
+    head over the peak rate of the kernel's arithmetic."""
+    B, H, K, L, S, D, window, _, causal = case
+    nbytes = esize * (2 * B * H * L * D + 2 * B * K * S * D)
+    flops = 4 * D * B * H * live_pairs(L, S, causal, window)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_per_s
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations", flops)
+
+
+def flex_call(torch, q, k, v, window, softcap):
+    """The yardstick: one compiled torch flex_attention call computing the
+    same function (soft-cap score_mod, causal + window block mask, GQA)
+    on the [B, H, L, D] layout.  Timed here only; the port never calls
+    it.  Compiled anew for each window (the compile cache would otherwise
+    keep the first mask function)."""
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+
+    torch.compiler.reset()
+
+    def score_mod(score, b, h, qi, ki):
+        return torch.tanh(score / softcap) * softcap
+
+    def mask_mod(b, h, qi, ki):
+        ok = qi >= ki
+        if window is not None:
+            ok = ok & (qi - ki < window)
+        return ok
+
+    L = q.shape[2]
+    mask = create_block_mask(mask_mod, None, None, L, L, device="cuda")
+    fn = torch.compile(flex_attention)
+    return lambda: fn(q, k, v, score_mod=score_mod, block_mask=mask,
+                      enable_gqa=True)
+
+
+def time_flash(torch, fops, fref, smi):
+    """K4 at the main path's two shapes (bf16, windowed and global): the
+    kernel over 5 calls, the plain version over 2, the flex_attention
+    yardstick over 5 (and its error against the plain version), SDPA
+    without soft-cap or window (not the same function) for scale, the
+    float32 kernel over 2; CUDA events after a warm call."""
+    out = {}
+    for case in GEMMA_ATTN[:2]:
+        tag = "windowed" if case[6] else "global"
+        q, k, v = flash_inputs(torch, case, torch.bfloat16, seed=700)
+        kw = flash_kw(case)
+        k_ms = events_ms(torch, lambda: fops.flash_mha(q, k, v, **kw), 5)
+        plain = fref.flash_mha_ref(q, k, v, **kw)
+        p_ms = events_ms(torch, lambda: fref.flash_mha_ref(q, k, v, **kw), 2)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        t0 = time.perf_counter()
+        flex = flex_call(torch, qt, kt, vt, case[6], case[7])
+        flex_err = (flex().transpose(1, 2).float()
+                    - plain.float()).abs().max().item()
+        flex_compile_s = time.perf_counter() - t0
+        f_ms = events_ms(torch, flex, 5)
+        sdpa_ms = events_ms(torch, lambda: torch.nn.functional
+                            .scaled_dot_product_attention(
+                                qt, kt, vt, is_causal=True, enable_gqa=True),
+                            5)
+        del plain, flex
+        b_ms, b_by, flops = flash_bound(case, 2, BF16_FLOP_PER_S)
+        q32, k32, v32 = (x.float() for x in (q, k, v))
+        f32_ms = events_ms(torch, lambda: fops.flash_mha(q32, k32, v32,
+                                                         **kw), 2)
+        f32_bound, f32_by, _ = flash_bound(case, 4, FP32_FLOP_PER_S)
+        out[tag] = dict(ms=k_ms, plain_ms=p_ms, library_ms=f_ms,
+                        library="torch flex_attention (compiled)",
+                        library_max_abs_err=flex_err,
+                        library_compile_s=flex_compile_s,
+                        sdpa_no_softcap_no_window_ms=sdpa_ms,
+                        bound_ms=b_ms, bound_by=b_by, flops=flops,
+                        tflop_per_s=flops / k_ms / 1e9,
+                        f32_ms=f32_ms, f32_bound_ms=f32_bound,
+                        f32_bound_by=f32_by)
+        emit(dict(phase="kernel_time", card=smi, kernel="K4", shape=case[:6],
+                  window=case[6], softcap=case[7], dtype="bfloat16",
+                  **out[tag]))
+        del q, k, v, qt, kt, vt, q32, k32, v32
+        torch.cuda.empty_cache()
+    torch.compiler.reset()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the LM serving path: gemma2-2b prefill through K4, then greedy decode
+# ---------------------------------------------------------------------------
+
+def lm_config(get_config, dtype, backend="flash"):
+    """gemma2-2b at its published widths (26 layers, d_model 2304, 8 query
+    over 4 kv heads of 256, d_ff 9216, vocab 256 000, 4096 windows, soft
+    caps 50 and 30), nothing cut."""
+    return get_config("gemma2-2b").replace(dtype=dtype, attn_backend=backend)
+
+
+def lm_weights(torch, model, cfg, seed=0):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return model.init_params(gen, cfg)
+
+
+def lm_tokens(torch, vocab, seed=1):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randint(0, vocab, (LM_B, LM_L), generator=gen,
+                         device="cuda")
+
+
+def decode(torch, model, params, cfg, cache, logits, start, steps):
+    """``steps`` greedy serve_steps after a prefill of ``start`` tokens;
+    returns every step's logits."""
+    out = []
+    tok = torch.argmax(logits, -1)[:, None]
+    for i in range(steps):
+        pos = torch.full((tok.shape[0],), start + i, device="cuda")
+        logits, cache = model.serve_step(params, cfg, cache, tok, pos)
+        out.append(logits)
+        tok = torch.argmax(logits, -1)[:, None]
+    return out
+
+
+def lm_main_path(torch, model, cfg, params, tokens, counts):
+    """prefill (B 2, L 8192, cache 8192 + 16) then 16 greedy decode steps,
+    with every launch count at 0 just before: K4 must launch once per
+    layer in the prefill and never in decode; all logits finite."""
+    cache = model.init_cache(cfg, LM_B, LM_L + LM_NEW)
+    torch.cuda.synchronize()
+    counts.reset()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, cfg, cache, tokens)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    after_prefill = counts.read()
+    t0 = time.perf_counter()
+    steps = decode(torch, model, params, cfg, cache, logits, LM_L, LM_NEW)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    launches = counts.read()
+    require(after_prefill == dict(K1=0, K2=0, K3=0, K4=LM_LAYERS),
+            f"prefill launches {after_prefill}")
+    require(launches == after_prefill, f"decode launched {launches}")
+    all_logits = torch.stack([logits] + steps)
+    require(all_logits.shape == (LM_NEW + 1, LM_B, cfg.vocab),
+            f"logits shape {tuple(all_logits.shape)}")
+    require(bool(torch.isfinite(all_logits).all()), "non-finite logits")
+    emit(dict(phase="lm_main_path", arch=cfg.name, dtype=cfg.dtype,
+              params=cfg.param_count(), batch=LM_B, prompt=LM_L,
+              decode_steps=LM_NEW, launches=launches,
+              first_prefill_s=prefill_s, decode_s=decode_s,
+              tokens=torch.argmax(all_logits, -1).T.tolist(),
+              logits_absmax=all_logits.abs().max().item()))
+    del cache, all_logits, steps
+    torch.cuda.empty_cache()
+    return launches
+
+
+def flash_vs_xla(torch, model, cfg, params, tokens, tol):
+    """The same prefill through the flash kernel and through the xla
+    backend (q-chunked at cfg.attn_chunk): max abs differences of the
+    logits and of every cache leaf (k, v; the positions must be equal),
+    held to ``tol`` unless it is None (then printed only: in bfloat16 the
+    two backends round the softmax probabilities differently, the kernel
+    before normalising as the reference kernel does, kernel.py:79, the
+    xla branch after, and the difference compounds through 26 layers;
+    see ``flash_vs_xla_layers``)."""
+    res = {}
+    for backend in ("flash", "xla"):
+        c = cfg.replace(attn_backend=backend)
+        cache = model.init_cache(c, tokens.shape[0], LM_L + LM_NEW)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, c, cache, tokens)
+        torch.cuda.synchronize()
+        res[backend] = (logits, cache, time.perf_counter() - t0)
+    (lf, cf, tf), (lx, cx, tx) = res["flash"], res["xla"]
+    per_layer = []  # in layer order: unit u, pattern position j
+    for u in range(cfg.n_units):
+        for key in cf["stack"]:
+            per_layer.append(max(
+                (cf["stack"][key][name][u].float()
+                 - cx["stack"][key][name][u].float()).abs().max().item()
+                for name in ("k", "v")))
+    for key in cf["stack"]:
+        require(torch.equal(cf["stack"][key]["pos"],
+                            cx["stack"][key]["pos"]), "cache positions")
+    cache_err = max(per_layer)
+    logit_err = (lf - lx).abs().max().item()
+    emit(dict(phase="flash_vs_xla", dtype=cfg.dtype, batch=tokens.shape[0],
+              prompt=LM_L, logits_max_abs_err=logit_err,
+              cache_max_abs_err=cache_err,
+              cache_max_abs_err_per_layer=per_layer, tol=tol,
+              logits_absmax=lx.abs().max().item(), prefill_s_flash=tf,
+              prefill_s_xla=tx))
+    require(tol is None or (logit_err <= tol and cache_err <= tol),
+            f"flash vs xla prefill ({cfg.dtype}): logits {logit_err}, "
+            f"caches {cache_err} > {tol}")
+    del res, lf, cf, lx, cx
+    torch.cuda.empty_cache()
+
+
+def flash_vs_xla_layers(torch, model, layers, cfg, params, tokens):
+    """bfloat16 at full width, layer by layer: each layer's attention
+    sub-block (``attn_qkvo``, prefill mode) through the kernel and through
+    the xla branch on the same input, the xla run's own input to that
+    layer; the run then goes on through the xla block.  Each layer's
+    outputs must agree within LM_TOL_BF16_LAYER."""
+    cf = cfg.replace(attn_backend="flash")
+    cx = cfg.replace(attn_backend="xla")
+    B, L = tokens.shape
+    h = params["embed"][tokens].to(torch.bfloat16)
+    positions = torch.arange(L, device="cuda").expand(B, L)
+    caches = {"flash": model.init_cache(cf, B, L),
+              "xla": model.init_cache(cx, B, L)}
+    errs, absmax = [], 0.0
+    for u in range(cfg.n_units):
+        for j, blk in enumerate(cfg.pattern):
+            key = f"pos{j}"
+            bp = {k: v[u] for k, v in params["stack"][key].items()}
+            x = layers.rms_norm(h, bp["ln1"], cfg.norm_eps)
+            ys = {}
+            for name, c in (("flash", cf), ("xla", cx)):
+                cache = {k: v[u] for k, v in caches[name]["stack"][key]
+                         .items()}
+                ys[name] = layers.attn_qkvo(x, bp, c, positions,
+                                            prefill_cache=cache,
+                                            window=blk.window)
+            errs.append((ys["flash"] - ys["xla"]).float().abs().max().item())
+            absmax = max(absmax, ys["xla"].float().abs().max().item())
+            h = model.apply_block(blk, bp, h, cx, positions)
+    emit(dict(phase="flash_vs_xla_layers", dtype=cfg.dtype, batch=B,
+              prompt=L, max_abs_err_per_layer=errs, attn_out_absmax=absmax,
+              tol=LM_TOL_BF16_LAYER))
+    require(max(errs) <= LM_TOL_BF16_LAYER,
+            f"flash vs xla per layer (bf16): {errs}")
+    del caches
+    torch.cuda.empty_cache()
+
+
+def decode_parity_small(torch, model, get_config, reduced):
+    """On the card at a small size: reduced gemma2-2b (float32, flash
+    backend) prefill of 128 tokens then 16 decode steps against the full
+    forward over all 144, within 1e-3 (tests/test_decode_parity.py)."""
+    cfg = reduced(get_config("gemma2-2b")).replace(attn_backend="flash")
+    params = lm_weights(torch, model, cfg, seed=5)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    toks = torch.randint(0, cfg.vocab, (2, 144), generator=gen,
+                         device="cuda")
+    h, _ = model.forward_hidden(params, cfg, toks)
+    full = model.lm_logits(h, params, cfg)
+    cache = model.init_cache(cfg, 2, 144)
+    logits, cache = model.prefill(params, cfg, cache, toks[:, :128])
+    errs = [(logits - full[:, 127]).abs().max().item()]
+    for i in range(128, 144):
+        logits, cache = model.serve_step(params, cfg, cache,
+                                         toks[:, i:i + 1],
+                                         torch.full((2,), i, device="cuda"))
+        errs.append((logits - full[:, i]).abs().max().item())
+    emit(dict(phase="decode_parity_small", max_abs_err=max(errs), tol=1e-3))
+    require(max(errs) < 1e-3, f"decode parity {errs}")
+
+
+def profile_ms(torch, fn):
+    """One call of ``fn`` under torch.profiler: summed device time of all
+    kernels, launches, and the top kernels by device time (None when the
+    profiler records no device activity)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+    by_name = {}
+    for name, us in kernels:
+        by_name[name] = by_name.get(name, 0.0) + us
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return dict(device_ms=(sum(us for _, us in kernels) / 1e3
+                           if kernels else None),
+                launches=len(kernels) if kernels else None,
+                top_kernels_ms=[[n[:80], us / 1e3] for n, us in top])
+
+
+def time_lm(torch, model, cfg, params, tokens, smi):
+    """Prefill ms (2 calls) and decode ms per step (16 steps), CUDA events
+    after the main path's warm run; then one prefill and one decode step
+    under the profiler, with the device busy share against those times."""
+    cache = model.init_cache(cfg, LM_B, LM_L + LM_NEW)
+    holder = {}
+
+    def run_prefill():
+        holder["logits"], _ = model.prefill(params, cfg, cache, tokens)
+
+    prefill_ms = events_ms(torch, run_prefill, 2)
+
+    def run_decode():
+        decode(torch, model, params, cfg, cache, holder["logits"], LM_L,
+               LM_NEW)
+
+    decode_ms = events_ms(torch, run_decode, 1) / LM_NEW
+    tok = torch.argmax(holder["logits"], -1)[:, None]
+    pos = torch.full((LM_B,), LM_L, device="cuda")
+    pre = profile_ms(torch, run_prefill)
+    dec = profile_ms(torch, lambda: model.serve_step(params, cfg, cache,
+                                                     tok, pos))
+    for name, prof, wall in (("prefill", pre, prefill_ms),
+                             ("decode_step", dec, decode_ms)):
+        busy = None if prof["device_ms"] is None else prof["device_ms"] / wall
+        emit(dict(phase="profile", card=smi, path=f"lm_{name}",
+                  wall_ms=wall, device_busy_share=busy, **prof))
+    rec = dict(prefill_ms=prefill_ms, prefill_tok_per_s=LM_B * LM_L
+               / prefill_ms * 1e3, decode_ms_per_step=decode_ms,
+               decode_tok_per_s=LM_B / decode_ms * 1e3,
+               prefill_device_ms=pre["device_ms"],
+               flash_share_of_prefill=None)
+    flash = [ms for n, ms in pre["top_kernels_ms"] if "flash_fwd" in n]
+    if flash and pre["device_ms"]:
+        rec["flash_share_of_prefill"] = flash[0] / prefill_ms
+    emit(dict(phase="lm_time", card=smi, arch=cfg.name, dtype=cfg.dtype,
+              batch=LM_B, prompt=LM_L, **rec))
+    del cache, holder
+    torch.cuda.empty_cache()
+    return rec
+
+
+def ssd_chunk_bound(cfg, batch, seq):
+    """K5 (the SSD chunk kernel, not ported yet) at ``cfg``'s widths over
+    ``batch`` sequences of ``seq`` tokens, reckoned from
+    repro/kernels/ssd_chunk/kernel.py: per (batch, head, chunk) of K
+    rows, C.B^T and (L * C.B^T).x on the lower triangle the mask leaves
+    (K(K+1)/2 entries), the states (B * decay)^T.x in full, all in
+    float32 (the inputs arrive in float32: the conv's float32 weights
+    promote them); bytes: x, dA, B, C read once, y, states, decay written
+    once."""
+    K, P, N, H = cfg.ssm_chunk, cfg.ssm_head_dim, cfg.ssm_state, \
+        cfg.ssm_heads
+    programs = batch * H * (seq // K)
+    tri = K * (K + 1) // 2
+    flops = programs * (2 * tri * N + 2 * tri * P + 2 * N * P * K)
+    nbytes = programs * 4 * (K * P + K + 2 * K * N + K * P + N * P + 1)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    return dict(kernel="K5", arch=cfg.name, batch=batch, seq=seq,
+                programs=programs, flops=flops, bytes=nbytes,
+                bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+class Counts:
+    """Every kernel wrapper's launch count, set to 0 and read together."""
+
+    def __init__(self, ops, fops):
+        self.ops, self.fops = ops, fops
+
+    def reset(self):
+        self.ops.echo_aggregate_flat.launches = 0
+        self.ops.echo_aggregate_flat.upload_launches = 0
+        self.ops.echo_aggregate.launches = 0
+        self.fops.flash_mha.launches = 0
+
+    def read(self):
+        return {"K1": self.ops.echo_aggregate_flat.launches,
+                "K2": self.ops.echo_aggregate_flat.upload_launches,
+                "K3": self.ops.echo_aggregate.launches,
+                "K4": self.fops.flash_mha.launches}
+
+
+# ---------------------------------------------------------------------------
 
 def main():
     import torch
@@ -403,12 +900,21 @@ def main():
               "port on one card", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.join(REPO, "src"))
+    from repro_torch.configs import get_config
     from repro_torch.core import engine, prng, strategies
     from repro_torch.data import federated
     from repro_torch.device import resolve_device
     from repro_torch.kernels.echo_aggregate import kernel, ops, ref
+    from repro_torch.kernels.flash_attention import kernel as fkernel
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
     from repro_torch.launch import train
-    from repro_torch.models import cnn
+    from repro_torch.models import cnn, layers, model, reduced
+
+    counts = Counts(ops, fops)
+    # K4 is built by nvcc while the Triton kernels compile and run
+    build_pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    flash_build = build_pool.submit(fkernel.build)
 
     # phase 1: device
     smi = nvidia_smi()
@@ -425,25 +931,31 @@ def main():
     # phase 2: kernels against their plain versions
     t0 = time.perf_counter()
     errs = check_kernels(torch, ops, ref, kernel.BLOCK_N)
+    t1 = time.perf_counter()
+    lib = flash_build.result()
+    build_pool.shutdown()
+    report = lib.with_suffix(".log").read_text().splitlines()
+    emit(dict(phase="kernel_build", kernel="K4", library=str(lib),
+              wait_s=time.perf_counter() - t1,
+              ptxas=[line.strip() for line in report
+                     if "registers" in line or "spill" in line]))
+    flash_err = check_flash(torch, fops, fref)
     emit(dict(phase="kernel_checks_done", seconds=time.perf_counter() - t0))
 
-    # phase 3: the main path, counts at 0 just before it
+    # phase 3: the FL training path, every count at 0 just before it
     parser = train.build_parser()
-    ops.echo_aggregate_flat.launches = 0
-    ops.echo_aggregate_flat.upload_launches = 0
-    ops.echo_aggregate.launches = 0
+    counts.reset()
     t0 = time.perf_counter()
     state_k, hist_k, final_k = train.run(
         parser.parse_args(MAIN_FLAGS + ["--use-kernel"]))
     torch.cuda.synchronize()
     wall_k = time.perf_counter() - t0
-    launches = {"K1": ops.echo_aggregate_flat.launches,
-                "K2": ops.echo_aggregate_flat.upload_launches,
-                "K3": ops.echo_aggregate.launches}
+    launches = counts.read()
     losses = [h["loss"] for h in hist_k]
     n_active_k = [h["n_active"] for h in hist_k]
     require(len(hist_k) == 64, f"{len(hist_k)} rounds")
-    require(launches["K1"] == 64, f"K1 launches {launches}")
+    require(launches == dict(K1=64, K2=0, K3=0, K4=0),
+            f"FL path launches {launches}")
     require(all(math.isfinite(v) for v in losses), f"losses {losses}")
     require(state_k.global_tr.shape == (N_MAIN,)
             and bool(torch.isfinite(state_k.global_tr).all()),
@@ -467,6 +979,22 @@ def main():
               mean_active=sum(n_active_k) / 64, final_eval_acc=final_k,
               final_eval_acc_plain=final_p, kernel_vs_plain_global=diff))
 
+    # phase 3b: the LM serving path, every count at 0 just before it
+    lm_cfg = lm_config(get_config, "bfloat16")
+    lm_params = lm_weights(torch, model, lm_cfg)
+    tokens = lm_tokens(torch, lm_cfg.vocab)
+    lm_launches = lm_main_path(torch, model, lm_cfg, lm_params, tokens,
+                               counts)
+    # phase 3c: flash against xla at full width, decode parity when small
+    flash_vs_xla(torch, model, lm_cfg, lm_params, tokens, None)
+    flash_vs_xla_layers(torch, model, layers, lm_cfg, lm_params, tokens)
+    decode_parity_small(torch, model, get_config, reduced)
+    f32_cfg = lm_config(get_config, "float32")
+    f32_params = lm_weights(torch, model, f32_cfg)
+    flash_vs_xla(torch, model, f32_cfg, f32_params, tokens[:1], LM_TOL_F32)
+    del f32_params
+    torch.cuda.empty_cache()
+
     # phase 4: numbers
     times = time_kernels(torch, ops, ref, strategies, smi)
     runs = []
@@ -481,6 +1009,15 @@ def main():
               prng_share=parts["prng_ms"] / round_ms))
     emit(dict(phase="profile", card=smi, use_kernel=True,
               **profile_chunk(torch, runs[3], round_ms)))
+    del runs
+    emit(dict(phase="bound", **ssd_chunk_bound(get_config("mamba2-130m"),
+                                               LM_B, LM_L)))
+    # the LM path is timed before the flex_attention yardstick compiles:
+    # torch.compile's worker processes would share the host with decode
+    time_lm(torch, model, lm_cfg, lm_params, tokens, smi)
+    flash_times = time_flash(torch, fops, fref, smi)
+    del lm_params
+    torch.cuda.empty_cache()
     print(smi, flush=True)
 
     # phase 5
@@ -501,6 +1038,21 @@ def main():
             max_abs_err=errs[v], ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=None))
+    # K4: per launch, the mean of the prefill's two shapes (13 windowed and
+    # 13 global launches)
+    both = list(flash_times.values())
+
+    def mean(key):
+        return sum(t[key] for t in both) / len(both)
+
+    kernels.append(dict(
+        name="flash_attention (K4)", route="cuda",
+        source="src/repro_torch/kernels/flash_attention/csrc/"
+               "flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:90",
+        launches=lm_launches["K4"], max_abs_err=flash_err, ms=mean("ms"),
+        plain_ms=mean("plain_ms"), bound_ms=mean("bound_ms"),
+        bound_by=both[0]["bound_by"], library_ms=mean("library_ms")))
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -3,6 +3,9 @@
 echo_aggregate — the paper's own operator: fused adaptive-innovation echo
                  + implicit-gossip masked mean over the flat [m, N] client
                  stack (Triton; replaces the JAX package's Pallas kernel).
+flash_attention — forward blockwise online-softmax attention for the LM
+                 prefill (GQA, causal + sliding window, soft-cap; CUDA C++
+                 for sm_90a in csrc/, built by nvcc at first use).
 
 Each kernel ships kernel.py (the kernel and its launcher), ops.py (the
 checked wrapper the port calls, with its launch count) and ref.py (the

@@ -1,0 +1,202 @@
+"""Core neural layers: RMSNorm, RoPE, GQA attention (full / sliding-window /
+query-chunked), gated MLP, as functions on tensors; a port of
+``repro/models/layers.py`` with the same names and layouts.
+
+Conventions
+-----------
+  B batch, L query length, S key length, H query heads, K kv heads,
+  G = H // K query heads per kv head, D head dim.
+Activations flow in ``cfg.dtype``; softmax statistics, scores and norms
+are computed in float32 (bf16 operands are upcast before a score product,
+which is exact there, as under the reference's
+``preferred_element_type=float32``).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.flash_attention.ops import flash_mha
+
+NEG_INF = -2.0e38
+
+
+# ---------------------------------------------------------------------------
+# norms / elementwise
+# ---------------------------------------------------------------------------
+
+def rms_norm(x, gamma, eps=1e-6):
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    return ((x32 * torch.rsqrt(var + eps))
+            * (1.0 + gamma.float())).to(x.dtype)
+
+
+def softcap(x, cap):
+    if not cap:
+        return x
+    return torch.tanh(x / cap) * cap
+
+
+def swiglu(x, wi, wd):
+    """Fused gate+up projection: wi [d, 2*ff], wd [ff, d]."""
+    g, u = (x @ wi).chunk(2, dim=-1)
+    return (F.silu(g) * u) @ wd
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings (split halves, not interleaved pairs; angles in f32)
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim, theta, device=None):
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x, positions, theta):
+    """x: [..., L, n_heads, D]; positions: [..., L] (int)."""
+    inv = rope_freqs(x.shape[-1], theta, x.device)  # [D/2]
+    ang = positions[..., None].float() * inv  # [..., L, D/2]
+    sin = torch.sin(ang)[..., None, :]  # broadcast over heads
+    cos = torch.cos(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention masks
+# ---------------------------------------------------------------------------
+
+def causal_window_mask(q_pos, k_pos, window=None, causal=True):
+    """Boolean [.., L, S] mask: True = attend.
+
+    q_pos: [..., L], k_pos: [..., S] absolute positions.
+    """
+    d = q_pos[..., :, None] - k_pos[..., None, :]
+    m = torch.ones(d.shape, dtype=torch.bool, device=d.device)
+    if causal:
+        m = m & (d >= 0)
+    if window is not None:
+        m = m & (d < window)
+    return m
+
+
+# ---------------------------------------------------------------------------
+# grouped-query attention
+# ---------------------------------------------------------------------------
+
+def _gqa_scores(q, k, scale, cap):
+    """q: [B,L,K,G,D], k: [B,S,K,D] -> [B,K,G,L,S] (f32)."""
+    s = torch.einsum("blkgd,bskd->bkgls", q.float(), k.float()) * scale
+    if cap:
+        s = softcap(s, cap)
+    return s
+
+
+def _gqa_out(p, v):
+    """p: [B,K,G,L,S] , v: [B,S,K,D] -> [B,L,K*G,D]."""
+    o = torch.einsum("bkgls,bskd->blkgd", p.to(v.dtype), v)
+    B, L, K, G, D = o.shape
+    return o.reshape(B, L, K * G, D)
+
+
+def attention(q, k, v, q_pos, k_pos, *, window=None, causal=True,
+              attn_softcap=0.0, q_chunk=0):
+    """Grouped-query scaled dot-product attention.
+
+    q: [B, L, H, D]; k, v: [B, S, K, D]. Returns [B, L, H, D].
+    q_chunk > 0 evaluates the queries in chunks of q_chunk (a plain loop;
+    no checkpointing, which only training needs): peak memory drops from
+    O(L*S) to O(q_chunk*S) per (kv-)head without changing the math.
+    """
+    B, L, H, D = q.shape
+    K = k.shape[2]
+    G = H // K
+    qg = q.reshape(B, L, K, G, D)
+    scale = D ** -0.5
+
+    def block(q_blk, qp_blk):
+        s = _gqa_scores(q_blk, k, scale, attn_softcap)  # [B,K,G,l,S]
+        m = causal_window_mask(qp_blk, k_pos, window=window, causal=causal)
+        m = m[:, None, None]  # [B,1,1,l,S]
+        p = torch.softmax(s.masked_fill(~m, NEG_INF), dim=-1)
+        return _gqa_out(p, v)
+
+    if q_chunk and L > q_chunk and L % q_chunk == 0:
+        return torch.cat([block(qg[:, i:i + q_chunk], q_pos[:, i:i + q_chunk])
+                          for i in range(0, L, q_chunk)], dim=1)
+    return block(qg, q_pos)
+
+
+def attention_decode(q, k_cache, v_cache, q_pos, cache_pos, *, window=None,
+                     attn_softcap=0.0):
+    """Single-token decode attention against a (possibly rolling) cache.
+
+    q: [B, 1, H, D]; caches: [B, Sc, K, D] where Sc = allocated cache length
+    (== window for rolling caches). cache_pos: [B, Sc] absolute position held
+    in each cache slot (-1 = empty). q_pos: [B, 1].
+    """
+    B, _, H, D = q.shape
+    K = k_cache.shape[2]
+    qg = q.reshape(B, 1, K, H // K, D)
+    s = _gqa_scores(qg, k_cache, D ** -0.5, attn_softcap)  # [B,K,G,1,Sc]
+    valid = (cache_pos >= 0) & (cache_pos <= q_pos)  # [B,Sc]
+    if window is not None:
+        valid = valid & (q_pos - cache_pos < window)
+    s = s.masked_fill(~valid[:, None, None, None, :], NEG_INF)
+    return _gqa_out(torch.softmax(s, dim=-1), v_cache)  # [B,1,H,D]
+
+
+# ---------------------------------------------------------------------------
+# attention block application
+# ---------------------------------------------------------------------------
+
+def attn_qkvo(x, bp, cfg, positions, *, decode_cache=None,
+              prefill_cache=None, window=None):
+    """Compute one causal attention sub-block given params dict ``bp``.
+
+    decode_cache: dict(k, v, pos, slot) for single-token decode.
+    prefill_cache: dict(k, v, pos) — full-sequence forward that also writes
+    the (last `alloc`) K/V entries into the cache.
+    Returns the block's output.  Unlike the reference, which returns new
+    cache arrays beside it, the caches are updated IN PLACE.
+    """
+    B, L, _ = x.shape
+    q = (x @ bp["wq"]).reshape(B, L, cfg.n_heads, cfg.head_dim)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = (x @ bp["wk"]).reshape(B, L, cfg.n_kv_heads, cfg.head_dim)
+    v = (x @ bp["wv"]).reshape(B, L, cfg.n_kv_heads, cfg.head_dim)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    if decode_cache is not None:
+        if L != 1:
+            raise ValueError(f"decode takes one token per row; got L={L}")
+        slot = decode_cache["slot"]  # [B] — write index
+        bidx = torch.arange(B, device=x.device)
+        k_cache, v_cache = decode_cache["k"], decode_cache["v"]
+        cache_pos = decode_cache["pos"]
+        k_cache[bidx, slot] = k[:, 0].to(k_cache.dtype)
+        v_cache[bidx, slot] = v[:, 0].to(v_cache.dtype)
+        cache_pos[bidx, slot] = positions[:, 0].to(cache_pos.dtype)
+        out = attention_decode(q, k_cache, v_cache, positions, cache_pos,
+                               window=window, attn_softcap=cfg.attn_softcap)
+    else:
+        use_flash = (cfg.attn_backend == "flash"
+                     and prefill_cache is not None
+                     and L % 128 == 0 and cfg.head_dim % 8 == 0)
+        if use_flash:
+            out = flash_mha(q, k, v, window=window,
+                            softcap=cfg.attn_softcap)
+        else:
+            out = attention(q, k, v, positions, positions, window=window,
+                            attn_softcap=cfg.attn_softcap,
+                            q_chunk=cfg.attn_chunk)
+        if prefill_cache is not None:
+            alloc = prefill_cache["k"].shape[1]
+            take = min(L, alloc)
+            slots = positions[:, L - take:] % alloc  # [B, take]
+            bidx = torch.arange(B, device=x.device)[:, None]
+            for name, val in (("k", k), ("v", v), ("pos", positions)):
+                dst = prefill_cache[name]
+                dst[bidx, slots] = val[:, L - take:].to(dst.dtype)
+    return out.reshape(B, L, cfg.q_dim) @ bp["wo"]

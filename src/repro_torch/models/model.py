@@ -1,0 +1,260 @@
+"""Unified model, dense attention subset: parameter init, the unit loop,
+logits, caches, prefill and decode; a port of ``repro/models/model.py``.
+
+The layer stack is grouped into repeating *units* (cfg.pattern).  Weights
+and caches of the full units are stacked on a leading ``[n_units]`` axis,
+as in the reference, and a Python loop over the units indexes that axis
+(the reference's ``lax.scan``); the remainder ("tail") follows.  The
+parameter tree has the reference's keys and shapes, so a JAX tree carries
+across through ``repro_torch.checkpointing.params_from_numpy``.
+
+Blocks other than ``attn`` (MoE, Mamba2, shared attention), encoder-decoder
+models, modality frontends and LoRA raise NotImplementedError naming the
+ROADMAP item that ports them.  Caches are updated in place (the reference
+returns new ones): ``prefill`` and ``serve_step`` write into the cache they
+are given and return it.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models.config import BlockCfg, ModelConfig
+from repro_torch.models.layers import attn_qkvo, rms_norm, softcap, swiglu
+
+_TODO = {
+    "moe": "MoE blocks (models/moe.py) are ROADMAP queue 1 item 4",
+    "mamba": "Mamba2 blocks (models/ssm.py, with K5) are ROADMAP queue 1 "
+             "item 5",
+    "shared_attn": "shared-attention blocks come with models/ssm.py, "
+                   "ROADMAP queue 1 item 5",
+    "enc_dec": "encoder-decoder models are ROADMAP queue 1 item 16",
+    "frontend": "modality frontends (stub embeddings) are ROADMAP queue 1 "
+                "item 16",
+    "lora": "fl_mode='lora' belongs to LM training, ROADMAP queue 1 item 3",
+}
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _dt(cfg):
+    return DTYPES[cfg.dtype]
+
+
+def check_supported(cfg: ModelConfig):
+    """Raise NotImplementedError for what this slice does not run."""
+    for blk in cfg.pattern:
+        if blk.kind != "attn":
+            raise NotImplementedError(f"{cfg.name}: {_TODO[blk.kind]}")
+    if cfg.enc_dec:
+        raise NotImplementedError(f"{cfg.name}: {_TODO['enc_dec']}")
+    if cfg.frontend != "none":
+        raise NotImplementedError(f"{cfg.name}: {_TODO['frontend']}")
+    if cfg.fl_mode == "lora":
+        raise NotImplementedError(f"{cfg.name}: {_TODO['lora']}")
+
+
+# ===========================================================================
+# initialization
+# ===========================================================================
+
+def _attn_block_shapes(cfg: ModelConfig):
+    """name -> shape of one attention block's leaves (``ln*`` are float32
+    zeros, the rest dense weights in cfg.dtype)."""
+    d, qd, kd, ff = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff
+    shapes = {"ln1": (d,), "wq": (d, qd), "wk": (d, kd), "wv": (d, kd),
+              "wo": (qd, d), "ln2": (d,)}
+    if ff:
+        shapes["wi"] = (d, 2 * ff)
+        shapes["wd"] = (ff, d)
+    return shapes
+
+
+def _dense_init(gen, shape, dtype, scale=None, lead=()):
+    """N(0, 1) * scale (default fan_in^-0.5, fan_in = shape[0]) drawn in
+    float32 and cast; ``lead`` prepends stacking axes."""
+    s = scale if scale is not None else shape[0] ** -0.5
+    x = torch.randn(tuple(lead) + tuple(shape), generator=gen,
+                    dtype=torch.float32, device=gen.device)
+    return (x * s).to(dtype)
+
+
+def init_attn_block(gen, cfg: ModelConfig, lead=()):
+    out = {}
+    for name, shape in _attn_block_shapes(cfg).items():
+        if name.startswith("ln"):
+            out[name] = torch.zeros(tuple(lead) + shape, dtype=torch.float32,
+                                    device=gen.device)
+        else:
+            out[name] = _dense_init(gen, shape, _dt(cfg), lead=lead)
+    return out
+
+
+def init_params(gen: torch.Generator, cfg: ModelConfig):
+    """Random parameters drawn from ``gen`` on its device, in the
+    reference's tree layout (``stack/pos{j}`` leaves stacked on a leading
+    ``[n_units]`` axis, ``tail/blk{i}``).  The bits differ from the
+    reference's ``jax.random`` draws; tests carry JAX weights across."""
+    check_supported(cfg)
+    dt = _dt(cfg)
+    params = {
+        "embed": _dense_init(gen, (cfg.vocab, cfg.d_model), dt, scale=0.02),
+        "ln_f": torch.zeros((cfg.d_model,), dtype=torch.float32,
+                            device=gen.device),
+        "stack": {f"pos{j}": (init_attn_block(gen, cfg, (cfg.n_units,))
+                              if cfg.n_units else {})
+                  for j in range(len(cfg.pattern))},
+        "tail": {f"blk{i}": init_attn_block(gen, cfg)
+                 for i in range(cfg.n_tail)},
+    }
+    if not cfg.tie_embeddings:
+        params["unembed"] = _dense_init(gen, (cfg.d_model, cfg.vocab), dt,
+                                        scale=0.02)
+    return params
+
+
+def count_params(cfg: ModelConfig, trainable_only: bool = False) -> int:
+    """Analytic parameter count (matches init_params).  Every parameter is
+    trainable in this slice (LoRA raises), so ``trainable_only`` changes
+    nothing."""
+    check_supported(cfg)
+    block = sum(math.prod(s) for s in _attn_block_shapes(cfg).values())
+    n = cfg.vocab * cfg.d_model + cfg.d_model + cfg.n_layers * block
+    if not cfg.tie_embeddings:
+        n += cfg.d_model * cfg.vocab
+    return n
+
+
+# ===========================================================================
+# forward
+# ===========================================================================
+
+def _unit_slice(tree, u):
+    return {k: v[u] for k, v in tree.items()}
+
+
+def apply_block(blk: BlockCfg, bp, h, cfg, positions, *, cache=None,
+                mode="train"):
+    """One ``attn`` block: attention then the gated MLP, both residual.
+    Returns h; the cache (prefill/decode modes) is written in place."""
+    x = rms_norm(h, bp["ln1"], cfg.norm_eps)
+    dec = pre = None
+    if cache is not None and mode == "decode":
+        alloc = cache["k"].shape[1]
+        dec = dict(k=cache["k"], v=cache["v"], pos=cache["pos"],
+                   slot=positions[:, 0] % alloc)
+    elif cache is not None and mode == "prefill":
+        pre = cache
+    h = h + attn_qkvo(x, bp, cfg, positions, decode_cache=dec,
+                      prefill_cache=pre, window=blk.window)
+    x = rms_norm(h, bp["ln2"], cfg.norm_eps)
+    return h + swiglu(x, bp["wi"], bp["wd"])
+
+
+def _run_stack(h, params, cfg: ModelConfig, positions, *, caches=None,
+               mode="train"):
+    """The unit loop, then the tail.  Returns h; the caches are written in
+    place."""
+    for u in range(cfg.n_units):
+        for j, blk in enumerate(cfg.pattern):
+            key = f"pos{j}"
+            c = _unit_slice(caches["stack"][key], u) if caches else None
+            h = apply_block(blk, _unit_slice(params["stack"][key], u), h,
+                            cfg, positions, cache=c, mode=mode)
+    for i in range(cfg.n_tail):
+        key = f"blk{i}"
+        c = caches["tail"][key] if caches else None
+        h = apply_block(cfg.pattern[i], params["tail"][key], h, cfg,
+                        positions, cache=c, mode=mode)
+    return h
+
+
+def _embed(params, cfg, tokens):
+    check_supported(cfg)
+    return params["embed"][tokens].to(_dt(cfg))
+
+
+def forward_hidden(params, cfg: ModelConfig, tokens, *, positions=None):
+    """Training/prefill forward. tokens: [B, L]. Returns (h, aux); aux is the
+    router loss of MoE blocks, 0 for the dense blocks of this slice."""
+    B, L = tokens.shape
+    h = _embed(params, cfg, tokens)
+    if positions is None:
+        positions = torch.arange(L, device=h.device).expand(B, L)
+    h = _run_stack(h, params, cfg, positions)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return rms_norm(h, params["ln_f"], cfg.norm_eps), aux
+
+
+def _head_weight(params, cfg):
+    if cfg.tie_embeddings:
+        return params["embed"].T  # [d, V]
+    return params["unembed"]
+
+
+def lm_logits(h, params, cfg: ModelConfig):
+    logits = h @ _head_weight(params, cfg)
+    return softcap(logits.float(), cfg.logit_softcap)
+
+
+# ===========================================================================
+# decode / serving
+# ===========================================================================
+
+def init_block_cache(blk: BlockCfg, cfg: ModelConfig, batch, seq_len, dtype,
+                     device):
+    alloc = seq_len if blk.window is None else min(blk.window, seq_len)
+    shape = (batch, alloc, cfg.n_kv_heads, cfg.head_dim)
+    return dict(
+        k=torch.zeros(shape, dtype=dtype, device=device),
+        v=torch.zeros(shape, dtype=dtype, device=device),
+        pos=torch.full((batch, alloc), -1, dtype=torch.int32, device=device),
+    )
+
+
+def init_cache(cfg: ModelConfig, batch, seq_len, dtype=None, *,
+               device="cuda"):
+    """Empty caches on ``device`` (the card unless the caller asks for the
+    CPU): per block k, v [batch, alloc, K, D] and pos [batch, alloc] = -1,
+    where alloc is seq_len for global blocks and min(window, seq_len) for
+    windowed ones (rolling); full units stacked on [n_units]."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    dtype = dtype or _dt(cfg)
+
+    def stacked(blk):
+        one = init_block_cache(blk, cfg, batch, seq_len, dtype, dev)
+        return {k: v.expand((cfg.n_units,) + v.shape).clone()
+                for k, v in one.items()}
+
+    return {"stack": {f"pos{j}": stacked(blk)
+                      for j, blk in enumerate(cfg.pattern)},
+            "tail": {f"blk{i}": init_block_cache(cfg.pattern[i], cfg, batch,
+                                                 seq_len, dtype, dev)
+                     for i in range(cfg.n_tail)}}
+
+
+def serve_step(params, cfg: ModelConfig, cache, tokens, pos):
+    """One decode step. tokens: [B,1] int; pos: [B] int (absolute index of
+    the new token). Returns (logits [B,V], cache), the cache written in
+    place."""
+    h = _embed(params, cfg, tokens)
+    h = _run_stack(h, params, cfg, pos[:, None], caches=cache, mode="decode")
+    h = rms_norm(h, params["ln_f"], cfg.norm_eps)
+    return lm_logits(h[:, 0], params, cfg), cache
+
+
+def prefill(params, cfg: ModelConfig, cache, tokens, *, start_pos=0):
+    """Full-sequence forward that also populates the decode cache (in
+    place). tokens: [B, Lp]. Returns (last-position logits [B, V], cache).
+    With ``cfg.attn_backend == "flash"`` and Lp % 128 == 0 the attention
+    runs through the flash kernel."""
+    B, L = tokens.shape
+    h = _embed(params, cfg, tokens)
+    positions = torch.arange(start_pos, start_pos + L,
+                             device=h.device).expand(B, L)
+    h = _run_stack(h, params, cfg, positions, caches=cache, mode="prefill")
+    h = rms_norm(h, params["ln_f"], cfg.norm_eps)
+    return lm_logits(h[:, -1], params, cfg), cache

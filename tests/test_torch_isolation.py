@@ -36,8 +36,13 @@ def _port_modules():
 
 def test_every_module_imports_without_jax_or_repro():
     mods = _port_modules()
-    assert "repro_torch.kernels.echo_aggregate.kernel" in mods
-    assert "repro_torch.launch.train" in mods
+    for name in ("repro_torch.kernels.echo_aggregate.kernel",
+                 "repro_torch.launch.train",
+                 "repro_torch.kernels.flash_attention.kernel",
+                 "repro_torch.kernels.flash_attention.ops",
+                 "repro_torch.models.model", "repro_torch.models.layers",
+                 "repro_torch.configs.gemma2_2b", "repro_torch.launch.serve"):
+        assert name in mods, name
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
