@@ -51,6 +51,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr float kNegInf = -1.0e38f;
@@ -442,13 +444,25 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32(const Params p) {
   }
 }
 
+// Launches on the calling thread's current device (the wrapper selects
+// the tensors' device).  The dynamic shared-memory limit is a property of
+// the kernel on one device: it is raised once per device, recorded in the
+// instantiation's own `raised` bit mask (devices 0..63; any others set it
+// at every launch).
 template <typename Kernel>
-cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream,
-                   const Params& p) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+cudaError_t launch(Kernel kernel, std::atomic<uint64_t>& raised, dim3 grid,
+                   size_t smem, cudaStream_t stream, const Params& p) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
+  const uint64_t bit = device < 64 ? uint64_t{1} << device : 0;
+  if (bit == 0 || !(raised.load() & bit)) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    raised.fetch_or(bit);
+  }
   kernel<<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
@@ -459,7 +473,8 @@ cudaError_t launch_bf16(const Params& p, cudaStream_t stream) {
   constexpr int BN = DP <= 128 ? 64 : 32;
   const size_t smem = sizeof(__nv_bfloat16) * (BM + 2 * BN) * (DP + 8);
   const dim3 grid((p.L + BM - 1) / BM, p.H, p.B);
-  return launch(flash_fwd_bf16<DP, BN>, grid, smem, stream, p);
+  static std::atomic<uint64_t> raised{0};
+  return launch(flash_fwd_bf16<DP, BN>, raised, grid, smem, stream, p);
 }
 
 template <int DP>
@@ -467,20 +482,21 @@ cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
   constexpr int BM = 32, BN = 32;
   const size_t smem = sizeof(float) * (BM * DP + BN * DP + BN * (DP + 1));
   const dim3 grid((p.L + BM - 1) / BM, p.H, p.B);
-  return launch(flash_fwd_f32<DP>, grid, smem, stream, p);
+  static std::atomic<uint64_t> raised{0};
+  return launch(flash_fwd_f32<DP>, raised, grid, smem, stream, p);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 float32, 1 bfloat16; device: the CUDA device the tensors lie
-// on.  Strides are in elements; the last stride of every operand is 1.
+// dtype: 0 float32, 1 bfloat16.  Runs on the calling thread's current
+// device, which must be the one the tensors lie on.  Strides are in elements; the last stride of every operand is 1.
 // window <= 0 means no window, softcap <= 0 no soft-cap.  Returns the
 // launch's cudaError_t (0 on success); invalid arguments return
 // cudaErrorInvalidValue without launching.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                        int dtype, int device, int B, int H, int K, int L,
+                        int dtype, int B, int H, int K, int L,
                         int S, int D,
                         long long q_sb, long long q_sh, long long q_sl,
                         long long k_sb, long long k_sh, long long k_ss,
@@ -495,8 +511,6 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
            H / K, q_sb, q_sh, q_sl, k_sb, k_sh, k_ss, v_sb, v_sh,   v_ss,
            o_sb, o_sh, o_sl, causal, window, softcap, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t dev_err = cudaSetDevice(device);
-  if (dev_err != cudaSuccess) return static_cast<int>(dev_err);
   const int dp = D <= 32 ? 32 : D <= 64 ? 64 : D <= 128 ? 128 : 256;
   cudaError_t err;
   if (dtype == 1) {

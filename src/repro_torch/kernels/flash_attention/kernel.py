@@ -80,7 +80,7 @@ def build() -> pathlib.Path:
 def _library():
     lib = ctypes.CDLL(str(build()))
     fn = lib.flash_attention_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                    + [ctypes.c_longlong] * 12
                    + [ctypes.c_int] * 2 + [ctypes.c_float] * 2
                    + [ctypes.c_void_p])
@@ -99,17 +99,19 @@ def launch(q, k, v, out, *, causal, window, softcap):
     B, H, L, D = q.shape
     K, S = k.shape[1], k.shape[2]
     lib = _library()
-    # the C side selects the tensors' device itself (cudaSetDevice)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = lib.flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        DTYPE_CODES[q.dtype], q.device.index, B, H, K, L, S, D,
-        *(q.stride(i) for i in range(3)),
-        *(k.stride(i) for i in range(3)),
-        *(v.stride(i) for i in range(3)),
-        *(out.stride(i) for i in range(3)),
-        int(causal), 0 if window is None else window, softcap, D ** -0.5,
-        stream)
+    # the C side launches on the current device: the tensors' own, for
+    # this call only
+    with torch.cuda.device_of(q):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            DTYPE_CODES[q.dtype], B, H, K, L, S, D,
+            *(q.stride(i) for i in range(3)),
+            *(k.stride(i) for i in range(3)),
+            *(v.stride(i) for i in range(3)),
+            *(out.stride(i) for i in range(3)),
+            int(causal), 0 if window is None else window, softcap,
+            D ** -0.5, stream)
     if rc != 0:
         raise RuntimeError("flash attention kernel launch failed: "
                            f"{lib.flash_attention_error(rc).decode()} "

@@ -2,9 +2,14 @@
 against the JAX package's Pallas kernel in interpret mode and its jnp
 oracle, over the cases of tests/test_kernels.py (the six-case sweep, the
 dtype case and the model-layout wrapper case) with that file's bounds:
-1e-4 in float32, 3e-2 in bfloat16.  On CPU tensors ``flash_mha`` runs the
-plain version; chip_smoke.py holds the CUDA kernel against the plain
-version on the card over the same cases."""
+1e-4 in float32, 3e-2 in bfloat16, and bfloat16 at head dim 256 with
+chip_smoke.py's row-scaled bound, which a test here also holds against
+tile faults.  On CPU tensors ``flash_mha`` runs the plain version;
+chip_smoke.py holds the CUDA kernel against the plain version on the card
+over the same cases."""
+import importlib.util
+import pathlib
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -16,6 +21,12 @@ from repro.kernels.flash_attention.kernel import flash_attention  # noqa: E402
 from repro.kernels.flash_attention.ops import flash_mha as jax_flash_mha  # noqa: E402
 from repro.kernels.flash_attention.ref import mha_ref as jax_mha_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import ops, ref  # noqa: E402
+
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke",
+    pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
 
 # tests/test_kernels.py::test_flash_attention_sweep, plus the window's
 # lower edge: window 5 under 16-wide tiles leaves rows fully masked inside
@@ -87,6 +98,66 @@ def test_flash_mha_dtypes(dtype, tol):
     got = _port_bhld(*(np.asarray(x, np.float32) for x in (jq, jk, jv)),
                      dtype=getattr(torch, dtype))
     np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+
+
+# head dim 256 (gemma2-2b's, the main path's build of the CUDA kernel) at
+# short lengths, where outputs are O(1)
+@pytest.mark.parametrize("B,H,K,L,S,D,window,softcap,causal",
+                         chip_smoke.HEAD256_CASES)
+def test_flash_mha_head_dim_256_bf16(B, H, K, L, S, D, window, softcap,
+                                     causal):
+    """bfloat16 against the Pallas kernel in interpret mode: 3e-2 as in
+    tests/test_kernels.py, and every output row within 2e-2 of its own
+    largest element (chip_smoke.py's row-scaled bound)."""
+    q, k, v = _qkv(B, H, K, L, S, D, seed=L + S + 1)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    want = np.asarray(flash_attention(jq, jk, jv, **kw), np.float32)
+    got = _port_bhld(*(np.asarray(x, np.float32) for x in (jq, jk, jv)),
+                     dtype=torch.bfloat16, **kw)
+    np.testing.assert_allclose(got, want, rtol=3e-2, atol=3e-2)
+    row_err = np.abs(got - want).max(-1) / np.abs(want).max(-1)
+    assert row_err.max() <= 2e-2, row_err.max()
+
+
+@pytest.mark.parametrize("fault", [None, "diagonal_tile", "window_shift",
+                                   "late_rows_scaled"])
+def test_row_bound_separates_rounding_from_tile_faults(fault):
+    """chip_smoke.py's row-scaled bound at a long windowed row (L 4096,
+    window 2048, D 256, soft-cap 50, bfloat16): rounding p and p.v in
+    float32 instead of bfloat16 stays within it; a fault confined to the
+    late rows, which average over thousands of keys (a dropped diagonal
+    32-key tile, the window shifted by 32 keys, the output scaled by
+    0.75), does not."""
+    L, D, W, cap = 4096, 256, 2048, 50.0
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(1, 1, L, D, generator=gen).bfloat16()
+               for _ in range(3))
+    qp = torch.arange(L)[:, None]
+    kp = torch.arange(L)[None, :]
+    late = qp >= L // 2
+
+    def attn(mask, dtype=torch.bfloat16):
+        s = torch.einsum("bhld,bhsd->bhls", q.float(), k.float()) * D ** -0.5
+        s = torch.tanh(s / cap) * cap
+        p = torch.softmax(s.masked_fill(~mask, ref.NEG_INF), -1)
+        return torch.einsum("bhls,bhsd->bhld", p.to(dtype),
+                            v.to(dtype)).bfloat16()
+
+    base = (qp >= kp) & (qp - kp < W)
+    plain = attn(base)
+    if fault is None:
+        out = attn(base, torch.float32)
+    elif fault == "diagonal_tile":
+        out = attn(base & ~(late & (kp // 32 == qp // 32)))
+    elif fault == "window_shift":
+        out = attn((qp >= kp) & (qp - kp < W + 32 * late))
+    else:
+        out = plain.clone()
+        out[:, :, L // 2:] = (plain[:, :, L // 2:].float() * 0.75).bfloat16()
+    err = chip_smoke.row_rel_err(out, plain)
+    tol = chip_smoke.FLASH_ROW_TOL["bfloat16"]
+    assert (err <= tol) == (fault is None), err
 
 
 def test_flash_mha_model_layout():
