@@ -8,10 +8,11 @@ one, or when run outside the repository (it imports the port from
 ``src/``).  It imports neither jax nor the JAX package.  Phases, each
 printed as JSON lines:
 
-  1. device   — ``nvidia-smi`` name and power limit of card 0.  The flash
-     attention kernel (K4, CUDA C++) starts building with nvcc in a
-     thread, from ``src/repro_torch/kernels/flash_attention/csrc`` into
-     ``build/kernels``, while the Triton kernels compile and run.
+  1. device   — ``nvidia-smi`` name and power limit of card 0.  The CUDA
+     C++ kernels, flash attention (K4) and the SSD chunk (K5), start
+     building together, one nvcc each in its own thread, from
+     ``src/repro_torch/kernels/*/csrc`` into ``build/kernels``, while the
+     Triton kernels compile and run.
   2. kernels  — builds the Triton echo-aggregate kernel from the source in
      ``src/`` (at its first launch, into ``build/triton``), calls the
      checked wrappers on tensors on the card and holds each result
@@ -28,7 +29,15 @@ printed as JSON lines:
      and global, and a suffix (L 1024, S 8192), within 1e-4 (float32)
      and 3e-2 (bfloat16), and every output row within 1e-4 / 2e-2 of its
      own largest element (rows that average thousands of keys have
-     outputs near 0.03).
+     outputs near 0.03); zamba2-7b's attention (head dim 112, 32 heads,
+     global) at full length on one batch row and 8 heads, and at 256
+     tokens on all.  Then K5 (ptxas's report printed) against its plain
+     version in float32 and bfloat16 at tests/test_kernel_ssd.py's
+     shapes, K = 1, zamba2-7b's (B 2, L 8192, H 112, P 64, N 64) and
+     mamba2-130m's (H 24, N 128), on the strided views and the stride-0
+     group expansion the model hands it: every y_diag row within 1e-5
+     (float32 inputs) or 1e-2 (bfloat16, one ulp) of its largest element,
+     every states row within 1e-5, the decay within 1e-6 relative.
   3. main paths, each with every launch count set to 0 just before it
      and read just after:
      a. FL training — ``repro_torch.launch.train`` in-process with
@@ -60,6 +69,21 @@ printed as JSON lines:
         the kernel's within 1.5x the xla branch's.  Small: reduced
         gemma2-2b prefill then decode against the full forward within
         1e-3.
+     d. Mamba2 serving — zamba2-7b at its published widths and depth in
+        bfloat16 with ``attn_backend="flash"``, random weights from a
+        seed: ``prefill`` of B = 2 prompts of 8192 tokens into a cache of
+        8192 + 16, then 16 greedy ``serve_step``s.  K5 must launch
+        exactly 68 times (once per Mamba2 layer) and K4 13 times (once
+        per shared-attention invocation) in the prefill, neither in
+        decode; every logit finite.  Then the SSD kernel route against
+        the plain route inside the model's own layer loop: in bfloat16
+        (B 2) each layer's SSD output within 4x the reference's own
+        spread between its jnp scan and its drop-in (REF_SSD_DRIFT,
+        recomputed on the CPU by tests/test_torch_ssd_chunk.py), as a
+        share of the layer's largest output; in float32 (B 1, the bf16
+        weights upcast) logits and caches within 1e-3.  Small: reduced
+        zamba2-7b prefill then decode against the full forward within
+        1e-3.
   4. numbers  — K1-K3: kernel, plain-version and two-matvec times at the
      main-path shape (CUDA graphs of calls over rotating operands larger
      than the 50 MB L2), at a 2 GB shape, the HBM bound, ms per round of
@@ -69,8 +93,13 @@ printed as JSON lines:
      compiled flex_attention yardstick and SDPA (no soft-cap or window)
      in CUDA events, the bound in tensor-core flops; prefill ms and
      decode ms per step of the LM path and a profiler breakdown of one
-     prefill and one decode step.  Each line carries the card's name and
-     power limit.
+     prefill and one decode step.  K5 at zamba2-7b's and mamba2-130m's
+     shapes (kernel, plain version, the bound from ``ssd_chunk_bound``;
+     no PyTorch call computes its function); K4 at zamba2-7b's attention
+     with SDPA (the same function there) as the yardstick; zamba2-7b's
+     prefill ms, decode ms per step and a profiler breakdown by part
+     (K5, K4, cuBLAS, the inter-chunk loop, the conv).  Each line
+     carries the card's name and power limit.
   5. the ``{"kernels": [...]}`` line; the last line is
      ``{"ok": true, "device": {...}}``.
 
@@ -85,6 +114,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -531,7 +561,8 @@ def check_flash(torch, fops, fref):
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).replace("torch.", "")
-        for i, case in enumerate(FLASH_CASES + HEAD256_CASES + GEMMA_ATTN):
+        for i, case in enumerate(FLASH_CASES + HEAD256_CASES + GEMMA_ATTN
+                                 + ZAMBA_ATTN_CHECK):
             q, k, v = flash_inputs(torch, case, dtype, seed=300 + i)
             before = fops.flash_mha.launches
             out = fops.flash_mha(q, k, v, **flash_kw(case))
@@ -717,7 +748,7 @@ def lm_main_path(torch, model, cfg, params, tokens, counts):
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
     launches = counts.read()
-    require(after_prefill == dict(K1=0, K2=0, K3=0, K4=LM_LAYERS),
+    require(after_prefill == dict(K1=0, K2=0, K3=0, K4=LM_LAYERS, K5=0),
             f"prefill launches {after_prefill}")
     require(launches == after_prefill, f"decode launched {launches}")
     all_logits = torch.stack([logits] + steps)
@@ -758,11 +789,18 @@ def both_backends(model, record):
         model.attn_qkvo = orig
 
 
+#: the floating-point leaves of a block's cache: attention k and v, the
+#: Mamba2 conv window and SSM state (positions are compared apart)
+CACHE_LEAVES = ("k", "v", "conv", "state")
+
+
 def cache_kv(cache, rows=slice(None)):
-    """Every k and v cache leaf of a stacked cache, in layer order, for
-    the batch rows ``rows``."""
-    return [leaf[name][:, rows] for leaf in cache["stack"].values()
-            for name in ("k", "v")]
+    """Every floating-point leaf of a cache, stacked units then the tail,
+    in layer order, for the batch rows ``rows``."""
+    return ([leaf[name][:, rows] for leaf in cache["stack"].values()
+             for name in CACHE_LEAVES if name in leaf]
+            + [leaf[name][rows] for leaf in cache["tail"].values()
+               for name in CACHE_LEAVES if name in leaf])
 
 
 def prefill_drift(torch, model, cfg, params, tokens, seq_len):
@@ -850,6 +888,43 @@ def drift_witness(torch, np, model, convert, get_config, reduced):
             f"drift witness: port {d} against reference {REF_DRIFT}")
 
 
+#: the SSD drift witness: zamba2-7b's SSD widths (P 64, N 64, chunk 128)
+#: over 8 heads, B 2 sequences of 256 tokens, in bfloat16, drawn with
+#: numpy from SSD_WITNESS_SEED (``ssd_witness_arrays``) so that the JAX
+#: package builds the same inputs
+SSD_WITNESS = dict(b=2, l=256, h=8, p=64, n=64, chunk=128)
+SSD_WITNESS_SEED = 13
+#: the reference's own bfloat16 spread between its jnp ``ssd_chunked``
+#: (y_diag + y_off summed in float32, rounded once) and its drop-in
+#: ``ssd_chunked_pallas`` (y_diag rounded to bf16 first) on the witness:
+#: max |y difference| over max |y| (the JAX package on the CPU, Pallas in
+#: interpret mode; recomputed by tests/test_torch_ssd_chunk.py).  Each
+#: Mamba layer's kernel route is held within SSD_WITNESS_RATIO times it
+#: of the plain route on the same input, as a share of the layer's
+#: largest SSD output
+REF_SSD_DRIFT = dict(y=0.03125, y_absmax=17.375, rel=0.0017985611921176314)
+SSD_WITNESS_RATIO = 4.0
+
+
+def ssd_witness_arrays(np):
+    """The SSD witness's float32 inputs (callers cast xdt, B and C to
+    bfloat16): x and B, C ~ N(0, 1); dt = softplus(N(0, 1) - 4.6) as the
+    model's dt_bias gives; A = -linspace(1, 16, h); xdt = x dt, dA = dt A.
+    Layout [b, l, h, .] as the model's."""
+    w = SSD_WITNESS
+    b, l, h, p, n = w["b"], w["l"], w["h"], w["p"], w["n"]
+    rng = np.random.default_rng(SSD_WITNESS_SEED)
+    x = rng.standard_normal((b, l, h, p), dtype=np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((b, l, h), dtype=np.float32)
+                         - np.float32(4.6))).astype(np.float32)
+    A = -np.linspace(1.0, 16.0, h, dtype=np.float32)
+    B = rng.standard_normal((b, l, 1, n), dtype=np.float32)
+    C = rng.standard_normal((b, l, 1, n), dtype=np.float32)
+    return dict(xdt=x * dt[..., None], dA=dt * A,
+                B=np.broadcast_to(B, (b, l, h, n)).copy(),
+                C=np.broadcast_to(C, (b, l, h, n)).copy())
+
+
 def tree_map(fn, tree):
     """``fn(key, leaf)`` over a nested dict's leaves."""
     return {k: tree_map(fn, v) if isinstance(v, dict) else fn(k, v)
@@ -923,10 +998,12 @@ def decode_parity_small(torch, model, get_config, reduced):
     require(max(errs) < 1e-3, f"decode parity {errs}")
 
 
-def profile_ms(torch, fn):
+def profile_ms(torch, fn, parts=None):
     """One call of ``fn`` under torch.profiler: summed device time of all
     kernels, launches, and the top kernels by device time (None when the
-    profiler records no device activity)."""
+    profiler records no device activity).  With ``parts`` (name -> kernel
+    name substrings), also the device ms of each part: a kernel counts
+    for the first part one of whose substrings its name contains."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -940,11 +1017,21 @@ def profile_ms(torch, fn):
     by_name = {}
     for name, us in kernels:
         by_name[name] = by_name.get(name, 0.0) + us
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return dict(device_ms=(sum(us for _, us in kernels) / 1e3
-                           if kernels else None),
-                launches=len(kernels) if kernels else None,
-                top_kernels_ms=[[n[:80], us / 1e3] for n, us in top])
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    out = dict(device_ms=(sum(us for _, us in kernels) / 1e3
+                          if kernels else None),
+               launches=len(kernels) if kernels else None,
+               top_kernels_ms=[[n[:80], us / 1e3] for n, us in top])
+    if parts is not None:
+        split = dict.fromkeys(parts, 0.0)
+        for name, us in by_name.items():
+            low = name.lower()
+            hit = next((p for p, subs in parts.items()
+                        if any(sub in low for sub in subs)), None)
+            if hit is not None:
+                split[hit] += us / 1e3
+        out["parts_ms"] = split if kernels else None
+    return out
 
 
 def time_lm(torch, model, cfg, params, tokens, smi):
@@ -989,45 +1076,409 @@ def time_lm(torch, model, cfg, params, tokens, smi):
     return rec
 
 
-def ssd_chunk_bound(cfg, batch, seq):
-    """K5 (the SSD chunk kernel, not ported yet) at ``cfg``'s widths over
+def ssd_chunk_bound(cfg, batch, seq, esize):
+    """Least time of K5 (the SSD chunk kernel) at ``cfg``'s widths over
     ``batch`` sequences of ``seq`` tokens, reckoned from
-    repro/kernels/ssd_chunk/kernel.py: per (batch, head, chunk) of K
-    rows, C.B^T and (L * C.B^T).x on the lower triangle the mask leaves
-    (K(K+1)/2 entries), the states (B * decay)^T.x in full, all in
-    float32 (the inputs arrive in float32: the conv's float32 weights
-    promote them); bytes: x, dA, B, C read once, y, states, decay written
-    once."""
+    repro/kernels/ssd_chunk/kernel.py: per (batch, head, chunk) of K rows,
+    C.B^T and (L * C.B^T).x on the lower triangle the mask leaves
+    (K(K+1)/2 entries) and the states (B * decay)^T.x in full, on the
+    FP32 pipes (the kernel upcasts its inputs; TF32 is off).  Bytes in the
+    model's dtypes: x, B, C and y_diag at ``esize`` bytes (x, B and C come
+    from the conv, which casts back to the activations' dtype,
+    repro/models/ssm.py:134, and dt is cast to it before x dt, :194; B and
+    C counted per head, as the kernel's operands are shaped), dA, the
+    states and the decay in float32; each read or written once."""
     K, P, N, H = cfg.ssm_chunk, cfg.ssm_head_dim, cfg.ssm_state, \
         cfg.ssm_heads
     programs = batch * H * (seq // K)
     tri = K * (K + 1) // 2
     flops = programs * (2 * tri * N + 2 * tri * P + 2 * N * P * K)
-    nbytes = programs * 4 * (K * P + K + 2 * K * N + K * P + N * P + 1)
+    nbytes = programs * (esize * (2 * K * P + 2 * K * N)
+                         + 4 * (K + N * P + 1))
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
     return dict(kernel="K5", arch=cfg.name, batch=batch, seq=seq,
-                programs=programs, flops=flops, bytes=nbytes,
+                esize=esize, programs=programs, flops=flops, bytes=nbytes,
                 bound_ms=1e3 * max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+# ---------------------------------------------------------------------------
+# K5: the SSD chunk kernel against its plain version, and its numbers
+# ---------------------------------------------------------------------------
+
+#: (b, l, h, p, n, chunk): tests/test_kernel_ssd.py:30-33, K = 1, then the
+#: main path's shapes: zamba2-7b (H 112, P 64, N 64) and mamba2-130m
+#: (H 24, N 128) at B 2, L 8192
+SSD_SMALL = [(1, 8, 1, 4, 4, 4), (2, 32, 3, 8, 4, 8), (1, 64, 2, 16, 8, 16),
+             (2, 24, 2, 8, 16, 12), (2, 5, 3, 8, 4, 1)]
+SSD_ZAMBA = (2, 8192, 112, 64, 64, 128)
+SSD_MAMBA = (2, 8192, 24, 64, 128, 128)
+#: every row's max |kernel - plain| over its largest plain element: y_diag
+#: rows (one (b, h, c, k), over P) 1e-5 with float32 inputs and 1e-2
+#: (one ulp of the row's largest element) with bfloat16 ones; states rows
+#: (one (b, h, c, n), over P) 1e-5, always float32; decay 1e-6 relative
+SSD_ROW_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+SSD_STATE_TOL, SSD_DECAY_TOL = 1e-5, 1e-6
+
+
+def ssd_inputs(torch, case, dtype, seed):
+    """The model's operands on the card: xdt [b, l, h, p] and one group of
+    B, C [b, l, 1, n] in ``dtype``, expanded over the heads with stride 0;
+    dA [b, l, h] float32 from dt = softplus(N(0, 1) - 4.6) (the model's
+    dt_bias) and A = -linspace(1, 16, h) (its A_log)."""
+    b, l, h, p, n, _ = case
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    dt = torch.nn.functional.softplus(rand(b, l, h) - 4.6)
+    A = -torch.linspace(1.0, 16.0, h, device="cuda")
+    xdt = (rand(b, l, h, p) * dt[..., None]).to(dtype)
+    B_, C_ = (rand(b, l, 1, n).to(dtype).expand(b, l, h, n) for _ in "BC")
+    return xdt, dt * A, B_, C_
+
+
+def rows_rel(out, plain):
+    """The largest, over rows (the last axis), of max |out - plain| over
+    max |plain|."""
+    err = (out.float() - plain.float()).abs().amax(-1)
+    return (err / plain.float().abs().amax(-1).clamp_min(1e-30)).max().item()
+
+
+def check_ssd(torch, sops, sref):
+    """Every case, float32 and bfloat16: the wrapper on the regrouped
+    strided views (exactly one launch), the plain version on the same
+    views, the row bounds above.  Returns the largest y_diag error at
+    zamba2-7b's shape in bfloat16 (the main path's)."""
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        for i, case in enumerate(SSD_SMALL + [SSD_ZAMBA, SSD_MAMBA]):
+            chunk = case[-1]
+            views = [sops.regroup(t, chunk)
+                     for t in ssd_inputs(torch, case, dtype, seed=400 + i)]
+            before = sops.ssd_chunk.launches
+            y, st, dec = sops.ssd_chunk(*views)
+            torch.cuda.synchronize()
+            launched = sops.ssd_chunk.launches - before
+            yp, stp, decp = sref.ssd_chunk_ref(*views)
+            torch.cuda.synchronize()
+            y_rel, st_rel = rows_rel(y, yp), rows_rel(st, stp)
+            dec_rel = ((dec - decp).abs()
+                       / decp.abs().clamp_min(1e-30)).max().item()
+            err = (y.float() - yp.float()).abs().max().item()
+            ok = (launched == 1 and y.shape == yp.shape and y.dtype == dtype
+                  and st.shape == stp.shape and dec.shape == decp.shape
+                  and all(bool(torch.isfinite(t).all()) for t in (y, st, dec))
+                  and y_rel <= SSD_ROW_TOL[name] and st_rel <= SSD_STATE_TOL
+                  and dec_rel <= SSD_DECAY_TOL)
+            emit(dict(phase="kernel_check", kernel="K5", shape=case,
+                      dtype=name, launches=launched, max_abs_err=err,
+                      y_row_rel_err=y_rel, y_row_tol=SSD_ROW_TOL[name],
+                      states_row_rel_err=st_rel, states_row_tol=SSD_STATE_TOL,
+                      decay_rel_err=dec_rel, decay_tol=SSD_DECAY_TOL,
+                      y_absmax=yp.float().abs().max().item(),
+                      decay_min=decp.min().item(), ok=ok))
+            if not ok:
+                raise AssertionError(f"SSD chunk kernel at {case} {name} "
+                                     "disagrees with its plain version")
+            if case == SSD_ZAMBA and dtype == torch.bfloat16:
+                worst = err
+            del views, y, st, dec, yp, stp, decp
+            torch.cuda.empty_cache()
+    return worst
+
+
+def time_ssd(torch, sops, sref, get_config, smi):
+    """K5 in bfloat16 (the main path's dtype) at zamba2-7b's and
+    mamba2-130m's shapes: the kernel over 10 calls and the plain version
+    over 2, CUDA events after a warm call, beside the bound.  No single
+    PyTorch call computes this function, so there is no library time."""
+    out = {}
+    for arch, case in (("zamba2-7b", SSD_ZAMBA), ("mamba2-130m", SSD_MAMBA)):
+        views = [sops.regroup(t, case[-1])
+                 for t in ssd_inputs(torch, case, torch.bfloat16, seed=800)]
+        k_ms = events_ms(torch, lambda: sops.ssd_chunk(*views), 10)
+        p_ms = events_ms(torch, lambda: sref.ssd_chunk_ref(*views), 2)
+        bnd = ssd_chunk_bound(get_config(arch), case[0], case[1], 2)
+        out[arch] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bnd["bound_ms"],
+                         bound_by=bnd["bound_by"], flops=bnd["flops"],
+                         bytes=bnd["bytes"],
+                         tflop_per_s=bnd["flops"] / k_ms / 1e9,
+                         bound_share=bnd["bound_ms"] / k_ms, library_ms=None)
+        emit(dict(phase="kernel_time", card=smi, kernel="K5", arch=arch,
+                  shape=case, dtype="bfloat16", **out[arch]))
+        del views
+        torch.cuda.empty_cache()
+    return out
+
+
+#: zamba2-7b's shared attention at the main path's prefill: D = 112 (the
+#: kernel's DP = 128 build, columns 112..127 guarded), 32 heads, G = 1,
+#: global, no soft-cap.  The plain version's [B, H, L, S] float32 scores
+#: are 17 GB at B 2, H 32, L = S = 8192, so the check at full length
+#: takes one batch row and 8 heads; a short case takes every head
+ZAMBA_ATTN_CHECK = [(1, 8, 8, 8192, 8192, 112, None, 0.0, True),
+                    (2, 32, 32, 256, 256, 112, None, 0.0, True)]
+ZAMBA_ATTN = (2, 32, 32, 8192, 8192, 112, None, 0.0, True)
+
+
+def time_flash_zamba(torch, fops, fref, smi):
+    """K4 at zamba2-7b's attention (bf16): the kernel over 5 calls at the
+    full shape; SDPA (is_causal, the same function here: no soft-cap, no
+    window, G = 1) as the library yardstick; the plain version at the
+    check's cut shape (one batch row, 8 heads) and the kernel there."""
+    q, k, v = flash_inputs(torch, ZAMBA_ATTN, torch.bfloat16, seed=710)
+    k_ms = events_ms(torch, lambda: fops.flash_mha(q, k, v), 5)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_err = (sdpa(qt, kt, vt, is_causal=True).transpose(1, 2).float()
+               - fops.flash_mha(q, k, v).float()).abs().max().item()
+    lib_ms = events_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True), 5)
+    cut = ZAMBA_ATTN_CHECK[0]
+    qc, kc, vc = (x[:1, :, :cut[1]] for x in (q, k, v))
+    cut_ms = events_ms(torch, lambda: fops.flash_mha(qc, kc, vc), 5)
+    plain_cut_ms = events_ms(torch, lambda: fref.flash_mha_ref(qc, kc, vc), 2)
+    b_ms, b_by, flops = flash_bound(ZAMBA_ATTN, 2, BF16_FLOP_PER_S)
+    rec = dict(ms=k_ms, library_ms=lib_ms,
+               library="torch scaled_dot_product_attention (is_causal)",
+               library_max_abs_err_vs_kernel=lib_err, bound_ms=b_ms,
+               bound_by=b_by, flops=flops, tflop_per_s=flops / k_ms / 1e9,
+               cut_shape=cut[:6], ms_at_cut=cut_ms, plain_ms_at_cut=plain_cut_ms)
+    emit(dict(phase="kernel_time", card=smi, kernel="K4", arch="zamba2-7b",
+              shape=ZAMBA_ATTN[:6], dtype="bfloat16", **rec))
+    del q, k, v, qt, kt, vt, qc, kc, vc
+    torch.cuda.empty_cache()
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# the Mamba2 serving path: zamba2-7b prefill through K5 and K4, then decode
+# ---------------------------------------------------------------------------
+
+#: zamba2-7b: 68 Mamba2 layers (13 units of five plus a tail of three) and
+#: 13 invocations of the shared attention block
+ZAMBA_MAMBA, ZAMBA_ATTN_LAYERS = 68, 13
+
+
+def zamba_config(get_config, dtype):
+    """zamba2-7b at its published widths and depth (81 layers, d_model
+    3584, 112 SSD heads of P 64 with N 64 and chunk 128, one shared
+    attention block of 32 heads of 112 and d_ff 14336, vocab 32 000),
+    nothing cut."""
+    return get_config("zamba2-7b").replace(dtype=dtype, attn_backend="flash")
+
+
+def zamba_main_path(torch, model, cfg, params, tokens, counts):
+    """prefill (B 2, L 8192, cache 8192 + 16) then 16 greedy decode steps,
+    with every launch count at 0 just before: K5 must launch once per
+    Mamba2 layer and K4 once per shared-attention invocation in the
+    prefill, neither in decode; all logits finite."""
+    cache = model.init_cache(cfg, LM_B, LM_L + LM_NEW)
+    torch.cuda.synchronize()
+    counts.reset()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, cfg, cache, tokens)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    after_prefill = counts.read()
+    t0 = time.perf_counter()
+    steps = decode(torch, model, params, cfg, cache, logits, LM_L, LM_NEW)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    launches = counts.read()
+    require(after_prefill == dict(K1=0, K2=0, K3=0, K4=ZAMBA_ATTN_LAYERS,
+                                  K5=ZAMBA_MAMBA),
+            f"prefill launches {after_prefill}")
+    require(launches == after_prefill, f"decode launched {launches}")
+    all_logits = torch.stack([logits] + steps)
+    require(all_logits.shape == (LM_NEW + 1, LM_B, cfg.vocab),
+            f"logits shape {tuple(all_logits.shape)}")
+    require(bool(torch.isfinite(all_logits).all()), "non-finite logits")
+    emit(dict(phase="zamba_main_path", arch=cfg.name, dtype=cfg.dtype,
+              params=cfg.param_count(), batch=LM_B, prompt=LM_L,
+              decode_steps=LM_NEW, launches=launches,
+              first_prefill_s=prefill_s, decode_s=decode_s,
+              tokens=torch.argmax(all_logits, -1).T.tolist(),
+              logits_absmax=all_logits.abs().max().item()))
+    del cache, all_logits, steps
+    torch.cuda.empty_cache()
+    return launches
+
+
+@contextlib.contextmanager
+def ssd_routes(ssm, sops, record=None, plain=False):
+    """Inside the block every Mamba2 layer of the port's model (its
+    ``ssm.ssd_ops.ssd_chunked`` call, made by the model's own layer loop)
+    takes the plain route (``plain=True``), or with ``record`` runs
+    through the kernel and through the plain route on the same input:
+    ``record`` gets, per layer in order, max |y kernel - y plain|, max |y
+    plain| and max |final state difference|, and the run goes on with the
+    kernel's output."""
+    orig = ssm.ssd_ops
+
+    def both(*args, **kw):
+        yk, fk = sops.ssd_chunked(*args, **kw)
+        yp, fp = sops.ssd_chunked_plain(*args, **kw)
+        record.append(((yk.float() - yp.float()).abs().max().item(),
+                       yp.float().abs().max().item(),
+                       (fk - fp).abs().max().item()))
+        return yk, fk
+
+    route = sops.ssd_chunked_plain if plain else both
+    ssm.ssd_ops = types.SimpleNamespace(ssd_chunked=route)
+    try:
+        yield
+    finally:
+        ssm.ssd_ops = orig
+
+
+def ssd_vs_plain(torch, model, ssm, sops, cfg, params, tokens):
+    """zamba2-7b at full width, the SSD kernel route against the plain
+    route (the same scan with the plain intra-chunk block):
+
+    * bfloat16 (B 2): each Mamba2 layer's SSD output on the same input,
+      as a share of the layer's largest output, within SSD_WITNESS_RATIO
+      times the reference's own spread (REF_SSD_DRIFT["rel"]);
+    * float32 (B 1, the bf16 weights upcast): the prefill's logits and
+      every cache leaf within LM_TOL_F32, kernel route against plain."""
+    layers = []
+    cache = model.init_cache(cfg, LM_B, LM_L + LM_NEW)
+    with ssd_routes(ssm, sops, record=layers):
+        model.prefill(params, cfg, cache, tokens)
+    torch.cuda.synchronize()
+    del cache
+    rel = [e / m for e, m, _ in layers]
+    bound = SSD_WITNESS_RATIO * REF_SSD_DRIFT["rel"]
+    emit(dict(phase="ssd_vs_plain_bf16", dtype=cfg.dtype, batch=LM_B,
+              prompt=LM_L, layers=len(layers),
+              y_diff=[e for e, _, _ in layers],
+              y_absmax=[m for _, m, _ in layers], rel=rel,
+              state_diff=[s for _, _, s in layers], bound_rel=bound,
+              reference=REF_SSD_DRIFT))
+    require(len(layers) == ZAMBA_MAMBA, f"{len(layers)} Mamba2 layers")
+    require(max(rel) <= bound, f"SSD kernel vs plain per layer (bf16): "
+            f"{max(rel)} > {bound}")
+    c32 = cfg.replace(dtype="float32")
+    p32 = tree_map(lambda k, t: t.float(), params)
+    runs = {}
+    for route in ("kernel", "plain"):
+        cache = model.init_cache(c32, 1, LM_L + LM_NEW)
+        with contextlib.ExitStack() as stack:
+            if route == "plain":
+                stack.enter_context(ssd_routes(ssm, sops, plain=True))
+            logits, cache = model.prefill(p32, c32, cache, tokens[:1])
+        torch.cuda.synchronize()
+        runs[route] = (logits, cache)
+    del p32
+    (lk, ck), (lp, cp) = runs["kernel"], runs["plain"]
+    leaves = list(zip(cache_kv(ck), cache_kv(cp)))
+    f32 = dict(logits=(lk - lp).abs().max().item(),
+               cache=max((a.float() - b.float()).abs().max().item()
+                         for a, b in leaves),
+               logits_absmax=lp.abs().max().item())
+    emit(dict(phase="ssd_vs_plain_f32", dtype="float32", batch=1,
+              prompt=LM_L, tol=LM_TOL_F32, **f32))
+    require(f32["logits"] <= LM_TOL_F32 and f32["cache"] <= LM_TOL_F32,
+            f"SSD kernel vs plain prefill (float32): {f32}")
+    del runs, leaves, lk, ck, lp, cp
+    torch.cuda.empty_cache()
+
+
+def zamba_parity_small(torch, model, get_config, reduced):
+    """On the card at a small size: reduced zamba2-7b (float32, flash
+    backend; Mamba2 chunk 8) prefill of 128 tokens then 16 decode steps
+    against the full forward over all 144, within 1e-3
+    (tests/test_decode_parity.py, family hybrid_shared)."""
+    cfg = reduced(get_config("zamba2-7b")).replace(attn_backend="flash")
+    params = lm_weights(torch, model, cfg, seed=7)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    toks = torch.randint(0, cfg.vocab, (2, 144), generator=gen,
+                         device="cuda")
+    h, _ = model.forward_hidden(params, cfg, toks)
+    full = model.lm_logits(h, params, cfg)
+    cache = model.init_cache(cfg, 2, 144)
+    logits, cache = model.prefill(params, cfg, cache, toks[:, :128])
+    errs = [(logits - full[:, 127]).abs().max().item()]
+    for i in range(128, 144):
+        logits, cache = model.serve_step(params, cfg, cache,
+                                         toks[:, i:i + 1],
+                                         torch.full((2,), i, device="cuda"))
+        errs.append((logits - full[:, i]).abs().max().item())
+    emit(dict(phase="zamba_parity_small", max_abs_err=max(errs), tol=1e-3))
+    require(max(errs) < 1e-3, f"zamba decode parity {errs}")
+
+
+#: kernel-name substrings of the zamba2-7b profile's parts
+ZAMBA_PARTS = {"K5": ("ssd_chunk_kernel",), "K4": ("flash_fwd",),
+               "cublas": ("nvjet", "gemm", "cutlass", "sm90_xmma"),
+               "inter_chunk_addcmul": ("addcmul",),
+               "conv": ("conv", "cudnn")}
+
+
+def time_zamba(torch, model, cfg, params, tokens, smi):
+    """Prefill ms (2 calls) and decode ms per step (16 steps), CUDA events
+    after the main path's warm run; one prefill and one decode step under
+    the profiler, with the device busy share and the device time of the
+    parts named in ZAMBA_PARTS (first match wins)."""
+    cache = model.init_cache(cfg, LM_B, LM_L + LM_NEW)
+    holder = {}
+
+    def run_prefill():
+        holder["logits"], _ = model.prefill(params, cfg, cache, tokens)
+
+    prefill_ms = events_ms(torch, run_prefill, 2)
+
+    def run_decode():
+        decode(torch, model, params, cfg, cache, holder["logits"], LM_L,
+               LM_NEW)
+
+    decode_ms = events_ms(torch, run_decode, 1) / LM_NEW
+    tok = torch.argmax(holder["logits"], -1)[:, None]
+    pos = torch.full((LM_B,), LM_L, device="cuda")
+    pre = profile_ms(torch, run_prefill, parts=ZAMBA_PARTS)
+    dec = profile_ms(torch, lambda: model.serve_step(params, cfg, cache,
+                                                     tok, pos),
+                     parts=ZAMBA_PARTS)
+    for name, prof, wall in (("prefill", pre, prefill_ms),
+                             ("decode_step", dec, decode_ms)):
+        busy = None if prof["device_ms"] is None else prof["device_ms"] / wall
+        emit(dict(phase="profile", card=smi, path=f"zamba_{name}",
+                  wall_ms=wall, device_busy_share=busy, **prof))
+    rec = dict(prefill_ms=prefill_ms, prefill_tok_per_s=LM_B * LM_L
+               / prefill_ms * 1e3, decode_ms_per_step=decode_ms,
+               decode_tok_per_s=LM_B / decode_ms * 1e3,
+               prefill_device_ms=pre["device_ms"],
+               prefill_shares=({k: v / prefill_ms
+                                for k, v in pre["parts_ms"].items()}
+                               if pre["parts_ms"] else None))
+    emit(dict(phase="zamba_time", card=smi, arch=cfg.name, dtype=cfg.dtype,
+              batch=LM_B, prompt=LM_L, **rec))
+    del cache, holder
+    torch.cuda.empty_cache()
+    return rec
 
 
 class Counts:
     """Every kernel wrapper's launch count, set to 0 and read together."""
 
-    def __init__(self, ops, fops):
-        self.ops, self.fops = ops, fops
+    def __init__(self, ops, fops, sops):
+        self.ops, self.fops, self.sops = ops, fops, sops
 
     def reset(self):
         self.ops.echo_aggregate_flat.launches = 0
         self.ops.echo_aggregate_flat.upload_launches = 0
         self.ops.echo_aggregate.launches = 0
         self.fops.flash_mha.launches = 0
+        self.sops.ssd_chunk.launches = 0
 
     def read(self):
         return {"K1": self.ops.echo_aggregate_flat.launches,
                 "K2": self.ops.echo_aggregate_flat.upload_launches,
                 "K3": self.ops.echo_aggregate.launches,
-                "K4": self.fops.flash_mha.launches}
+                "K4": self.fops.flash_mha.launches,
+                "K5": self.sops.ssd_chunk.launches}
 
 
 # ---------------------------------------------------------------------------
@@ -1049,14 +1500,19 @@ def main():
     from repro_torch.kernels.flash_attention import kernel as fkernel
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.kernels.ssd_chunk import kernel as skernel
+    from repro_torch.kernels.ssd_chunk import ops as sops
+    from repro_torch.kernels.ssd_chunk import ref as sref
     from repro_torch.launch import train
     from repro_torch.checkpointing import convert
-    from repro_torch.models import cnn, model, reduced
+    from repro_torch.models import cnn, model, reduced, ssm
 
-    counts = Counts(ops, fops)
-    # K4 is built by nvcc while the Triton kernels compile and run
-    build_pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
-    flash_build = build_pool.submit(fkernel.build)
+    counts = Counts(ops, fops, sops)
+    # K4 and K5 are built by two nvcc processes, started together, while
+    # the Triton kernels compile and run
+    build_pool = concurrent.futures.ThreadPoolExecutor(max_workers=2)
+    builds = {"K4": build_pool.submit(fkernel.build),
+              "K5": build_pool.submit(skernel.build)}
 
     # phase 1: device
     smi = nvidia_smi()
@@ -1074,14 +1530,16 @@ def main():
     t0 = time.perf_counter()
     errs = check_kernels(torch, ops, ref, kernel.BLOCK_N)
     t1 = time.perf_counter()
-    lib = flash_build.result()
+    for name, build in builds.items():
+        lib = build.result()
+        report = lib.with_suffix(".log").read_text().splitlines()
+        emit(dict(phase="kernel_build", kernel=name, library=str(lib),
+                  wait_s=time.perf_counter() - t1,
+                  ptxas=[line.strip() for line in report
+                         if "registers" in line or "spill" in line]))
     build_pool.shutdown()
-    report = lib.with_suffix(".log").read_text().splitlines()
-    emit(dict(phase="kernel_build", kernel="K4", library=str(lib),
-              wait_s=time.perf_counter() - t1,
-              ptxas=[line.strip() for line in report
-                     if "registers" in line or "spill" in line]))
     flash_err = check_flash(torch, fops, fref)
+    ssd_err = check_ssd(torch, sops, sref)
     emit(dict(phase="kernel_checks_done", seconds=time.perf_counter() - t0))
 
     # phase 3: the FL training path, every count at 0 just before it
@@ -1096,7 +1554,7 @@ def main():
     losses = [h["loss"] for h in hist_k]
     n_active_k = [h["n_active"] for h in hist_k]
     require(len(hist_k) == 64, f"{len(hist_k)} rounds")
-    require(launches == dict(K1=64, K2=0, K3=0, K4=0),
+    require(launches == dict(K1=64, K2=0, K3=0, K4=0, K5=0),
             f"FL path launches {launches}")
     require(all(math.isfinite(v) for v in losses), f"losses {losses}")
     require(state_k.global_tr.shape == (N_MAIN,)
@@ -1133,6 +1591,17 @@ def main():
     flash_vs_xla(torch, model, lm_cfg, lm_params, tokens)
     decode_parity_small(torch, model, get_config, reduced)
 
+    # phase 3d: the Mamba2 serving path, every count at 0 just before it;
+    # then the SSD kernel route against the plain route, and decode
+    # parity when small
+    z_cfg = zamba_config(get_config, "bfloat16")
+    z_params = lm_weights(torch, model, z_cfg, seed=2)
+    z_tokens = lm_tokens(torch, z_cfg.vocab, seed=3)
+    z_launches = zamba_main_path(torch, model, z_cfg, z_params, z_tokens,
+                                 counts)
+    ssd_vs_plain(torch, model, ssm, sops, z_cfg, z_params, z_tokens)
+    zamba_parity_small(torch, model, get_config, reduced)
+
     # phase 4: numbers
     times = time_kernels(torch, ops, ref, strategies, smi)
     runs = []
@@ -1148,11 +1617,17 @@ def main():
     emit(dict(phase="profile", card=smi, use_kernel=True,
               **profile_chunk(torch, runs[3], round_ms)))
     del runs
-    emit(dict(phase="bound", **ssd_chunk_bound(get_config("mamba2-130m"),
-                                               LM_B, LM_L)))
-    # the LM path is timed before the flex_attention yardstick compiles:
+    for arch in ("zamba2-7b", "mamba2-130m"):
+        emit(dict(phase="bound", **ssd_chunk_bound(get_config(arch), LM_B,
+                                                   LM_L, 2)))
+    # the LM paths are timed before the flex_attention yardstick compiles:
     # torch.compile's worker processes would share the host with decode
     time_lm(torch, model, lm_cfg, lm_params, tokens, smi)
+    time_zamba(torch, model, z_cfg, z_params, z_tokens, smi)
+    del z_params
+    torch.cuda.empty_cache()
+    ssd_times = time_ssd(torch, sops, sref, get_config, smi)
+    time_flash_zamba(torch, fops, fref, smi)
     flash_times = time_flash(torch, fops, fref, smi)
     del lm_params
     torch.cuda.empty_cache()
@@ -1191,6 +1666,15 @@ def main():
         launches=lm_launches["K4"], max_abs_err=flash_err, ms=mean("ms"),
         plain_ms=mean("plain_ms"), bound_ms=mean("bound_ms"),
         bound_by=both[0]["bound_by"], library_ms=mean("library_ms")))
+    # K5: per launch at zamba2-7b's shape (the main path's 68 launches)
+    zt = ssd_times["zamba2-7b"]
+    kernels.append(dict(
+        name="ssd_chunk (K5)", route="cuda",
+        source="src/repro_torch/kernels/ssd_chunk/csrc/ssd_chunk.cu",
+        replaces="src/repro/kernels/ssd_chunk/kernel.py:51",
+        launches=z_launches["K5"], max_abs_err=ssd_err, ms=zt["ms"],
+        plain_ms=zt["plain_ms"], bound_ms=zt["bound_ms"],
+        bound_by=zt["bound_by"], library_ms=None))
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

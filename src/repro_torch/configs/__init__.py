@@ -2,10 +2,10 @@
 long-context support flags; a copy of ``repro/configs`` holding the
 architectures this port runs or reads: the dense attention models
 (gemma2-2b, internlm2-20b, llama3-8b, tiny), gemma3-27b (dense, but its
-``fl_mode="lora"`` raises until LM training is ported) and mamba2-130m
-(its widths size the SSD chunk kernel's bound; its Mamba2 blocks raise).
-The reference's other architectures come over with the slice that ports
-their block kind."""
+``fl_mode="lora"`` raises until LM training is ported), and the Mamba2
+models mamba2-130m (pure SSM) and zamba2-7b (Mamba2 with a weight-shared
+attention block).  The reference's other architectures come over with the
+slice that ports their block kind."""
 from __future__ import annotations
 
 import importlib
@@ -16,6 +16,7 @@ _MODULES = {
     "gemma2-2b": "gemma2_2b",
     "internlm2-20b": "internlm2_20b",
     "mamba2-130m": "mamba2_130m",
+    "zamba2-7b": "zamba2_7b",
     "gemma3-27b": "gemma3_27b",
     # extras beyond the reference's assigned pool
     "llama3-8b": "llama3_8b",

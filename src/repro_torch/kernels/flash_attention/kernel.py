@@ -1,84 +1,25 @@
-"""Builds and launches the CUDA C++ flash-attention kernel for Hopper.
+"""Launches the CUDA C++ flash-attention kernel for Hopper.
 
 The kernel (``csrc/flash_attention.cu``) replaces the JAX package's Pallas
 TPU kernel ``repro/kernels/flash_attention/kernel.py:90``
 ``flash_attention``; its source note says what bounds it and how it is
-laid out.  It is compiled at the first launch, never at import (the CPU
-tests import this module without nvcc), by
-
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas -v
-
-into ``<repo>/build/kernels/``, as a shared library with a plain C
-interface bound through ctypes.  The library's name carries a hash of the
-source, so an edited source is rebuilt; ptxas's report (registers, shared
-memory, spills per instantiation) is kept beside it in a ``.log`` file.
-``nvcc`` is taken from ``$CUDA_HOME/bin`` (default ``/usr/local/cuda``)
-or the ``PATH``.
+laid out.  ``repro_torch.kernels.nvcc`` builds it at the first launch into
+``<repo>/build/kernels/`` and loads it through ctypes.
 """
 from __future__ import annotations
 
 import ctypes
-import functools
-import hashlib
-import os
 import pathlib
-import shutil
-import subprocess
-import threading
 
 import torch
 
-_REPO = pathlib.Path(__file__).resolve().parents[4]
+from repro_torch.kernels.nvcc import CudaLibrary
+
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
-BUILD_DIR = _REPO / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-_build_lock = threading.Lock()
 
-
-def _nvcc():
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = os.path.join(home, "bin", "nvcc")
-    found = cand if os.path.exists(cand) else shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, "
-                           "/usr/local/cuda/bin and the PATH); the flash "
-                           "attention kernel is built at its first launch")
-    return found
-
-
-def _library_path() -> pathlib.Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"libflash_attention-{digest}.so"
-
-
-def build() -> pathlib.Path:
-    """Compile the kernel unless this source's library exists; returns its
-    path.  Safe to call from several threads (one build runs)."""
-    lib = _library_path()
-    with _build_lock:
-        if lib.exists():
-            return lib
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.PIPE, text=True)
-        out, err = proc.communicate()
-        lib.with_suffix(".log").write_text(" ".join(cmd) + "\n" + out + err)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{err}")
-        os.replace(tmp, lib)
-    return lib
-
-
-@functools.cache
-def _library():
-    lib = ctypes.CDLL(str(build()))
+def _bind(lib):
     fn = lib.flash_attention_fwd
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                    + [ctypes.c_longlong] * 12
@@ -87,7 +28,10 @@ def _library():
     fn.restype = ctypes.c_int
     lib.flash_attention_error.argtypes = [ctypes.c_int]
     lib.flash_attention_error.restype = ctypes.c_char_p
-    return lib
+
+
+LIBRARY = CudaLibrary("flash_attention", SOURCE, _bind)
+build = LIBRARY.build
 
 
 def launch(q, k, v, out, *, causal, window, softcap):
@@ -98,7 +42,7 @@ def launch(q, k, v, out, *, causal, window, softcap):
     every operand.  Raises if the launch is refused."""
     B, H, L, D = q.shape
     K, S = k.shape[1], k.shape[2]
-    lib = _library()
+    lib = LIBRARY.load()
     # the C side launches on the current device: the tensors' own, for
     # this call only
     with torch.cuda.device_of(q):

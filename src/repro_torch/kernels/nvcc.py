@@ -1,0 +1,89 @@
+"""Builds a CUDA C++ kernel source into a shared library and loads it.
+
+Each CUDA kernel of the port (``*/csrc/*.cu``) has a plain C interface and
+is compiled at its first launch, never at import (the CPU tests import
+every module, and the CPU has no nvcc), by
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -Xptxas -v
+
+into ``<repo>/build/kernels/lib<name>-<hash>.so`` and bound through
+ctypes.  The hash covers the source and the flags, so an edited source
+is rebuilt; ptxas's report (registers, shared memory, spills per
+instantiation) is kept beside the library in a ``.log`` file.  ``nvcc``
+is taken from ``$CUDA_HOME/bin`` (default ``/usr/local/cuda``) or the
+``PATH``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+
+REPO = pathlib.Path(__file__).resolve().parents[3]
+BUILD_DIR = REPO / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def _nvcc():
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = os.path.join(home, "bin", "nvcc")
+    found = cand if os.path.exists(cand) else shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, "
+                           "/usr/local/cuda/bin and the PATH); the CUDA "
+                           "kernels are built at their first launch")
+    return found
+
+
+class CudaLibrary:
+    """One ``.cu`` source, built once and loaded once per process.
+
+    ``bind(lib)`` sets the ctypes signatures of the library's C entry
+    points; it runs once, when the library is first loaded."""
+
+    def __init__(self, name: str, source: pathlib.Path, bind):
+        self.name, self.source, self._bind = name, source, bind
+        self._lock = threading.Lock()
+        self._lib = None
+
+    def path(self) -> pathlib.Path:
+        digest = hashlib.sha256(self.source.read_bytes()
+                                + " ".join(NVCC_FLAGS).encode()).hexdigest()
+        return BUILD_DIR / f"lib{self.name}-{digest[:12]}.so"
+
+    def build(self) -> pathlib.Path:
+        """Compile unless this source's library exists; returns its path.
+        Safe to call from several threads (one build runs)."""
+        lib = self.path()
+        with self._lock:
+            if lib.exists():
+                return lib
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+            out, err = proc.communicate()
+            lib.with_suffix(".log").write_text(" ".join(cmd) + "\n" + out
+                                               + err)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {self.source.name} "
+                                   f"({proc.returncode}):\n{err}")
+            os.replace(tmp, lib)
+        return lib
+
+    def load(self) -> ctypes.CDLL:
+        """The built library with its signatures set."""
+        path = self.build()
+        with self._lock:
+            if self._lib is None:
+                lib = ctypes.CDLL(str(path))
+                self._bind(lib)
+                self._lib = lib
+        return self._lib

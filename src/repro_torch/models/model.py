@@ -1,5 +1,6 @@
-"""Unified model, dense attention subset: parameter init, the unit loop,
-logits, caches, prefill and decode; a port of ``repro/models/model.py``.
+"""Unified model, dense attention and Mamba2 / shared-attention subset:
+parameter init, the unit loop, logits, caches, prefill and decode; a port
+of ``repro/models/model.py``.
 
 The layer stack is grouped into repeating *units* (cfg.pattern).  Weights
 and caches of the full units are stacked on a leading ``[n_units]`` axis,
@@ -7,12 +8,14 @@ as in the reference, and a Python loop over the units indexes that axis
 (the reference's ``lax.scan``); the remainder ("tail") follows.  The
 parameter tree has the reference's keys and shapes, so a JAX tree carries
 across through ``repro_torch.checkpointing.params_from_numpy``.
+``shared_attn`` blocks hold no weights of their own: every invocation
+reads the one attention block ``params["shared"]``, each with its own
+cache.
 
-Blocks other than ``attn`` (MoE, Mamba2, shared attention), encoder-decoder
-models, modality frontends and LoRA raise NotImplementedError naming the
-ROADMAP item that ports them.  Caches are updated in place (the reference
-returns new ones): ``prefill`` and ``serve_step`` write into the cache they
-are given and return it.
+MoE blocks, encoder-decoder models, modality frontends and LoRA raise
+NotImplementedError naming the ROADMAP item that ports them.  Caches are
+updated in place (the reference returns new ones): ``prefill`` and
+``serve_step`` write into the cache they are given and return it.
 """
 from __future__ import annotations
 
@@ -21,15 +24,12 @@ import math
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models import ssm
 from repro_torch.models.config import BlockCfg, ModelConfig
 from repro_torch.models.layers import attn_qkvo, rms_norm, softcap, swiglu
 
 _TODO = {
     "moe": "MoE blocks (models/moe.py) are ROADMAP queue 1 item 4",
-    "mamba": "Mamba2 blocks (models/ssm.py, with K5) are ROADMAP queue 1 "
-             "item 5",
-    "shared_attn": "shared-attention blocks come with models/ssm.py, "
-                   "ROADMAP queue 1 item 5",
     "enc_dec": "encoder-decoder models are ROADMAP queue 1 item 16",
     "frontend": "modality frontends (stub embeddings) are ROADMAP queue 1 "
                 "item 16",
@@ -46,7 +46,7 @@ def _dt(cfg):
 def check_supported(cfg: ModelConfig):
     """Raise NotImplementedError for what this slice does not run."""
     for blk in cfg.pattern:
-        if blk.kind != "attn":
+        if blk.kind not in ("attn", "mamba", "shared_attn"):
             raise NotImplementedError(f"{cfg.name}: {_TODO[blk.kind]}")
     if cfg.enc_dec:
         raise NotImplementedError(f"{cfg.name}: {_TODO['enc_dec']}")
@@ -92,6 +92,61 @@ def init_attn_block(gen, cfg: ModelConfig, lead=()):
     return out
 
 
+def _mamba_block_shapes(cfg: ModelConfig):
+    """name -> (shape, dtype) of one Mamba2 block's leaves
+    (``repro/models/model.py:84-101``)."""
+    d, di, f32 = cfg.d_model, cfg.ssm_inner, torch.float32
+    proj_out = 2 * di + 2 * cfg.ssm_groups * cfg.ssm_state + cfg.ssm_heads
+    H = (cfg.ssm_heads,)
+    return {"ln1": ((d,), f32), "in_proj": ((d, proj_out), _dt(cfg)),
+            "conv_w": ((cfg.ssm_conv_dim, cfg.ssm_conv), f32),
+            "conv_b": ((cfg.ssm_conv_dim,), f32), "A_log": (H, f32),
+            "D": (H, f32), "dt_bias": (H, f32), "ln_out": ((di,), f32),
+            "out_proj": ((di, d), _dt(cfg))}
+
+
+def init_mamba_block(gen, cfg: ModelConfig, lead=()):
+    """A_log = log(linspace(1, 16, H)), D = 1, dt_bias = -4.6 (softplus
+    about 0.01), conv weights N(0, 1) * 0.3 and zero biases in float32,
+    the projections dense in cfg.dtype, norms zero."""
+    dev = gen.device
+    H = cfg.ssm_heads
+
+    def full(v, n):
+        return torch.full(tuple(lead) + (n,), v, dtype=torch.float32,
+                          device=dev)
+
+    shapes = _mamba_block_shapes(cfg)
+    a_log = torch.log(torch.linspace(1.0, 16.0, H, dtype=torch.float32,
+                                     device=dev))
+    return {
+        "ln1": full(0.0, cfg.d_model),
+        "in_proj": _dense_init(gen, shapes["in_proj"][0], _dt(cfg),
+                               lead=lead),
+        "conv_w": _dense_init(gen, shapes["conv_w"][0], torch.float32,
+                              scale=0.3, lead=lead),
+        "conv_b": full(0.0, cfg.ssm_conv_dim),
+        "A_log": a_log.expand(tuple(lead) + (H,)).clone(),
+        "D": full(1.0, H),
+        "dt_bias": full(-4.6, H),
+        "ln_out": full(0.0, cfg.ssm_inner),
+        "out_proj": _dense_init(gen, shapes["out_proj"][0], _dt(cfg),
+                                lead=lead),
+    }
+
+
+def _init_block(gen, blk: BlockCfg, cfg: ModelConfig, lead=()):
+    if blk.kind == "attn":
+        return init_attn_block(gen, cfg, lead)
+    if blk.kind == "mamba":
+        return init_mamba_block(gen, cfg, lead)
+    return {}  # shared_attn: weights live in params["shared"]
+
+
+def _has_shared(cfg):
+    return any(b.kind == "shared_attn" for b in cfg.pattern)
+
+
 def init_params(gen: torch.Generator, cfg: ModelConfig):
     """Random parameters drawn from ``gen`` on its device, in the
     reference's tree layout (``stack/pos{j}`` leaves stacked on a leading
@@ -103,12 +158,14 @@ def init_params(gen: torch.Generator, cfg: ModelConfig):
         "embed": _dense_init(gen, (cfg.vocab, cfg.d_model), dt, scale=0.02),
         "ln_f": torch.zeros((cfg.d_model,), dtype=torch.float32,
                             device=gen.device),
-        "stack": {f"pos{j}": (init_attn_block(gen, cfg, (cfg.n_units,))
+        "stack": {f"pos{j}": (_init_block(gen, blk, cfg, (cfg.n_units,))
                               if cfg.n_units else {})
-                  for j in range(len(cfg.pattern))},
-        "tail": {f"blk{i}": init_attn_block(gen, cfg)
+                  for j, blk in enumerate(cfg.pattern)},
+        "tail": {f"blk{i}": _init_block(gen, cfg.pattern[i], cfg)
                  for i in range(cfg.n_tail)},
     }
+    if _has_shared(cfg):
+        params["shared"] = init_attn_block(gen, cfg)
     if not cfg.tie_embeddings:
         params["unembed"] = _dense_init(gen, (cfg.d_model, cfg.vocab), dt,
                                         scale=0.02)
@@ -120,8 +177,13 @@ def count_params(cfg: ModelConfig, trainable_only: bool = False) -> int:
     trainable in this slice (LoRA raises), so ``trainable_only`` changes
     nothing."""
     check_supported(cfg)
-    block = sum(math.prod(s) for s in _attn_block_shapes(cfg).values())
-    n = cfg.vocab * cfg.d_model + cfg.d_model + cfg.n_layers * block
+    attn = sum(math.prod(s) for s in _attn_block_shapes(cfg).values())
+    per_kind = {"attn": attn, "shared_attn": 0, "mamba": sum(
+        math.prod(s) for s, _ in _mamba_block_shapes(cfg).values())}
+    n = cfg.vocab * cfg.d_model + cfg.d_model
+    n += sum(per_kind[b.kind] for b in cfg.layer_blocks())
+    if _has_shared(cfg):
+        n += attn
     if not cfg.tie_embeddings:
         n += cfg.d_model * cfg.vocab
     return n
@@ -135,10 +197,18 @@ def _unit_slice(tree, u):
     return {k: v[u] for k, v in tree.items()}
 
 
-def apply_block(blk: BlockCfg, bp, h, cfg, positions, *, cache=None,
-                mode="train"):
-    """One ``attn`` block: attention then the gated MLP, both residual.
+def apply_block(blk: BlockCfg, bp, h, cfg, positions, *, shared=None,
+                cache=None, mode="train"):
+    """One block, residual: ``mamba`` runs the Mamba2 mixer; ``attn`` and
+    ``shared_attn`` (weights ``shared``) run attention then the gated MLP.
     Returns h; the cache (prefill/decode modes) is written in place."""
+    if blk.kind == "mamba":
+        return h + ssm.mamba_block(
+            rms_norm(h, bp["ln1"], cfg.norm_eps), bp, cfg,
+            decode_cache=cache if mode == "decode" else None,
+            prefill_cache=cache if mode == "prefill" else None)
+    if blk.kind == "shared_attn":
+        bp = shared
     x = rms_norm(h, bp["ln1"], cfg.norm_eps)
     dec = pre = None
     if cache is not None and mode == "decode":
@@ -157,17 +227,19 @@ def _run_stack(h, params, cfg: ModelConfig, positions, *, caches=None,
                mode="train"):
     """The unit loop, then the tail.  Returns h; the caches are written in
     place."""
+    shared = params.get("shared")
     for u in range(cfg.n_units):
         for j, blk in enumerate(cfg.pattern):
             key = f"pos{j}"
             c = _unit_slice(caches["stack"][key], u) if caches else None
             h = apply_block(blk, _unit_slice(params["stack"][key], u), h,
-                            cfg, positions, cache=c, mode=mode)
+                            cfg, positions, shared=shared, cache=c,
+                            mode=mode)
     for i in range(cfg.n_tail):
         key = f"blk{i}"
         c = caches["tail"][key] if caches else None
         h = apply_block(cfg.pattern[i], params["tail"][key], h, cfg,
-                        positions, cache=c, mode=mode)
+                        positions, shared=shared, cache=c, mode=mode)
     return h
 
 
@@ -205,6 +277,8 @@ def lm_logits(h, params, cfg: ModelConfig):
 
 def init_block_cache(blk: BlockCfg, cfg: ModelConfig, batch, seq_len, dtype,
                      device):
+    if blk.kind == "mamba":
+        return ssm.init_mamba_cache(cfg, batch, dtype, device)
     alloc = seq_len if blk.window is None else min(blk.window, seq_len)
     shape = (batch, alloc, cfg.n_kv_heads, cfg.head_dim)
     return dict(
@@ -217,9 +291,11 @@ def init_block_cache(blk: BlockCfg, cfg: ModelConfig, batch, seq_len, dtype,
 def init_cache(cfg: ModelConfig, batch, seq_len, dtype=None, *,
                device="cuda"):
     """Empty caches on ``device`` (the card unless the caller asks for the
-    CPU): per block k, v [batch, alloc, K, D] and pos [batch, alloc] = -1,
-    where alloc is seq_len for global blocks and min(window, seq_len) for
-    windowed ones (rolling); full units stacked on [n_units]."""
+    CPU): per attention block k, v [batch, alloc, K, D] and pos
+    [batch, alloc] = -1, where alloc is seq_len for global blocks and
+    min(window, seq_len) for windowed ones (rolling); per Mamba2 block the
+    conv window [batch, W-1, conv_dim] and the SSM state [batch, H, P, N],
+    both in ``dtype``; full units stacked on [n_units]."""
     check_supported(cfg)
     dev = resolve_device(device)
     dtype = dtype or _dt(cfg)
@@ -250,7 +326,8 @@ def prefill(params, cfg: ModelConfig, cache, tokens, *, start_pos=0):
     """Full-sequence forward that also populates the decode cache (in
     place). tokens: [B, Lp]. Returns (last-position logits [B, V], cache).
     With ``cfg.attn_backend == "flash"`` and Lp % 128 == 0 the attention
-    runs through the flash kernel."""
+    runs through the flash kernel; Mamba2 blocks run their SSD scan
+    through the SSD chunk kernel."""
     B, L = tokens.shape
     h = _embed(params, cfg, tokens)
     positions = torch.arange(start_pos, start_pos + L,

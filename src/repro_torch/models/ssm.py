@@ -1,0 +1,234 @@
+"""Mamba2 / SSD (state-space duality) blocks; a port of
+``repro/models/ssm.py`` with the same names and layouts.
+
+The chunked SSD algorithm runs intra-chunk quadratic blocks plus an
+inter-chunk state recurrence.  ``ssd_chunked`` is the plain port of the
+reference's jnp function and, with the naive sequential recurrence
+``ssd_recurrence_ref``, the correctness oracle; ``ssd_decode_step`` serves
+O(1)-per-token decode.
+
+Where the reference's ``mamba_block`` calls the jnp ``ssd_chunked``
+(``ssm.py:200``), the port calls ``kernels/ssd_chunk/ops.ssd_chunked``:
+the port of the JAX package's own drop-in equivalent
+``ssd_chunked_pallas`` (``kernels/ssd_chunk/ops.py:102``), which carries
+the SSD chunk kernel (K5).  In float32 the two differ only in summation
+order; in bfloat16 the drop-in rounds the diagonal-block output to the
+input dtype before adding the inter-chunk part, as the reference's
+drop-in does.  Caches are written in place (the reference returns new
+ones).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.ssd_chunk import ops as ssd_ops
+from repro_torch.kernels.ssd_chunk.ref import cumsum_f32, segsum
+from repro_torch.models.layers import rms_norm
+
+
+# ---------------------------------------------------------------------------
+# SSD core
+# ---------------------------------------------------------------------------
+
+def ssd_chunked(xdt, dA, B_, C_, chunk, initial_state=None):
+    """Chunked SSD scan (plain torch).
+
+    xdt: [b, l, h, p]   (inputs already multiplied by dt)
+    dA:  [b, l, h]      (dt * A, negative)
+    B_, C_: [b, l, h, n]
+    Returns (y [b, l, h, p], final_state [b, h, p, n])."""
+    b, l, h, p = xdt.shape
+    n = B_.shape[-1]
+    if l % chunk:
+        raise ValueError(f"chunk {chunk} must divide the length {l}")
+    c = l // chunk
+
+    f32 = torch.float32
+    X = xdt.reshape(b, c, chunk, h, p).to(f32)
+    A = dA.reshape(b, c, chunk, h).permute(0, 3, 1, 2).to(f32)  # [b,h,c,k]
+    Bm = B_.reshape(b, c, chunk, h, n).to(f32)
+    Cm = C_.reshape(b, c, chunk, h, n).to(f32)
+
+    A_cs = cumsum_f32(A)              # [b,h,c,k]
+    L = torch.exp(segsum(A))          # [b,h,c,k,k]
+
+    # 1. intra-chunk (diagonal blocks)
+    Y_diag = torch.einsum("bclhn,bcshn,bhcls,bcshp->bclhp", Cm, Bm, L, X)
+
+    # 2. per-chunk end states
+    decay_states = torch.exp(A_cs[:, :, :, -1:] - A_cs)  # [b,h,c,k]
+    states = torch.einsum("bclhn,bhcl,bclhp->bchpn", Bm, decay_states, X)
+
+    # 3. inter-chunk recurrence (linear scan over chunks)
+    chunk_decay = torch.exp(A_cs[:, :, :, -1])  # [b,h,c]
+    carry = (torch.zeros((b, h, p, n), dtype=f32, device=xdt.device)
+             if initial_state is None else initial_state.to(f32))
+    prev = []
+    for i in range(c):
+        prev.append(carry)  # the state *entering* chunk i
+        carry = carry * chunk_decay[:, :, i, None, None] + states[:, i]
+    prev_states = torch.stack(prev, dim=1)  # [b,c,h,p,n]
+
+    # 4. chunk-input contribution to outputs
+    state_decay_out = torch.exp(A_cs)  # [b,h,c,k]
+    Y_off = torch.einsum("bclhn,bchpn,bhcl->bclhp", Cm, prev_states,
+                         state_decay_out)
+
+    y = (Y_diag + Y_off).reshape(b, l, h, p)
+    return y.to(xdt.dtype), carry
+
+
+def ssd_recurrence_ref(xdt, dA, B_, C_, initial_state=None):
+    """Sequential oracle: h_t = exp(dA_t) h_{t-1} + B_t xdt_t^T ; y_t = C_t h_t."""
+    b, l, h, p = xdt.shape
+    n = B_.shape[-1]
+    f32 = torch.float32
+    hs = (torch.zeros((b, h, p, n), dtype=f32, device=xdt.device)
+          if initial_state is None else initial_state.to(f32))
+    ys = []
+    for t in range(l):
+        hs = hs * torch.exp(dA[:, t].to(f32))[..., None, None] + \
+            xdt[:, t, :, :, None].to(f32) * B_[:, t, :, None, :].to(f32)
+        ys.append(torch.einsum("bhpn,bhn->bhp", hs, C_[:, t].to(f32)))
+    return torch.stack(ys, dim=1).to(xdt.dtype), hs
+
+
+def ssd_decode_step(state, xdt, dA, B_, C_):
+    """One-token recurrence. state: [b,h,p,n]; xdt: [b,h,p]; dA: [b,h];
+    B_, C_: [b,h,n]. Returns (y [b,h,p], new_state in state's dtype)."""
+    f32 = torch.float32
+    new = state.to(f32) * torch.exp(dA.to(f32))[..., None, None] + \
+        xdt[..., :, None].to(f32) * B_[..., None, :].to(f32)
+    y = torch.einsum("bhpn,bhn->bhp", new, C_.to(f32))
+    return y.to(xdt.dtype), new.to(state.dtype)
+
+
+# ---------------------------------------------------------------------------
+# causal depthwise conv
+# ---------------------------------------------------------------------------
+
+def conv1d_causal(x, w, b):
+    """x: [B, L, C]; w: [C, W]; depthwise causal conv in float32 (the
+    reference's ``conv_general_dilated`` with ``feature_group_count=C``:
+    a cross-correlation over the left-padded sequence)."""
+    W = w.shape[-1]
+    xp = F.pad(x.to(torch.float32).transpose(1, 2), (W - 1, 0))  # [B, C, L+W-1]
+    out = F.conv1d(xp, w.to(torch.float32)[:, None, :], groups=w.shape[0])
+    # back to a contiguous [B, L, C]: the SSD kernel reads the channels
+    # split from it (x, B, C) with unit stride
+    y = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    torch.add(out.transpose(1, 2), b.to(torch.float32), out=y)
+    return y.to(x.dtype)
+
+
+def conv1d_step(cache, x_t, w, b):
+    """cache: [B, W-1, C] previous inputs; x_t: [B, C]. Returns (y_t, cache)."""
+    window = torch.cat([cache, x_t[:, None, :]], dim=1)  # [B, W, C]
+    y = torch.einsum("bwc,cw->bc", window.to(torch.float32),
+                     w.to(torch.float32)) + b.to(torch.float32)
+    return y.to(x_t.dtype), window[:, 1:]
+
+
+# ---------------------------------------------------------------------------
+# full Mamba2 block
+# ---------------------------------------------------------------------------
+
+def _split_proj(proj, cfg):
+    di, gn, h = cfg.ssm_inner, cfg.ssm_groups * cfg.ssm_state, cfg.ssm_heads
+    z = proj[..., :di]
+    xBC = proj[..., di:di + di + 2 * gn]
+    dt_raw = proj[..., di + di + 2 * gn:]
+    if dt_raw.shape[-1] != h:
+        raise ValueError(f"projection width {proj.shape[-1]} does not fit "
+                         f"the config ({h} heads)")
+    return z, xBC, dt_raw
+
+
+def _expand_groups(v, cfg):
+    """[..., G, N] -> [..., H, N], each group repeated over its heads: a
+    stride-0 view when there is one group (every config of the registry),
+    a copy otherwise."""
+    reps = cfg.ssm_heads // cfg.ssm_groups
+    if cfg.ssm_groups == 1:
+        return v.expand(v.shape[:-2] + (cfg.ssm_heads, v.shape[-1]))
+    return torch.repeat_interleave(v, reps, dim=-2)
+
+
+def softplus(x):
+    """``jax.nn.softplus``: log(1 + exp(x)) as logaddexp(x, 0), with no
+    linear branch above a threshold (``F.softplus`` has one at 20)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def mamba_block(x, bp, cfg, *, decode_cache=None, prefill_cache=None):
+    """Mamba2 block. x: [B, L, d]. Returns y [B, L, d].
+
+    decode_cache: dict(conv, state) for single-token decode, updated in
+    place; prefill_cache: dict(conv, state) that the full-sequence pass
+    fills in place (the last W-1 raw conv inputs and the final SSM state,
+    in the cache's dtype)."""
+    B, L, d = x.shape
+    di, G, N, H, P = (cfg.ssm_inner, cfg.ssm_groups, cfg.ssm_state,
+                      cfg.ssm_heads, cfg.ssm_head_dim)
+    proj = x @ bp["in_proj"]
+    z, xBC, dt_raw = _split_proj(proj, cfg)
+
+    xBC_raw = xBC
+    if decode_cache is None:
+        xBC = conv1d_causal(xBC, bp["conv_w"], bp["conv_b"])
+    else:
+        if L != 1:
+            raise ValueError(f"decode takes one token per row; got L={L}")
+        y1, window = conv1d_step(decode_cache["conv"], xBC[:, 0],
+                                 bp["conv_w"], bp["conv_b"])
+        decode_cache["conv"].copy_(window)
+        xBC = y1[:, None, :]
+    xBC = F.silu(xBC)
+
+    xs = xBC[..., :di].reshape(B, L, H, P)
+    Bv = xBC[..., di:di + G * N].reshape(B, L, G, N)
+    Cv = xBC[..., di + G * N:].reshape(B, L, G, N)
+    Bv = _expand_groups(Bv, cfg)  # [B,L,H,N]
+    Cv = _expand_groups(Cv, cfg)
+
+    dt = softplus(dt_raw.to(torch.float32)
+                  + bp["dt_bias"].to(torch.float32))  # [B,L,H]
+    A = -torch.exp(bp["A_log"].to(torch.float32))  # [H]
+    dA = dt * A
+    # written contiguous: an elementwise product may take its layout from
+    # the broadcast operand, and the SSD kernel reads p with unit stride
+    xdt = torch.empty(xs.shape, dtype=xs.dtype, device=xs.device)
+    torch.mul(xs, dt[..., None].to(xs.dtype), out=xdt)
+
+    if decode_cache is None:
+        chunk = min(cfg.ssm_chunk, L)
+        if L % chunk:
+            chunk = 1  # fallback for odd tiny lengths
+        y, final = ssd_ops.ssd_chunked(xdt, dA, Bv, Cv, chunk)
+        if prefill_cache is not None:
+            W = cfg.ssm_conv
+            tail = xBC_raw[:, max(0, L - (W - 1)):]
+            conv = prefill_cache["conv"]
+            conv.zero_()
+            conv[:, W - 1 - tail.shape[1]:] = tail.to(conv.dtype)
+            prefill_cache["state"].copy_(final.to(x.dtype))
+    else:
+        y, state = ssd_decode_step(decode_cache["state"], xdt[:, 0],
+                                   dA[:, 0], Bv[:, 0], Cv[:, 0])
+        decode_cache["state"].copy_(state)
+        y = y[:, None]
+
+    y = y + xs * bp["D"].to(xs.dtype)[:, None]
+    y = y.reshape(B, L, di)
+    y = rms_norm(y * F.silu(z), bp["ln_out"], cfg.norm_eps)
+    return y @ bp["out_proj"]
+
+
+def init_mamba_cache(cfg, batch, dtype, device):
+    return dict(
+        conv=torch.zeros((batch, cfg.ssm_conv - 1, cfg.ssm_conv_dim),
+                         dtype=dtype, device=device),
+        state=torch.zeros((batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                           cfg.ssm_state), dtype=dtype, device=device),
+    )

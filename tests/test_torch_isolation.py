@@ -41,7 +41,12 @@ def test_every_module_imports_without_jax_or_repro():
                  "repro_torch.kernels.flash_attention.kernel",
                  "repro_torch.kernels.flash_attention.ops",
                  "repro_torch.models.model", "repro_torch.models.layers",
-                 "repro_torch.configs.gemma2_2b", "repro_torch.launch.serve"):
+                 "repro_torch.configs.gemma2_2b", "repro_torch.launch.serve",
+                 "repro_torch.kernels.nvcc", "repro_torch.models.ssm",
+                 "repro_torch.kernels.ssd_chunk.kernel",
+                 "repro_torch.kernels.ssd_chunk.ops",
+                 "repro_torch.kernels.ssd_chunk.ref",
+                 "repro_torch.configs.zamba2_7b"):
         assert name in mods, name
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

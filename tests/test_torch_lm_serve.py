@@ -9,7 +9,8 @@ against the JAX package on the CPU, with weights made by the reference's
     (tests/test_decode_parity.py's dense_windowed family), the rolling
     cache's wraparound, and slot isolation (tests/test_launchers.py);
   * the bf16 checkpoint conversion bit for bit, the parameter tree and
-    count, the serve CLI on the CPU.
+    count (the Mamba2 models too), the serve CLI on the CPU (the reduced
+    Mamba2 models too).
 
 Logits are compared, never greedy tokens: near ties flip."""
 import pytest
@@ -304,7 +305,7 @@ def test_bf16_tree_converts_bit_for_bit():
             np.testing.assert_array_equal(t.numpy(), a, err_msg=key)
 
 
-@pytest.mark.parametrize("arch", DENSE_ARCHS)
+@pytest.mark.parametrize("arch", DENSE_ARCHS + ["zamba2-7b", "mamba2-130m"])
 def test_param_tree_and_count_match(arch):
     cfg = reduced(get_config(arch))
     gen = torch.Generator().manual_seed(0)
@@ -322,20 +323,19 @@ def test_param_tree_and_count_match(arch):
 def _unported(kind):
     """A reduced config whose one feature this slice does not run: the
     registry's own where the port carries one, else tiny with it set."""
-    if kind in ("mamba2-130m", "gemma3-27b"):
+    if kind == "gemma3-27b":
         return reduced(get_config(kind))
     tiny = reduced(get_config("tiny"))
     return {
         "moe": tiny.replace(pattern=(BlockCfg("moe"),), n_experts=4,
                             top_k=2, expert_ff=64),
-        "shared_attn": tiny.replace(pattern=(BlockCfg("shared_attn"),)),
         "enc_dec": tiny.replace(enc_dec=True, n_enc_layers=2, enc_len=16),
         "frontend": tiny.replace(frontend="vision", frontend_len=8),
     }[kind]
 
 
-@pytest.mark.parametrize("arch", ["mamba2-130m", "gemma3-27b", "moe",
-                                  "shared_attn", "enc_dec", "frontend"])
+@pytest.mark.parametrize("arch", ["gemma3-27b", "moe", "enc_dec",
+                                  "frontend"])
 def test_unported_architectures_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tm.init_params(torch.Generator().manual_seed(0), _unported(arch))
@@ -345,6 +345,17 @@ def test_serve_cli_on_cpu(capsys):
     stats = serve.main(["--arch", "tiny", "--device", "cpu", "--requests",
                         "3", "--slots", "2", "--max-new", "4"])
     assert stats["decode_steps"] > 0 and stats["tok_per_s"] > 0
+    out = capsys.readouterr().out
+    assert all(f"req{i}:" in out for i in range(3))
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "mamba2-130m"])
+def test_serve_cli_ssm_archs_on_cpu(arch, capsys):
+    """The serve CLI through its existing flags on the reduced Mamba2
+    models: every request finishes."""
+    stats = serve.main(["--arch", arch, "--device", "cpu", "--requests",
+                        "3", "--slots", "2", "--max-new", "4"])
+    assert stats["decode_steps"] > 0
     out = capsys.readouterr().out
     assert all(f"req{i}:" in out for i in range(3))
 
