@@ -84,14 +84,34 @@ printed as JSON lines:
         weights upcast) logits and caches within 1e-3.  Small: reduced
         zamba2-7b prefill then decode against the full forward within
         1e-3.
+     e. FL training under faults and staleness — ``train.run`` with the
+        FL flags plus ``--use-kernel --midround-drop 0.3 --sanitize
+        --stale-max 4 --stale-kind geom --stale-p 0.5 --stale-gamma 0.7``:
+        K2 must launch once per round (64) and no other kernel, every
+        loss be finite.  The same flags without ``--use-kernel`` must give
+        identical ``n_active``, ``n_dropped``, ``n_rejected`` and
+        ``n_stale`` histories, ``mean_staleness`` within 1e-6 and a final
+        global within 1e-4; sum(n_active) == sum(n_stale) + the updates
+        still pending in the ring (geometric delays are >= 1).  Every
+        update dropped (``--midround-drop 1.0 --sanitize``, synchronous):
+        64 K2 launches, n_dropped == n_active every round, the final
+        global bit-equal to the initial one.  The NaN witness: one
+        client's images NaN in the device store, an all-ones trace
+        (``FaultCfg(trace=True, sanitize=True)``), 4 chunked rounds with
+        the kernel: n_rejected == 1 every round and the global finite;
+        without sanitization (the negative control) the global is not.
   4. numbers  — K1-K3: kernel, plain-version and two-matvec times at the
      main-path shape (CUDA graphs of calls over rotating operands larger
      than the 50 MB L2), at a 2 GB shape, the HBM bound, ms per round of
      the chunked FL path with and without the kernel (CUDA events, in
      turns), the round's pieces timed alone, a profiler breakdown of one
-     chunk.  K4 at gemma2-2b's two shapes: kernel, plain version, the
-     compiled flex_attention yardstick and SDPA (no soft-cap or window)
-     in CUDA events, the bound in tensor-core flops; prefill ms and
+     chunk; ms per round and a profiler breakdown of the fault and stale
+     path (with K2 and with the two matvecs, in turns), one of its chunks
+     under ``torch.cuda.set_sync_debug_mode("error")`` (no host read
+     inside a round), and the device ms of one ``step_buffer`` over its
+     [4, 100, 27 370] ring.  K4 at gemma2-2b's two shapes: kernel, plain
+     version, the compiled flex_attention yardstick and SDPA (no soft-cap
+     or window) in CUDA events, the bound in tensor-core flops; prefill ms and
      decode ms per step of the LM path and a profiler breakdown of one
      prefill and one decode step.  K5 at zamba2-7b's and mamba2-130m's
      shapes (kernel, plain version, the bound from ``ssd_chunk_bound``;
@@ -126,6 +146,14 @@ MAIN_FLAGS = ["--strategy", "fedawe", "--dynamics", "sine", "--flat-state",
               "--chunk-rounds", "16", "--rounds", "64", "--m", "100",
               "--s", "5", "--batch", "32", "--device", "cuda"]
 M_MAIN, N_MAIN = 100, 27370
+#: the fault and stale FL path (phase 3e): mid-round dropout with
+#: sanitization and geometric delays through a ring of depth 4, discounted
+#: by 0.7 at delivery; and every update lost mid-round, synchronously
+FAULT_FLAGS = MAIN_FLAGS + ["--midround-drop", "0.3", "--sanitize",
+                            "--stale-max", "4", "--stale-kind", "geom",
+                            "--stale-p", "0.5", "--stale-gamma", "0.7"]
+DROP_ALL_FLAGS = MAIN_FLAGS + ["--midround-drop", "1.0", "--sanitize"]
+TAU_MAX, NAN_ROUNDS = 4, 4
 
 
 def emit(obj):
@@ -330,10 +358,10 @@ def time_kernels(torch, ops, ref, strategies, smi):
 
 
 def time_rounds(torch, train, engine, federated, prng, use_kernel,
-                n_chunks=2):
-    """ms per round of the chunked main path between CUDA events over
-    ``n_chunks`` chunks, after one warm chunk."""
-    flags = MAIN_FLAGS + (["--use-kernel"] if use_kernel else [])
+                n_chunks=2, flags=MAIN_FLAGS):
+    """ms per round of the chunked path of ``flags`` between CUDA events
+    over ``n_chunks`` chunks, after one warm chunk."""
+    flags = flags + (["--use-kernel"] if use_kernel else [])
     args = train.build_parser().parse_args(flags)
     dev = torch.device("cuda")
     parts = train.setup(args, dev)
@@ -1460,6 +1488,172 @@ def time_zamba(torch, model, cfg, params, tokens, smi):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 3e: the fault and stale FL path, K2 on it
+# ---------------------------------------------------------------------------
+
+def fault_main_path(torch, train, staleness, counts):
+    """``FAULT_FLAGS`` with the kernel (K2 once a round, nothing else),
+    against the same flags through the two matvecs; the conservation law;
+    then every update dropped (K2's guard on the path)."""
+    parser = train.build_parser()
+    counts.reset()
+    t0 = time.perf_counter()
+    state_k, hist_k, _ = train.run(
+        parser.parse_args(FAULT_FLAGS + ["--use-kernel"]))
+    torch.cuda.synchronize()
+    wall_k = time.perf_counter() - t0
+    launches = counts.read()
+    losses = [h["loss"] for h in hist_k]
+    require(len(hist_k) == 64, f"{len(hist_k)} rounds")
+    require(launches == dict(K1=0, K2=64, K3=0, K4=0, K5=0),
+            f"fault path launches {launches}")
+    require(all(math.isfinite(v) for v in losses), f"losses {losses}")
+    require(bool(torch.isfinite(state_k.global_tr).all()),
+            "fault path global not finite")
+
+    state_p, hist_p, _ = train.run(parser.parse_args(FAULT_FLAGS))
+    torch.cuda.synchronize()
+    require(counts.read() == launches, "the two-matvec run launched")
+    series = {}
+    for key in ("n_active", "n_dropped", "n_rejected", "n_stale"):
+        series[key] = [h[key] for h in hist_k]
+        require(series[key] == [h[key] for h in hist_p],
+                f"{key} histories differ")
+    stale_err = max(abs(a["mean_staleness"] - b["mean_staleness"])
+                    for a, b in zip(hist_k, hist_p))
+    require(stale_err <= 1e-6, f"mean_staleness differs by {stale_err}")
+    diff = (state_k.global_tr - state_p.global_tr).abs().max().item()
+    require(diff <= 1e-4, f"kernel vs plain global differ by {diff}")
+    # geometric delays are >= 1: every computed update enters the ring
+    pending = staleness.pending_count(state_k.stale).item()
+    require(sum(series["n_active"]) == sum(series["n_stale"]) + pending,
+            "conservation: sum(n_active) != sum(n_stale) + pending")
+    require(sum(series["n_dropped"]) > 0 and sum(series["n_stale"]) > 0,
+            "the path dropped or delivered nothing late")
+    emit(dict(phase="fault_main_path", rounds=64, m=M_MAIN, n=N_MAIN,
+              tau_max=TAU_MAX, launches=launches, wall_s_kernel=wall_k,
+              first_loss=losses[0], last_loss=losses[-1],
+              **{f"sum_{k}": sum(v) for k, v in series.items()},
+              pending=pending, kernel_vs_plain_global=diff,
+              mean_staleness_err=stale_err))
+
+    args = parser.parse_args(DROP_ALL_FLAGS + ["--use-kernel"])
+    g0 = train.setup(args, torch.device("cuda"))["state"].global_tr
+    counts.reset()
+    state_d, hist_d, _ = train.run(args)
+    torch.cuda.synchronize()
+    dropped = counts.read()
+    require(dropped == dict(K1=0, K2=64, K3=0, K4=0, K5=0),
+            f"all-dropped launches {dropped}")
+    require(all(h["n_dropped"] == h["n_active"] for h in hist_d),
+            "all-dropped: n_dropped != n_active")
+    require(sum(h["n_active"] for h in hist_d) > 0, "nobody computed")
+    require(torch.equal(state_d.global_tr, g0),
+            "all-dropped: the global moved")
+    emit(dict(phase="fault_all_dropped", rounds=64, launches=dropped,
+              sum_n_dropped=sum(h["n_dropped"] for h in hist_d),
+              global_bit_exact=True))
+    return launches
+
+
+def nan_witness(torch, train, engine, faults, federated, prng, counts,
+                sanitize):
+    """One client's images NaN in the device store and an all-ones trace
+    (every client active every round), NAN_ROUNDS chunked rounds at full
+    width through the upload kernel.  Sanitized, the client is rejected
+    every round and the global stays finite; unsanitized (the negative
+    control), the global turns non-finite."""
+    parser = train.build_parser()
+    args = parser.parse_args(MAIN_FLAGS + ["--use-kernel"])
+    dev = torch.device("cuda")
+    rng = prng.PRNGKey(args.seed, dev)
+    params, loss_fn, ds, base_p, _ = train.build_image_task(args, rng, dev)
+    fl = engine.FLConfig(m=args.m, s=args.s, eta_l=args.eta_l,
+                         eta_g=args.eta_g, strategy=args.strategy,
+                         use_kernel=True, flat_state=True)
+    fc = faults.FaultCfg(trace=True, sanitize=sanitize)
+    trace = torch.ones((NAN_ROUNDS, args.m), device=dev)
+    state = engine.init_fl_state(
+        rng, fl, params, fault=faults.init_fault_state(fc, trace=trace))
+    from repro_torch.core.availability import AvailabilityCfg
+    round_fn = engine.make_round_fn(
+        fl, loss_fn, {}, AvailabilityCfg(kind=args.dynamics,
+                                         gamma=args.gamma),
+        base_p, fault_cfg=fc)
+    store = ds.device_store(dev)
+    rows = store["idx"][0, :int(store["counts"][0])]
+    store["arrays"]["images"][rows] = float("nan")
+    init, sample = federated.make_device_sampler(args.m, args.s, args.batch)
+    key = prng.PRNGKey(args.seed + 1, dev)
+    counts.reset()
+    state, hist = engine.run_rounds(
+        state, round_fn, None, NAN_ROUNDS, chunk_rounds=NAN_ROUNDS,
+        sample_fn=sample, store=store, data_key=key,
+        sampler_state=init(store, key))
+    torch.cuda.synchronize()
+    launched = counts.read()
+    finite = bool(torch.isfinite(state.global_tr).all())
+    require(launched == dict(K1=0, K2=NAN_ROUNDS, K3=0, K4=0, K5=0),
+            f"NaN witness launches {launched}")
+    require(all(h["n_active"] == args.m for h in hist),
+            "the all-ones trace did not hold every client active")
+    if sanitize:
+        require(all(h["n_rejected"] == 1.0 for h in hist),
+                f"n_rejected {[h['n_rejected'] for h in hist]}")
+        require(all(math.isfinite(h["loss"]) for h in hist), "loss")
+        require(finite, "sanitized global not finite")
+    else:
+        require(not finite, "negative control: the NaN did not reach the "
+                "global, so the witness proves nothing")
+    emit(dict(phase="nan_witness", sanitize=sanitize, rounds=NAN_ROUNDS,
+              m=args.m, launches=launched,
+              n_rejected=[h["n_rejected"] for h in hist],
+              global_finite=finite))
+
+
+def time_fault_path(torch, train, engine, federated, prng, staleness, smi):
+    """ms per round of the fault and stale path with K2 and with the two
+    matvecs (CUDA events, in turns), a profiler breakdown of one chunk,
+    and the device ms of one ``step_buffer`` at the path's ring
+    ([4, 100, 27 370] float32, 43.8 MB) in a CUDA graph."""
+    runs = []
+    for use_kernel in (True, False, False, True):
+        r = time_rounds(torch, train, engine, federated, prng, use_kernel,
+                        flags=FAULT_FLAGS)
+        runs.append(r)
+        emit(dict(phase="fault_round_time", card=smi, use_kernel=use_kernel,
+                  round_ms=r["round_ms"], rounds_per_s=r["rounds_per_s"]))
+    round_ms = (runs[0]["round_ms"] + runs[3]["round_ms"]) / 2
+    emit(dict(phase="profile", card=smi, path="fault_stale", use_kernel=True,
+              **profile_chunk(torch, runs[3], round_ms)))
+    # the round reads nothing on the host: one chunk with every
+    # synchronizing call an error (the faults' draws, the ring's slot
+    # indices and the discount all stay on the card)
+    r = runs[3]
+    torch.cuda.set_sync_debug_mode("error")
+    r["state"], r["ss"], _ = r["chunk"](r["state"], r["ss"], r["store"],
+                                        r["key"])
+    torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    state = r["state"]
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    defer = (torch.rand(M_MAIN, generator=gen, device="cuda") < 0.3).float()
+    d = torch.randint(1, TAU_MAX + 1, (M_MAIN,), generator=gen,
+                      device="cuda", dtype=torch.int32)
+    G = torch.randn(M_MAIN, N_MAIN, generator=gen, device="cuda")
+    step_ms = graph_ms(torch, lambda i: staleness.step_buffer(
+        state.stale, state.t, defer, d, G), 16)
+    ring_bytes = 4 * TAU_MAX * M_MAIN * N_MAIN
+    emit(dict(phase="step_buffer_time", card=smi, ms=step_ms,
+              ring_bytes=ring_bytes,
+              bound_ms=1e3 * (2 * ring_bytes + 4 * M_MAIN * N_MAIN)
+              / HBM_BYTES_PER_S))
+    del runs, G
+    torch.cuda.empty_cache()
+    return round_ms
+
+
 class Counts:
     """Every kernel wrapper's launch count, set to 0 and read together."""
 
@@ -1493,7 +1687,7 @@ def main():
         return 1
     sys.path.insert(0, os.path.join(REPO, "src"))
     from repro_torch.configs import get_config
-    from repro_torch.core import engine, prng, strategies
+    from repro_torch.core import engine, faults, prng, staleness, strategies
     from repro_torch.data import federated
     from repro_torch.device import resolve_device
     from repro_torch.kernels.echo_aggregate import kernel, ops, ref
@@ -1602,6 +1796,13 @@ def main():
     ssd_vs_plain(torch, model, ssm, sops, z_cfg, z_params, z_tokens)
     zamba_parity_small(torch, model, get_config, reduced)
 
+    # phase 3e: the fault and stale FL path, every count at 0 just before
+    # it; the all-dropped run; the NaN witness and its negative control
+    fault_launches = fault_main_path(torch, train, staleness, counts)
+    for sanitize in (True, False):
+        nan_witness(torch, train, engine, faults, federated, prng, counts,
+                    sanitize)
+
     # phase 4: numbers
     times = time_kernels(torch, ops, ref, strategies, smi)
     runs = []
@@ -1617,6 +1818,7 @@ def main():
     emit(dict(phase="profile", card=smi, use_kernel=True,
               **profile_chunk(torch, runs[3], round_ms)))
     del runs
+    time_fault_path(torch, train, engine, federated, prng, staleness, smi)
     for arch in ("zamba2-7b", "mamba2-130m"):
         emit(dict(phase="bound", **ssd_chunk_bound(get_config(arch), LM_B,
                                                    LM_L, 2)))
@@ -1642,12 +1844,15 @@ def main():
     names = {"K1": "echo_aggregate_fused (K1)",
              "K2": "echo_aggregate_fused_upload (K2)",
              "K3": "echo_aggregate (K3)"}
+    # K1 launches on the FL path, K2 on the fault and stale path, K3 on none
+    path_launches = dict(K1=launches["K1"], K2=fault_launches["K2"],
+                         K3=launches["K3"])
     for v in ("K1", "K2", "K3"):
         t = times[v]
         kernels.append(dict(
             name=names[v], route="triton",
             source="src/repro_torch/kernels/echo_aggregate/kernel.py",
-            replaces=replaces[v], launches=launches[v],
+            replaces=replaces[v], launches=path_launches[v],
             max_abs_err=errs[v], ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=None))

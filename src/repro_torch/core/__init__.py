@@ -1,5 +1,6 @@
 """FedAWE's federated-round system in torch: PRNG, flat substrate,
-availability processes, the FedAWE strategy and the round engine."""
+availability processes, fault injection, semi-async rounds, the FedAWE
+strategies and the round engine."""
 from repro_torch.core.availability import AvailabilityCfg  # noqa: F401
 from repro_torch.core.engine import (  # noqa: F401
     FLConfig,
@@ -11,5 +12,17 @@ from repro_torch.core.engine import (  # noqa: F401
     make_round_fn,
     run_rounds,
 )
+from repro_torch.core.faults import (  # noqa: F401
+    FaultCfg,
+    adversarial_probs_from_nu,
+    clusters_from_nu,
+    diurnal_trace,
+    init_fault_state,
+)
 from repro_torch.core.flatten import FlatSpec, resident_dtype  # noqa: F401
+from repro_torch.core.staleness import (  # noqa: F401
+    StalenessCfg,
+    init_staleness_state,
+    staircase_delay_trace,
+)
 from repro_torch.core.strategies import REGISTRY, get_strategy  # noqa: F401

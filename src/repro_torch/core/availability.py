@@ -124,3 +124,28 @@ def sample_active(rng, cfg: AvailabilityCfg, base_p, t, markov_state=None):
     p = probs_at(cfg, base_p, t)
     mask = (prng.uniform(rng, p.shape) < p).float()
     return mask, markov_state
+
+
+def availability_trace(rng, cfg: AvailabilityCfg, base_p, T):
+    """Simulate T rounds; returns the masks ``[T, m]`` (float32).
+
+    For ``kind="markov"`` the chain starts from a stationary-marginal
+    draw keyed off ``k0`` of ``split(rng)``; the other kinds are
+    memoryless and do not split ``rng`` first.  Each round then splits
+    the carried key and draws ``sample_active`` from the subkey, as the
+    reference's scan does."""
+    m = base_p.shape[0]
+    dev = base_p.device
+    if cfg.kind == "markov":
+        rng, k0 = prng.split(rng)
+        pi = probs_at(cfg, base_p, 0)   # the chain's stationary marginal
+        state = (prng.uniform(k0, (m,)) < pi).float()
+    else:
+        state = torch.ones((m,), dtype=torch.float32, device=dev)
+    ts = torch.arange(T, dtype=torch.int32, device=dev)
+    key, masks = rng, []
+    for t in range(T):
+        key, sub = prng.split(key)
+        mask, state = sample_active(sub, cfg, base_p, ts[t], state)
+        masks.append(mask)
+    return torch.stack(masks)

@@ -24,9 +24,10 @@ Two executors drive the round function, as in the reference:
     fetched once per chunk.  The chunk is a Python loop of K rounds that
     never reads a device value on the host.
 
-Ported so far: the flat, fault-free, synchronous, dense case.  The tree
-path, faults, staleness, the cohort path and the seed/grid executors
-belong to later slices of the port.
+Ported so far: the dense flat round, with fault injection
+(``fault_cfg``, core/faults.py) and semi-async rounds (``staleness_cfg``,
+core/staleness.py) alone or composed.  The tree path, the cohort path
+and the seed/grid executors belong to later slices of the port.
 """
 from __future__ import annotations
 
@@ -35,7 +36,9 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from repro_torch.core import faults as _faults
 from repro_torch.core import prng
+from repro_torch.core import staleness as _stale
 from repro_torch.core.availability import (AvailabilityCfg, probs_at,
                                            sample_active)
 from repro_torch.core.flatten import FlatSpec
@@ -73,11 +76,19 @@ class FLState(NamedTuple):
     markov: torch.Tensor        # availability markov state [m]
     rng: torch.Tensor           # PRNG key [2] (core/prng.py)
     spec: Any = None            # FlatSpec
+    fault: Any = None           # fault-injection carry (core/faults.py):
+                                # [T, m] trace / [m] cluster labels, or None
+    stale: Any = None           # semi-async carry (core/staleness.py):
+                                # [tau_max, m, N] pending-update ring + ages
+                                # [tau_max, m] (+ delay trace), or None
 
 
-def init_fl_state(rng, cfg: FLConfig, trainable_template) -> FLState:
+def init_fl_state(rng, cfg: FLConfig, trainable_template, *, fault=None,
+                  stale=None) -> FLState:
     """Fresh state on the device of ``rng``; every field owns its buffer
-    (nothing aliases the caller's template)."""
+    (nothing aliases the caller's template).  ``fault`` is the read-only
+    carry from ``faults.init_fault_state``, ``stale`` the ring the round
+    advances, from ``staleness.init_staleness_state`` (or None)."""
     if not cfg.flat_state:
         raise NotImplementedError(_TREE_PATH)
     strat = get_strategy(cfg.strategy)
@@ -92,7 +103,9 @@ def init_fl_state(rng, cfg: FLConfig, trainable_template) -> FLState:
         extra=strat.init_extra(g, cfg.m),
         markov=torch.ones((cfg.m,), dtype=torch.float32, device=dev),
         rng=rng.clone(),
-        spec=spec)
+        spec=spec,
+        fault=fault,
+        stale=stale)
 
 
 def global_trainables(state: FLState):
@@ -142,20 +155,52 @@ def local_sgd(trainable, frozen, batches, rng, *, s, eta_l, loss_fn,
 
 
 def make_round_fn(cfg: FLConfig, loss_fn: Callable, frozen: Any,
-                  avail_cfg: AvailabilityCfg, base_p):
+                  avail_cfg: AvailabilityCfg, base_p, fault_cfg=None,
+                  staleness_cfg=None):
     """Build the round function ``(state, batches[m, s, ...]) -> (state,
-    metrics)``; metrics are 0-d device tensors (``loss``, ``n_active``,
-    ``mean_echo``), read by nobody inside the round."""
+    metrics)``; metrics are 0-d device tensors, read by nobody inside the
+    round.
+
+    ``fault_cfg`` (a ``faults.FaultCfg``) splits the availability mask in
+    two: ``mask`` (who runs local SGD; trace replay and blackouts apply
+    here) and ``mask_upload`` (who delivers: the mid-round survival draw
+    and sanitization).  Only delivering clients aggregate, update their
+    row and τ; the metrics grow ``n_dropped`` / ``n_rejected``.
+
+    ``staleness_cfg`` (a ``staleness.StalenessCfg``) makes rounds
+    semi-asynchronous: an update computed at ``t`` arrives at ``t + d``
+    through the ``FLState.stale`` ring, a client with an update in flight
+    does not compute, arrivals aggregate with weight ``gamma ** d``, and
+    the fault layer acts at delivery; the metrics grow ``n_stale`` /
+    ``mean_staleness``.  Either left None (or ``tau_max = 0``) keeps the
+    key split, the metrics keys and every value of the synchronous,
+    fault-free round."""
     if not cfg.flat_state:
         raise NotImplementedError(_TREE_PATH)
     strat = get_strategy(cfg.strategy)
+    if staleness_cfg is not None and staleness_cfg.tau_max == 0:
+        # tau_max = 0 IS the synchronous engine
+        staleness_cfg = None
 
     def round_fn(state: FLState, batches):
-        keys = prng.split(state.rng, 3)
+        n_keys = 3 + (fault_cfg is not None) + (staleness_cfg is not None)
+        keys = prng.split(state.rng, n_keys)
         rng, k_av, k_loc = keys[0], keys[1], keys[2]
+        k_up = keys[3] if fault_cfg is not None else None
+        k_delay = keys[-1] if staleness_cfg is not None else None
         mask, markov = sample_active(k_av, avail_cfg, base_p, state.t,
                                      state.markov)
         probs_t = probs_at(avail_cfg, base_p, state.t)
+        if fault_cfg is not None:
+            mask = _faults.compute_mask(fault_cfg, state.fault, mask,
+                                        state.t)
+        if staleness_cfg is not None:
+            # arrivals due this round, then busy gating: an in-flight
+            # client (including one landing now) does not compute at t
+            arrived, arr_age, arr_buf = _stale.drain(state.stale, state.t)
+            mask = mask * (1.0 - _stale.busy_mask(state.stale))
+            delay = _stale.draw_delay(staleness_cfg, state.stale, k_delay,
+                                      state.t, cfg.m)
 
         eta_l = cfg.eta_l
         if cfg.lr_schedule:
@@ -169,21 +214,81 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, frozen: Any,
             s=cfg.s, eta_l=eta_l, loss_fn=loss_fn, grad_clip=cfg.grad_clip)
         x_end = spec.flatten_stacked(x_end_tr)
         G = start - x_end
+        if staleness_cfg is not None:
+            # delivery candidates: synchronous computes (drawn d = 0) plus
+            # ring arrivals — disjoint, since an arriving client was busy
+            now = mask * (delay == 0).float()
+            defer = mask * (delay > 0).float()
+            deliver = now + arrived
+            G_eff = torch.where(arrived[:, None] > 0, arr_buf,
+                                torch.where(now[:, None] > 0, G, 0.0))
+            x_end_eff = torch.where(arrived[:, None] > 0, start - arr_buf,
+                                    x_end)
+            age_eff = torch.where(arrived > 0, arr_age, 0.0)
+        else:
+            deliver, G_eff, x_end_eff = mask, G, x_end
+        mask_upload = None
+        if fault_cfg is not None:
+            mask_upload, n_dropped, n_rejected = _faults.upload_mask(
+                fault_cfg, k_up, deliver, G_eff)
+            if fault_cfg.sanitize:
+                # scrub demoted rows by selection: the kernel forms w·x†
+                # and 0 * NaN = NaN, so a rejected row must hold finite
+                # values, not just zero weight
+                keep = mask_upload[:, None] > 0
+                x_end_eff = torch.where(keep, x_end_eff, start)
+                G_eff = torch.where(keep, G_eff, 0.0)
+        if staleness_cfg is not None:
+            mu0 = deliver if mask_upload is None else mask_upload
+            w_disc = mu0 if staleness_cfg.gamma >= 1.0 else mu0 * torch.pow(
+                torch.full((), staleness_cfg.gamma, dtype=torch.float32,
+                           device=mu0.device), age_eff)
+            agg_mask, agg_kwargs = mu0, dict(mask_upload=w_disc,
+                                             ages=age_eff)
+        else:
+            agg_mask, agg_kwargs = mask, dict(mask_upload=mask_upload)
         new_global, new_clients, new_tau, new_extra = strat.aggregate_flat(
-            global_flat=state.global_tr, clients_flat=start, x_end=x_end,
-            G=G, mask=mask, t=state.t, tau=state.tau, probs=probs_t,
-            extra=state.extra, eta_g=cfg.eta_g, use_kernel=cfg.use_kernel)
+            global_flat=state.global_tr, clients_flat=start,
+            x_end=x_end_eff, G=G_eff, mask=agg_mask, t=state.t,
+            tau=state.tau, probs=probs_t, extra=state.extra,
+            eta_g=cfg.eta_g, use_kernel=cfg.use_kernel, **agg_kwargs)
 
-        denom = torch.clamp(torch.sum(mask), min=1.0)
-        metrics = dict(
-            loss=torch.sum(losses * mask) / denom,
-            n_active=torch.sum(mask),
-            mean_echo=torch.sum((state.t - state.tau).float() * mask)
-            / denom,
-        )
+        echo = (state.t - state.tau).float()
+        # under faults a rejected client's loss may be non-finite: it is
+        # excluded by value, not just by weight
+        safe = losses if fault_cfg is None else torch.where(
+            torch.isfinite(losses), losses, 0.0)
+        if staleness_cfg is not None:
+            # loss / n_active describe who COMPUTED this round; the
+            # delivery side gets its own keys
+            den_mu = torch.clamp(torch.sum(mu0), min=1.0)
+            metrics = dict(
+                loss=torch.sum(safe * mask)
+                / torch.clamp(torch.sum(mask), min=1.0),
+                n_active=torch.sum(mask),
+                mean_echo=torch.sum(echo * mu0) / den_mu,
+                n_stale=torch.sum(arrived),
+                mean_staleness=torch.sum(age_eff * mu0) / den_mu,
+            )
+        else:
+            # under faults the delivered clients define the metrics
+            mu = mask if mask_upload is None else mask_upload
+            denom = torch.clamp(torch.sum(mu), min=1.0)
+            metrics = dict(
+                loss=torch.sum(safe * mu) / denom,
+                n_active=torch.sum(mask),
+                mean_echo=torch.sum(echo * mu) / denom,
+            )
+        if fault_cfg is not None:
+            metrics.update(n_dropped=n_dropped, n_rejected=n_rejected)
         new_state = state._replace(
             global_tr=new_global, clients_tr=new_clients, tau=new_tau,
             t=state.t + 1, extra=new_extra, markov=markov, rng=rng)
+        if staleness_cfg is not None:
+            # raw (unsanitized, undiscounted) innovations enter the ring;
+            # faults and the discount apply at delivery
+            new_state = new_state._replace(stale=_stale.step_buffer(
+                state.stale, state.t, defer, delay, G))
         return new_state, metrics
 
     return round_fn

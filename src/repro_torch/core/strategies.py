@@ -5,12 +5,13 @@ quantities (client-stacked innovations ``G`` = x_start − x_end, the
 availability mask, the true probabilities) and produces the new global,
 the new client stack, the new τ vector and its own auxiliary state.
 
-Ported so far: FedAWE's ``aggregate_flat`` — the global is one [N]
-float32 vector, the client stack one [m, N] buffer, and the server update
-is either the fused echo-aggregate kernel (``use_kernel``) or two matvecs
-through ``flat_weighted_sum``.  The tree path (``aggregate``) and the
-other nine strategies of the reference's registry belong to later slices
-of the port.
+Ported so far: the ``aggregate_flat`` of FedAWE and of FedAWE-M (FedAWE
+with server momentum) — the global is one [N] float32 vector, the client
+stack one [m, N] buffer, and the server update is either the fused
+echo-aggregate kernel (``use_kernel``) or two matvecs through
+``flat_weighted_sum``.  The tree path (``aggregate``) and the other eight
+strategies of the reference's registry belong to later slices of the
+port.
 
 ``mask_upload`` and ``ages`` keep the reference's signature: under fault
 injection ``mask_upload`` is the delivered-update weight, and under the
@@ -92,7 +93,42 @@ FEDAWE = Strategy("fedawe", True, _fedawe_init, _fedawe_aggregate,
                   aggregate_flat=_fedawe_aggregate_flat)
 
 
-REGISTRY = {s.name: s for s in (FEDAWE,)}
+# ---------------------------------------------------------------------------
+# FedAWE-M — the reference's beyond-paper extension: server-side momentum
+# on the gossip delta.  beta = 0 recovers FedAWE exactly.
+# ---------------------------------------------------------------------------
+
+def _fedawe_m_init(template, m, beta=0.9):
+    return dict(v=torch.zeros_like(template),
+                beta=torch.full((), beta, dtype=torch.float32,
+                                device=template.device))
+
+
+def _fedawe_m_aggregate_flat(*, global_flat, clients_flat, x_end, G, mask, t,
+                             tau, probs, extra, eta_g, use_kernel=False,
+                             mask_upload=None, ages=None):
+    """v ← β v + (gossip − x), x ← x + v on non-empty rounds; an empty
+    round keeps the global (its gossip is the guarded previous global, so
+    v decays by β)."""
+    mu = mask if mask_upload is None else mask_upload
+    gossip, _, new_tau, _ = _fedawe_aggregate_flat(
+        global_flat=global_flat, clients_flat=clients_flat, x_end=x_end, G=G,
+        mask=mask, t=t, tau=tau, probs=probs, extra=(), eta_g=eta_g,
+        use_kernel=use_kernel, mask_upload=mask_upload)
+    beta = extra["beta"]
+    v = beta * extra["v"] + (gossip - global_flat)
+    new_global = torch.where(torch.sum(mu) > 0, global_flat + v, global_flat)
+    new_clients = torch.where(mu[:, None] > 0, new_global[None],
+                              clients_flat)
+    return new_global, new_clients, new_tau, dict(v=v, beta=beta)
+
+
+# (its tree-state path raises, as FedAWE's does)
+FEDAWE_M = Strategy("fedawe_m", True, _fedawe_m_init, _fedawe_aggregate,
+                    aggregate_flat=_fedawe_m_aggregate_flat)
+
+
+REGISTRY = {s.name: s for s in (FEDAWE, FEDAWE_M)}
 
 
 def get_strategy(name: str) -> Strategy:

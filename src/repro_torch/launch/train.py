@@ -1,7 +1,8 @@
 """FedAWE training launcher (simulation tier, image preset):
 
     python -m repro_torch.launch.train --strategy fedawe --dynamics sine \
-        --flat-state --chunk-rounds 16 --use-kernel --rounds 300
+        --flat-state --chunk-rounds 16 --use-kernel --rounds 300 \
+        [--midround-drop 0.3 --sanitize --stale-max 4 --stale-kind geom]
 
 The port of ``python -m repro.launch.train --preset image``.  It runs on
 the card (``--device cuda``, the default) unless ``--device cpu`` is
@@ -12,15 +13,17 @@ argparse refuses them.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 
 import numpy as np
 import torch
 
-from repro_torch.core import (AvailabilityCfg, FLConfig, global_trainables,
-                              init_fl_state, make_round_fn, prng,
-                              run_rounds)
+from repro_torch.core import (AvailabilityCfg, FaultCfg, FLConfig, FlatSpec,
+                              StalenessCfg, global_trainables, init_fl_state,
+                              init_staleness_state, make_round_fn, prng,
+                              run_rounds, staircase_delay_trace)
 from repro_torch.core.availability import base_probs_from_data
 from repro_torch.data import (SAMPLING_MODES, FederatedDataset,
                               dirichlet_partition, make_device_sampler,
@@ -39,8 +42,10 @@ def build_image_task(args, rng, device):
                                   alpha=args.alpha, min_per_client=args.batch)
     ds = FederatedDataset(dict(images=task.images, labels=task.labels), idx,
                           seed=args.seed)
-    base_p = base_probs_from_data(
-        rng, torch.from_numpy(nu.astype(np.float32)).to(device))
+    # per-client label distributions ride along for the fault scenarios
+    # (nu-correlated availability, cluster blackouts — core/faults.py)
+    ds.nu = nu.astype(np.float32)
+    base_p = base_probs_from_data(rng, torch.from_numpy(ds.nu).to(device))
     params = cnn.init_cnn(prng.PRNGKey(args.seed, device),
                           in_shape=(8, 8, 1), n_classes=task.n_classes)
     loss_fn = cnn.make_image_loss_fn(cnn.cnn_apply)
@@ -58,7 +63,7 @@ def build_image_task(args, rng, device):
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
     ap.add_argument("--strategy", default="fedawe",
-                    help="aggregation strategy (ported: fedawe)")
+                    help="aggregation strategy (ported: fedawe, fedawe_m)")
     ap.add_argument("--dynamics", default="stationary",
                     choices=["stationary", "staircase", "sine",
                              "interleaved_sine", "markov"],
@@ -88,6 +93,38 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--sampling", default="uniform",
                     choices=list(SAMPLING_MODES),
                     help="device-sampler mode (ported: uniform)")
+    ap.add_argument("--midround-drop", type=float, default=0.0,
+                    help="P(a computed update fails to upload) per client "
+                         "per round — mid-round dropout fault injection "
+                         "(core/faults.py); only delivered updates "
+                         "aggregate")
+    ap.add_argument("--sanitize", action="store_true",
+                    help="demote clients with non-finite local updates to "
+                         "dropped for the round instead of poisoning the "
+                         "aggregate (adds n_dropped/n_rejected metrics)")
+    ap.add_argument("--norm-cap", type=float, default=0.0,
+                    help="with --sanitize: also reject updates with "
+                         "||G_i|| above this cap (0 = non-finite only)")
+    ap.add_argument("--stale-max", type=int, default=None,
+                    help="semi-async rounds (core/staleness.py): bound "
+                         "straggler upload delay by tau_max rounds; a "
+                         "delayed update parks in the pending ring buffer "
+                         "and aggregates on arrival (0 = synchronous, the "
+                         "default; implies --flat-state)")
+    ap.add_argument("--stale-kind", default=None,
+                    choices=["det", "geom", "trace"],
+                    help="delay dynamics (default: det): det = every "
+                         "straggler takes --stale-delay rounds, geom = "
+                         "geometric arrival with --stale-p, trace = "
+                         "replayed staircase per-client delay schedule")
+    ap.add_argument("--stale-delay", type=int, default=None,
+                    help="det delay in rounds (default: 1)")
+    ap.add_argument("--stale-p", type=float, default=None,
+                    help="geom per-round arrival probability (default: 0.5)")
+    ap.add_argument("--stale-gamma", type=float, default=None,
+                    help="staleness delivery discount base: an update "
+                         "arriving d rounds late aggregates with weight "
+                         "gamma**d (default: 1.0 = undiscounted)")
     ap.add_argument("--eval-every", type=int, default=50)
     ap.add_argument("--out", default=None)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
@@ -96,12 +133,36 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def fault_configs(args):
+    """``(fault_cfg, stale_cfg)`` from the fault and stale flags, composed
+    as the reference launcher composes them (train.py:279-299, :319-326):
+    any fault flag builds a ``FaultCfg``, any stale flag a
+    ``StalenessCfg`` over its defaults; ``tau_max = 0`` means none."""
+    fault_cfg = None
+    if args.midround_drop or args.sanitize or args.norm_cap:
+        fault_cfg = FaultCfg(upload_survival=1.0 - args.midround_drop,
+                             sanitize=args.sanitize or args.norm_cap > 0,
+                             norm_cap=args.norm_cap)
+    stale_cfg = None
+    flags = dict(tau_max=args.stale_max, kind=args.stale_kind,
+                 delay=args.stale_delay, p_next=args.stale_p,
+                 gamma=args.stale_gamma)
+    if any(v is not None for v in flags.values()):
+        stale_cfg = dataclasses.replace(
+            StalenessCfg(), **{k: v for k, v in flags.items()
+                               if v is not None})
+        if stale_cfg.tau_max == 0:
+            stale_cfg = None
+    return fault_cfg, stale_cfg
+
+
 def setup(args, device):
     """Everything a run needs, built on ``device`` as the reference
     launcher builds it (train.py:302-357): the same ``PRNGKey(seed)``
-    feeds ``base_probs_from_data`` and ``init_fl_state``, and
-    ``PRNGKey(seed + 1)`` is the data key.  Returns a dict with ``state``,
-    ``round_fn``, ``ds``, ``eval_fn`` and ``data_key``."""
+    feeds ``base_probs_from_data`` and ``init_fl_state``,
+    ``PRNGKey(seed + 1)`` is the data key and ``PRNGKey(seed + 3)`` draws
+    the replayed delay trace of ``--stale-kind trace``.  Returns a dict
+    with ``state``, ``round_fn``, ``ds``, ``eval_fn`` and ``data_key``."""
     rng = prng.PRNGKey(args.seed, device)
     params, loss_fn, ds, base_p, eval_fn = build_image_task(args, rng,
                                                             device)
@@ -109,8 +170,20 @@ def setup(args, device):
                   strategy=args.strategy, use_kernel=args.use_kernel,
                   flat_state=args.flat_state)
     av = AvailabilityCfg(kind=args.dynamics, gamma=args.gamma)
-    return dict(state=init_fl_state(rng, fl, params),
-                round_fn=make_round_fn(fl, loss_fn, {}, av, base_p),
+    fault_cfg, stale_cfg = fault_configs(args)
+    stale_state = None
+    if stale_cfg is not None:
+        dtrace = None
+        if stale_cfg.kind == "trace":
+            dtrace = staircase_delay_trace(
+                prng.PRNGKey(args.seed + 3, device), args.m, args.rounds)
+        stale_state = init_staleness_state(
+            stale_cfg, FlatSpec.from_tree(params).size, args.m,
+            dtrace=dtrace, device=device)
+    return dict(state=init_fl_state(rng, fl, params, stale=stale_state),
+                round_fn=make_round_fn(fl, loss_fn, {}, av, base_p,
+                                       fault_cfg=fault_cfg,
+                                       staleness_cfg=stale_cfg),
                 ds=ds, eval_fn=eval_fn,
                 data_key=prng.PRNGKey(args.seed + 1, device))
 
@@ -118,6 +191,8 @@ def setup(args, device):
 def run(args):
     """Train as the parsed ``args`` say; returns ``(state, history,
     final)``.  The body of ``main``, without its printing and output."""
+    # the pending-update ring rides the flat [m, N] substrate
+    args.flat_state = args.flat_state or fault_configs(args)[1] is not None
     if not args.flat_state:
         raise NotImplementedError(
             "tree-state path not ported: pass --flat-state")

@@ -1,0 +1,150 @@
+"""The small FL problem of tests/test_faults.py and tests/test_staleness.py
+(a linear model, M = 8 clients, the device sampler, keys 0 and 42),
+driven through the JAX package or its port from the same numpy inputs,
+and the comparison both parity files apply to the two runs.
+
+``run(pkg, strategy, fault=None, stale=None, ...)`` takes the fault and
+staleness configs as plain dicts of ``FaultCfg`` / ``StalenessCfg``
+fields, so one description builds both packages' configs."""
+import numpy as np
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from repro import core as ref_core
+from repro.core import faults as ref_faults
+from repro.core import staleness as ref_stale
+from repro.data import federated as ref_fed
+from repro_torch import core
+from repro_torch.core import faults, prng, staleness
+from repro_torch.data import federated as fed
+
+M, S, B, DIM = 8, 3, 4, 4
+N_FLAT = DIM * DIM + 7                   # the linear model's flat width
+#: counts and integer-valued means: bit-equal between the packages
+EXACT = ("n_active", "n_dropped", "n_rejected", "n_stale", "mean_echo",
+         "mean_staleness", "t")
+
+
+def arrays(nan_client=None):
+    rng = np.random.default_rng(0)
+    n = 48
+    x = rng.normal(size=(n, DIM)).astype(np.float32)
+    y = rng.normal(size=(n, DIM)).astype(np.float32)
+    idx = [np.arange(i, n, M) for i in range(M)]
+    if nan_client is not None:
+        x[idx[nan_client]] = np.nan      # every batch of that client is bad
+    return dict(x=x, y=y), idx
+
+
+def _jax_loss(tr, frozen, batch, rng):
+    return (0.5 * jnp.mean((batch["x"] @ tr["w"] - batch["y"]) ** 2)
+            + jnp.sum(tr["b"] ** 2))
+
+
+def _torch_loss(tr, frozen, batch, rng):
+    return (0.5 * torch.mean((batch["x"] @ tr["w"] - batch["y"]) ** 2)
+            + torch.sum(tr["b"] ** 2))
+
+
+def _run_ref(strategy, fault, stale, *, chunk, use_kernel, T, K,
+             trace, clusters, dtrace, nan_client, base_p, kind):
+    store = ref_fed.device_store(*arrays(nan_client))
+    init_fn, sample_fn = ref_fed.make_device_sampler(M, S, B)
+    cfg = ref_core.FLConfig(m=M, s=S, eta_l=0.03, strategy=strategy,
+                            lr_schedule=False, grad_clip=0.0,
+                            use_kernel=use_kernel, flat_state=True)
+    fc = None if fault is None else ref_faults.FaultCfg(**fault)
+    sc = None if stale is None else ref_stale.StalenessCfg(**stale)
+    rf = ref_core.make_round_fn(
+        cfg, _jax_loss, {}, ref_core.AvailabilityCfg(kind=kind, gamma=0.3),
+        jnp.full((M,), base_p), fault_cfg=fc, staleness_cfg=sc)
+    tr0 = {"w": jnp.ones((DIM, DIM)) * 0.1, "b": jnp.zeros((7,))}
+    state = ref_core.init_fl_state(
+        jax.random.PRNGKey(0), cfg, tr0,
+        fault=ref_faults.init_fault_state(fc, trace=trace,
+                                          clusters=clusters),
+        stale=ref_stale.init_staleness_state(sc, N_FLAT, M, dtrace=dtrace))
+    key = jax.random.PRNGKey(42)
+    return ref_core.run_rounds(
+        state, rf, None, T, chunk_rounds=K if chunk else 0,
+        sample_fn=sample_fn, store=store, data_key=key,
+        sampler_state=init_fn(store, key))
+
+
+def _run_port(strategy, fault, stale, *, chunk, use_kernel, T, K,
+              trace, clusters, dtrace, nan_client, base_p, kind):
+    store = fed.device_store(*arrays(nan_client), "cpu")
+    init_fn, sample_fn = fed.make_device_sampler(M, S, B)
+    cfg = core.FLConfig(m=M, s=S, eta_l=0.03, strategy=strategy,
+                        lr_schedule=False, grad_clip=0.0,
+                        use_kernel=use_kernel, flat_state=True)
+    fc = None if fault is None else faults.FaultCfg(**fault)
+    sc = None if stale is None else staleness.StalenessCfg(**stale)
+    rf = core.make_round_fn(
+        cfg, _torch_loss, {}, core.AvailabilityCfg(kind=kind, gamma=0.3),
+        torch.full((M,), base_p), fault_cfg=fc, staleness_cfg=sc)
+    tr0 = {"w": torch.ones((DIM, DIM)) * 0.1, "b": torch.zeros((7,))}
+    state = core.init_fl_state(
+        prng.PRNGKey(0, "cpu"), cfg, tr0,
+        fault=faults.init_fault_state(fc, trace=trace, clusters=clusters),
+        stale=staleness.init_staleness_state(sc, N_FLAT, M, dtrace=dtrace))
+    key = prng.PRNGKey(42, "cpu")
+    return core.run_rounds(
+        state, rf, None, T, chunk_rounds=K if chunk else 0,
+        sample_fn=sample_fn, store=store, data_key=key,
+        sampler_state=init_fn(store, key))
+
+
+def run(pkg, strategy="fedawe", fault=None, stale=None, *, chunk=False,
+        use_kernel=False, T=6, K=4, trace=None, clusters=None, dtrace=None,
+        nan_client=None, base_p=0.6, kind="sine"):
+    """``(state, history)`` of T rounds of ``pkg`` ("ref" or "port")."""
+    fn = _run_ref if pkg == "ref" else _run_port
+    return fn(strategy, fault, stale, chunk=chunk, use_kernel=use_kernel,
+              T=T, K=K, trace=trace, clusters=clusters, dtrace=dtrace,
+              nan_client=nan_client, base_p=base_p, kind=kind)
+
+
+def _close(got, want):
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4,
+                               equal_nan=True)
+
+
+def assert_parity(ref, port):
+    """Counts, τ, keys and ring ages bit-equal; states and losses within
+    1e-4 (tests/test_engine_kernel_path.py's bound)."""
+    (rs, rh), (ps, ph) = ref, port
+    assert len(rh) == len(ph)
+    for w, g in zip(rh, ph):
+        assert set(g) == set(w), (set(g), set(w))
+        for k in w:
+            if k in EXACT:
+                assert g[k] == w[k], (k, g[k], w[k])
+            else:
+                _close(g[k], w[k])
+    np.testing.assert_array_equal(ps.tau.numpy(), np.asarray(rs.tau))
+    np.testing.assert_array_equal(ps.rng.numpy(),
+                                  np.asarray(rs.rng).astype(np.int64))
+    _close(ps.global_tr.numpy(), np.asarray(rs.global_tr))
+    _close(ps.clients_tr.numpy(), np.asarray(rs.clients_tr))
+    if rs.extra:
+        _close(ps.extra["v"].numpy(), np.asarray(rs.extra["v"]))
+    assert (ps.stale is None) == (rs.stale is None)
+    if rs.stale is not None:
+        np.testing.assert_array_equal(ps.stale["ages"].numpy(),
+                                      np.asarray(rs.stale["ages"]))
+        _close(ps.stale["buf"].numpy(), np.asarray(rs.stale["buf"]))
+
+
+def assert_same_port(a, b):
+    """Two port runs (host loop against chunked) agree exactly."""
+    (sa, ha), (sb, hb) = a, b
+    assert ha == hb
+    for name in ("global_tr", "clients_tr", "tau", "t", "markov", "rng"):
+        assert torch.equal(getattr(sa, name), getattr(sb, name)), name
+    if sa.stale is not None:
+        for k in sa.stale:
+            assert torch.equal(sa.stale[k].nan_to_num(),
+                               sb.stale[k].nan_to_num()), k

@@ -46,7 +46,8 @@ def test_every_module_imports_without_jax_or_repro():
                  "repro_torch.kernels.ssd_chunk.kernel",
                  "repro_torch.kernels.ssd_chunk.ops",
                  "repro_torch.kernels.ssd_chunk.ref",
-                 "repro_torch.configs.zamba2_7b"):
+                 "repro_torch.configs.zamba2_7b",
+                 "repro_torch.core.faults", "repro_torch.core.staleness"):
         assert name in mods, name
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
