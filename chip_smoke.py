@@ -20,8 +20,9 @@ printed as JSON lines:
      float32 and 5e-2 for bfloat16 (tests/test_kernels.py's bounds); an
      all-zero mask must return the previous global exactly.  Variants:
      K1 the fused FedAWE update, K2 with non-binary upload weights, K3
-     without the empty-round guard.  Then K4 (ptxas's register and spill
-     report printed) against its plain version in float32 and bfloat16:
+     without the empty-round guard.  Then K4 (ptxas's registers, spills
+     and remarks per instantiation printed, and the bf16 kernel's dynamic
+     shared memory) against its plain version in float32 and bfloat16:
      the six cases of tests/test_kernels.py:84-91, the window's lower
      edge, the dtype case of :108, head dim 256 (the main path's build)
      at short lengths where the outputs are O(1), gemma2-2b's attention
@@ -31,7 +32,10 @@ printed as JSON lines:
      own largest element (rows that average thousands of keys have
      outputs near 0.03); zamba2-7b's attention (head dim 112, 32 heads,
      global) at full length on one batch row and 8 heads, and at 256
-     tokens on all.  Then K5 (ptxas's report printed) against its plain
+     tokens on all; ragged shapes (L and S off the tiles, head dim 112
+     with GQA and a window, suffixes, head dim 16).  In bfloat16, up to
+     1 024 queries, the same bounds also against ``flash_mha_tiled_ref``,
+     the kernel's own tile-by-tile algorithm in plain torch.  Then K5 (ptxas's report printed) against its plain
      version in float32 and bfloat16 at tests/test_kernel_ssd.py's
      shapes, K = 1, zamba2-7b's (B 2, L 8192, H 112, P 64, N 64) and
      mamba2-130m's (H 24, N 128), on the strided views and the stride-0
@@ -111,7 +115,9 @@ printed as JSON lines:
      inside a round), and the device ms of one ``step_buffer`` over its
      [4, 100, 27 370] ring.  K4 at gemma2-2b's two shapes: kernel, plain
      version, the compiled flex_attention yardstick and SDPA (no soft-cap
-     or window) in CUDA events, the bound in tensor-core flops; prefill ms and
+     or window) in CUDA events, the bound in tensor-core flops, the
+     share of the bound, the kernel's time over the library's and the
+     flops its tiles issue (``flash_issued_flops``); prefill ms and
      decode ms per step of the LM path and a profiler breakdown of one
      prefill and one decode step.  K5 at zamba2-7b's and mamba2-130m's
      shapes (kernel, plain version, the bound from ``ssd_chunk_bound``;
@@ -131,6 +137,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -154,6 +161,50 @@ FAULT_FLAGS = MAIN_FLAGS + ["--midround-drop", "0.3", "--sanitize",
                             "--stale-p", "0.5", "--stale-gamma", "0.7"]
 DROP_ALL_FLAGS = MAIN_FLAGS + ["--midround-drop", "1.0", "--sanitize"]
 TAU_MAX, NAN_ROUNDS = 4, 4
+
+
+def short_name(mangled):
+    """`flash_fwd_bf16<256,256,1>` for an instantiation's mangled name
+    (int and bool template arguments; the template's name is the one its
+    length prefix fits)."""
+    m = re.search(r"I((?:L[ib]\d+E)+)E", mangled)
+    if not m:
+        return mangled
+    head = mangled[:m.start()]
+    for n in range(len(head) - 1, 0, -1):
+        if head.endswith(str(n) + head[-n:]) and head[-n][0].isalpha():
+            args = ",".join(re.findall(r"L[ib](\d+)E", m.group(1)))
+            return f"{head[-n:]}<{args}>"
+    return mangled
+
+
+def ptxas_report(log):
+    """ptxas -v's report per kernel instantiation: registers, spills,
+    stack, and any remark (C7510-C7515: wgmma serialised, setmaxnreg
+    ignored) that names it."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"\(C75\d\d\).*in the function '(\w+)'", line)
+        if m:
+            out.setdefault(short_name(m.group(1)), {}).setdefault(
+                "remarks", []).append(line.split("ptxas info    : ")[-1]
+                                      .split(" in the function")[0])
+            continue
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)", line)
+        if m:
+            cur = out.setdefault(short_name(m.group(1)), {})
+            continue
+        if cur is None:
+            continue
+        for key, pat in (("registers", r"Used (\d+) registers"),
+                         ("stack_bytes", r"(\d+) bytes stack frame"),
+                         ("spill_stores", r"(\d+) bytes spill stores"),
+                         ("spill_loads", r"(\d+) bytes spill loads")):
+            m = re.search(pat, line)
+            if m:
+                cur[key] = int(m.group(1))
+    return out
 
 
 def emit(obj):
@@ -520,6 +571,15 @@ HEAD256_CASES = [(1, 8, 4, 96, 96, 256, 17, 50.0, True),
 GEMMA_ATTN = [(2, 8, 4, 8192, 8192, 256, 4096, 50.0, True),
               (2, 8, 4, 8192, 8192, 256, None, 50.0, True),
               (2, 8, 4, 1024, 8192, 256, 4096, 50.0, True)]
+#: ragged shapes for the bf16 kernel's TMA out-of-bounds fill and edge
+#: tiles: L and S not multiples of its 128-query or 64-key tiles, head dim
+#: 112 (zamba2-7b's, products over 112 of the 128 padded dims) with GQA
+#: and a window, suffixes with L < S, head dim 16 (padded to 64)
+FLASH_RAGGED_CASES = [(1, 4, 2, 100, 100, 64, None, 0.0, True),
+                      (2, 8, 4, 200, 333, 256, 77, 50.0, True),
+                      (1, 8, 2, 130, 130, 112, 40, 0.0, True),
+                      (1, 4, 4, 70, 300, 112, None, 0.0, False),
+                      (1, 2, 1, 129, 257, 16, 3, 20.0, True)]
 FLASH_TOL = {"float32": 1e-4, "bfloat16": 3e-2}  # tests/test_kernels.py
 #: every output row (one query, one head) against its own scale: max over
 #: the head dim of |kernel - plain| over max over the head dim of |plain|.
@@ -581,16 +641,24 @@ def row_rel_err(out, plain):
     return (err / scale).max().item()
 
 
+#: the tiled plain version loops over tiles in Python; past this many
+#: queries (the full-length gemma2-2b and zamba2-7b cases) it is not run
+TILED_MAX_L = 1024
+
+
 def check_flash(torch, fops, fref):
     """Every case, float32 and bfloat16: one wrapper call (exactly one
     launch), the plain version on the same tensors, the absolute bound of
-    tests/test_kernels.py and the row-scaled one.  Returns the largest
-    error of the main path's cases (bfloat16 at the gemma2-2b shapes)."""
+    tests/test_kernels.py and the row-scaled one; in bfloat16 up to
+    TILED_MAX_L queries also the same bounds against
+    ``flash_mha_tiled_ref``, the kernel's own algorithm in plain torch.
+    Returns the largest error of the main path's cases (bfloat16 at the
+    gemma2-2b shapes)."""
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).replace("torch.", "")
         for i, case in enumerate(FLASH_CASES + HEAD256_CASES + GEMMA_ATTN
-                                 + ZAMBA_ATTN_CHECK):
+                                 + ZAMBA_ATTN_CHECK + FLASH_RAGGED_CASES):
             q, k, v = flash_inputs(torch, case, dtype, seed=300 + i)
             before = fops.flash_mha.launches
             out = fops.flash_mha(q, k, v, **flash_kw(case))
@@ -607,6 +675,17 @@ def check_flash(torch, fops, fref):
                   and torch.allclose(out.float(), plain.float(), rtol=tol,
                                      atol=tol)
                   and row_err <= FLASH_ROW_TOL[name])
+            tiled = {}
+            if dtype == torch.bfloat16 and case[3] <= TILED_MAX_L:
+                ref_t = fref.flash_mha_tiled_ref(q, k, v, **flash_kw(case))
+                tiled = dict(
+                    tiled_max_abs_err=(out.float() - ref_t.float()).abs()
+                    .max().item(),
+                    tiled_row_rel_err=row_rel_err(out, ref_t))
+                ok = ok and torch.allclose(out.float(), ref_t.float(),
+                                           rtol=tol, atol=tol) \
+                    and tiled["tiled_row_rel_err"] <= FLASH_ROW_TOL[name]
+                del ref_t
             emit(dict(phase="kernel_check", kernel="K4", shape=case[:6],
                       window=case[6], softcap=case[7], causal=case[8],
                       dtype=name, launches=launched, max_abs_err=err,
@@ -614,7 +693,7 @@ def check_flash(torch, fops, fref):
                       plain_row_absmax_median=plain.float().abs().amax(-1)
                       .median().item(),
                       row_rel_err=row_err, row_tol=FLASH_ROW_TOL[name],
-                      ok=ok))
+                      **tiled, ok=ok))
             if not ok:
                 raise AssertionError(f"flash attention at {case} {name} "
                                      "disagrees with its plain version")
@@ -648,6 +727,36 @@ def flash_bound(case, esize, flop_per_s):
             "bytes" if t_bytes >= t_ops else "operations", flops)
 
 
+#: the bf16 kernel's tiles (kernels/flash_attention/csrc: kBM, kBN)
+FLASH_BM, FLASH_BN = 128, 64
+
+
+def flash_product_dims(D):
+    """Head dims the bf16 kernel's products run over: 112 at head dim 112,
+    else D padded to 64, 128 or 256."""
+    return 112 if D == 112 else 64 if D <= 64 else 128 if D <= 128 else 256
+
+
+def flash_issued_flops(case, BM, BN, DP):
+    """Tensor-core flops the bf16 kernel issues for ``case``: every query
+    tile of BM rows loads the key tiles of BN keys from its first row's
+    oldest live key to its last real row's newest one, and each of its
+    BM / 64 warpgroups runs q.k^T and p.v over DP head dims on every such
+    tile (diagonal, window-edge and ragged tiles, and warpgroups past L,
+    whole)."""
+    B, H, K, L, S, D, window, _, causal = case
+    off, tiles = S - L, 0
+    for r0 in range(0, L, BM):
+        kb, ke = 0, S
+        if causal:
+            ke = min(ke, min(r0 + BM, L) + off)
+        if window:
+            kb = max(kb, r0 + off - window + 1)
+        if ke > kb:
+            tiles += (ke + BN - 1) // BN - kb // BN
+    return B * H * tiles * (BM // 64) * 2 * (2 * 64 * BN * DP)
+
+
 def flex_call(torch, q, k, v, window, softcap):
     """The yardstick: one compiled torch flex_attention call computing the
     same function (soft-cap score_mod, causal + window block mask, GQA)
@@ -677,8 +786,8 @@ def flex_call(torch, q, k, v, window, softcap):
 
 def time_flash(torch, fops, fref, smi):
     """K4 at the main path's two shapes (bf16, windowed and global): the
-    kernel over 5 calls, the plain version over 2, the flex_attention
-    yardstick over 5 (and its error against the plain version), SDPA
+    kernel over 20 calls, the plain version over 2, the flex_attention
+    yardstick over 20 (and its error against the plain version), SDPA
     without soft-cap or window (not the same function) for scale, the
     float32 kernel over 2; CUDA events after a warm call."""
     out = {}
@@ -686,7 +795,7 @@ def time_flash(torch, fops, fref, smi):
         tag = "windowed" if case[6] else "global"
         q, k, v = flash_inputs(torch, case, torch.bfloat16, seed=700)
         kw = flash_kw(case)
-        k_ms = events_ms(torch, lambda: fops.flash_mha(q, k, v, **kw), 5)
+        k_ms = events_ms(torch, lambda: fops.flash_mha(q, k, v, **kw), 20)
         plain = fref.flash_mha_ref(q, k, v, **kw)
         p_ms = events_ms(torch, lambda: fref.flash_mha_ref(q, k, v, **kw), 2)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -695,7 +804,7 @@ def time_flash(torch, fops, fref, smi):
         flex_err = (flex().transpose(1, 2).float()
                     - plain.float()).abs().max().item()
         flex_compile_s = time.perf_counter() - t0
-        f_ms = events_ms(torch, flex, 5)
+        f_ms = events_ms(torch, flex, 20)
         sdpa_ms = events_ms(torch, lambda: torch.nn.functional
                             .scaled_dot_product_attention(
                                 qt, kt, vt, is_causal=True, enable_gqa=True),
@@ -706,6 +815,8 @@ def time_flash(torch, fops, fref, smi):
         f32_ms = events_ms(torch, lambda: fops.flash_mha(q32, k32, v32,
                                                          **kw), 2)
         f32_bound, f32_by, _ = flash_bound(case, 4, FP32_FLOP_PER_S)
+        issued = flash_issued_flops(case, FLASH_BM, FLASH_BN,
+                                    flash_product_dims(case[5]))
         out[tag] = dict(ms=k_ms, plain_ms=p_ms, library_ms=f_ms,
                         library="torch flex_attention (compiled)",
                         library_max_abs_err=flex_err,
@@ -713,6 +824,9 @@ def time_flash(torch, fops, fref, smi):
                         sdpa_no_softcap_no_window_ms=sdpa_ms,
                         bound_ms=b_ms, bound_by=b_by, flops=flops,
                         tflop_per_s=flops / k_ms / 1e9,
+                        share_of_bound=b_ms / k_ms, vs_library=k_ms / f_ms,
+                        issued_flops=issued,
+                        issued_tflop_per_s=issued / k_ms / 1e9,
                         f32_ms=f32_ms, f32_bound_ms=f32_bound,
                         f32_bound_by=f32_by)
         emit(dict(phase="kernel_time", card=smi, kernel="K4", shape=case[:6],
@@ -1253,26 +1367,30 @@ ZAMBA_ATTN = (2, 32, 32, 8192, 8192, 112, None, 0.0, True)
 
 
 def time_flash_zamba(torch, fops, fref, smi):
-    """K4 at zamba2-7b's attention (bf16): the kernel over 5 calls at the
+    """K4 at zamba2-7b's attention (bf16): the kernel over 20 calls at the
     full shape; SDPA (is_causal, the same function here: no soft-cap, no
-    window, G = 1) as the library yardstick; the plain version at the
-    check's cut shape (one batch row, 8 heads) and the kernel there."""
+    window, G = 1) over 20 as the library yardstick; the plain version at
+    the check's cut shape (one batch row, 8 heads) and the kernel there."""
     q, k, v = flash_inputs(torch, ZAMBA_ATTN, torch.bfloat16, seed=710)
-    k_ms = events_ms(torch, lambda: fops.flash_mha(q, k, v), 5)
+    k_ms = events_ms(torch, lambda: fops.flash_mha(q, k, v), 20)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib_err = (sdpa(qt, kt, vt, is_causal=True).transpose(1, 2).float()
                - fops.flash_mha(q, k, v).float()).abs().max().item()
-    lib_ms = events_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True), 5)
+    lib_ms = events_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True), 20)
     cut = ZAMBA_ATTN_CHECK[0]
     qc, kc, vc = (x[:1, :, :cut[1]] for x in (q, k, v))
     cut_ms = events_ms(torch, lambda: fops.flash_mha(qc, kc, vc), 5)
     plain_cut_ms = events_ms(torch, lambda: fref.flash_mha_ref(qc, kc, vc), 2)
     b_ms, b_by, flops = flash_bound(ZAMBA_ATTN, 2, BF16_FLOP_PER_S)
+    issued = flash_issued_flops(ZAMBA_ATTN, FLASH_BM, FLASH_BN,
+                                flash_product_dims(ZAMBA_ATTN[5]))
     rec = dict(ms=k_ms, library_ms=lib_ms,
                library="torch scaled_dot_product_attention (is_causal)",
                library_max_abs_err_vs_kernel=lib_err, bound_ms=b_ms,
                bound_by=b_by, flops=flops, tflop_per_s=flops / k_ms / 1e9,
+               share_of_bound=b_ms / k_ms, vs_library=k_ms / lib_ms,
+               issued_flops=issued, issued_tflop_per_s=issued / k_ms / 1e9,
                cut_shape=cut[:6], ms_at_cut=cut_ms, plain_ms_at_cut=plain_cut_ms)
     emit(dict(phase="kernel_time", card=smi, kernel="K4", arch="zamba2-7b",
               shape=ZAMBA_ATTN[:6], dtype="bfloat16", **rec))
@@ -1726,11 +1844,13 @@ def main():
     t1 = time.perf_counter()
     for name, build in builds.items():
         lib = build.result()
-        report = lib.with_suffix(".log").read_text().splitlines()
+        report = lib.with_suffix(".log").read_text()
         emit(dict(phase="kernel_build", kernel=name, library=str(lib),
                   wait_s=time.perf_counter() - t1,
-                  ptxas=[line.strip() for line in report
-                         if "registers" in line or "spill" in line]))
+                  ptxas=ptxas_report(report)))
+    emit(dict(phase="kernel_build", kernel="K4",
+              bf16_dynamic_smem_bytes={D: fkernel.bf16_smem_bytes(D)
+                                       for D in (64, 112, 128, 256)}))
     build_pool.shutdown()
     flash_err = check_flash(torch, fops, fref)
     ssd_err = check_ssd(torch, sops, sref)

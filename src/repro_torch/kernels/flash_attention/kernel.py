@@ -28,10 +28,17 @@ def _bind(lib):
     fn.restype = ctypes.c_int
     lib.flash_attention_error.argtypes = [ctypes.c_int]
     lib.flash_attention_error.restype = ctypes.c_char_p
+    lib.flash_attention_bf16_smem.argtypes = [ctypes.c_int]
+    lib.flash_attention_bf16_smem.restype = ctypes.c_int
 
 
 LIBRARY = CudaLibrary("flash_attention", SOURCE, _bind)
 build = LIBRARY.build
+
+
+def bf16_smem_bytes(D):
+    """Dynamic shared memory of the bf16 kernel's build for head dim D."""
+    return LIBRARY.load().flash_attention_bf16_smem(D)
 
 
 def launch(q, k, v, out, *, causal, window, softcap):

@@ -20,6 +20,11 @@ from repro_torch.kernels.flash_attention.ref import flash_mha_ref
 
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 256
+#: the bf16 kernel's query tile, the largest grid axis and the largest
+#: tensor-map stride
+QUERY_TILE = 128
+MAX_GRID = 65535
+MAX_STRIDE_BYTES = 2 ** 40
 
 
 def _check(q, k, v, causal, window, softcap):
@@ -56,13 +61,22 @@ def _check(q, k, v, causal, window, softcap):
 
 
 def _check_kernel_operands(q, k, v):
-    """What the CUDA kernel needs beyond ``_check``: head dims that are a
+    """What the CUDA kernels need beyond ``_check``: head dims that are a
     multiple of 8 up to 256, a unit last stride, and rows that start on
-    16-byte boundaries (vector loads)."""
-    D = q.shape[-1]
+    16-byte boundaries (vector loads; TMA's base and stride alignment).
+    The bf16 kernel's tensor maps take strides below 2^40 bytes and dims
+    that fit 32 bits, and its grid (heads, batch, 128-query tiles) at most
+    65 535 blocks along each axis."""
+    B, L, H, D = q.shape
+    S, K = k.shape[1], k.shape[2]
     if D % 8 != 0 or D > MAX_HEAD_DIM:
         raise ValueError(f"the kernel takes head dims that are a multiple "
                          f"of 8 up to {MAX_HEAD_DIM}; got {D}")
+    if max(B, H, -(-L // QUERY_TILE)) > MAX_GRID or max(L, S) >= 2 ** 31:
+        raise ValueError(f"the kernel's grid takes at most {MAX_GRID} "
+                         f"heads, batch rows and {QUERY_TILE}-query tiles, "
+                         f"and lengths below 2^31; got B={B}, H={H}, "
+                         f"L={L}, S={S}")
     per_16_bytes = 16 // q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(-1) != 1 or any(s % per_16_bytes for s in t.stride()[:3]) \
@@ -71,6 +85,9 @@ def _check_kernel_operands(q, k, v):
                              f"the other strides a multiple of "
                              f"{per_16_bytes} elements and a 16-byte aligned "
                              f"start; got strides {t.stride()}")
+        if any(s * t.element_size() >= MAX_STRIDE_BYTES for s in t.stride()):
+            raise ValueError(f"{name}: a tensor map takes strides below "
+                             f"2^40 bytes; got strides {t.stride()}")
 
 
 def flash_mha(q, k, v, *, causal=True, window=None, softcap=0.0):

@@ -79,7 +79,11 @@ class CudaLibrary:
         return lib
 
     def load(self) -> ctypes.CDLL:
-        """The built library with its signatures set."""
+        """The built library with its signatures set.  Once loaded, it is
+        returned without hashing the source again (every launch calls
+        this; hashing took ~0.5 ms a call)."""
+        if self._lib is not None:
+            return self._lib
         path = self.build()
         with self._lock:
             if self._lib is None:

@@ -180,6 +180,37 @@ def test_flash_mha_model_layout():
                                atol=1e-4)
 
 
+def _kernel_operands(which):
+    """CPU operands (q, k) that only the CUDA kernels' own check refuses:
+    views with size-1 or stride-0 dims, so nothing large is allocated."""
+    z = torch.zeros(1, 1, 1, 8, dtype=torch.bfloat16)
+    if which == "head_dim_12":
+        return torch.zeros(1, 1, 1, 12), torch.zeros(1, 1, 1, 12)
+    if which == "head_dim_264":
+        return torch.zeros(1, 1, 1, 264), torch.zeros(1, 1, 1, 264)
+    if which == "last_stride":
+        t = torch.zeros(1, 1, 1, 16, dtype=torch.bfloat16)[..., ::2]
+        return t, z
+    if which == "misaligned":
+        t = torch.zeros(1, 1, 1, 9, dtype=torch.bfloat16)[..., 1:]
+        return t, z
+    if which == "row_stride":
+        t = torch.zeros(1, 2, 1, 12, dtype=torch.bfloat16)[..., :8]
+        return t, z
+    if which == "stride_2_40":
+        # a batch stride of 2^40 bytes on a size-1 dim: no storage needed
+        t = torch.as_strided(torch.zeros(8, dtype=torch.bfloat16),
+                             (1, 1, 1, 8), (2 ** 39, 8, 8, 1))
+        return t, z
+    if which == "batch_65536":
+        return z.expand(65536, 1, 1, 8), z
+    if which == "heads_65536":
+        return z.expand(1, 1, 65536, 8), z
+    if which == "query_tiles_65536":
+        return z.expand(1, 65535 * 128 + 1, 1, 8), z
+    raise AssertionError(which)
+
+
 @pytest.mark.parametrize("change,exc", [
     (dict(L=65), ValueError),                      # L > S
     (dict(H=3), ValueError),                       # H % K != 0
@@ -187,8 +218,24 @@ def test_flash_mha_model_layout():
     (dict(window=True), ValueError),
     (dict(softcap=-1.0), ValueError),
     (dict(dtype=torch.float16), TypeError),
+    # what only the CUDA kernels refuse (ops._check_kernel_operands, called
+    # on CPU tensors here: flash_mha runs it on CUDA tensors only)
+    (dict(kernel="head_dim_12"), ValueError),
+    (dict(kernel="head_dim_264"), ValueError),
+    (dict(kernel="last_stride"), ValueError),
+    (dict(kernel="misaligned"), ValueError),
+    (dict(kernel="row_stride"), ValueError),
+    (dict(kernel="stride_2_40"), ValueError),      # TMA strides < 2^40 B
+    (dict(kernel="batch_65536"), ValueError),      # grid axes <= 65 535
+    (dict(kernel="heads_65536"), ValueError),
+    (dict(kernel="query_tiles_65536"), ValueError),
 ])
 def test_flash_mha_rejects(change, exc):
+    if "kernel" in change:
+        q, k = _kernel_operands(change["kernel"])
+        with pytest.raises(exc):
+            ops._check_kernel_operands(q, k, k)
+        return
     p = dict(B=1, L=64, S=64, H=4, K=2, D=16, window=None, softcap=0.0,
              dtype=torch.float32)
     p.update(change)
@@ -196,3 +243,15 @@ def test_flash_mha_rejects(change, exc):
     k = torch.zeros(p["B"], p["S"], p["K"], p["D"], dtype=p["dtype"])
     with pytest.raises(exc):
         ops.flash_mha(q, k, k, window=p["window"], softcap=p["softcap"])
+
+
+def test_kernel_operands_accept_the_limits():
+    """The largest grid and the model layouts pass the kernels' check."""
+    z = torch.zeros(1, 1, 1, 8, dtype=torch.bfloat16)
+    ops._check_kernel_operands(z.expand(65535, 65535 * 128, 1, 8), z, z)
+    ops._check_kernel_operands(z.expand(1, 1, 65535, 8), z, z)
+    for D in (16, 112, 256):
+        q = torch.zeros(2, 64, 8, D, dtype=torch.bfloat16)
+        k = torch.zeros(2, 64, 4, D, dtype=torch.bfloat16)
+        ops._check_kernel_operands(q, k, k)
+        ops._check_kernel_operands(q.float(), k.float(), k.float())
