@@ -9,8 +9,9 @@ one, or when run outside the repository (it imports the port from
 printed as JSON lines:
 
   1. device   — ``nvidia-smi`` name and power limit of card 0.  The CUDA
-     C++ kernels, flash attention (K4) and the SSD chunk (K5), start
-     building together, one nvcc each in its own thread, from
+     C++ kernels, flash attention (K4) and the SSD chunk (K5: its
+     tensor-core kernel and its FP32-pipe kernel), start building
+     together, one nvcc each in its own thread, from
      ``src/repro_torch/kernels/*/csrc`` into ``build/kernels``, while the
      Triton kernels compile and run.
   2. kernels  — builds the Triton echo-aggregate kernel from the source in
@@ -35,13 +36,20 @@ printed as JSON lines:
      tokens on all; ragged shapes (L and S off the tiles, head dim 112
      with GQA and a window, suffixes, head dim 16).  In bfloat16, up to
      1 024 queries, the same bounds also against ``flash_mha_tiled_ref``,
-     the kernel's own tile-by-tile algorithm in plain torch.  Then K5 (ptxas's report printed) against its plain
-     version in float32 and bfloat16 at tests/test_kernel_ssd.py's
-     shapes, K = 1, zamba2-7b's (B 2, L 8192, H 112, P 64, N 64) and
-     mamba2-130m's (H 24, N 128), on the strided views and the stride-0
-     group expansion the model hands it: every y_diag row within 1e-5
-     (float32 inputs) or 1e-2 (bfloat16, one ulp) of its largest element,
-     every states row within 1e-5, the decay within 1e-6 relative.
+     the kernel's own tile-by-tile algorithm in plain torch.  Then K5
+     (ptxas's report printed for both kernels, and the tensor-core
+     kernel's dynamic shared memory) against its plain version in float32
+     and bfloat16 at tests/test_kernel_ssd.py's shapes, K = 1, zamba2-7b's
+     (B 2, L 8192, H 112, P 64, N 64) and mamba2-130m's (H 24, N 128), on
+     the strided views and the stride-0 group expansion the model hands
+     it, and at the tensor-core kernel's edges (``SSD_EDGE``: K 64 and 96,
+     P 40, N 24 and 128, B and C with a nonzero head stride, dA partly
+     positive): every y_diag row within 1e-5 (float32 inputs) or 1e-2
+     (bfloat16, one ulp) of its largest element, every states row within
+     1e-5, the decay within 1e-6 relative; each line names the route
+     ``ops.wgmma_route`` chose, and the bfloat16 cases are held to the
+     same bounds against ``ssd_chunk_tiled_ref``, the tensor-core
+     kernel's arithmetic in plain torch.
   3. main paths, each with every launch count set to 0 just before it
      and read just after:
      a. FL training — ``repro_torch.launch.train`` in-process with
@@ -77,7 +85,8 @@ printed as JSON lines:
         bfloat16 with ``attn_backend="flash"``, random weights from a
         seed: ``prefill`` of B = 2 prompts of 8192 tokens into a cache of
         8192 + 16, then 16 greedy ``serve_step``s.  K5 must launch
-        exactly 68 times (once per Mamba2 layer) and K4 13 times (once
+        exactly 68 times (once per Mamba2 layer), all on the tensor-core
+        kernel, and K4 13 times (once
         per shared-attention invocation) in the prefill, neither in
         decode; every logit finite.  Then the SSD kernel route against
         the plain route inside the model's own layer loop: in bfloat16
@@ -120,8 +129,11 @@ printed as JSON lines:
      flops its tiles issue (``flash_issued_flops``); prefill ms and
      decode ms per step of the LM path and a profiler breakdown of one
      prefill and one decode step.  K5 at zamba2-7b's and mamba2-130m's
-     shapes (kernel, plain version, the bound from ``ssd_chunk_bound``;
-     no PyTorch call computes its function); K4 at zamba2-7b's attention
+     shapes: the tensor-core kernel and the FP32-pipe kernel in turns,
+     the plain version, the bound from ``ssd_chunk_bound`` (tensor cores
+     and bytes; the FP32-pipe bound beside it), the share of the bound and
+     the flops the tiles issue (``ssd_issued_flops``); no PyTorch call
+     computes its function.  K4 at zamba2-7b's attention
      with SDPA (the same function there) as the yardstick; zamba2-7b's
      prefill ms, decode ms per step and a profiler breakdown by part
      (K5, K4, cuBLAS, the inter-chunk loop, the conv).  Each line
@@ -198,6 +210,7 @@ def ptxas_report(log):
         if cur is None:
             continue
         for key, pat in (("registers", r"Used (\d+) registers"),
+                         ("static_smem_bytes", r"(\d+) bytes smem"),
                          ("stack_bytes", r"(\d+) bytes stack frame"),
                          ("spill_stores", r"(\d+) bytes spill stores"),
                          ("spill_loads", r"(\d+) bytes spill loads")):
@@ -1223,25 +1236,63 @@ def ssd_chunk_bound(cfg, batch, seq, esize):
     ``batch`` sequences of ``seq`` tokens, reckoned from
     repro/kernels/ssd_chunk/kernel.py: per (batch, head, chunk) of K rows,
     C.B^T and (L * C.B^T).x on the lower triangle the mask leaves
-    (K(K+1)/2 entries) and the states (B * decay)^T.x in full, on the
-    FP32 pipes (the kernel upcasts its inputs; TF32 is off).  Bytes in the
-    model's dtypes: x, B, C and y_diag at ``esize`` bytes (x, B and C come
-    from the conv, which casts back to the activations' dtype,
-    repro/models/ssm.py:134, and dt is cast to it before x dt, :194; B and
-    C counted per head, as the kernel's operands are shaped), dA, the
-    states and the decay in float32; each read or written once."""
-    K, P, N, H = cfg.ssm_chunk, cfg.ssm_head_dim, cfg.ssm_state, \
-        cfg.ssm_heads
-    programs = batch * H * (seq // K)
+    (K(K+1)/2 entries) and the states (B * decay)^T.x in full.  Bytes in
+    the model's dtypes (x, B, C and y_diag at ``esize`` bytes: x, B and C
+    come from the conv, which casts back to the activations' dtype,
+    repro/models/ssm.py:134, and dt is cast to it before x dt, :194; dA,
+    the states and the decay in float32), each read or written once.
+
+    ``bound_ms`` is the route's: in bfloat16 (esize 2) the tensor-core
+    kernel's, the flops at BF16_FLOP_PER_S and B and C counted once per
+    (batch, chunk, group), as their storage holds them (the model expands
+    them over the heads by a stride-0 view); in float32 ``fp32_bound_ms``,
+    the FP32-pipe kernel's, the flops at FP32_FLOP_PER_S and B and C
+    counted per head, as that kernel's operands are shaped."""
+    K, P, N, H, G = (cfg.ssm_chunk, cfg.ssm_head_dim, cfg.ssm_state,
+                     cfg.ssm_heads, cfg.ssm_groups)
+    chunks = seq // K
+    programs = batch * H * chunks
     tri = K * (K + 1) // 2
     flops = programs * (2 * tri * N + 2 * tri * P + 2 * N * P * K)
-    nbytes = programs * (esize * (2 * K * P + 2 * K * N)
-                         + 4 * (K + N * P + 1))
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
-    return dict(kernel="K5", arch=cfg.name, batch=batch, seq=seq,
-                esize=esize, programs=programs, flops=flops, bytes=nbytes,
-                bound_ms=1e3 * max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
+    per_program = esize * 2 * K * P + 4 * (K + N * P + 1)
+    bc = esize * 2 * K * N
+    fp32_bytes = programs * (per_program + bc)
+    nbytes = programs * per_program + batch * chunks * G * bc
+    fp32_ms = 1e3 * max(fp32_bytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+    rec = dict(kernel="K5", arch=cfg.name, batch=batch, seq=seq,
+               esize=esize, programs=programs, flops=flops, bytes=nbytes,
+               bound_ms=1e3 * max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               fp32_bytes=fp32_bytes, fp32_bound_ms=fp32_ms,
+               fp32_bound_by=("bytes" if fp32_bytes / HBM_BYTES_PER_S
+                              >= flops / FP32_FLOP_PER_S else "operations"))
+    if esize == 4:
+        rec.update(bytes=fp32_bytes, bound_ms=fp32_ms,
+                   bound_by=rec["fp32_bound_by"])
+    return rec
+
+
+#: the tensor-core kernel's tiles (kernels/ssd_chunk/csrc/ssd_chunk_wgmma.cu:
+#: kRows, kWgRows, kPP, kTerms, kWTerms): 128 chunk rows in two consumer
+#: warpgroups of 64, the first over G's columns 0-63 and the second over
+#: 0-127; P padded to 64; S in two bf16 terms, w o x in three
+SSD_ROWS, SSD_WG_ROWS, SSD_PP, SSD_S_TERMS, SSD_W_TERMS = 128, 64, 64, 2, 3
+
+
+def ssd_issued_flops(b, h, c, N, run):
+    """Tensor-core flops the bf16 kernel issues for b * h * c chunks of
+    state width N, ``run`` heads a block: per block G = C.B^T over the two
+    warpgroups' 64 x 64 and 64 x 128 tiles and N padded to 64 or 128; per
+    head y = S.x over those columns (P padded to 64) in SSD_S_TERMS terms,
+    and states^T = (w o x)^T.B over all 128 rows in SSD_W_TERMS terms.
+    Rows past K and columns past P or N are issued too."""
+    NP = 64 if N <= 64 else 128
+    blocks = b * c * -(-h // run)
+    g = 2 * SSD_WG_ROWS * (64 + 128) * NP
+    y = SSD_S_TERMS * 2 * SSD_WG_ROWS * SSD_PP * (64 + 128)
+    st = SSD_W_TERMS * 2 * SSD_PP * NP * SSD_ROWS
+    return blocks * g + b * h * c * (y + st)
 
 
 # ---------------------------------------------------------------------------
@@ -1255,6 +1306,17 @@ SSD_SMALL = [(1, 8, 1, 4, 4, 4), (2, 32, 3, 8, 4, 8), (1, 64, 2, 16, 8, 16),
              (2, 24, 2, 8, 16, 12), (2, 5, 3, 8, 4, 1)]
 SSD_ZAMBA = (2, 8192, 112, 64, 64, 128)
 SSD_MAMBA = (2, 8192, 24, 64, 128, 128)
+#: shapes for the bf16 tensor-core kernel's edges, (case, options): ragged
+#: K (64; 96 with L a multiple of it), P (40) and N (24: 48-byte rows),
+#: N 128 over few heads, B and C with a nonzero head stride (one tile per
+#: head, ``copied``), and dA with some positive entries (``rising``: L
+#: taken directly, not from its factors)
+SSD_EDGE = [((2, 512, 8, 64, 64, 64), {}), ((1, 384, 4, 64, 64, 96), {}),
+            ((2, 256, 4, 40, 64, 128), {}), ((2, 256, 4, 64, 24, 128), {}),
+            ((1, 256, 4, 64, 128, 128), {}),
+            ((1, 256, 4, 64, 128, 128), dict(copied=True)),
+            ((2, 256, 3, 64, 64, 128), dict(copied=True)),
+            ((2, 512, 8, 64, 128, 128), dict(rising=True))]
 #: every row's max |kernel - plain| over its largest plain element: y_diag
 #: rows (one (b, h, c, k), over P) 1e-5 with float32 inputs and 1e-2
 #: (one ulp of the row's largest element) with bfloat16 ones; states rows
@@ -1263,11 +1325,13 @@ SSD_ROW_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 SSD_STATE_TOL, SSD_DECAY_TOL = 1e-5, 1e-6
 
 
-def ssd_inputs(torch, case, dtype, seed):
+def ssd_inputs(torch, case, dtype, seed, copied=False, rising=False):
     """The model's operands on the card: xdt [b, l, h, p] and one group of
-    B, C [b, l, 1, n] in ``dtype``, expanded over the heads with stride 0;
-    dA [b, l, h] float32 from dt = softplus(N(0, 1) - 4.6) (the model's
-    dt_bias) and A = -linspace(1, 16, h) (its A_log)."""
+    B, C [b, l, 1, n] in ``dtype``, expanded over the heads with stride 0
+    (``copied``: B, C [b, l, h, n], one tile per head); dA [b, l, h]
+    float32 from dt = softplus(N(0, 1) - 4.6) (the model's dt_bias) and
+    A = -linspace(1, 16, h) (its A_log), plus U(0, 0.02) when ``rising``
+    (some entries then positive)."""
     b, l, h, p, n, _ = case
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
@@ -1277,8 +1341,15 @@ def ssd_inputs(torch, case, dtype, seed):
     dt = torch.nn.functional.softplus(rand(b, l, h) - 4.6)
     A = -torch.linspace(1.0, 16.0, h, device="cuda")
     xdt = (rand(b, l, h, p) * dt[..., None]).to(dtype)
-    B_, C_ = (rand(b, l, 1, n).to(dtype).expand(b, l, h, n) for _ in "BC")
-    return xdt, dt * A, B_, C_
+    if copied:
+        B_, C_ = (rand(b, l, h, n).to(dtype) for _ in "BC")
+    else:
+        B_, C_ = (rand(b, l, 1, n).to(dtype).expand(b, l, h, n)
+                  for _ in "BC")
+    dA = dt * A
+    if rising:
+        dA = dA + 0.02 * torch.rand(b, l, h, generator=gen, device="cuda")
+    return xdt, dA, B_, C_
 
 
 def rows_rel(out, plain):
@@ -1288,67 +1359,118 @@ def rows_rel(out, plain):
     return (err / plain.float().abs().amax(-1).clamp_min(1e-30)).max().item()
 
 
+def ssd_errors(got, want):
+    """(y_diag, states, decay) against another triple: the row bounds'
+    measures and the largest y_diag difference."""
+    (y, st, dec), (yp, stp, decp) = got, want
+    return dict(y_row_rel_err=rows_rel(y, yp),
+                states_row_rel_err=rows_rel(st, stp),
+                decay_rel_err=((dec - decp).abs()
+                               / decp.abs().clamp_min(1e-30)).max().item(),
+                max_abs_err=(y.float() - yp.float()).abs().max().item())
+
+
+def ssd_within(e, name):
+    return (e["y_row_rel_err"] <= SSD_ROW_TOL[name]
+            and e["states_row_rel_err"] <= SSD_STATE_TOL
+            and e["decay_rel_err"] <= SSD_DECAY_TOL)
+
+
 def check_ssd(torch, sops, sref):
     """Every case, float32 and bfloat16: the wrapper on the regrouped
-    strided views (exactly one launch), the plain version on the same
-    views, the row bounds above.  Returns the largest y_diag error at
-    zamba2-7b's shape in bfloat16 (the main path's)."""
+    strided views (exactly one launch, on the route ``wgmma_route``
+    chose, which each line states), the plain version on the same views,
+    the row bounds above; in bfloat16 also the same bounds against
+    ``ssd_chunk_tiled_ref``, the tensor-core kernel's own arithmetic in
+    plain torch.  Returns the largest y_diag error at zamba2-7b's shape in
+    bfloat16 (the main path's)."""
     worst = 0.0
+    cases = [(c, {}) for c in SSD_SMALL + [SSD_ZAMBA, SSD_MAMBA]] + SSD_EDGE
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).replace("torch.", "")
-        for i, case in enumerate(SSD_SMALL + [SSD_ZAMBA, SSD_MAMBA]):
+        for i, (case, opts) in enumerate(cases):
             chunk = case[-1]
-            views = [sops.regroup(t, chunk)
-                     for t in ssd_inputs(torch, case, dtype, seed=400 + i)]
+            views = [sops.regroup(t, chunk) for t in
+                     ssd_inputs(torch, case, dtype, seed=400 + i, **opts)]
+            route = "wgmma" if sops.wgmma_route(*views) else "simt"
             before = sops.ssd_chunk.launches
-            y, st, dec = sops.ssd_chunk(*views)
+            before_w = sops.ssd_chunk.wgmma_launches
+            got = sops.ssd_chunk(*views)
             torch.cuda.synchronize()
             launched = sops.ssd_chunk.launches - before
-            yp, stp, decp = sref.ssd_chunk_ref(*views)
+            launched_w = sops.ssd_chunk.wgmma_launches - before_w
+            plain = sref.ssd_chunk_ref(*views)
             torch.cuda.synchronize()
-            y_rel, st_rel = rows_rel(y, yp), rows_rel(st, stp)
-            dec_rel = ((dec - decp).abs()
-                       / decp.abs().clamp_min(1e-30)).max().item()
-            err = (y.float() - yp.float()).abs().max().item()
-            ok = (launched == 1 and y.shape == yp.shape and y.dtype == dtype
-                  and st.shape == stp.shape and dec.shape == decp.shape
-                  and all(bool(torch.isfinite(t).all()) for t in (y, st, dec))
-                  and y_rel <= SSD_ROW_TOL[name] and st_rel <= SSD_STATE_TOL
-                  and dec_rel <= SSD_DECAY_TOL)
-            emit(dict(phase="kernel_check", kernel="K5", shape=case,
-                      dtype=name, launches=launched, max_abs_err=err,
-                      y_row_rel_err=y_rel, y_row_tol=SSD_ROW_TOL[name],
-                      states_row_rel_err=st_rel, states_row_tol=SSD_STATE_TOL,
-                      decay_rel_err=dec_rel, decay_tol=SSD_DECAY_TOL,
-                      y_absmax=yp.float().abs().max().item(),
-                      decay_min=decp.min().item(), ok=ok))
+            y, st, dec = got
+            e = ssd_errors(got, plain)
+            ok = (launched == 1 and launched_w == (route == "wgmma")
+                  and y.shape == plain[0].shape and y.dtype == dtype
+                  and st.shape == plain[1].shape
+                  and dec.shape == plain[2].shape
+                  and all(bool(torch.isfinite(t).all()) for t in got)
+                  and ssd_within(e, name))
+            tiled = {}
+            if dtype == torch.bfloat16:
+                et = ssd_errors(got, sref.ssd_chunk_tiled_ref(*views))
+                tiled = {f"tiled_{k}": v for k, v in et.items()}
+                ok = ok and ssd_within(et, name)
+            emit(dict(phase="kernel_check", kernel="K5", shape=case, **opts,
+                      dtype=name, route=route, launches=launched, **e,
+                      y_row_tol=SSD_ROW_TOL[name],
+                      states_row_tol=SSD_STATE_TOL, decay_tol=SSD_DECAY_TOL,
+                      **tiled, y_absmax=plain[0].float().abs().max().item(),
+                      decay_min=plain[2].min().item(), ok=ok))
             if not ok:
-                raise AssertionError(f"SSD chunk kernel at {case} {name} "
-                                     "disagrees with its plain version")
+                raise AssertionError(f"SSD chunk kernel at {case} {opts} "
+                                     f"{name} disagrees with its plain "
+                                     "version or its tiled one")
             if case == SSD_ZAMBA and dtype == torch.bfloat16:
-                worst = err
-            del views, y, st, dec, yp, stp, decp
+                require(route == "wgmma", "zamba2-7b's shape took the "
+                        "FP32-pipe kernel")
+                worst = e["max_abs_err"]
+            del views, got, plain, y, st, dec
             torch.cuda.empty_cache()
     return worst
 
 
 def time_ssd(torch, sops, sref, get_config, smi):
     """K5 in bfloat16 (the main path's dtype) at zamba2-7b's and
-    mamba2-130m's shapes: the kernel over 10 calls and the plain version
-    over 2, CUDA events after a warm call, beside the bound.  No single
+    mamba2-130m's shapes: the tensor-core kernel (the main path's route)
+    and the FP32-pipe kernel through ``_ssd_chunk_simt``, in turns
+    (tensor-core, FP32-pipe, FP32-pipe, tensor-core) over 10 calls each,
+    and the plain version over 2, CUDA events after a warm call, beside
+    the bound and the tensor-core flops the kernel issues.  No single
     PyTorch call computes this function, so there is no library time."""
     out = {}
     for arch, case in (("zamba2-7b", SSD_ZAMBA), ("mamba2-130m", SSD_MAMBA)):
         views = [sops.regroup(t, case[-1])
                  for t in ssd_inputs(torch, case, torch.bfloat16, seed=800)]
-        k_ms = events_ms(torch, lambda: sops.ssd_chunk(*views), 10)
+        require(sops.wgmma_route(*views), f"{arch}: not the wgmma route")
+        turns = {"wgmma": [], "simt": []}
+        for route in ("wgmma", "simt", "simt", "wgmma"):
+            fn = sops.ssd_chunk if route == "wgmma" else sops._ssd_chunk_simt
+            turns[route].append(events_ms(torch, lambda: fn(*views), 10))
+        k_ms = sum(turns["wgmma"]) / 2
+        simt_ms = sum(turns["simt"]) / 2
         p_ms = events_ms(torch, lambda: sref.ssd_chunk_ref(*views), 2)
         bnd = ssd_chunk_bound(get_config(arch), case[0], case[1], 2)
-        out[arch] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bnd["bound_ms"],
-                         bound_by=bnd["bound_by"], flops=bnd["flops"],
-                         bytes=bnd["bytes"],
-                         tflop_per_s=bnd["flops"] / k_ms / 1e9,
-                         bound_share=bnd["bound_ms"] / k_ms, library_ms=None)
+        b, l, h, _, n, K = case
+        run = sops.head_run(b, h, l // K, True, torch.cuda
+                            .get_device_properties(0).multi_processor_count)
+        issued = ssd_issued_flops(b, h, l // K, n, run)
+        out[arch] = dict(ms=k_ms, ms_turns=turns["wgmma"], simt_ms=simt_ms,
+                         simt_ms_turns=turns["simt"], speedup=simt_ms / k_ms,
+                         plain_ms=p_ms, bound_ms=bnd["bound_ms"],
+                         bound_by=bnd["bound_by"],
+                         share_of_bound=bnd["bound_ms"] / k_ms,
+                         fp32_bound_ms=bnd["fp32_bound_ms"],
+                         simt_share_of_fp32_bound=bnd["fp32_bound_ms"]
+                         / simt_ms,
+                         flops=bnd["flops"], bytes=bnd["bytes"],
+                         achieved_gb_per_s=bnd["bytes"] / k_ms / 1e6,
+                         heads_per_block=run, issued_flops=issued,
+                         issued_tflop_per_s=issued / k_ms / 1e9,
+                         library_ms=None)
         emit(dict(phase="kernel_time", card=smi, kernel="K5", arch=arch,
                   shape=case, dtype="bfloat16", **out[arch]))
         del views
@@ -1429,6 +1551,7 @@ def zamba_main_path(torch, model, cfg, params, tokens, counts):
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     after_prefill = counts.read()
+    k5_wgmma = counts.k5_wgmma()
     t0 = time.perf_counter()
     steps = decode(torch, model, params, cfg, cache, logits, LM_L, LM_NEW)
     torch.cuda.synchronize()
@@ -1437,6 +1560,9 @@ def zamba_main_path(torch, model, cfg, params, tokens, counts):
     require(after_prefill == dict(K1=0, K2=0, K3=0, K4=ZAMBA_ATTN_LAYERS,
                                   K5=ZAMBA_MAMBA),
             f"prefill launches {after_prefill}")
+    require(k5_wgmma == ZAMBA_MAMBA and counts.k5_wgmma() == k5_wgmma,
+            f"{k5_wgmma} of the prefill's {ZAMBA_MAMBA} K5 launches on the "
+            "tensor-core route (the rest on the FP32-pipe kernel)")
     require(launches == after_prefill, f"decode launched {launches}")
     all_logits = torch.stack([logits] + steps)
     require(all_logits.shape == (LM_NEW + 1, LM_B, cfg.vocab),
@@ -1445,6 +1571,7 @@ def zamba_main_path(torch, model, cfg, params, tokens, counts):
     emit(dict(phase="zamba_main_path", arch=cfg.name, dtype=cfg.dtype,
               params=cfg.param_count(), batch=LM_B, prompt=LM_L,
               decode_steps=LM_NEW, launches=launches,
+              k5_routes=dict(wgmma=k5_wgmma, simt=ZAMBA_MAMBA - k5_wgmma),
               first_prefill_s=prefill_s, decode_s=decode_s,
               tokens=torch.argmax(all_logits, -1).T.tolist(),
               logits_absmax=all_logits.abs().max().item()))
@@ -1557,7 +1684,8 @@ def zamba_parity_small(torch, model, get_config, reduced):
 
 
 #: kernel-name substrings of the zamba2-7b profile's parts
-ZAMBA_PARTS = {"K5": ("ssd_chunk_kernel",), "K4": ("flash_fwd",),
+ZAMBA_PARTS = {"K5": ("ssd_chunk_wgmma", "ssd_chunk_kernel"),
+               "K4": ("flash_fwd",),
                "cublas": ("nvjet", "gemm", "cutlass", "sm90_xmma"),
                "inter_chunk_addcmul": ("addcmul",),
                "conv": ("conv", "cudnn")}
@@ -1784,6 +1912,11 @@ class Counts:
         self.ops.echo_aggregate.launches = 0
         self.fops.flash_mha.launches = 0
         self.sops.ssd_chunk.launches = 0
+        self.sops.ssd_chunk.wgmma_launches = 0
+
+    def k5_wgmma(self):
+        """K5 launches on the tensor-core route since the reset."""
+        return self.sops.ssd_chunk.wgmma_launches
 
     def read(self):
         return {"K1": self.ops.echo_aggregate_flat.launches,
@@ -1820,11 +1953,12 @@ def main():
     from repro_torch.models import cnn, model, reduced, ssm
 
     counts = Counts(ops, fops, sops)
-    # K4 and K5 are built by two nvcc processes, started together, while
-    # the Triton kernels compile and run
-    build_pool = concurrent.futures.ThreadPoolExecutor(max_workers=2)
+    # K4 and K5's two kernels are built by three nvcc processes, started
+    # together, while the Triton kernels compile and run
+    build_pool = concurrent.futures.ThreadPoolExecutor(max_workers=3)
     builds = {"K4": build_pool.submit(fkernel.build),
-              "K5": build_pool.submit(skernel.build)}
+              "K5": build_pool.submit(skernel.LIBRARY.build),
+              "K5 wgmma": build_pool.submit(skernel.WGMMA_LIBRARY.build)}
 
     # phase 1: device
     smi = nvidia_smi()
@@ -1851,6 +1985,9 @@ def main():
     emit(dict(phase="kernel_build", kernel="K4",
               bf16_dynamic_smem_bytes={D: fkernel.bf16_smem_bytes(D)
                                        for D in (64, 112, 128, 256)}))
+    emit(dict(phase="kernel_build", kernel="K5 wgmma",
+              dynamic_smem_bytes={N: skernel.wgmma_smem_bytes(N)
+                                  for N in (64, 128)}))
     build_pool.shutdown()
     flash_err = check_flash(torch, fops, fref)
     ssd_err = check_ssd(torch, sops, sref)
@@ -1991,11 +2128,12 @@ def main():
         launches=lm_launches["K4"], max_abs_err=flash_err, ms=mean("ms"),
         plain_ms=mean("plain_ms"), bound_ms=mean("bound_ms"),
         bound_by=both[0]["bound_by"], library_ms=mean("library_ms")))
-    # K5: per launch at zamba2-7b's shape (the main path's 68 launches)
+    # K5: per launch at zamba2-7b's shape (the main path's 68 launches, all
+    # on the tensor-core kernel)
     zt = ssd_times["zamba2-7b"]
     kernels.append(dict(
         name="ssd_chunk (K5)", route="cuda",
-        source="src/repro_torch/kernels/ssd_chunk/csrc/ssd_chunk.cu",
+        source="src/repro_torch/kernels/ssd_chunk/csrc/ssd_chunk_wgmma.cu",
         replaces="src/repro/kernels/ssd_chunk/kernel.py:51",
         launches=z_launches["K5"], max_abs_err=ssd_err, ms=zt["ms"],
         plain_ms=zt["plain_ms"], bound_ms=zt["bound_ms"],

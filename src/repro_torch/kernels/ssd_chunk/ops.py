@@ -5,19 +5,25 @@ inter-chunk recurrence; a port of ``repro/kernels/ssd_chunk/ops.py``
 
 ``ssd_chunk`` is the checked wrapper of the kernel.  Device dispatch is by
 the tensors' device and nothing else: CPU tensors take the plain version
-(``ref.py``); CUDA tensors launch the CUDA kernel (``kernel.py``) or
-raise.  There is no fallback from the kernel to the plain version.
-Launches are counted in the plain integer attribute
-``ssd_chunk.launches``; a caller resets it by assigning 0.
+(``ref.py``); CUDA tensors launch a CUDA kernel (``kernel.py``) or raise.
+Of the two CUDA kernels, ``wgmma_route`` chooses before the launch, from
+dtype, shapes, strides and alignment alone: bfloat16 operands that the
+tensor maps can describe take the tensor-core kernel, everything else the
+FP32-pipe kernel.  There is no fallback from one kernel to the other or to
+the plain version.  Launches are counted in the plain integer attributes
+``ssd_chunk.launches`` (every launch of either kernel) and
+``ssd_chunk.wgmma_launches`` (the tensor-core kernel's); a caller resets
+them by assigning 0.
 
 ``ssd_chunked`` (what ``models.ssm.mamba_block`` calls) regroups its
-operands to ``[b, h, c, K, .]`` by views only: the kernel reads the model
+operands to ``[b, h, c, K, .]`` by views only: the kernels read the model
 layout through strides, and B and C may be stride-0 expansions of their
 groups.  The inter-chunk recurrence and ``y_off`` stay plain torch, as
 they are jnp outside Pallas in the reference: a loop of one launch per
 chunk, then one batched matrix product.  ``ssd_chunked_plain`` is the same
 scan with the plain intra-chunk block on any device, for comparisons on
-the card; the model never calls it.
+the card; the model never calls it, nor ``_ssd_chunk_simt``, which runs
+the FP32-pipe kernel on any operands it takes.
 """
 from __future__ import annotations
 
@@ -60,6 +66,76 @@ def _check(xdt, dA, B_, C_):
         raise ValueError(f"unsupported device {xdt.device}")
 
 
+#: the tensor-core kernel's tiles: P up to 64 (one 128-byte panel) in
+#: whole 16-byte rows; tensor maps take 16-byte aligned bases and strides
+#: below 2^40 bytes; its grid at most 2^31 - 1 blocks
+WGMMA_MAX_P = 64
+TMA_ALIGN = 16
+MAX_STRIDE_BYTES = 2 ** 40
+MAX_BLOCKS = 2 ** 31 - 1
+
+
+def _tma_ok(t, strides):
+    """A 16-byte aligned base, a unit last stride, and the given strides
+    multiples of 16 bytes below 2^40 bytes."""
+    es = t.element_size()
+    return (t.data_ptr() % TMA_ALIGN == 0 and t.stride(-1) == 1
+            and all(s >= 0 and s * es % TMA_ALIGN == 0
+                    and s * es < MAX_STRIDE_BYTES for s in strides))
+
+
+def wgmma_route(xdt, dA, B_, C_):
+    """Whether ``ssd_chunk`` on the card launches the tensor-core kernel
+    (else the FP32-pipe kernel), for operands ``_check`` has accepted.
+
+    A pure function of dtype, shapes, strides and alignment: bfloat16
+    operands with P <= 64 and P % 8 == 0 (x and y rows of whole 16-byte
+    chunks) whose tensor maps exist, i.e. x, B and C with 16-byte aligned
+    bases and every stride a multiple of 16 bytes; B and C either both of
+    head stride 0 (one tile per (batch, chunk) for every head: every
+    config of the registry, through ``models.ssm._expand_groups``) or both
+    of nonzero head strides.  dA is read with plain loads, so its strides
+    do not matter."""
+    if xdt.dtype != torch.bfloat16:
+        return False
+    b, h, c, _, P = xdt.shape
+    if P > WGMMA_MAX_P or P % 8 or b * c * h > MAX_BLOCKS:
+        return False
+    bs, cs = B_.stride(), C_.stride()
+    shared = bs[1] == 0 and cs[1] == 0
+    if not shared and (bs[1] == 0 or cs[1] == 0):
+        return False
+    keep = (0, 2, 3) if shared else (0, 1, 2, 3)
+    return (_tma_ok(xdt, xdt.stride()[:4])
+            and _tma_ok(B_, [bs[i] for i in keep])
+            and _tma_ok(C_, [cs[i] for i in keep]))
+
+
+def head_run(b, h, c, shared, n_sm):
+    """Heads one block of the tensor-core kernel takes: 1 unless B and C
+    are shared by the heads; else the heads split into as few runs as
+    keep ``n_sm`` SMs busy with one block each (all h when the b * c
+    (batch, chunk) pairs alone fill them: zamba2-7b's and mamba2-130m's
+    prefills, b * c = 128), so that every C.B^T serves as many heads as
+    it can."""
+    if not shared:
+        return 1
+    splits = max(1, min(h, n_sm // (b * c)))
+    return -(-h // splits)
+
+
+_N_SM = {}
+
+
+def _sm_count(device):
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _N_SM:
+        _N_SM[idx] = torch.cuda.get_device_properties(idx) \
+            .multi_processor_count
+    return _N_SM[idx]
+
+
 def ssd_chunk(xdt, dA, B_, C_):
     """xdt: [b,h,c,K,P]; dA: [b,h,c,K] float32; B_, C_: [b,h,c,K,N].
 
@@ -69,10 +145,26 @@ def ssd_chunk(xdt, dA, B_, C_):
     _check(xdt, dA, B_, C_)
     if xdt.device.type == "cpu":
         return ssd_chunk_ref(xdt, dA, B_, C_)
-    for name, t in (("xdt", xdt), ("B_", B_), ("C_", C_)):
-        if t.stride(-1) != 1:
-            raise ValueError(f"{name}: the kernel needs a unit last stride; "
-                             f"got strides {t.stride()}")
+    return _launch(xdt, dA, B_, C_, wgmma_route(xdt, dA, B_, C_))
+
+
+def _ssd_chunk_simt(xdt, dA, B_, C_):
+    """The FP32-pipe kernel on CUDA operands, whatever ``wgmma_route``
+    says: a yardstick for the tensor-core kernel on the card (chip_smoke's
+    ``time_ssd``).  The model never calls it."""
+    _check(xdt, dA, B_, C_)
+    if xdt.device.type != "cuda":
+        raise ValueError(f"the FP32-pipe kernel runs on the card; got "
+                         f"{xdt.device}")
+    return _launch(xdt, dA, B_, C_, False)
+
+
+def _launch(xdt, dA, B_, C_, wgmma):
+    if not wgmma:
+        for name, t in (("xdt", xdt), ("B_", B_), ("C_", C_)):
+            if t.stride(-1) != 1:
+                raise ValueError(f"{name}: the kernel needs a unit last "
+                                 f"stride; got strides {t.stride()}")
     b, h, c, K, P = xdt.shape
     N = B_.shape[-1]
     dev = xdt.device
@@ -80,12 +172,19 @@ def ssd_chunk(xdt, dA, B_, C_):
                     device=dev).permute(0, 3, 1, 2, 4)
     states = torch.empty((b, h, c, N, P), dtype=torch.float32, device=dev)
     decay = torch.empty((b, h, c), dtype=torch.float32, device=dev)
-    kernel.launch(xdt, dA, B_, C_, y, states, decay)
+    if wgmma:
+        shared = B_.stride(1) == 0 and C_.stride(1) == 0
+        kernel.launch_wgmma(xdt, dA, B_, C_, y, states, decay,
+                            head_run(b, h, c, shared, _sm_count(dev)))
+        ssd_chunk.wgmma_launches += 1
+    else:
+        kernel.launch(xdt, dA, B_, C_, y, states, decay)
     ssd_chunk.launches += 1
     return y, states, decay
 
 
 ssd_chunk.launches = 0
+ssd_chunk.wgmma_launches = 0
 
 
 def _plain_chunk(xdt, dA, B_, C_):
@@ -95,7 +194,7 @@ def _plain_chunk(xdt, dA, B_, C_):
 
 def regroup(v, chunk):
     """[b, l, h, *f] -> [b, h, c, chunk, *f], a view (the reference's
-    ``grp``, ``ops.py:111-113``)."""
+    ``grp``, ``ops.py:25-27``)."""
     b, l, h = v.shape[:3]
     v = v.reshape((b, l // chunk, chunk, h) + tuple(v.shape[3:]))
     return v.permute((0, 3, 1, 2) + tuple(range(4, v.dim())))
@@ -134,7 +233,7 @@ def ssd_chunked(xdt, dA, B_, C_, chunk, initial_state=None):
     """xdt: [b,l,h,p]; dA: [b,l,h] float32; B_, C_: [b,l,h,n].
     Returns (y [b,l,h,p], final_state float32 [b,h,p,n]) — matches
     ``models.ssm.ssd_chunked``.  y_diag is rounded to xdt's dtype before
-    y_off is added, as in the reference's drop-in (``ops.py:143``)."""
+    y_off is added, as in the reference's drop-in (``ops.py:57``)."""
     return _scan(xdt, dA, B_, C_, chunk, initial_state, ssd_chunk)
 
 

@@ -10,7 +10,7 @@ O(1)-per-token decode.
 Where the reference's ``mamba_block`` calls the jnp ``ssd_chunked``
 (``ssm.py:200``), the port calls ``kernels/ssd_chunk/ops.ssd_chunked``:
 the port of the JAX package's own drop-in equivalent
-``ssd_chunked_pallas`` (``kernels/ssd_chunk/ops.py:102``), which carries
+``ssd_chunked_pallas`` (``kernels/ssd_chunk/ops.py:16``), which carries
 the SSD chunk kernel (K5).  In float32 the two differ only in summation
 order; in bfloat16 the drop-in rounds the diagonal-block output to the
 input dtype before adding the inter-chunk part, as the reference's
