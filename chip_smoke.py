@@ -9,19 +9,22 @@ one, or when run outside the repository (it imports the port from
 printed as JSON lines:
 
   1. device   — ``nvidia-smi`` name and power limit of card 0.  The CUDA
-     C++ kernels, flash attention (K4) and the SSD chunk (K5: its
-     tensor-core kernel and its FP32-pipe kernel), start building
-     together, one nvcc each in its own thread, from
-     ``src/repro_torch/kernels/*/csrc`` into ``build/kernels``, while the
-     Triton kernels compile and run.
-  2. kernels  — builds the Triton echo-aggregate kernel from the source in
-     ``src/`` (at its first launch, into ``build/triton``), calls the
-     checked wrappers on tensors on the card and holds each result
-     against the plain torch version on the same inputs: 1e-5 for
-     float32 and 5e-2 for bfloat16 (tests/test_kernels.py's bounds); an
-     all-zero mask must return the previous global exactly.  Variants:
-     K1 the fused FedAWE update, K2 with non-binary upload weights, K3
-     without the empty-round guard.  Then K4 (ptxas's registers, spills
+     C++ kernels, echo-aggregate (K1-K3), flash attention (K4) and the
+     SSD chunk (K5: its tensor-core kernel and its FP32-pipe kernel),
+     start building together, one nvcc each in its own thread, from
+     ``src/repro_torch/kernels/*/csrc`` into ``build/kernels``.
+  2. kernels  — K1-K3's kernel (``csrc/echo_aggregate.cu``; ptxas's report,
+     its dynamic shared memory and its global loads by width in the SASS
+     printed): each case called twice through the checked wrappers (one
+     launch each, equal bits), held against the plain torch version on
+     the same inputs, 1e-5 for float32 and 5e-2 for bfloat16
+     (tests/test_kernels.py's bounds), and up to 128 rows bit-equal to
+     ``echo_aggregate_split_ref``, the kernel's own arithmetic in plain
+     torch; an all-zero mask must return the previous global exactly.
+     Variants: K1 the fused FedAWE update, K2 with non-binary upload
+     weights, K3 without the empty-round guard; ``ECHO_CASES`` lists the
+     shapes (N odd, stacks off a 16-byte boundary, m = 1, m = 7 at 8
+     forced slices, the tall m = 16 384).  Then K4 (ptxas's registers, spills
      and remarks per instantiation printed, and the bf16 kernel's dynamic
      shared memory) against its plain version in float32 and bfloat16:
      the six cases of tests/test_kernels.py:84-91, the window's lower
@@ -113,9 +116,17 @@ printed as JSON lines:
         (``FaultCfg(trace=True, sanitize=True)``), 4 chunked rounds with
         the kernel: n_rejected == 1 every round and the global finite;
         without sanitization (the negative control) the global is not.
-  4. numbers  — K1-K3: kernel, plain-version and two-matvec times at the
-     main-path shape (CUDA graphs of calls over rotating operands larger
-     than the 50 MB L2), at a 2 GB shape, the HBM bound, ms per round of
+  4. numbers  — K1-K3: the Triton yardstick's global loads by width in
+     its SASS at rows 8 bytes off 16 and at aligned rows; the CUDA kernel
+     and the Triton yardstick in turns (K2's yardstick with its own weight
+     multiply, as the earlier wrapper launched it), the plain version and
+     the two-matvec formulation (K1, K2) at the main-path shape (CUDA
+     graphs of calls over rotating operand sets larger than the 50 MB L2),
+     K1 and K3 at a 2 GB shape and K1 at the tall shape, each beside the
+     HBM bound; K1 at its geometry's slice count and another (what the
+     geometry rests on), each wrapper's host-inclusive time a call, and
+     two floors at the main path's size (K1 at one row, a PyTorch column
+     sum over the same bytes); ms per round of
      the chunked FL path with and without the kernel (CUDA events, in
      turns), the round's pieces timed alone, a profiler breakdown of one
      chunk; ms per round and a profiler breakdown of the fault and stale
@@ -242,13 +253,25 @@ def nvidia_smi():
 # phase 2: every kernel variant against its plain version
 # ---------------------------------------------------------------------------
 
-def make_inputs(torch, m, n, dtype, seed, mask_p=0.7, upload=False):
+#: the cohort's shape: a tall stack of m = 16 384 clients at the FL path's
+#: N (3.6 GB in float32), the shape the kernel's split over rows is for
+TALL_M = 16384
+
+
+def make_inputs(torch, m, n, dtype, seed, mask_p=0.7, upload=False,
+                offset=False):
+    """x, y [m, n] in ``dtype``, g [n], mask, echo, upload [m] on the card.
+    ``offset``: x and y are rows 1.. of [m + 1, n] stacks, so that with n
+    odd they start off a 16-byte boundary."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
     def rand(*shape):
         return torch.randn(*shape, generator=gen, device="cuda")
 
-    x, y, g = rand(m, n).to(dtype), rand(m, n).to(dtype), rand(n)
+    lead = 1 if offset else 0
+    x = rand(m + lead, n).to(dtype)[lead:]
+    y = rand(m + lead, n).to(dtype)[lead:]
+    g = rand(n)
     mask = (torch.rand(m, generator=gen, device="cuda") < mask_p).float()
     echo = torch.randint(1, 12, (m,), generator=gen, device="cuda").float()
     up = None
@@ -266,6 +289,21 @@ def call_kernel(ops, variant, a):
                                    a["echo"], ETA_G, upload=a["upload"])
 
 
+def call_forced(ops, variant, a, slices):
+    """The CUDA kernel at ``slices`` row slices (no launch counted)."""
+    return ops._echo_aggregate_cuda(
+        a["x"], a["y"], None if variant == "K3" else a["g"], a["mask"],
+        a["echo"], ETA_G, upload=a["upload"], slices=slices)
+
+
+def call_triton(ops, variant, a):
+    """The earlier Triton kernel as the earlier wrapper launched it (for
+    K2 after its own multiply of the weights)."""
+    return ops._echo_aggregate_triton(
+        a["x"], a["y"], None if variant == "K3" else a["g"], a["mask"],
+        a["echo"], ETA_G, upload=a["upload"])
+
+
 def call_plain(ref, variant, a):
     if variant == "K3":
         return ref.echo_aggregate_ref(a["x"], a["y"], a["mask"], a["echo"],
@@ -274,56 +312,115 @@ def call_plain(ref, variant, a):
                                         a["echo"], ETA_G, upload=a["upload"])
 
 
+def call_split(ref, variant, a, slices):
+    return ref.echo_aggregate_split_ref(
+        a["x"], a["y"], None if variant == "K3" else a["g"], a["mask"],
+        a["echo"], ETA_G, slices=slices, upload=a["upload"])
+
+
 def launch_count(ops, variant):
     return {"K1": ops.echo_aggregate_flat.launches,
             "K2": ops.echo_aggregate_flat.upload_launches,
             "K3": ops.echo_aggregate.launches}[variant]
 
 
-def check_kernels(torch, ops, ref, block_n):
-    """Each case: one wrapper call (which must count exactly one launch),
-    the plain version on the same inputs, the stated tolerance.  Returns
-    the max abs error per variant at the main-path shape in float32."""
-    cases = [  # (variant, m, n, dtype, extra)
-        ("K1", M_MAIN, N_MAIN, torch.float32, {}),
-        ("K2", M_MAIN, N_MAIN, torch.float32, dict(upload=True)),
-        ("K3", M_MAIN, N_MAIN, torch.float32, {}),
-        ("K1", 8, 1, torch.float32, {}),
-        ("K1", 37, 3 * block_n + 5, torch.float32, {}),
-        ("K3", 37, 3 * block_n + 5, torch.float32, {}),
-        ("K1", M_MAIN, N_MAIN, torch.bfloat16, {}),
-        ("K2", M_MAIN, N_MAIN, torch.bfloat16, dict(upload=True)),
-        ("K1", 16, 1000, torch.float32, dict(mask_p=0.0)),
-        ("K2", 16, 1000, torch.float32, dict(mask_p=0.0, upload=True)),
-        ("K1", 1024, 262144, torch.float32, {}),
-        ("K3", 1024, 262144, torch.float32, {}),
-    ]
+def n_sm(torch):
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+#: K1-K3 cases, (variant, m, n, dtype name, extra): the main path's shape;
+#: N = 1; 3 column tiles + 5; bfloat16; empty rounds; the 2 GB shape; N odd
+#: (rows 4-byte aligned in float32, 2-byte in bfloat16), also with the
+#: stacks starting off a 16-byte boundary (``offset``); m = 1; m = 7 at 8
+#: forced slices (fewer rows than slices); the main-path shape at 3 forced
+#: slices (timed beside its own geometry's 1); the tall shape (3 slices)
+ECHO_CASES = [
+    ("K1", M_MAIN, N_MAIN, "float32", {}),
+    ("K2", M_MAIN, N_MAIN, "float32", dict(upload=True)),
+    ("K3", M_MAIN, N_MAIN, "float32", {}),
+    ("K1", 8, 1, "float32", {}),
+    ("K1", 37, 3 * 256 + 5, "float32", {}),
+    ("K3", 37, 3 * 256 + 5, "float32", {}),
+    ("K1", M_MAIN, N_MAIN, "bfloat16", {}),
+    ("K2", M_MAIN, N_MAIN, "bfloat16", dict(upload=True)),
+    ("K1", 16, 1000, "float32", dict(mask_p=0.0)),
+    ("K2", 16, 1000, "float32", dict(mask_p=0.0, upload=True)),
+    ("K1", 1024, 262144, "float32", {}),
+    ("K3", 1024, 262144, "float32", {}),
+    ("K1", 64, 4099, "float32", {}),
+    ("K2", 64, 4099, "bfloat16", dict(upload=True)),
+    ("K2", 37, 4099, "float32", dict(upload=True, offset=True)),
+    ("K3", 37, 4099, "bfloat16", dict(offset=True)),
+    ("K1", 1, N_MAIN, "float32", {}),
+    ("K2", 1, N_MAIN, "bfloat16", dict(upload=True)),
+    ("K1", 7, N_MAIN, "float32", dict(slices=8)),
+    ("K2", 7, 4099, "bfloat16", dict(upload=True, slices=8)),
+    ("K3", 7, 4099, "float32", dict(slices=8, offset=True)),
+    ("K2", M_MAIN, N_MAIN, "float32", dict(upload=True, slices=3)),
+    ("K1", TALL_M, N_MAIN, "float32", {}),
+]
+#: cases up to this many rows are also held against the kernel's own
+#: arithmetic, ``echo_aggregate_split_ref`` (a Python loop over rows)
+SPLIT_REF_MAX_M = 128
+
+
+def check_kernels(torch, ops, ref):
+    """Each case: two calls on the same inputs, which must give equal bits
+    (through the checked wrapper, which must count exactly one launch
+    each, or at forced slices through ``ops._echo_aggregate_cuda``); the
+    plain version within the stated tolerance; up to ``SPLIT_REF_MAX_M``
+    rows, the split oracle at the launch's slices, which repeats the
+    kernel's roundings, to the bit; an empty round returns g exactly.
+    Returns the max abs error per variant at the main-path shape in
+    float32, at the launch's own slices."""
     errs = {}
-    for i, (variant, m, n, dtype, extra) in enumerate(cases):
+    for i, (variant, m, n, dname, extra) in enumerate(ECHO_CASES):
+        dtype = getattr(torch, dname)
+        extra = dict(extra)
+        forced = extra.pop("slices", None)
         a = make_inputs(torch, m, n, dtype, seed=100 + i, **extra)
+        block_cols, slices = ops.launch_geometry(m, n, a["x"].element_size(),
+                                                 n_sm(torch))
         before = launch_count(ops, variant)
-        out = call_kernel(ops, variant, a)
+        if forced is None:
+            outs = [call_kernel(ops, variant, a) for _ in range(2)]
+        else:
+            slices = forced
+            outs = [call_forced(ops, variant, a, slices) for _ in range(2)]
         torch.cuda.synchronize()
         launched = launch_count(ops, variant) - before
+        out = outs[0]
+        same_bits = torch.equal(outs[0], outs[1])
         plain = call_plain(ref, variant, a)
         torch.cuda.synchronize()
         tol = 1e-5 if dtype == torch.float32 else 5e-2
         err = (out - plain).abs().max().item()
+        split_err = split_equal = None
+        if m <= SPLIT_REF_MAX_M:
+            split = call_split(ref, variant, a, slices)
+            split_err = (out - split).abs().max().item()
+            split_equal = torch.equal(out, split)
         empty = extra.get("mask_p") == 0.0
-        ok = (launched == 1 and out.shape == (n,)
-              and out.dtype == torch.float32
+        ok = (launched == (2 if forced is None else 0) and same_bits
+              and out.shape == (n,) and out.dtype == torch.float32
               and bool(torch.isfinite(out).all())
               and torch.allclose(out, plain, rtol=tol, atol=tol)
+              and split_equal is not False
               and (not empty or torch.equal(out, a["g"])))
         emit(dict(phase="kernel_check", kernel=variant, m=m, n=n,
-                  dtype=str(dtype).replace("torch.", ""), empty_mask=empty,
-                  launches=launched, max_abs_err=err, tol=tol, ok=ok))
+                  dtype=dname, block_cols=block_cols, slices=slices,
+                  forced_slices=forced is not None,
+                  offset=bool(extra.get("offset")), empty_mask=empty,
+                  launches=launched, two_launches_bit_equal=same_bits,
+                  max_abs_err=err, split_ref_err=split_err,
+                  split_ref_bit_equal=split_equal, tol=tol, ok=ok))
         if not ok:
-            raise AssertionError(f"kernel {variant} at ({m}, {n}, {dtype}) "
+            raise AssertionError(f"kernel {variant} at ({m}, {n}, {dname}) "
                                  "disagrees with its plain version")
-        if (m, n, dtype) == (M_MAIN, N_MAIN, torch.float32):
+        if (m, n, dtype) == (M_MAIN, N_MAIN, torch.float32) \
+                and forced is None:
             errs[variant] = err
-        del a, out, plain
+        del a, outs, out, plain
     torch.cuda.empty_cache()
     return errs
 
@@ -362,63 +459,195 @@ def graph_ms(torch, fn, n_calls, reps=5):
     return ms
 
 
-def bound(m, n, esize, with_g):
-    """Least time in ms: each input read once, the output written once
-    (x, y at ``esize`` bytes; g, out, w, echo in float32), against about
-    5 float32 operations per (client, column) element."""
-    nbytes = 2 * m * n * esize + 4 * n * (2 if with_g else 1) + 8 * m
+def bound(m, n, esize, with_g, with_upload=False):
+    """Least time in ms: each operand read once and the output written
+    once (x, y at ``esize`` bytes; g, out and the [m] vectors mask, echo
+    and, for K2, upload in float32), against about 5 float32 operations
+    per (client, column) element."""
+    nbytes = (2 * m * n * esize + 4 * n * (2 if with_g else 1)
+              + 4 * m * (3 if with_upload else 2))
     flops = 5 * m * n
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations", nbytes)
 
 
+def in_turns(torch, fn_new, fn_old, n_calls):
+    """``graph_ms`` of the CUDA kernel and of the Triton yardstick in
+    turns: new, old, old, new."""
+    t = [graph_ms(torch, f, n_calls)
+         for f in (fn_new, fn_old, fn_old, fn_new)]
+    return dict(ms=(t[0] + t[3]) / 2, turns_ms=[t[0], t[3]],
+                triton_ms=(t[1] + t[2]) / 2, triton_turns_ms=[t[1], t[2]])
+
+
 def time_kernels(torch, ops, ref, strategies, smi):
-    """Kernel, plain version and the two-matvec formulation per variant at
-    the main-path shape over 8 rotating operand sets (8 x 21.9 MB, so no
-    set is still in the 50 MB L2 when it comes round again), and K1/K3 at
-    the 2 GB shape."""
+    """The CUDA kernel and the Triton yardstick in turns, and the plain
+    version, per variant at the main-path shape over 8 rotating operand
+    sets (8 x 21.9 MB, so no set is still in the 50 MB L2 when it comes
+    round again); K2's Triton time includes its weight multiply, as the
+    earlier wrapper launched it; the two-matvec formulation of K1 and K2;
+    then K1 and K3 at the 2 GB shape and K1 at the tall shape."""
     out = {}
     sets = [make_inputs(torch, M_MAIN, N_MAIN, torch.float32, seed=500 + i,
                         upload=True) for i in range(8)]
     noup = [dict(a, upload=None) for a in sets]
     # the reference's use_kernel=False formulation: G = x - y is an input
-    # there (the round computes it anyway)
+    # there (the round computes it anyway), and under faults the weights
+    # mask * upload come in ready-made (``mask_upload``)
     Gs = [a["x"] - a["y"] for a in sets]
+    mus = {"K1": [a["mask"] for a in sets],
+           "K2": [a["mask"] * a["upload"] for a in sets]}
 
-    def two_matvec(i):
-        a, G = sets[i % 8], Gs[i % 8]
-        mu = a["mask"]
-        denom = torch.clamp(torch.sum(mu), min=1.0)
-        acc = (strategies.flat_weighted_sum(mu, a["x"]) - ETA_G
-               * strategies.flat_weighted_sum(mu * a["echo"], G)) / denom
-        return torch.where(torch.sum(mu) > 0, acc, a["g"])
+    def two_matvec(variant):
+        def fn(i):
+            a, G, mu = sets[i % 8], Gs[i % 8], mus[variant][i % 8]
+            denom = torch.clamp(torch.sum(mu), min=1.0)
+            acc = (strategies.flat_weighted_sum(mu, a["x"]) - ETA_G
+                   * strategies.flat_weighted_sum(mu * a["echo"], G)) / denom
+            return torch.where(torch.sum(mu) > 0, acc, a["g"])
+        return fn
 
-    two_ms = graph_ms(torch, two_matvec, 64)
     for variant, src in (("K1", noup), ("K2", sets), ("K3", noup)):
-        k_ms = graph_ms(torch, lambda i: call_kernel(ops, variant,
-                                                      src[i % 8]), 64)
-        p_ms = graph_ms(torch, lambda i: call_plain(ref, variant,
-                                                     src[i % 8]), 64)
-        b_ms, b_by, nbytes = bound(M_MAIN, N_MAIN, 4, variant != "K3")
-        out[variant] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                            bound_by=b_by, bytes=nbytes,
-                            two_matvec_ms=two_ms if variant == "K1" else None)
-    del sets, noup, Gs
+        rec = in_turns(
+            torch, lambda i: call_kernel(ops, variant, src[i % 8]),
+            lambda i: call_triton(ops, variant, src[i % 8]), 64)
+        rec["plain_ms"] = graph_ms(
+            torch, lambda i: call_plain(ref, variant, src[i % 8]), 64)
+        b_ms, b_by, nbytes = bound(M_MAIN, N_MAIN, 4, variant != "K3",
+                                   variant == "K2")
+        rec.update(bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+                   share=b_ms / rec["ms"], triton_share=b_ms / rec["triton_ms"],
+                   two_matvec_ms=(graph_ms(torch, two_matvec(variant), 64)
+                                  if variant in mus else None))
+        out[variant] = rec
+    del sets, noup, Gs, mus
     torch.cuda.empty_cache()
-    big = make_inputs(torch, 1024, 262144, torch.float32, seed=900)
-    for variant in ("K1", "K3"):
-        k_ms = graph_ms(torch, lambda i: call_kernel(ops, variant, big), 10)
-        b_ms, b_by, nbytes = bound(1024, 262144, 4, variant != "K3")
-        out[variant]["large"] = dict(m=1024, n=262144, ms=k_ms,
-                                     bound_ms=b_ms, bound_by=b_by,
-                                     achieved_gb_per_s=nbytes / k_ms / 1e6)
-    del big
-    torch.cuda.empty_cache()
+    for key, m, n, variants in (("large", 1024, 262144, ("K1", "K3")),
+                                ("tall", TALL_M, N_MAIN, ("K1",))):
+        big = make_inputs(torch, m, n, torch.float32, seed=900)
+        for variant in variants:
+            rec = in_turns(torch, lambda i: call_kernel(ops, variant, big),
+                           lambda i: call_triton(ops, variant, big), 10)
+            b_ms, b_by, nbytes = bound(m, n, 4, variant != "K3")
+            out[variant][key] = dict(
+                m=m, n=n, **rec, bound_ms=b_ms, bound_by=b_by,
+                share=b_ms / rec["ms"], triton_share=b_ms / rec["triton_ms"],
+                achieved_gb_per_s=nbytes / rec["ms"] / 1e6)
+        del big
+        torch.cuda.empty_cache()
+    out["K1"]["slices_ms"] = slice_times(torch, ops)
+    out["K1"]["host_us"] = host_times(torch, ops)
+    out["K1"]["floors_ms"] = floor_times(torch, ops)
     for variant, rec in out.items():
         emit(dict(phase="kernel_time", card=smi, kernel=variant, m=M_MAIN,
                   n=N_MAIN, **rec))
     return out
+
+
+def slice_times(torch, ops):
+    """K1 at the geometry's slice count and at another, in turns: the
+    main-path shape at 1 (its own) and 3, the tall shape at 3 (its own)
+    and 1: what ``ops.launch_geometry``'s rule rests on."""
+    out = {}
+    for key, m, n, other, sets in (("main", M_MAIN, N_MAIN, 3, 8),
+                                   ("tall", TALL_M, N_MAIN, 1, 1)):
+        src = [make_inputs(torch, m, n, torch.float32, seed=700 + i)
+               for i in range(sets)]
+        own = ops.launch_geometry(m, n, 4, n_sm(torch))[1]
+        t = {own: [], other: []}
+        for s in (own, other, other, own):
+            t[s].append(graph_ms(torch, lambda i: call_forced(
+                ops, "K1", src[i % sets], s), 64 if sets > 1 else 10))
+        out[key] = {f"S{s}": v for s, v in t.items()}
+        del src
+        torch.cuda.empty_cache()
+    return out
+
+
+def floor_times(torch, ops):
+    """What a pass over the main path's stacks costs beyond its bytes: K1
+    at one client row (N = 27 370: launch, one row's latency, the store),
+    and a PyTorch column sum over the same 22 MB ([200, 27 370] float32),
+    each over 8 rotating operand sets in a CUDA graph."""
+    sets = [make_inputs(torch, 1, N_MAIN, torch.float32, seed=800 + i)
+            for i in range(8)]
+    stacks = [torch.randn(2 * M_MAIN, N_MAIN, device="cuda")
+              for _ in range(8)]
+    out = dict(k1_one_row=graph_ms(torch, lambda i: call_kernel(
+        ops, "K1", sets[i % 8]), 64),
+               torch_sum_22mb=graph_ms(
+                   torch, lambda i: stacks[i % 8].sum(0), 64))
+    del sets, stacks
+    torch.cuda.empty_cache()
+    return out
+
+
+def host_times(torch, ops):
+    """Microseconds a call of the wrapper takes between CUDA events, one
+    call after another with no graph (the host's launch work included, as
+    a round sees it): K1 and K2 through the CUDA kernel and through the
+    Triton yardstick, at the main-path shape."""
+    a = make_inputs(torch, M_MAIN, N_MAIN, torch.float32, seed=11,
+                    upload=True)
+    b = dict(a, upload=None)
+    out = {}
+    for name, fn in (("K1", lambda: call_kernel(ops, "K1", b)),
+                     ("K1 triton", lambda: call_triton(ops, "K1", b)),
+                     ("K2", lambda: call_kernel(ops, "K2", a)),
+                     ("K2 triton", lambda: call_triton(ops, "K2", a))):
+        out[name] = 1e3 * events_ms(torch, fn, 500)
+    return out
+
+
+def load_widths(path):
+    """Global loads in the SASS of a cubin or shared library, by opcode
+    (``LDG.E`` 4 bytes, ``LDG.E.64`` 8, ``LDG.E.128`` 16; ``LDGSTS``,
+    cp.async, likewise; ``UBLKCP``, a bulk copy), per function, from
+    ``cuobjdump -sass``."""
+    tool = "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        import triton
+        tool = os.path.join(os.path.dirname(triton.__file__), "backends",
+                            "nvidia", "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    out = {}
+    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = short_name(fn.split("\n", 1)[0].strip())
+        ops = {}
+        for op in re.findall(
+                r"\b((?:LDG(?:STS)?|UBLKCP)(?:\.[A-Z0-9_]+)*)(?!\w)", fn):
+            ops[op] = ops.get(op, 0) + 1
+        out[name] = ops
+    return out
+
+
+def triton_load_widths(torch, ops, smi):
+    """The Triton yardstick's global loads at the main path's N (rows 8
+    bytes off 16 in float32) and at N = 262 144 (16-byte aligned rows):
+    each shape compiled alone into the cache, its new cubins read."""
+    def cubins():
+        # the cache directory is set at the yardstick's first compile
+        found = set()
+        for root, _, names in os.walk(os.environ.get("TRITON_CACHE_DIR",
+                                                     os.devnull)):
+            found.update(os.path.join(root, f) for f in names
+                         if f.endswith(".cubin"))
+        return found
+
+    # (100, 27 376): the main path's m with 16-byte aligned rows
+    for m, n in ((M_MAIN, N_MAIN), (1024, 262144), (M_MAIN, N_MAIN + 6)):
+        seen = cubins()
+        a = make_inputs(torch, m, n, torch.float32, seed=7)
+        call_triton(ops, "K1", a)
+        torch.cuda.synchronize()
+        for path in sorted(cubins() - seen):
+            emit(dict(phase="sass_loads", card=smi, kernel="triton K1",
+                      m=m, n=n, row_bytes_mod_16=4 * n % 16,
+                      cubin=os.path.relpath(path, REPO),
+                      loads=load_widths(path)))
+        del a
 
 
 def time_rounds(torch, train, engine, federated, prng, use_kernel,
@@ -1953,10 +2182,11 @@ def main():
     from repro_torch.models import cnn, model, reduced, ssm
 
     counts = Counts(ops, fops, sops)
-    # K4 and K5's two kernels are built by three nvcc processes, started
-    # together, while the Triton kernels compile and run
-    build_pool = concurrent.futures.ThreadPoolExecutor(max_workers=3)
-    builds = {"K4": build_pool.submit(fkernel.build),
+    # K1-K3's kernel, K4's and K5's two are built by four nvcc processes,
+    # started together
+    build_pool = concurrent.futures.ThreadPoolExecutor(max_workers=4)
+    builds = {"K1-K3": build_pool.submit(kernel.LIBRARY.build),
+              "K4": build_pool.submit(fkernel.build),
               "K5": build_pool.submit(skernel.LIBRARY.build),
               "K5 wgmma": build_pool.submit(skernel.WGMMA_LIBRARY.build)}
 
@@ -1974,7 +2204,7 @@ def main():
 
     # phase 2: kernels against their plain versions
     t0 = time.perf_counter()
-    errs = check_kernels(torch, ops, ref, kernel.BLOCK_N)
+    errs = check_kernels(torch, ops, ref)
     t1 = time.perf_counter()
     for name, build in builds.items():
         lib = build.result()
@@ -1982,6 +2212,20 @@ def main():
         emit(dict(phase="kernel_build", kernel=name, library=str(lib),
                   wait_s=time.perf_counter() - t1,
                   ptxas=ptxas_report(report)))
+    occupancy = {s: kernel.occupancy(s) for s in range(1, 9)}
+    require(all(occupancy[s][0] == ops.blocks_per_sm(4, s)
+                and kernel.smem_bytes(torch.float32, s)
+                == ops.block_smem_bytes(4, s)
+                and kernel.smem_bytes(torch.bfloat16, s)
+                == ops.block_smem_bytes(2, s) for s in occupancy),
+            f"launch_geometry's shared memory or residency is not the "
+            f"kernel's: {occupancy}")
+    emit(dict(phase="kernel_build", kernel="K1-K3",
+              dynamic_smem_bytes={
+                  f"{d} S{s}": kernel.smem_bytes(getattr(torch, d), s)
+                  for d in ("float32", "bfloat16") for s in (1, 3, 8)},
+              blocks_per_sm_and_clusters=occupancy,
+              loads=load_widths(builds["K1-K3"].result())))
     emit(dict(phase="kernel_build", kernel="K4",
               bf16_dynamic_smem_bytes={D: fkernel.bf16_smem_bytes(D)
                                        for D in (64, 112, 128, 256)}))
@@ -2061,6 +2305,7 @@ def main():
                     sanitize)
 
     # phase 4: numbers
+    triton_load_widths(torch, ops, smi)
     times = time_kernels(torch, ops, ref, strategies, smi)
     runs = []
     for use_kernel in (True, False, False, True):
@@ -2107,8 +2352,9 @@ def main():
     for v in ("K1", "K2", "K3"):
         t = times[v]
         kernels.append(dict(
-            name=names[v], route="triton",
-            source="src/repro_torch/kernels/echo_aggregate/kernel.py",
+            name=names[v], route="cuda",
+            source="src/repro_torch/kernels/echo_aggregate/csrc/"
+                   "echo_aggregate.cu",
             replaces=replaces[v], launches=path_launches[v],
             max_abs_err=errs[v], ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"],

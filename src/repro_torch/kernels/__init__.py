@@ -2,7 +2,9 @@
 
 echo_aggregate — the paper's own operator: fused adaptive-innovation echo
                  + implicit-gossip masked mean over the flat [m, N] client
-                 stack (Triton; replaces the JAX package's Pallas kernel).
+                 stack (CUDA C++ for sm_90a in csrc/; replaces the JAX
+                 package's Pallas kernels; the earlier Triton kernel stays
+                 as a yardstick only).
 flash_attention — forward blockwise online-softmax attention for the LM
                  prefill (GQA, causal + sliding window, soft-cap; CUDA C++
                  for sm_90a in csrc/, built by nvcc at first use).

@@ -1,102 +1,85 @@
-"""Triton kernel for Hopper: fused FedAWE echo + implicit-gossip aggregation.
+"""Launches the CUDA C++ echo-aggregate kernel for Hopper.
 
-Replaces the JAX package's Pallas kernels in
-``repro/kernels/echo_aggregate/kernel.py``:
-
-  * ``echo_aggregate_fused_pallas`` (kernel.py:100; bodies ``_fused_kernel``
-    and ``_fused_kernel_upload``) — ``HAS_GUARD=True``, with the weights
-    ``w = mask`` or ``w = mask * upload`` built by the wrapper;
-  * ``echo_aggregate_pallas`` (kernel.py:48; body ``_kernel``) —
-    ``HAS_GUARD=False``.
-
-Per column n it computes ``sum_i w_i (x_in - eta_g e_i (x_in - y_in)) /
-max(sum_i w_i, 1)`` and, with the guard, returns ``g_n`` instead when
-``sum_i w_i = 0`` (an empty round keeps the previous global).
-
-What bounds it: HBM bytes.  It reads x and y once, ``2 * m * N *
-sizeof(x)`` bytes, plus g and the output, ``8 * N``; at about 0.5 flop per
-byte it sits far below the card's ridge point.  The design streams each
-byte once: the grid runs over column tiles of ``BLOCK_N``, and each
-program walks the client axis in ``BLOCK_M``-row tiles, with coalesced
-row-contiguous loads masked on both ragged edges, upcasting to float32
-and keeping the column sums and the weight total in registers.  The
-weight total is recomputed in every program from ``w`` (``m`` floats), so
-the wrapper never synchronises with the host, and no atomics are used:
-the result is the same from run to run.
-
-Triton is imported, and the kernel compiled, at the first launch (never
-at import: the CPU tests import this module without Triton).  The
-compiled kernels are cached under ``<repo>/build/triton`` unless
-``TRITON_CACHE_DIR`` is already set.
+``csrc/echo_aggregate.cu`` replaces the JAX package's Pallas TPU kernels
+in ``repro/kernels/echo_aggregate/kernel.py``: ``echo_aggregate_fused_pallas``
+(kernel.py:100, with and without ``upload=``) and ``echo_aggregate_pallas``
+(kernel.py:48), one template with the guard and the upload weights as
+flags.  Its source note says what bounds it and how it is laid out.
+``repro_torch.kernels.nvcc`` builds it at its first launch into
+``<repo>/build/kernels/`` and loads it through ctypes.
 """
 from __future__ import annotations
 
-import functools
-import os
+import ctypes
 import pathlib
 
 import torch
 
-BLOCK_M = 16
-BLOCK_N = 128
-NUM_WARPS = 4
+from repro_torch.kernels.nvcc import CudaLibrary
 
-_REPO = pathlib.Path(__file__).resolve().parents[4]
-
-#: ``triton.language``; bound at the first launch by ``_compiled``
-tl = None
+SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "echo_aggregate.cu"
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _echo_aggregate_kernel(x_ptr, y_ptr, g_ptr, w_ptr, e_ptr, out_ptr, m, n,
-                           stride_x, stride_y, eta_g,
-                           HAS_GUARD: tl.constexpr, BLOCK_M: tl.constexpr,
-                           BLOCK_N: tl.constexpr):
-    pid = tl.program_id(0)
-    cols = pid * BLOCK_N + tl.arange(0, BLOCK_N)
-    col_ok = cols < n
-    acc = tl.zeros((BLOCK_N,), dtype=tl.float32)
-    wsum = tl.zeros((BLOCK_M,), dtype=tl.float32)
-    for m0 in range(0, m, BLOCK_M):
-        rows = m0 + tl.arange(0, BLOCK_M)
-        row_ok = rows < m
-        w = tl.load(w_ptr + rows, mask=row_ok, other=0.0)
-        e = tl.load(e_ptr + rows, mask=row_ok, other=0.0)
-        ok = row_ok[:, None] & col_ok[None, :]
-        r = rows.to(tl.int64)[:, None]
-        x = tl.load(x_ptr + r * stride_x + cols[None, :], mask=ok,
-                    other=0.0).to(tl.float32)
-        y = tl.load(y_ptr + r * stride_y + cols[None, :], mask=ok,
-                    other=0.0).to(tl.float32)
-        xd = x - eta_g * e[:, None] * (x - y)
-        acc += tl.sum(w[:, None] * xd, axis=0)
-        wsum += w
-    total = tl.sum(wsum, axis=0)
-    res = acc / tl.maximum(total, 1.0)
-    if HAS_GUARD:
-        g = tl.load(g_ptr + cols, mask=col_ok, other=0.0)
-        res = tl.where(total > 0.0, res, g)
-    tl.store(out_ptr + cols, res, mask=col_ok)
+def _bind(lib):
+    fn = lib.echo_aggregate_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 2
+                   + [ctypes.c_longlong] * 2 + [ctypes.c_float]
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.echo_aggregate_error.argtypes = [ctypes.c_int]
+    lib.echo_aggregate_error.restype = ctypes.c_char_p
+    lib.echo_aggregate_smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.echo_aggregate_smem.restype = ctypes.c_int
+    lib.echo_aggregate_occupancy.argtypes = [ctypes.c_int, ctypes.c_void_p,
+                                             ctypes.c_void_p]
+    lib.echo_aggregate_occupancy.restype = ctypes.c_int
 
 
-@functools.cache
-def _compiled():
-    os.environ.setdefault("TRITON_CACHE_DIR", str(_REPO / "build" / "triton"))
-    import triton
-    import triton.language
-
-    globals()["tl"] = triton.language
-    return triton.jit(_echo_aggregate_kernel)
+LIBRARY = CudaLibrary("echo_aggregate", SOURCE, _bind)
 
 
-def echo_aggregate_triton(x, y, g, w, echo, eta_g, *, has_guard):
-    """Launch on the current stream.  x, y: contiguous [m, N] CUDA tensors
-    (float32 or bfloat16); g: [N] float32 (read only with ``has_guard``);
-    w, echo: [m] float32; ``eta_g`` a Python number.  Returns [N] float32.
-    The caller (``ops.py``) has checked every operand."""
+def smem_bytes(dtype, slices):
+    """Dynamic shared memory one block of the kernel takes for stacks of
+    ``dtype`` at ``slices`` row slices."""
+    return LIBRARY.load().echo_aggregate_smem(DTYPE_CODES[dtype], slices)
+
+
+def occupancy(slices):
+    """(blocks resident on one SM, clusters of ``slices`` blocks resident
+    on the current card) for the kernel's float32 build."""
+    lib = LIBRARY.load()
+    blocks, clusters = ctypes.c_int(0), ctypes.c_int(0)
+    rc = lib.echo_aggregate_occupancy(slices, ctypes.byref(blocks),
+                                      ctypes.byref(clusters))
+    if rc != 0:
+        raise RuntimeError("echo-aggregate occupancy query failed: "
+                           f"{lib.echo_aggregate_error(rc).decode()}")
+    return blocks.value, clusters.value
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def launch(x, y, g, mask, upload, echo, out, eta_g, *, guard, block_cols,
+           slices):
+    """Run the kernel on the current stream.  x, y: contiguous [m, N] CUDA
+    tensors (float32 or bfloat16); g ([N], read only with ``guard``),
+    mask, echo, upload ([m]; ``upload`` may be None, and needs ``guard``)
+    and out ([N]) contiguous float32; ``block_cols`` and ``slices`` from
+    ``ops.launch_geometry``.  The caller (``ops.py``) has checked every
+    operand.  Raises if the launch is refused."""
     m, n = x.shape
-    out = torch.empty((n,), dtype=torch.float32, device=x.device)
-    grid = ((n + BLOCK_N - 1) // BLOCK_N,)
-    _compiled()[grid](x, y, g, w, echo, out, m, n, x.stride(0),
-                      y.stride(0), eta_g, HAS_GUARD=has_guard,
-                      BLOCK_M=BLOCK_M, BLOCK_N=BLOCK_N, num_warps=NUM_WARPS)
-    return out
+    lib = LIBRARY.load()
+    with torch.cuda.device_of(x):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.echo_aggregate_fwd(
+            x.data_ptr(), y.data_ptr(), _ptr(g), mask.data_ptr(),
+            _ptr(upload), echo.data_ptr(), out.data_ptr(),
+            DTYPE_CODES[x.dtype], int(guard), m, n, eta_g, block_cols,
+            slices, stream)
+    if rc != 0:
+        raise RuntimeError("echo-aggregate kernel launch failed: "
+                           f"{lib.echo_aggregate_error(rc).decode()} "
+                           f"(cudaError {rc})")

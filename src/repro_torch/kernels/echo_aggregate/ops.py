@@ -5,23 +5,81 @@ flat ``[m, N]`` substrate (core/flatten.py), guard included;
 ``echo_aggregate`` is the masked echo mean without the guard.
 
 Device dispatch is by the tensors' device and nothing else: CPU tensors
-take the plain version (``ref.py``); CUDA tensors launch the Triton kernel
-(``kernel.py``) or raise.  There is no fallback from the kernel to the
-plain version.  Each wrapper counts its kernel launches in plain integer
-attributes (``echo_aggregate_flat.launches`` for the fault-free update,
+take the plain version (``ref.py``); CUDA tensors launch the CUDA C++
+kernel (``kernel.py``, ``csrc/echo_aggregate.cu``) once a call, the upload
+weights read by the kernel itself, or raise.  There is no fallback from
+the kernel to the plain version or to anything else.  Each wrapper counts
+its kernel launches in plain integer attributes
+(``echo_aggregate_flat.launches`` for the fault-free update,
 ``echo_aggregate_flat.upload_launches`` for the ``upload=`` variant,
 ``echo_aggregate.launches``), so a run can show that it went through the
 kernel; a caller resets them by assigning 0.
+
+``launch_geometry`` chooses the kernel's grid from the shapes and the
+card's SM count alone.  ``_echo_aggregate_cuda`` launches the kernel at a
+given number of row slices, and ``_echo_aggregate_triton`` the earlier
+Triton kernel (``kernel_triton.py``) after the earlier wrapper's weight
+multiply: both are for ``chip_smoke.py``'s checks and timings, count no
+launch, and no path calls them.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.echo_aggregate import kernel
+from repro_torch.kernels.echo_aggregate import kernel, kernel_triton
 from repro_torch.kernels.echo_aggregate.ref import (echo_aggregate_fused_ref,
                                                     echo_aggregate_ref)
 
 STACK_DTYPES = (torch.float32, torch.bfloat16)
+
+#: the kernel's geometry (csrc/echo_aggregate.cu): a column tile is 1 KB of
+#: a row (256 float32 or 512 bfloat16 columns, a multiple of the 16-byte
+#: chunks its windows are cut in); a ring of 2 stages of 16 rows of x and
+#: y; the S row slices of a tile form one cluster, at most the portable 8
+TILE_ROW_BYTES = 1024
+VEC_BYTES = 16
+STAGES = 2
+STAGE_ROWS = 16
+MAX_SLICES = 8
+#: a slice streams at least this many rows: at the FL path's m = 100,
+#: slices cost more (combine, shorter streams) than they gain
+MIN_SLICE_ROWS = 512
+#: shared memory of one SM of the H100 and what each block reserves of it
+SM_SHARED_BYTES = 233472
+BLOCK_RESERVED_BYTES = 1024
+
+
+def block_smem_bytes(esize, slices):
+    """Dynamic shared memory of one block: the ring of windows (a tile row
+    plus one 16-byte chunk), its barriers, and with ``slices`` > 1 the
+    other ranks' partials (the tile's column sums and the weight sum,
+    padded to 16 bytes, per rank)."""
+    ring = STAGES * 2 * STAGE_ROWS * (TILE_ROW_BYTES + VEC_BYTES)
+    return (ring + 16 * STAGES + 16
+            + (slices - 1) * (TILE_ROW_BYTES // esize + 4) * 4)
+
+
+def blocks_per_sm(esize, slices):
+    """Blocks resident on one SM: bounded by shared memory alone (a block
+    of 160 threads and 48 registers a thread)."""
+    return SM_SHARED_BYTES // (block_smem_bytes(esize, slices)
+                               + BLOCK_RESERVED_BYTES)
+
+
+def launch_geometry(m, n, esize, n_sm):
+    """(block_cols, slices) of the kernel's grid, ``ceil(n / block_cols)``
+    column tiles by ``slices`` row slices, for an [m, n] stack of
+    ``esize``-byte elements on a card of ``n_sm`` SMs.
+
+    The most slices (at most ``MAX_SLICES``, each of at least
+    ``MIN_SLICE_ROWS`` rows) whose grid is one wave of resident blocks, so
+    that no block waits for a free SM; one slice where m is short."""
+    block_cols = TILE_ROW_BYTES // esize
+    tiles = -(-n // block_cols)
+    for s in range(min(MAX_SLICES, m // MIN_SLICE_ROWS), 1, -1):
+        if tiles * s <= blocks_per_sm(esize, s) * n_sm:
+            return block_cols, s
+    return block_cols, 1
 
 
 def _check(x, y, vecs, g=None):
@@ -58,9 +116,44 @@ def _check_eta(eta_g):
                         f"{type(eta_g).__name__}")
 
 
-def _weights(mask, upload):
-    w = mask.float()
-    return w if upload is None else w * upload.float()
+def _f32(t):
+    """``t`` as the kernel takes it: contiguous float32, cast or copied
+    only where it is not."""
+    if t is None or (t.dtype == torch.float32 and t.is_contiguous()):
+        return t
+    return t.float().contiguous()
+
+
+_N_SM = {}
+
+
+def _sm_count(device):
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _N_SM:
+        _N_SM[idx] = torch.cuda.get_device_properties(idx) \
+            .multi_processor_count
+    return _N_SM[idx]
+
+
+def _launch(x, y, g, mask, echo, eta_g, upload, *, guard, slices=None):
+    """One launch of the CUDA kernel on checked operands; ``slices`` None
+    takes ``launch_geometry``'s."""
+    m, n = x.shape
+    block_cols, s = launch_geometry(m, n, x.element_size(),
+                                    _sm_count(x.device))
+    out = torch.empty((n,), dtype=torch.float32, device=x.device)
+    kernel.launch(x, y, _f32(g) if guard else None, _f32(mask),
+                  _f32(upload), _f32(echo), out, eta_g, guard=guard,
+                  block_cols=block_cols,
+                  slices=s if slices is None else slices)
+    return out
+
+
+def _on_card(x):
+    if x.device.type != "cuda":
+        raise ValueError(f"the CUDA and Triton kernels run on the card; got "
+                         f"{x.device}")
 
 
 def echo_aggregate_flat(clients_flat, x_end_flat, global_flat, mask, echo,
@@ -78,10 +171,8 @@ def echo_aggregate_flat(clients_flat, x_end_flat, global_flat, mask, echo,
         return echo_aggregate_fused_ref(clients_flat, x_end_flat,
                                         global_flat, mask, echo, eta_g,
                                         upload=upload)
-    out = kernel.echo_aggregate_triton(
-        clients_flat, x_end_flat, global_flat.float().contiguous(),
-        _weights(mask, upload).contiguous(), echo.float().contiguous(),
-        eta_g, has_guard=True)
+    out = _launch(clients_flat, x_end_flat, global_flat, mask, echo, eta_g,
+                  upload, guard=True)
     if upload is None:
         echo_aggregate_flat.launches += 1
     else:
@@ -104,11 +195,44 @@ def echo_aggregate(x, y, mask, echo, eta_g):
     if flat_x.device.type == "cpu":
         out = echo_aggregate_ref(flat_x, flat_y, mask, echo, eta_g)
     else:
-        out = kernel.echo_aggregate_triton(
-            flat_x, flat_y, flat_x, _weights(mask, None).contiguous(),
-            echo.float().contiguous(), eta_g, has_guard=False)
+        out = _launch(flat_x, flat_y, None, mask, echo, eta_g, None,
+                      guard=False)
         echo_aggregate.launches += 1
     return out.reshape(x.shape[1:])
 
 
 echo_aggregate.launches = 0
+
+
+def _echo_aggregate_cuda(x, y, g, mask, echo, eta_g, *, upload=None,
+                         slices=None):
+    """The CUDA kernel on [m, N] CUDA stacks at ``slices`` row slices
+    (``launch_geometry``'s where None), guarded unless ``g`` is None;
+    counts no launch.  ``chip_smoke.py`` checks the kernel with it at more
+    slices than rows."""
+    _check(x, y, dict(mask=mask, echo=echo, upload=upload), g=g)
+    _check_eta(eta_g)
+    _on_card(x)
+    if g is None and upload is not None:
+        raise ValueError("upload weights need the guard (a global g)")
+    if slices is not None and not 1 <= slices <= MAX_SLICES:
+        raise ValueError(f"slices must be in 1..{MAX_SLICES}; got {slices}")
+    return _launch(x, y, g, mask, echo, eta_g, upload, guard=g is not None,
+                   slices=slices)
+
+
+def _echo_aggregate_triton(x, y, g, mask, echo, eta_g, *, upload=None):
+    """The earlier Triton kernel, as the earlier wrapper launched it: the
+    weights ``mask * upload`` multiplied by a launch of their own, then
+    the kernel (guarded unless ``g`` is None).  ``chip_smoke.py``'s
+    yardstick; counts no launch."""
+    _check(x, y, dict(mask=mask, echo=echo, upload=upload), g=g)
+    _check_eta(eta_g)
+    _on_card(x)
+    w = mask.float()
+    if upload is not None:
+        w = w * upload.float()
+    guard = g is not None
+    return kernel_triton.echo_aggregate_triton(
+        x, y, g.float().contiguous() if guard else x, w.contiguous(),
+        echo.float().contiguous(), eta_g, has_guard=guard)

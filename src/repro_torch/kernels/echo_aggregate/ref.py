@@ -1,6 +1,8 @@
 """Plain torch versions of the fused echo-aggregate operator (FedAWE lines
 10-11 + line 4 of Algorithm 1, fused over the client axis): ports of the
-JAX package's ``kernels/echo_aggregate/ref.py``."""
+JAX package's ``kernels/echo_aggregate/ref.py``; and
+``echo_aggregate_split_ref``, the CUDA kernel's own arithmetic (row
+slices, rank-ordered combine) in plain torch, an oracle for the kernel."""
 from __future__ import annotations
 
 import torch
@@ -33,3 +35,44 @@ def echo_aggregate_fused_ref(x, y, g, mask, echo, eta_g, *, upload=None):
     if upload is not None:
         w = w * upload.float()
     return torch.where(w.sum() > 0, acc, g.float())
+
+
+def slice_bounds(m, slices):
+    """Row ranges of the CUDA kernel's slices: slice k takes rows
+    ``[k m // slices, (k + 1) m // slices)``."""
+    return [(k * m // slices, (k + 1) * m // slices) for k in range(slices)]
+
+
+def echo_aggregate_split_ref(x, y, g, mask, echo, eta_g, *, slices,
+                             upload=None):
+    """The CUDA kernel's arithmetic (``csrc/echo_aggregate.cu``), operation
+    for operation in float32: per slice of ``slice_bounds(m, slices)``, the
+    rows added in order into column sums and a weight sum from 0, each
+    product and sum rounded where it is written; the slices' partials
+    added in rank order 0, 1, ...; then ``acc / max(sum w, 1)``, and with
+    a global ``g`` (None: no guard) ``g`` where ``sum w <= 0``.  Columns
+    are independent, so the column tiles do not enter.  x, y: [m, N];
+    mask, echo, upload: [m].  Returns [N] float32."""
+    m, n = x.shape
+    w = mask.float()
+    if upload is not None:
+        w = w * upload.float()
+    c = eta_g * echo.float()
+    accs, sums = [], []
+    for lo, hi in slice_bounds(m, slices):
+        acc = torch.zeros(n, dtype=torch.float32, device=x.device)
+        ws = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(lo, hi):
+            xi, yi = x[i].float(), y[i].float()
+            acc = acc + w[i] * (xi - c[i] * (xi - yi))
+            ws = ws + w[i]
+        accs.append(acc)
+        sums.append(ws)
+    acc, ws = accs[0], sums[0]
+    for a, s in zip(accs[1:], sums[1:]):
+        acc = acc + a
+        ws = ws + s
+    res = acc / torch.clamp(ws, min=1.0)
+    if g is None:
+        return res
+    return torch.where(ws > 0, res, g.float())
