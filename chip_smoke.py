@@ -116,6 +116,21 @@ printed as JSON lines:
         (``FaultCfg(trace=True, sanitize=True)``), 4 chunked rounds with
         the kernel: n_rejected == 1 every round and the global finite;
         without sanitization (the negative control) the global is not.
+     f. The ten strategies — ``train.run`` with the FL flags, 32 rounds
+        and ``--use-kernel`` for each of fedawe, fedawe_m, the three
+        FedAvg variants, fedau, f3ast, mifa, fedvarp and fedar: K1 32
+        times for fedawe and fedawe_m and no launch for the eight
+        baselines, every loss finite, the same ``n_active`` history for
+        all ten, no client stack for a stateless strategy, the [100,
+        27 370] memory of mifa, fedvarp and fedar finite, and each run's
+        peak allocated memory.  fedau, mifa, fedvarp and fedar under the
+        fault flags: no launch, finite, sum(n_active) == sum(n_stale) +
+        pending.  ``--sampling epoch`` for fedawe and mifa, chunked and
+        in the host loop: equal ``n_active`` histories, τ, key and
+        sampler carry bit-equal, globals within 1e-4.  fedvarp under
+        epoch sampling, 64 rounds through ``--resume P --ckpt-every 32``,
+        straight and stopped at 32 then restarted: the restored
+        artifacts' τ, key and carry bit-equal, globals within 1e-4.
   4. numbers  — K1-K3: the Triton yardstick's global loads by width in
      its SASS at rows 8 bytes off 16 and at aligned rows; the CUDA kernel
      and the Triton yardstick in turns (K2's yardstick with its own weight
@@ -133,7 +148,11 @@ printed as JSON lines:
      path (with K2 and with the two matvecs, in turns), one of its chunks
      under ``torch.cuda.set_sync_debug_mode("error")`` (no host read
      inside a round), and the device ms of one ``step_buffer`` over its
-     [4, 100, 27 370] ring.  K4 at gemma2-2b's two shapes: kernel, plain
+     [4, 100, 27 370] ring.  ms per round of each of the ten strategies
+     (one chunk at a time, the ten in four turns, each one's median), a
+     profiler breakdown of a FedAvg and a FedVARP chunk, and one chunk of
+     each strategy, and of MIFA under epoch sampling, under the same
+     sync-debug mode.  K4 at gemma2-2b's two shapes: kernel, plain
      version, the compiled flex_attention yardstick and SDPA (no soft-cap
      or window) in CUDA events, the bound in tensor-core flops, the
      share of the bound, the kernel's time over the library's and the
@@ -161,6 +180,7 @@ import json
 import math
 import os
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -650,34 +670,50 @@ def triton_load_widths(torch, ops, smi):
         del a
 
 
-def time_rounds(torch, train, engine, federated, prng, use_kernel,
-                n_chunks=2, flags=MAIN_FLAGS):
-    """ms per round of the chunked path of ``flags`` between CUDA events
-    over ``n_chunks`` chunks, after one warm chunk."""
-    flags = flags + (["--use-kernel"] if use_kernel else [])
+def chunk_setup(torch, train, engine, federated, flags):
+    """The chunked path of ``flags`` built as the launcher builds it (its
+    sampler mode included), after one warm chunk: a dict with the
+    ``state``, the sampler carry ``ss``, the ``chunk`` executor and what
+    it is called with."""
     args = train.build_parser().parse_args(flags)
     dev = torch.device("cuda")
     parts = train.setup(args, dev)
     store = parts["ds"].device_store(dev)
-    init, sample = federated.make_device_sampler(args.m, args.s, args.batch)
+    init, sample = federated.make_device_sampler(
+        args.m, args.s, args.batch, mode=args.sampling,
+        min_count=min(len(ix) for ix in parts["ds"].client_indices))
     key = parts["data_key"]
     chunk = engine.make_chunk_fn(None, parts["round_fn"], sample,
                                  args.chunk_rounds)
     state, ss = parts["state"], init(store, key)
     state, ss, _ = chunk(state, ss, store, key)
     torch.cuda.synchronize()
+    return dict(state=state, ss=ss, chunk=chunk, store=store, key=key,
+                sample=sample, args=args)
+
+
+def chunks_ms(torch, r, n_chunks):
+    """ms per round of ``n_chunks`` more chunks of ``chunk_setup``'s run
+    ``r`` between CUDA events; ``r`` carries the state on."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(n_chunks):
-        state, ss, met = chunk(state, ss, store, key)
+        r["state"], r["ss"], _ = r["chunk"](r["state"], r["ss"], r["store"],
+                                            r["key"])
     end.record()
     end.synchronize()
-    rounds = n_chunks * args.chunk_rounds
-    round_ms = start.elapsed_time(end) / rounds
-    return dict(state=state, ss=ss, chunk=chunk, store=store, key=key,
-                sample=sample, args=args, round_ms=round_ms,
-                rounds_per_s=1e3 / round_ms)
+    return start.elapsed_time(end) / (n_chunks * r["args"].chunk_rounds)
+
+
+def time_rounds(torch, train, engine, federated, prng, use_kernel,
+                n_chunks=2, flags=MAIN_FLAGS):
+    """ms per round of the chunked path of ``flags`` between CUDA events
+    over ``n_chunks`` chunks, after one warm chunk."""
+    flags = flags + (["--use-kernel"] if use_kernel else [])
+    r = chunk_setup(torch, train, engine, federated, flags)
+    round_ms = chunks_ms(torch, r, n_chunks)
+    return dict(r, round_ms=round_ms, rounds_per_s=1e3 / round_ms)
 
 
 def events_ms(torch, fn, reps):
@@ -2129,6 +2165,243 @@ def time_fault_path(torch, train, engine, federated, prng, staleness, smi):
     return round_ms
 
 
+# ---------------------------------------------------------------------------
+# phase 3f: the ten strategies on the FL path, epoch sampling, resume
+# ---------------------------------------------------------------------------
+
+STRATEGIES = ("fedawe", "fedawe_m", "fedavg_active", "fedavg_all",
+              "fedavg_known_p", "fedau", "f3ast", "mifa", "fedvarp", "fedar")
+#: FedAU's interval state and the three [m, N] memories, held under faults
+FAULT_STRATEGIES = ("fedau", "mifa", "fedvarp", "fedar")
+STRAT_ROUNDS = 32
+
+
+def with_flags(flags, **kv):
+    """``flags`` with ``--key value`` set for each keyword (``chunk_rounds``
+    is ``--chunk-rounds``), replaced where present, else appended."""
+    out = list(flags)
+    for k, v in kv.items():
+        opt = "--" + k.replace("_", "-")
+        if opt in out:
+            out[out.index(opt) + 1] = str(v)
+        else:
+            out += [opt, str(v)]
+    return out
+
+
+def strategies_main_path(torch, train, strategies, counts, smi):
+    """Each of the ten strategies for STRAT_ROUNDS rounds of the main
+    path's flags with ``--use-kernel``, every count at 0 just before each:
+    K1 once a round for FedAWE and FedAWE-M and no launch for the
+    baselines, every loss finite, the same ``n_active`` history for all
+    ten, no client stack for a stateless strategy, and each run's peak
+    allocated memory."""
+    parser = train.build_parser()
+    n_active, launches = None, {}
+    for name in STRATEGIES:
+        args = parser.parse_args(
+            with_flags(MAIN_FLAGS, strategy=name, rounds=STRAT_ROUNDS)
+            + ["--use-kernel"])
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        counts.reset()
+        state, hist, final = train.run(args)
+        torch.cuda.synchronize()
+        launches[name] = counts.read()
+        strat = strategies.get_strategy(name)
+        k1 = STRAT_ROUNDS if strat.stateful_clients else 0
+        require(launches[name] == dict(K1=k1, K2=0, K3=0, K4=0, K5=0),
+                f"{name} launches {launches[name]}")
+        losses = [h["loss"] for h in hist]
+        require(len(hist) == STRAT_ROUNDS
+                and all(math.isfinite(v) for v in losses),
+                f"{name} losses {losses}")
+        require(state.global_tr.shape == (N_MAIN,)
+                and bool(torch.isfinite(state.global_tr).all()),
+                f"{name}: final global not finite of shape [N]")
+        require((state.clients_tr is None) != strat.stateful_clients,
+                f"{name}: client stack {state.clients_tr is not None}")
+        series = [h["n_active"] for h in hist]
+        n_active = n_active or series
+        require(series == n_active, f"{name}: n_active history differs")
+        extra = state.extra.values() if isinstance(state.extra, dict) else ()
+        memory = [v for v in extra if v.shape == (M_MAIN, N_MAIN)]
+        require(len(memory) == int(strat.memory_aided)
+                and all(bool(torch.isfinite(v).all()) for v in memory),
+                f"{name}: [m, N] memory {[tuple(v.shape) for v in memory]}")
+        peak = torch.cuda.max_memory_allocated()
+        emit(dict(phase="strategy_main_path", card=smi, strategy=name,
+                  rounds=STRAT_ROUNDS, m=M_MAIN, n=N_MAIN,
+                  launches=launches[name], first_loss=losses[0],
+                  last_loss=losses[-1], final_eval_acc=final["eval_acc"],
+                  client_stack=state.clients_tr is not None,
+                  memory_mb=sum(v.numel() * 4 for v in memory) / 1e6,
+                  peak_allocated_mb=peak / 1e6,
+                  peak_above_start_mb=(peak - before) / 1e6))
+        del state
+    require(0 < sum(n_active) < STRAT_ROUNDS * M_MAIN, f"n_active {n_active}")
+    return launches
+
+
+def strategies_fault_path(torch, train, staleness, counts, smi):
+    """FAULT_STRATEGIES under FAULT_FLAGS (with ``--use-kernel``, which a
+    baseline ignores): no launch at all, every loss and the global finite,
+    and sum(n_active) == sum(n_stale) + the updates still pending."""
+    parser = train.build_parser()
+    for name in FAULT_STRATEGIES:
+        args = parser.parse_args(
+            with_flags(FAULT_FLAGS, strategy=name, rounds=STRAT_ROUNDS)
+            + ["--use-kernel"])
+        counts.reset()
+        state, hist, _ = train.run(args)
+        torch.cuda.synchronize()
+        launched = counts.read()
+        require(launched == dict(K1=0, K2=0, K3=0, K4=0, K5=0),
+                f"{name} fault path launches {launched}")
+        require(all(math.isfinite(h["loss"]) for h in hist)
+                and bool(torch.isfinite(state.global_tr).all()),
+                f"{name} under faults: not finite")
+        sums = {k: sum(h[k] for h in hist)
+                for k in ("n_active", "n_stale", "n_dropped", "n_rejected")}
+        pending = staleness.pending_count(state.stale).item()
+        require(sums["n_active"] == sums["n_stale"] + pending,
+                f"{name}: sum(n_active) != sum(n_stale) + pending")
+        require(sums["n_dropped"] > 0 and sums["n_stale"] > 0,
+                f"{name}: nothing dropped or delivered late")
+        emit(dict(phase="strategy_fault_path", card=smi, strategy=name,
+                  rounds=STRAT_ROUNDS, launches=launched, pending=pending,
+                  last_loss=hist[-1]["loss"],
+                  **{f"sum_{k}": v for k, v in sums.items()}))
+        del state
+
+
+def restore_artifact(torch, train, federated, io, args, path):
+    """``(state, sampler carry)`` of the resumable artifact ``path``,
+    restored into fresh templates of ``args``' run."""
+    dev = torch.device("cuda")
+    parts = train.setup(args, dev)
+    store = parts["ds"].device_store(dev)
+    init, _ = federated.make_device_sampler(args.m, args.s, args.batch,
+                                            mode=args.sampling)
+    return io.restore_run_state(path, parts["state"],
+                                init(store, parts["data_key"]))
+
+
+def require_same_run(torch, a, b, what):
+    """Two restored artifacts: τ, t, the key and the sampler carry
+    bit-equal, the global within 1e-4 (cuDNN's convolution backward need
+    not be deterministic); returns the global's difference."""
+    (sa, ssa), (sb, ssb) = a, b
+    for k in ("tau", "t", "rng"):
+        require(torch.equal(getattr(sa, k), getattr(sb, k)),
+                f"{what}: {k} differs")
+    require(set(ssa) == set(ssb) == {"perm", "cursor", "epoch", "key"}
+            and all(torch.equal(ssa[k], ssb[k]) for k in ssa),
+            f"{what}: sampler carry differs")
+    diff = (sa.global_tr - sb.global_tr).abs().max().item()
+    require(diff <= 1e-4, f"{what}: globals differ by {diff}")
+    return diff
+
+
+def epoch_and_resume(torch, train, federated, io, smi):
+    """Epoch sampling, chunked against the host loop, for FedAWE and MIFA;
+    then FedVARP under epoch sampling for 2 x STRAT_ROUNDS rounds through
+    ``--resume P --ckpt-every STRAT_ROUNDS``, once straight and once
+    stopped at STRAT_ROUNDS and restarted.  Each run's final carry is read
+    back from its own artifact."""
+    import tempfile
+
+    parser = train.build_parser()
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in ("fedawe", "mifa"):
+            runs = {}
+            for k in (16, 0):
+                path = os.path.join(tmp, f"{name}-{k}")
+                args = parser.parse_args(with_flags(
+                    MAIN_FLAGS, strategy=name, rounds=STRAT_ROUNDS,
+                    sampling="epoch", chunk_rounds=k, resume=path,
+                    ckpt_every=STRAT_ROUNDS) + ["--use-kernel"])
+                _, hist, _ = train.run(args)
+                runs[k] = ([h["n_active"] for h in hist], restore_artifact(
+                    torch, train, federated, io, args, path))
+            require(runs[16][0] == runs[0][0],
+                    f"{name} epoch: n_active differs chunked vs host loop")
+            diff = require_same_run(torch, runs[16][1], runs[0][1],
+                                    f"{name} epoch chunked vs host loop")
+            epochs = runs[16][1][1]["epoch"]
+            require(int(epochs.max()) >= 1,
+                    f"{name} epoch: no client finished an epoch")
+            emit(dict(phase="epoch_sampling", card=smi, strategy=name,
+                      rounds=STRAT_ROUNDS, chunked_vs_host_global=diff,
+                      epochs_min=int(epochs.min()),
+                      epochs_max=int(epochs.max()),
+                      sum_n_active=sum(runs[16][0])))
+
+        T = 2 * STRAT_ROUNDS
+        flags = with_flags(MAIN_FLAGS, strategy="fedvarp", sampling="epoch",
+                           ckpt_every=STRAT_ROUNDS)
+        straight = os.path.join(tmp, "straight")
+        args = parser.parse_args(with_flags(flags, rounds=T,
+                                            resume=straight))
+        _, hist_s, _ = train.run(args)
+        stopped = os.path.join(tmp, "stopped")
+        train.run(parser.parse_args(with_flags(flags, rounds=STRAT_ROUNDS,
+                                               resume=stopped)))
+        _, hist_r, _ = train.run(parser.parse_args(with_flags(
+            flags, rounds=T, resume=stopped)))
+        require(len(hist_r) == T - STRAT_ROUNDS
+                and [h["n_active"] for h in hist_r]
+                == [h["n_active"] for h in hist_s[STRAT_ROUNDS:]],
+                "resume: n_active differs from the straight run")
+        a = restore_artifact(torch, train, federated, io, args, straight)
+        b = restore_artifact(torch, train, federated, io, args, stopped)
+        require(int(a[0].t) == int(b[0].t) == T, "resume: round counts")
+        diff = require_same_run(torch, a, b, "resume")
+        emit(dict(phase="resume", card=smi, strategy="fedvarp",
+                  sampling="epoch",
+                  rounds=T, stopped_at=STRAT_ROUNDS, resumed_vs_straight=diff,
+                  memory_diff=(a[0].extra["y"] - b[0].extra["y"]).abs().max()
+                  .item()))
+
+
+def time_strategies(torch, train, engine, federated, smi):
+    """ms per round of each strategy's chunked path with ``--use-kernel``,
+    CUDA events over one chunk at a time, the ten in four turns (forward,
+    backward, forward, backward; the host's pace drifts within a call, so
+    each strategy's median is compared); a profiler breakdown of one chunk
+    of FedAvg and FedVARP;
+    then one chunk of each, and one of MIFA under epoch sampling, under
+    ``torch.cuda.set_sync_debug_mode("error")`` (no host read inside a
+    round)."""
+    runs = {name: chunk_setup(torch, train, engine, federated, with_flags(
+        MAIN_FLAGS, strategy=name) + ["--use-kernel"]) for name in STRATEGIES}
+    turns = {name: [] for name in STRATEGIES}
+    for order in (STRATEGIES, STRATEGIES[::-1]) * 2:
+        for name in order:
+            turns[name].append(chunks_ms(torch, runs[name], 1))
+    median = {name: statistics.median(t) for name, t in turns.items()}
+    for name in STRATEGIES:
+        emit(dict(phase="strategy_round_time", card=smi, strategy=name,
+                  round_ms_turns=turns[name], round_ms=median[name],
+                  over_fedawe=median[name] / median["fedawe"]))
+    for name in ("fedavg_active", "fedvarp"):
+        emit(dict(phase="profile", card=smi, path=f"strategy_{name}",
+                  **profile_chunk(torch, runs[name], median[name])))
+    runs["mifa epoch"] = chunk_setup(torch, train, engine, federated,
+                                     with_flags(MAIN_FLAGS, strategy="mifa",
+                                                sampling="epoch"))
+    for r in runs.values():
+        torch.cuda.set_sync_debug_mode("error")
+        r["state"], r["ss"], _ = r["chunk"](r["state"], r["ss"], r["store"],
+                                            r["key"])
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    emit(dict(phase="strategy_sync_free", card=smi, chunks=list(runs)))
+    del runs
+    torch.cuda.empty_cache()
+
+
 class Counts:
     """Every kernel wrapper's launch count, set to 0 and read together."""
 
@@ -2178,7 +2451,7 @@ def main():
     from repro_torch.kernels.ssd_chunk import ops as sops
     from repro_torch.kernels.ssd_chunk import ref as sref
     from repro_torch.launch import train
-    from repro_torch.checkpointing import convert
+    from repro_torch.checkpointing import convert, io
     from repro_torch.models import cnn, model, reduced, ssm
 
     counts = Counts(ops, fops, sops)
@@ -2304,6 +2577,13 @@ def main():
         nan_witness(torch, train, engine, faults, federated, prng, counts,
                     sanitize)
 
+    # phase 3f: the ten strategies, every count at 0 just before each; four
+    # of them under faults and staleness; epoch sampling in both executors;
+    # a run stopped and resumed from its artifact
+    strategies_main_path(torch, train, strategies, counts, smi)
+    strategies_fault_path(torch, train, staleness, counts, smi)
+    epoch_and_resume(torch, train, federated, io, smi)
+
     # phase 4: numbers
     triton_load_widths(torch, ops, smi)
     times = time_kernels(torch, ops, ref, strategies, smi)
@@ -2321,6 +2601,7 @@ def main():
               **profile_chunk(torch, runs[3], round_ms)))
     del runs
     time_fault_path(torch, train, engine, federated, prng, staleness, smi)
+    time_strategies(torch, train, engine, federated, smi)
     for arch in ("zamba2-7b", "mamba2-130m"):
         emit(dict(phase="bound", **ssd_chunk_bound(get_config(arch), LM_B,
                                                    LM_L, 2)))

@@ -5,6 +5,7 @@ from repro_torch.core.availability import AvailabilityCfg  # noqa: F401
 from repro_torch.core.engine import (  # noqa: F401
     FLConfig,
     FLState,
+    client_trainables,
     global_trainables,
     init_fl_state,
     local_sgd,

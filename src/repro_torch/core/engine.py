@@ -24,10 +24,15 @@ Two executors drive the round function, as in the reference:
     fetched once per chunk.  The chunk is a Python loop of K rounds that
     never reads a device value on the host.
 
-Ported so far: the dense flat round, with fault injection
-(``fault_cfg``, core/faults.py) and semi-async rounds (``staleness_cfg``,
-core/staleness.py) alone or composed.  The tree path, the cohort path
-and the seed/grid executors belong to later slices of the port.
+Ported so far: the dense flat round of all ten strategies, with fault
+injection (``fault_cfg``, core/faults.py) and semi-async rounds
+(``staleness_cfg``, core/staleness.py) alone or composed.  A stateful
+strategy (FedAWE, FedAWE-M) starts local SGD from its [m, N] client
+stack; a stateless one keeps no stack (``FLState.clients_tr is None``)
+and starts from a broadcast view of the flat global.  Both executors take
+a checkpoint hook (``ckpt_fn`` / ``ckpt_every``).  The tree path, the
+cohort path and the seed/grid executors belong to later slices of the
+port.
 """
 from __future__ import annotations
 
@@ -69,7 +74,8 @@ class FLConfig:
 class FLState(NamedTuple):
     """Whole persistent state of a run, on one device."""
     global_tr: Any              # [N] float32 flat global
-    clients_tr: Any             # [m, N] float32 client stack
+    clients_tr: Any             # [m, N] float32 client stack, or None
+                                # (stateless strategies keep none)
     tau: torch.Tensor           # [m] int32, init -1
     t: torch.Tensor             # scalar int32 round counter
     extra: Any                  # strategy state
@@ -95,9 +101,12 @@ def init_fl_state(rng, cfg: FLConfig, trainable_template, *, fault=None,
     dev = rng.device
     spec = FlatSpec.from_tree(trainable_template)
     g = spec.flatten(trainable_template).to(dev).clone()
+    # stateless strategies never materialize the [m, N] client stack
+    clients = (g[None].expand(cfg.m, spec.size).clone()
+               if strat.stateful_clients else None)
     return FLState(
         global_tr=g,
-        clients_tr=g[None].expand(cfg.m, spec.size).clone(),
+        clients_tr=clients,
         tau=torch.full((cfg.m,), -1, dtype=torch.int32, device=dev),
         t=torch.zeros((), dtype=torch.int32, device=dev),
         extra=strat.init_extra(g, cfg.m),
@@ -111,6 +120,14 @@ def init_fl_state(rng, cfg: FLConfig, trainable_template, *, fault=None,
 def global_trainables(state: FLState):
     """Trainable tree of the global model (views of the flat global)."""
     return state.spec.unflatten(state.global_tr)
+
+
+def client_trainables(state: FLState):
+    """Client-stacked trainable tree (views, leaves ``[m, ...]``), or None
+    when the strategy keeps no per-client state."""
+    if state.clients_tr is None:
+        return None
+    return state.spec.unflatten_stacked(state.clients_tr)
 
 
 def _clip(g, max_norm):
@@ -208,7 +225,10 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, frozen: Any,
 
         loc_rngs = prng.split(k_loc, cfg.m)
         spec = state.spec
-        start = state.clients_tr
+        # stateless: a broadcast VIEW of the flat global, never a copy;
+        # nothing below writes into ``start`` in place
+        start = state.clients_tr if strat.stateful_clients else \
+            state.global_tr[None].expand(cfg.m, spec.size)
         x_end_tr, losses = local_sgd(
             spec.unflatten_stacked(start), frozen, batches, loc_rngs,
             s=cfg.s, eta_l=eta_l, loss_fn=loss_fn, grad_clip=cfg.grad_clip)
@@ -339,7 +359,8 @@ def _log(done, rec):
 
 def run_rounds(state: FLState, round_fn, batch_fn, T, *, log_every=0,
                eval_fn=None, eval_every=0, chunk_rounds=0, sample_fn=None,
-               store=None, data_key=None, sampler_state=None):
+               store=None, data_key=None, sampler_state=None, ckpt_fn=None,
+               ckpt_every=0):
     """Run T rounds; returns (state, history list of metric dicts).
 
     Host loop (default): ``batch_fn(t)`` batches — or, when ``batch_fn``
@@ -348,13 +369,19 @@ def run_rounds(state: FLState, round_fn, batch_fn, T, *, log_every=0,
 
     Chunked (``chunk_rounds=K > 0``): ``ceil(T / K)`` chunk calls (a
     shorter final chunk covers ``T % K``) and one metrics fetch per chunk;
-    ``eval_fn`` fires at the first chunk boundary at or past each
-    ``eval_every`` multiple."""
+    ``eval_fn`` and ``ckpt_fn`` fire at the first chunk boundary at or
+    past each ``eval_every`` / ``ckpt_every`` multiple.
+
+    ``ckpt_fn(state, t)`` writes an eval/export checkpoint after ``t``
+    rounds of this call; a 3-argument (or variadic) ``ckpt_fn(state, t,
+    sampler_state)`` also gets the carried sampler state, which a
+    resumable checkpoint (``checkpointing.save_run_state``) needs."""
     if chunk_rounds:
         return _run_rounds_chunked(
             state, round_fn, T, chunk_rounds, sample_fn=sample_fn,
             store=store, data_key=data_key, sampler_state=sampler_state,
-            log_every=log_every, eval_fn=eval_fn, eval_every=eval_every)
+            log_every=log_every, eval_fn=eval_fn, eval_every=eval_every,
+            ckpt_fn=ckpt_fn, ckpt_every=ckpt_every)
 
     if batch_fn is None:
         if sample_fn is None or store is None or data_key is None \
@@ -362,8 +389,8 @@ def run_rounds(state: FLState, round_fn, batch_fn, T, *, log_every=0,
             raise ValueError(
                 "host loop needs batch_fn, or a stateful device sampler "
                 "(sample_fn + store + data_key + sampler_state)")
-        carried = [sampler_state]
-        # key by the GLOBAL round counter, like the chunk executor
+        # key by the GLOBAL round counter, like the chunk executor: a
+        # resumed state must not replay the stream from round 0
         t0 = int(state.t)
 
         def batch_fn(t):
@@ -371,6 +398,7 @@ def run_rounds(state: FLState, round_fn, batch_fn, T, *, log_every=0,
                 store, carried[0], prng.fold_in(data_key, t0 + t))
             return batches
 
+    carried = [sampler_state]
     history = []
     for t in range(T):
         state, metrics = round_fn(state, batch_fn(t))
@@ -379,6 +407,8 @@ def run_rounds(state: FLState, round_fn, batch_fn, T, *, log_every=0,
         if eval_fn is not None and eval_every and (t + 1) % eval_every == 0:
             rec.update(eval_fn(state))
         history.append(rec)
+        if ckpt_fn is not None and ckpt_every and (t + 1) % ckpt_every == 0:
+            _call_ckpt(ckpt_fn, state, t + 1, carried[0])
         if log_every and (t + 1) % log_every == 0:
             _log(t + 1, rec)
     return state, history
@@ -389,8 +419,28 @@ def _crossed(done, k, every):
     return every and (done // every) > ((done - k) // every)
 
 
+def _call_ckpt(ckpt_fn, state, done, sampler_state):
+    """Call a checkpoint hook by its arity: ``(state, t)`` for a 2-argument
+    hook; ``(state, t, sampler_state)`` for a 3-argument or variadic one
+    (a hook that absorbs arguments gets the whole run state)."""
+    import inspect
+
+    try:
+        params = inspect.signature(ckpt_fn).parameters.values()
+        variadic = any(p.kind == inspect.Parameter.VAR_POSITIONAL
+                       for p in params)
+        n = 3 if variadic else len(params)
+    except (TypeError, ValueError):  # callables without a signature
+        n = 2
+    if n >= 3:
+        ckpt_fn(state, done, sampler_state)
+    else:
+        ckpt_fn(state, done)
+
+
 def _run_rounds_chunked(state, round_fn, T, K, *, sample_fn, store, data_key,
-                        sampler_state, log_every, eval_fn, eval_every):
+                        sampler_state, log_every, eval_fn, eval_every,
+                        ckpt_fn, ckpt_every):
     if sample_fn is None or store is None or data_key is None \
             or sampler_state is None:
         raise ValueError(
@@ -412,6 +462,8 @@ def _run_rounds_chunked(state, round_fn, T, K, *, sample_fn, store, data_key,
         done += k
         if eval_fn is not None and _crossed(done, k, eval_every):
             history[-1].update(eval_fn(state))
+        if ckpt_fn is not None and _crossed(done, k, ckpt_every):
+            _call_ckpt(ckpt_fn, state, done, sampler_state)
         if _crossed(done, k, log_every):
             _log(done, history[-1])
     return state, history

@@ -14,7 +14,9 @@ as in the reference:
 ``make_device_sampler`` returns ``(init_sampler_state, sample)`` with
 ``sample(store, sampler_state, key) -> (batches, sampler_state)``, the
 stateful contract both executors of ``core/engine.py`` thread through.
-Only ``mode="uniform"``, emitting gathered batches, is ported so far.
+Both modes are ported, uniform draws and epoch permutations, each
+emitting gathered batches; the reference's ``emit="cols"`` (the sparse
+cohort path) belongs to a later slice.
 """
 from __future__ import annotations
 
@@ -112,7 +114,8 @@ def _gather_batches(store, cols, m, s, b):
             for k, v in store["arrays"].items()}
 
 
-def make_device_sampler(m: int, s: int, b: int, mode: str = "uniform"):
+def make_device_sampler(m: int, s: int, b: int, mode: str = "uniform",
+                        min_count: int = 1):
     """Stateful round-batch sampler over a ``device_store``.
 
     ``mode="uniform"``: i.i.d. draws with replacement within each client
@@ -120,23 +123,90 @@ def make_device_sampler(m: int, s: int, b: int, mode: str = "uniform"):
     reference's exact column stream.  The state is empty; the per-round
     key is ``fold_in(data_key, t)``.
 
-    ``mode="epoch"`` belongs to a later slice of the port and raises; the
-    reference's ``emit="cols"`` (the sparse cohort path) is not ported."""
+    ``mode="epoch"``: each client walks a fresh random permutation of its
+    own shard per epoch, so every sample is drawn exactly once an epoch.
+    The carry is ``{perm [m, cap], cursor [m], epoch [m]}`` (int32) and
+    the data ``key``; the stream is a function of that carry alone (the
+    per-round key is ignored), bit-equal to the reference's.
+    ``min_count`` is a lower bound on every shard's size: a client
+    crosses at most ``(s*b - 1) // min_count + 1`` epoch boundaries a
+    round, so it sizes the per-round permutation stack (1 is always
+    safe); ``init_sampler_state`` checks it against the store."""
     if mode not in SAMPLING_MODES:
         raise ValueError(f"unknown sampling mode {mode!r}; "
                          f"expected one of {SAMPLING_MODES}")
-    if mode == "epoch":
-        raise NotImplementedError(
-            "epoch-permutation sampling is not ported yet (a later slice "
-            "of the port); use mode='uniform'")
     q = s * b
 
+    if mode == "uniform":
+        def init_sampler_state(store, key):
+            del store, key
+            return {}
+
+        def sample(store, sampler_state, key):
+            cols = prng.randint(key, (m, q), 0, store["counts"][:, None])
+            return _gather_batches(store, cols, m, s, b), sampler_state
+
+        return init_sampler_state, sample
+
+    # epoch offsets 0..n_off-1 can be touched within one round: the carried
+    # permutation plus every reshuffle a cursor can wrap into
+    n_off = 2 + (q - 1) // max(int(min_count), 1)
+
+    def _perms(base_key, epochs, counts, cap):
+        """``[..., m]`` per-client epoch numbers -> ``[..., m, cap]``
+        permutations: client i's epoch e sorts ``uniform(fold_in(fold_in(
+        key, e), i), (cap,))``, padded columns keyed +inf, by a stable
+        argsort, so the first ``counts[i]`` entries permute
+        ``0..counts[i]-1``."""
+        k = prng.fold_in(prng.fold_in(base_key, epochs),
+                         torch.arange(m, device=counts.device))
+        u = prng.uniform(k, (cap,))
+        pad = torch.arange(cap, device=counts.device) >= counts[:, None]
+        u = torch.where(pad, float("inf"), u)
+        return torch.argsort(u, dim=-1, stable=True).to(torch.int32)
+
     def init_sampler_state(store, key):
-        del store, key
-        return {}
+        counts = store["counts"]
+        smallest = int(counts.min())
+        if smallest < min_count:
+            raise ValueError(
+                f"min_count={min_count} overstates the smallest shard "
+                f"({smallest}): the epoch permutation stack would be too "
+                "short and sampling would silently repeat")
+        cap = store["idx"].shape[1]
+        zeros = torch.zeros((m,), dtype=torch.int32, device=counts.device)
+        # every field owns its buffer (the carry is replaced, field by
+        # field, every round)
+        return dict(perm=_perms(key, zeros, counts, cap),
+                    cursor=zeros.clone(), epoch=zeros.clone(),
+                    key=key.clone())
 
     def sample(store, sampler_state, key):
-        cols = prng.randint(key, (m, q), 0, store["counts"][:, None])
-        return _gather_batches(store, cols, m, s, b), sampler_state
+        del key  # the epoch stream is fully determined by the carry
+        counts = store["counts"]                                 # [m] i64
+        cap = store["idx"].shape[1]
+        cursor = sampler_state["cursor"].long()
+        epoch = sampler_state["epoch"]
+        base = sampler_state["key"]
+        rows = torch.arange(m, device=counts.device)
+        # global draw positions of this round, as (epoch offset, rank in
+        # the epoch): a shard smaller than q wraps several times a round
+        pos = cursor[:, None] + torch.arange(q, device=counts.device)
+        d = pos // counts[:, None]
+        r = pos % counts[:, None]
+        # offset 0 is the carried permutation, the rest the reshuffles a
+        # cursor can wrap into this round
+        offs = torch.arange(1, n_off, dtype=torch.int32,
+                            device=counts.device)
+        new = _perms(base, epoch[None, :] + offs[:, None], counts, cap)
+        stack = torch.cat([sampler_state["perm"][None], new], dim=0)
+        cols = stack[d, rows[:, None], r].long()                 # [m, q]
+        total = cursor + q
+        wraps = total // counts
+        return _gather_batches(store, cols, m, s, b), dict(
+            perm=stack[wraps, rows],
+            cursor=(total % counts).to(torch.int32),
+            epoch=epoch + wraps.to(torch.int32),
+            key=base)
 
     return init_sampler_state, sample

@@ -2,13 +2,18 @@
 
     python -m repro_torch.launch.train --strategy fedawe --dynamics sine \
         --flat-state --chunk-rounds 16 --use-kernel --rounds 300 \
-        [--midround-drop 0.3 --sanitize --stale-max 4 --stale-kind geom]
+        [--midround-drop 0.3 --sanitize --stale-max 4 --stale-kind geom] \
+        [--sampling epoch] [--ckpt PATH --ckpt-every N] \
+        [--resume PATH --ckpt-every N]
 
-The port of ``python -m repro.launch.train --preset image``.  It runs on
-the card (``--device cuda``, the default) unless ``--device cpu`` is
-passed, and raises when the card is missing.  Flags keep the reference's
-names and defaults; flags of paths not ported yet are not defined, so
-argparse refuses them.
+The port of ``python -m repro.launch.train --preset image``, for all ten
+strategies of the reference's registry (FedAWE, FedAWE-M and the eight
+baselines).  It runs on the card (``--device cuda``, the default) unless
+``--device cpu`` is passed, and raises when the card is missing.  Flags
+keep the reference's names and defaults; flags of paths not ported yet
+are not defined, so argparse refuses them.  Checkpoints are written in
+the reference's format (``checkpointing/io.py``), so either launcher
+resumes the other's ``--resume`` artifact.
 """
 from __future__ import annotations
 
@@ -20,10 +25,13 @@ import os
 import numpy as np
 import torch
 
-from repro_torch.core import (AvailabilityCfg, FaultCfg, FLConfig, FlatSpec,
-                              StalenessCfg, global_trainables, init_fl_state,
-                              init_staleness_state, make_round_fn, prng,
-                              run_rounds, staircase_delay_trace)
+from repro_torch.checkpointing import (restore_run_state, save_fl_state,
+                                       save_run_state)
+from repro_torch.core import (REGISTRY, AvailabilityCfg, FaultCfg, FLConfig,
+                              FlatSpec, StalenessCfg, global_trainables,
+                              init_fl_state, init_staleness_state,
+                              make_round_fn, prng, run_rounds,
+                              staircase_delay_trace)
 from repro_torch.core.availability import base_probs_from_data
 from repro_torch.data import (SAMPLING_MODES, FederatedDataset,
                               dirichlet_partition, make_device_sampler,
@@ -63,7 +71,8 @@ def build_image_task(args, rng, device):
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
     ap.add_argument("--strategy", default="fedawe",
-                    help="aggregation strategy (ported: fedawe, fedawe_m)")
+                    help="aggregation strategy: "
+                         + ", ".join(REGISTRY))
     ap.add_argument("--dynamics", default="stationary",
                     choices=["stationary", "staircase", "sine",
                              "interleaved_sine", "markov"],
@@ -92,7 +101,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "(0 = host loop)")
     ap.add_argument("--sampling", default="uniform",
                     choices=list(SAMPLING_MODES),
-                    help="device-sampler mode (ported: uniform)")
+                    help="device-sampler mode: uniform draws with "
+                         "replacement, or epoch permutations (every "
+                         "sample once an epoch)")
     ap.add_argument("--midround-drop", type=float, default=0.0,
                     help="P(a computed update fails to upload) per client "
                          "per round — mid-round dropout fault injection "
@@ -127,6 +138,18 @@ def build_parser() -> argparse.ArgumentParser:
                          "gamma**d (default: 1.0 = undiscounted)")
     ap.add_argument("--eval-every", type=int, default=50)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--ckpt", default=None,
+                    help="write the final FLState to PATH.npz + PATH.json")
+    ap.add_argument("--ckpt-every", type=int, default=0,
+                    help="overwrite --ckpt every N rounds (chunk-aligned); "
+                         "with --resume, overwrite the resumable artifact")
+    ap.add_argument("--resume", default=None, metavar="PATH",
+                    help="resumable run artifact prefix (PATH.npz + "
+                         "PATH.json holding the FLState and the carried "
+                         "sampler state): every --ckpt-every rounds the "
+                         "run overwrites it, and when it exists the run "
+                         "restores it and continues to --rounds; forces "
+                         "the device sampler")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where to run; 'cuda' raises when no card is "
                          "visible")
@@ -190,7 +213,8 @@ def setup(args, device):
 
 def run(args):
     """Train as the parsed ``args`` say; returns ``(state, history,
-    final)``.  The body of ``main``, without its printing and output."""
+    final)``.  The body of ``main``, checkpoints included, without its
+    printing and ``--out``."""
     # the pending-update ring rides the flat [m, N] substrate
     args.flat_state = args.flat_state or fault_configs(args)[1] is not None
     if not args.flat_state:
@@ -200,18 +224,43 @@ def run(args):
     parts = setup(args, device)
     state, round_fn, ds = parts["state"], parts["round_fn"], parts["ds"]
     eval_fn = parts["eval_fn"]
-    if args.chunk_rounds or args.sampling == "epoch":
+    ckpt_fn = None
+    if args.ckpt and args.ckpt_every:
+        def ckpt_fn(st, t):
+            save_fl_state(args.ckpt, st, round_t=t)
+
+    if args.chunk_rounds or args.sampling == "epoch" or args.resume:
+        # the device sampler: always for the chunked executor, and for the
+        # host loop under epoch sampling or --resume, whose carry lives on
+        # the device (and in the resumable artifact)
         store = ds.device_store(device)
         init_sampler_fn, sample_fn = make_device_sampler(
-            args.m, args.s, args.batch, mode=args.sampling)
+            args.m, args.s, args.batch, mode=args.sampling,
+            min_count=min(len(ix) for ix in ds.client_indices))
         data_key = parts["data_key"]
+        sampler_state = init_sampler_fn(store, data_key)
+        rounds_left = args.rounds
+        if args.resume:
+            # the artifact is a prefix: probe its manifest
+            if os.path.exists(args.resume + ".json"):
+                state, sampler_state = restore_run_state(
+                    args.resume, state, sampler_state)
+                done = int(state.t)
+                rounds_left = max(args.rounds - done, 0)
+                print(f"resumed {args.resume} at round {done}; "
+                      f"{rounds_left} to go")
+            if args.ckpt_every:
+                # 3 arguments: the executor hands over the carried sampler
+                # state, which makes the artifact resumable
+                def ckpt_fn(st, t, ss):
+                    save_run_state(args.resume, st, ss, round_t=t)
         state, hist = run_rounds(
-            state, round_fn, None, args.rounds,
+            state, round_fn, None, rounds_left,
             chunk_rounds=args.chunk_rounds, sample_fn=sample_fn,
-            store=store, data_key=data_key,
-            sampler_state=init_sampler_fn(store, data_key),
-            log_every=max(1, args.rounds // 10),
-            eval_fn=eval_fn, eval_every=args.eval_every)
+            store=store, data_key=data_key, sampler_state=sampler_state,
+            log_every=max(1, rounds_left // 10),
+            eval_fn=eval_fn, eval_every=args.eval_every,
+            ckpt_fn=ckpt_fn, ckpt_every=args.ckpt_every)
     else:
         def batch_fn(t):
             return {k: torch.from_numpy(v).to(device)
@@ -220,8 +269,12 @@ def run(args):
 
         state, hist = run_rounds(state, round_fn, batch_fn, args.rounds,
                                  log_every=max(1, args.rounds // 10),
-                                 eval_fn=eval_fn, eval_every=args.eval_every)
-    return state, hist, eval_fn(state)
+                                 eval_fn=eval_fn, eval_every=args.eval_every,
+                                 ckpt_fn=ckpt_fn, ckpt_every=args.ckpt_every)
+    final = eval_fn(state)
+    if args.ckpt:
+        save_fl_state(args.ckpt, state)
+    return state, hist, final
 
 
 def main(argv=None):

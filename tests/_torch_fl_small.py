@@ -5,7 +5,9 @@ and the comparison both parity files apply to the two runs.
 
 ``run(pkg, strategy, fault=None, stale=None, ...)`` takes the fault and
 staleness configs as plain dicts of ``FaultCfg`` / ``StalenessCfg``
-fields, so one description builds both packages' configs."""
+fields, so one description builds both packages' configs; ``setup`` and
+``drive`` are its two halves, for runs that restart from a checkpoint.
+The sampler is uniform unless ``sampling="epoch"``."""
 import numpy as np
 import torch
 
@@ -48,10 +50,11 @@ def _torch_loss(tr, frozen, batch, rng):
             + torch.sum(tr["b"] ** 2))
 
 
-def _run_ref(strategy, fault, stale, *, chunk, use_kernel, T, K,
-             trace, clusters, dtrace, nan_client, base_p, kind):
+def _setup_ref(strategy, fault, stale, *, use_kernel, trace, clusters,
+               dtrace, nan_client, base_p, kind, sampling, min_count):
     store = ref_fed.device_store(*arrays(nan_client))
-    init_fn, sample_fn = ref_fed.make_device_sampler(M, S, B)
+    init_fn, sample_fn = ref_fed.make_device_sampler(
+        M, S, B, mode=sampling, min_count=min_count)
     cfg = ref_core.FLConfig(m=M, s=S, eta_l=0.03, strategy=strategy,
                             lr_schedule=False, grad_clip=0.0,
                             use_kernel=use_kernel, flat_state=True)
@@ -67,16 +70,15 @@ def _run_ref(strategy, fault, stale, *, chunk, use_kernel, T, K,
                                           clusters=clusters),
         stale=ref_stale.init_staleness_state(sc, N_FLAT, M, dtrace=dtrace))
     key = jax.random.PRNGKey(42)
-    return ref_core.run_rounds(
-        state, rf, None, T, chunk_rounds=K if chunk else 0,
-        sample_fn=sample_fn, store=store, data_key=key,
-        sampler_state=init_fn(store, key))
+    return dict(state=state, round_fn=rf, store=store, sample_fn=sample_fn,
+                data_key=key, sampler_state=init_fn(store, key))
 
 
-def _run_port(strategy, fault, stale, *, chunk, use_kernel, T, K,
-              trace, clusters, dtrace, nan_client, base_p, kind):
+def _setup_port(strategy, fault, stale, *, use_kernel, trace, clusters,
+                dtrace, nan_client, base_p, kind, sampling, min_count):
     store = fed.device_store(*arrays(nan_client), "cpu")
-    init_fn, sample_fn = fed.make_device_sampler(M, S, B)
+    init_fn, sample_fn = fed.make_device_sampler(
+        M, S, B, mode=sampling, min_count=min_count)
     cfg = core.FLConfig(m=M, s=S, eta_l=0.03, strategy=strategy,
                         lr_schedule=False, grad_clip=0.0,
                         use_kernel=use_kernel, flat_state=True)
@@ -91,20 +93,50 @@ def _run_port(strategy, fault, stale, *, chunk, use_kernel, T, K,
         fault=faults.init_fault_state(fc, trace=trace, clusters=clusters),
         stale=staleness.init_staleness_state(sc, N_FLAT, M, dtrace=dtrace))
     key = prng.PRNGKey(42, "cpu")
-    return core.run_rounds(
-        state, rf, None, T, chunk_rounds=K if chunk else 0,
-        sample_fn=sample_fn, store=store, data_key=key,
-        sampler_state=init_fn(store, key))
+    return dict(state=state, round_fn=rf, store=store, sample_fn=sample_fn,
+                data_key=key, sampler_state=init_fn(store, key))
+
+
+def setup(pkg, strategy="fedawe", fault=None, stale=None, *,
+          use_kernel=False, trace=None, clusters=None, dtrace=None,
+          nan_client=None, base_p=0.6, kind="sine", sampling="uniform",
+          min_count=1):
+    """The fresh run of ``pkg`` ("ref" or "port"): a dict with ``state``,
+    ``round_fn``, ``store``, ``sample_fn``, ``data_key`` and
+    ``sampler_state``."""
+    fn = _setup_ref if pkg == "ref" else _setup_port
+    return fn(strategy, fault, stale, use_kernel=use_kernel, trace=trace,
+              clusters=clusters, dtrace=dtrace, nan_client=nan_client,
+              base_p=base_p, kind=kind, sampling=sampling,
+              min_count=min_count)
+
+
+def drive(pkg, parts, T, *, chunk=False, K=4, carry=False, **kw):
+    """T rounds of ``setup``'s ``parts`` through ``pkg``'s ``run_rounds``:
+    ``(state, history)``, and the final sampler carry with ``carry``
+    (taken by a 3-argument checkpoint hook at round T)."""
+    run_rounds = (ref_core if pkg == "ref" else core).run_rounds
+    got = [None]
+
+    def grab(state, t, sampler_state):
+        got[0] = sampler_state
+
+    if carry:
+        kw.update(ckpt_fn=grab, ckpt_every=T)
+    state, hist = run_rounds(
+        parts["state"], parts["round_fn"], None, T,
+        chunk_rounds=K if chunk else 0, sample_fn=parts["sample_fn"],
+        store=parts["store"], data_key=parts["data_key"],
+        sampler_state=parts["sampler_state"], **kw)
+    return (state, hist, got[0]) if carry else (state, hist)
 
 
 def run(pkg, strategy="fedawe", fault=None, stale=None, *, chunk=False,
-        use_kernel=False, T=6, K=4, trace=None, clusters=None, dtrace=None,
-        nan_client=None, base_p=0.6, kind="sine"):
-    """``(state, history)`` of T rounds of ``pkg`` ("ref" or "port")."""
-    fn = _run_ref if pkg == "ref" else _run_port
-    return fn(strategy, fault, stale, chunk=chunk, use_kernel=use_kernel,
-              T=T, K=K, trace=trace, clusters=clusters, dtrace=dtrace,
-              nan_client=nan_client, base_p=base_p, kind=kind)
+        T=6, K=4, carry=False, **kw):
+    """``(state, history)`` of T rounds of ``pkg`` ("ref" or "port"), and
+    the final sampler carry with ``carry``; ``kw`` goes to ``setup``."""
+    return drive(pkg, setup(pkg, strategy, fault, stale, **kw), T,
+                 chunk=chunk, K=K, carry=carry)
 
 
 def _close(got, want):
@@ -112,10 +144,39 @@ def _close(got, want):
                                equal_nan=True)
 
 
+def _leaves(tree, prefix=""):
+    """``{path: array}`` of a dict tree of arrays or tensors."""
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(_leaves(tree[k], f"{prefix}{k}/"))
+        return out
+    if isinstance(tree, (tuple, list)):
+        assert len(tree) == 0, "only the empty tuple is a leafless extra"
+        return {}
+    return {prefix.rstrip("/"): tree}
+
+
+def _np(x):
+    return x.numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def assert_carry_equal(port, ref):
+    """A sampler carry (dict of tensors) bit-equal to the reference's;
+    PRNG key words compare as int64."""
+    got, want = _leaves(port), _leaves(ref)
+    assert set(got) == set(want), (set(got), set(want))
+    for k in want:
+        w = _np(want[k])
+        if w.dtype == np.uint32:
+            w = w.astype(np.int64)
+        np.testing.assert_array_equal(_np(got[k]), w, err_msg=k)
+
+
 def assert_parity(ref, port):
-    """Counts, τ, keys and ring ages bit-equal; states and losses within
-    1e-4 (tests/test_engine_kernel_path.py's bound)."""
-    (rs, rh), (ps, ph) = ref, port
+    """Counts, τ, keys and ring ages bit-equal; states, strategy state and
+    losses within 1e-4 (tests/test_engine_kernel_path.py's bound)."""
+    (rs, rh), (ps, ph) = ref[:2], port[:2]
     assert len(rh) == len(ph)
     for w, g in zip(rh, ph):
         assert set(g) == set(w), (set(g), set(w))
@@ -128,9 +189,14 @@ def assert_parity(ref, port):
     np.testing.assert_array_equal(ps.rng.numpy(),
                                   np.asarray(rs.rng).astype(np.int64))
     _close(ps.global_tr.numpy(), np.asarray(rs.global_tr))
-    _close(ps.clients_tr.numpy(), np.asarray(rs.clients_tr))
-    if rs.extra:
-        _close(ps.extra["v"].numpy(), np.asarray(rs.extra["v"]))
+    assert (ps.clients_tr is None) == (rs.clients_tr is None)
+    if rs.clients_tr is not None:
+        _close(ps.clients_tr.numpy(), np.asarray(rs.clients_tr))
+    got, want = _leaves(ps.extra), _leaves(rs.extra)
+    assert set(got) == set(want), (set(got), set(want))
+    for k in want:
+        assert got[k].dtype == torch.float32, k
+        _close(got[k].numpy(), np.asarray(want[k]))
     assert (ps.stale is None) == (rs.stale is None)
     if rs.stale is not None:
         np.testing.assert_array_equal(ps.stale["ages"].numpy(),
@@ -140,10 +206,17 @@ def assert_parity(ref, port):
 
 def assert_same_port(a, b):
     """Two port runs (host loop against chunked) agree exactly."""
-    (sa, ha), (sb, hb) = a, b
+    (sa, ha), (sb, hb) = a[:2], b[:2]
     assert ha == hb
-    for name in ("global_tr", "clients_tr", "tau", "t", "markov", "rng"):
+    for name in ("global_tr", "tau", "t", "markov", "rng"):
         assert torch.equal(getattr(sa, name), getattr(sb, name)), name
+    assert (sa.clients_tr is None) == (sb.clients_tr is None)
+    if sa.clients_tr is not None:
+        assert torch.equal(sa.clients_tr, sb.clients_tr)
+    ea, eb = _leaves(sa.extra), _leaves(sb.extra)
+    assert set(ea) == set(eb)
+    for k in ea:
+        assert torch.equal(ea[k].nan_to_num(), eb[k].nan_to_num()), k
     if sa.stale is not None:
         for k in sa.stale:
             assert torch.equal(sa.stale[k].nan_to_num(),

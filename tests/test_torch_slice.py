@@ -125,8 +125,12 @@ def test_tree_path_and_unported_flags_refuse():
     with pytest.raises(NotImplementedError, match="tree-state"):
         core.make_round_fn(core.FLConfig(m=2), None, {},
                            core.AvailabilityCfg(), None)
-    with pytest.raises(KeyError, match="not ported"):
-        core.get_strategy("mifa")
+    with pytest.raises(KeyError) as err:
+        core.get_strategy("fedsgd")
+    for name in ("fedawe", "fedawe_m", "fedavg_active", "fedavg_all",
+                 "fedavg_known_p", "fedau", "f3ast", "mifa", "fedvarp",
+                 "fedar"):
+        assert repr(name) in str(err.value), name
 
 
 CLI = ["--strategy", "fedawe", "--dynamics", "sine", "--flat-state",
