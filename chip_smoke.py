@@ -24,8 +24,15 @@ printed as JSON lines:
      Variants: K1 the fused FedAWE update, K2 with non-binary upload
      weights, K3 without the empty-round guard; ``ECHO_CASES`` lists the
      shapes (N odd, stacks off a 16-byte boundary, m = 1, m = 7 at 8
-     forced slices, the tall m = 16 384).  Then K4 (ptxas's registers, spills
-     and remarks per instantiation printed, and the bf16 kernel's dynamic
+     forced slices, the tall m = 16 384).  Then the kernel's seed axis
+     (``SEED_CASES``: [4, 100, 27 370] and [3, 1 024, 4 099], float32 and
+     bfloat16, K1, K2 and K3 in one launch each): every seed's output
+     bit-equal to a launch on that seed alone at the same slice count and
+     to ``echo_aggregate_split_ref``, within 1e-5 / 5e-2 of the plain
+     version, and with the guard an all-zero mask in seed 1 returning
+     seed 1's global exactly while the others aggregate.  Then K4
+     (ptxas's registers, spills and remarks per instantiation printed,
+     and the bf16 kernel's dynamic
      shared memory) against its plain version in float32 and bfloat16:
      the six cases of tests/test_kernels.py:84-91, the window's lower
      edge, the dtype case of :108, head dim 256 (the main path's build)
@@ -131,6 +138,22 @@ printed as JSON lines:
         epoch sampling, 64 rounds through ``--resume P --ckpt-every 32``,
         straight and stopped at 32 then restarted: the restored
         artifacts' τ, key and carry bit-equal, globals within 1e-4.
+     g. The seed-batched executor and the grid, at the FL path's size
+        (m = 100, s = 5, batch 32, 20 000 samples, the full-width CNN):
+        ``experiments.run_scenario("fedawe/sine")`` with 4 seeds, 32
+        rounds, K = 16 and the kernel: K1 32 times (once a round for all
+        four seeds), every loss finite, no ``torch.func.vmap`` slow-path
+        warning; the same seeds through the executor against four
+        single-seed runs driven by fold_in(rng, j) / fold_in(data_key,
+        j): n_active histories, τ, key and sampler carry bit-equal,
+        globals within 1e-4, then one seed chunk under
+        ``set_sync_debug_mode("error")``.  ``fedawe/stale_d2+midround``
+        with 4 seeds through ``run_multi_seed``: K2 32 times, and seed by
+        seed sum(n_active) == sum(n_stale) + pending.  The packed
+        speedup-sine grid (7 cells, 4 seeds, 16 rounds): K1 16 times in
+        each of the fedawe and fedawe_m cells and never in the five
+        others, every cell's histories equal to its unpacked
+        ``run_scenario`` (losses within 1e-4).
   4. numbers  — K1-K3: the Triton yardstick's global loads by width in
      its SASS at rows 8 bytes off 16 and at aligned rows; the CUDA kernel
      and the Triton yardstick in turns (K2's yardstick with its own weight
@@ -149,10 +172,14 @@ printed as JSON lines:
      under ``torch.cuda.set_sync_debug_mode("error")`` (no host read
      inside a round), and the device ms of one ``step_buffer`` over its
      [4, 100, 27 370] ring.  ms per round of each of the ten strategies
-     (one chunk at a time, the ten in four turns, each one's median), a
+     (one chunk at a time, the ten in three turns, each one's median), a
      profiler breakdown of a FedAvg and a FedVARP chunk, and one chunk of
      each strategy, and of MIFA under epoch sampling, under the same
-     sync-debug mode.  K4 at gemma2-2b's two shapes: kernel, plain
+     sync-debug mode.  The 4-seed chunk against the single-seed chunk
+     (one setup, one chunk a turn, in turns), seed-rounds per second,
+     peak memory and a profiler breakdown of a 4-round 4-seed chunk; the
+     batched K1 at [4, 100, 27 370] against four single launches and its
+     HBM bound.  K4 at gemma2-2b's two shapes: kernel, plain
      version, the compiled flex_attention yardstick and SDPA (no soft-cap
      or window) in CUDA events, the bound in tensor-core flops, the
      share of the bound, the kernel's time over the library's and the
@@ -185,6 +212,7 @@ import subprocess
 import sys
 import time
 import types
+import warnings
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -479,14 +507,15 @@ def graph_ms(torch, fn, n_calls, reps=5):
     return ms
 
 
-def bound(m, n, esize, with_g, with_upload=False):
+def bound(m, n, esize, with_g, with_upload=False, seeds=1):
     """Least time in ms: each operand read once and the output written
     once (x, y at ``esize`` bytes; g, out and the [m] vectors mask, echo
     and, for K2, upload in float32), against about 5 float32 operations
-    per (client, column) element."""
-    nbytes = (2 * m * n * esize + 4 * n * (2 if with_g else 1)
-              + 4 * m * (3 if with_upload else 2))
-    flops = 5 * m * n
+    per (client, column) element; ``seeds`` times that for a launch over
+    a seed axis."""
+    nbytes = seeds * (2 * m * n * esize + 4 * n * (2 if with_g else 1)
+                      + 4 * m * (3 if with_upload else 2))
+    flops = 5 * seeds * m * n
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations", nbytes)
@@ -788,7 +817,8 @@ def profile_chunk(torch, timing, round_ms):
     """One chunk under torch.profiler: summed device time of all kernels
     per round, its share of the unprofiled ``round_ms`` (the device busy
     share; the profiler slows the host, so its own wall time is reported
-    apart), launches per round and the top kernels by device time.
+    apart), launches per round and the top kernels by device time and by
+    launches.
     Device fields are None when the profiler records no device
     activity."""
     from torch.autograd import DeviceType
@@ -811,6 +841,10 @@ def profile_chunk(torch, timing, round_ms):
     for name, us in kernels:
         by_name[name] = by_name.get(name, 0.0) + us
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    n_by_name = {}
+    for name, _ in kernels:
+        n_by_name[name] = n_by_name.get(name, 0) + 1
+    most = sorted(n_by_name.items(), key=lambda kv: -kv[1])[:8]
     return dict(profiled_wall_ms_per_round=wall_ms / rounds,
                 device_ms_per_round=(dev_us / 1e3 / rounds
                                      if kernels else None),
@@ -819,7 +853,9 @@ def profile_chunk(torch, timing, round_ms):
                 kernel_launches_per_round=(len(kernels) / rounds
                                            if kernels else None),
                 top_kernels_ms_per_round=[
-                    [name[:80], us / 1e3 / rounds] for name, us in top])
+                    [name[:80], us / 1e3 / rounds] for name, us in top],
+                top_kernels_launches_per_round=[
+                    [name[:80], n / rounds] for name, n in most])
 
 
 # ---------------------------------------------------------------------------
@@ -2077,9 +2113,11 @@ def nan_witness(torch, train, engine, faults, federated, prng, counts,
     control), the global turns non-finite."""
     parser = train.build_parser()
     args = parser.parse_args(MAIN_FLAGS + ["--use-kernel"])
+    train.resolve_flags(args)
     dev = torch.device("cuda")
     rng = prng.PRNGKey(args.seed, dev)
-    params, loss_fn, ds, base_p, _ = train.build_image_task(args, rng, dev)
+    params, loss_fn, ds, base_p, _, _ = train.build_image_task(args, rng,
+                                                               dev)
     fl = engine.FLConfig(m=args.m, s=args.s, eta_l=args.eta_l,
                          eta_g=args.eta_g, strategy=args.strategy,
                          use_kernel=True, flat_state=True)
@@ -2367,9 +2405,9 @@ def epoch_and_resume(torch, train, federated, io, smi):
 
 def time_strategies(torch, train, engine, federated, smi):
     """ms per round of each strategy's chunked path with ``--use-kernel``,
-    CUDA events over one chunk at a time, the ten in four turns (forward,
-    backward, forward, backward; the host's pace drifts within a call, so
-    each strategy's median is compared); a profiler breakdown of one chunk
+    CUDA events over one chunk at a time, the ten in three turns (forward,
+    backward, forward; the host's pace drifts within a call, so each
+    strategy's median is compared); a profiler breakdown of one chunk
     of FedAvg and FedVARP;
     then one chunk of each, and one of MIFA under epoch sampling, under
     ``torch.cuda.set_sync_debug_mode("error")`` (no host read inside a
@@ -2377,7 +2415,7 @@ def time_strategies(torch, train, engine, federated, smi):
     runs = {name: chunk_setup(torch, train, engine, federated, with_flags(
         MAIN_FLAGS, strategy=name) + ["--use-kernel"]) for name in STRATEGIES}
     turns = {name: [] for name in STRATEGIES}
-    for order in (STRATEGIES, STRATEGIES[::-1]) * 2:
+    for order in (STRATEGIES, STRATEGIES[::-1], STRATEGIES):
         for name in order:
             turns[name].append(chunks_ms(torch, runs[name], 1))
     median = {name: statistics.median(t) for name, t in turns.items()}
@@ -2400,6 +2438,377 @@ def time_strategies(torch, train, engine, federated, smi):
     emit(dict(phase="strategy_sync_free", card=smi, chunks=list(runs)))
     del runs
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 3g: the seed-batched executor and the grid, K1 and K2's seed axis
+# ---------------------------------------------------------------------------
+
+#: the FL path's task (m, s, batch, samples) and the Table-6 CNN
+SEED_TASK = dict(m=M_MAIN, s=5, batch=32, n_samples=20000)
+N_SEEDS = 4
+SEED_ROUNDS = 32
+#: K1 with a seed axis, (S, m, N): the main path's stacks for 4 seeds, and
+#: a shape of 2 slices and rows off 16 bytes
+SEED_CASES = [(N_SEEDS, M_MAIN, N_MAIN), (3, 1024, 4099)]
+
+
+def seed_inputs(torch, S, m, n, dtype, seed, upload, empty_seed=None):
+    """``make_inputs`` for S seeds stacked: x, y [S, m, n], g [S, n], mask,
+    echo, upload [S, m]; seed ``empty_seed``'s mask all zero."""
+    parts = [make_inputs(torch, m, n, dtype, seed=seed + j, upload=upload)
+             for j in range(S)]
+    a = {k: None if parts[0][k] is None
+         else torch.stack([p[k] for p in parts]) for k in parts[0]}
+    if empty_seed is not None:
+        a["mask"][empty_seed] = 0.0
+    return a
+
+
+def check_seed_axis(torch, ops, ref):
+    """K1 over a seed axis (``ops._echo_aggregate_cuda`` on [S, m, N]
+    stacks, one launch): at each of SEED_CASES, in float32 and bfloat16,
+    guarded (K1), with upload weights (K2) and without the guard (K3),
+    each seed's output bit-equal to a launch on that seed alone at the
+    same slice count and to ``echo_aggregate_split_ref``, and within the
+    plain version's tolerance; with the guard, seed 1's mask all zero
+    returns seed 1's global exactly while the others aggregate."""
+    out = []
+    for i, (S, m, n) in enumerate(SEED_CASES):
+        for dname in ("float32", "bfloat16"):
+            dtype = getattr(torch, dname)
+            for variant in ("K1", "K2", "K3"):
+                guard = variant != "K3"
+                a = seed_inputs(torch, S, m, n, dtype, 300 + 10 * i,
+                                upload=variant == "K2",
+                                empty_seed=1 if guard else None)
+                g = a["g"] if guard else None
+                slices = ops.launch_geometry(m, n, a["x"].element_size(),
+                                             n_sm(torch), S)[1]
+                got = ops._echo_aggregate_cuda(
+                    a["x"], a["y"], g, a["mask"], a["echo"], ETA_G,
+                    upload=a["upload"], slices=slices)
+                singles = torch.stack([ops._echo_aggregate_cuda(
+                    a["x"][j], a["y"][j], None if g is None else g[j],
+                    a["mask"][j], a["echo"][j], ETA_G,
+                    upload=None if a["upload"] is None else a["upload"][j],
+                    slices=slices) for j in range(S)])
+                split = ref.echo_aggregate_split_ref(
+                    a["x"], a["y"], g, a["mask"], a["echo"], ETA_G,
+                    slices=slices, upload=a["upload"])
+                plain = (ref.echo_aggregate_fused_ref(
+                    a["x"], a["y"], g, a["mask"], a["echo"], ETA_G,
+                    upload=a["upload"]) if guard else ref.echo_aggregate_ref(
+                    a["x"], a["y"], a["mask"], a["echo"], ETA_G))
+                torch.cuda.synchronize()
+                tol = 1e-5 if dtype == torch.float32 else 5e-2
+                err = (got - plain).abs().max().item()
+                ok = (got.shape == (S, n) and bool(torch.isfinite(got).all())
+                      and torch.equal(got, singles)
+                      and torch.equal(got, split)
+                      and torch.allclose(got, plain, rtol=tol, atol=tol)
+                      and (not guard or (torch.equal(got[1], g[1])
+                                         and not torch.equal(got[0], g[0]))))
+                emit(dict(phase="seed_kernel_check", kernel=variant,
+                          seeds=S, m=m, n=n, dtype=dname, slices=slices,
+                          empty_seed=1 if guard else None,
+                          bit_equal_single_launches=torch.equal(got,
+                                                                singles),
+                          bit_equal_split_ref=torch.equal(got, split),
+                          max_abs_err=err, tol=tol, ok=ok))
+                require(ok, f"{variant} with a seed axis at ({S}, {m}, {n}, "
+                        f"{dname}) disagrees")
+                out.append(err)
+                del a, got, singles, split, plain
+    torch.cuda.empty_cache()
+    return max(out)
+
+
+def seed_cell(torch, experiments, name, use_kernel=True):
+    """The cell ``name``'s task at SEED_TASK on the card."""
+    return experiments._cell_task(
+        experiments.get_scenario(name), preset="image", seed=0,
+        use_kernel=use_kernel, rounds=SEED_ROUNDS,
+        device=torch.device("cuda"), **SEED_TASK)
+
+
+def seeds_main_path(torch, experiments, engine, federated, prng, counts,
+                    smi):
+    """``run_scenario("fedawe/sine")`` for N_SEEDS seeds and SEED_ROUNDS
+    rounds, K = 16, with the kernel, every count at 0 just before: K1 once
+    a round for all seeds, every loss finite.  Then the same seeds through
+    the executor against N_SEEDS single-seed runs driven by fold_in(rng,
+    j) / fold_in(data_key, j): n_active histories, τ, key and sampler
+    carry bit-equal, globals within 1e-4; one more seed chunk under
+    ``set_sync_debug_mode("error")``."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    counts.reset()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        # torch.func.vmap's slow path (a loop over the seeds for an op
+        # without a batching rule) warns; here it fails the run
+        warnings.filterwarnings("error", message=".*performance drop")
+        rec = experiments.run_scenario(
+            experiments.get_scenario("fedawe/sine"), seeds=N_SEEDS,
+            rounds=SEED_ROUNDS, chunk_rounds=16, use_kernel=True,
+            device="cuda", **SEED_TASK)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts.read()
+    peak = torch.cuda.max_memory_allocated()
+    require(launches == dict(K1=SEED_ROUNDS, K2=0, K3=0, K4=0, K5=0),
+            f"seeds path launches {launches}")
+    hists = rec["histories"]
+    require(len(hists) == N_SEEDS and all(
+        len(h) == SEED_ROUNDS and all(math.isfinite(r["loss"]) for r in h)
+        for h in hists), "seeds path: histories or losses")
+
+    dev = torch.device("cuda")
+    fl, rf, params, ds, _, _, _, _ = seed_cell(torch, experiments,
+                                               "fedawe/sine")
+    store = ds.device_store(dev)
+    init, sample = federated.make_device_sampler(
+        fl.m, fl.s, SEED_TASK["batch"],
+        min_count=min(len(ix) for ix in ds.client_indices))
+    rng, dk = prng.PRNGKey(0, dev), prng.PRNGKey(1, dev)
+    states, sss, dks = experiments.build_seed_batch(
+        fl, params, rng, dk, init, store, N_SEEDS)
+    chunk = engine.make_seeds_chunk_fn(fl, rf, sample, 16, N_SEEDS)
+    got = {}
+
+    def grab(st, done, ss):
+        got["ss"] = ss
+
+    # the parity runs are timed too (CUDA events around each run, its
+    # metric fetches included): ms per round beside phase 4's turns
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    states, seed_hists = experiments.run_seed_rounds(
+        states, chunk, SEED_ROUNDS, 16, sampler_states=sss, store=store,
+        data_keys=dks, n_seeds=N_SEEDS, ckpt_fn=grab,
+        ckpt_every=SEED_ROUNDS)
+    end.record()
+    end.synchronize()
+    run_ms = {"seeds": start.elapsed_time(end) / SEED_ROUNDS, "single": []}
+    diffs = []
+    for j in range(N_SEEDS):
+        dkj = prng.fold_in(dk, j)
+        single = {}
+
+        def grab_single(st, done, ss):
+            single["ss"] = ss
+
+        st0 = engine.init_fl_state(prng.fold_in(rng, j), fl, params)
+        ss0 = init(store, dkj)
+        start.record()
+        st, h = engine.run_rounds(
+            st0, rf, None, SEED_ROUNDS, chunk_rounds=16, sample_fn=sample,
+            store=store, data_key=dkj, sampler_state=ss0,
+            ckpt_fn=grab_single, ckpt_every=SEED_ROUNDS)
+        end.record()
+        end.synchronize()
+        run_ms["single"].append(start.elapsed_time(end) / SEED_ROUNDS)
+        sj = engine.index_seed(states, j)
+        series = [r["n_active"] for r in h]
+        require(series == [r["n_active"] for r in seed_hists[j]]
+                == [r["n_active"] for r in hists[j]],
+                f"seed {j}: n_active differs from its single-seed run")
+        for k in ("tau", "rng", "t", "markov"):
+            require(torch.equal(getattr(st, k), getattr(sj, k)),
+                    f"seed {j}: {k} differs from its single-seed run")
+        carry = engine.index_seed(got["ss"], j)
+        require(set(carry) == set(single["ss"]) and all(
+            torch.equal(carry[k], single["ss"][k]) for k in carry),
+            f"seed {j}: sampler carry differs")
+        diffs.append((st.global_tr - sj.global_tr).abs().max().item())
+        require(diffs[-1] <= 1e-4, f"seed {j}: globals differ by "
+                f"{diffs[-1]}")
+    require(len({tuple(r["n_active"] for r in h) for h in hists})
+            == N_SEEDS, "the seeds drew the same availability")
+    torch.cuda.set_sync_debug_mode("error")
+    chunk(states, got["ss"], store, dks)
+    torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    emit(dict(phase="seeds_main_path", card=smi, scenario="fedawe/sine",
+              seeds=N_SEEDS, rounds=SEED_ROUNDS, chunk_rounds=16,
+              m=M_MAIN, n=N_MAIN, launches=launches, wall_s=wall,
+              peak_above_start_mb=(peak - before) / 1e6,
+              last_loss=[h[-1]["loss"] for h in hists],
+              sum_n_active=[sum(r["n_active"] for r in h) for h in hists],
+              final_eval_acc=rec["final"]["eval_acc"],
+              single_seed_global_diff=diffs, sync_free_chunk=True,
+              run_ms_per_round=run_ms))
+    return launches
+
+
+def seeds_fault_path(torch, experiments, prng, staleness, counts, smi):
+    """``fedawe/stale_d2+midround`` for N_SEEDS seeds through
+    ``run_multi_seed`` with the kernel: K2 once a round for all seeds and
+    nothing else, every loss finite, and seed by seed sum(n_active) ==
+    sum(n_stale) + the updates still pending in its ring."""
+    fl, rf, params, ds, _, _, fault, stale = seed_cell(
+        torch, experiments, "fedawe/stale_d2+midround")
+    dev = torch.device("cuda")
+    counts.reset()
+    states, hists, _ = experiments.run_multi_seed(
+        fl, rf, params, ds, sampling="uniform", batch=SEED_TASK["batch"],
+        seeds=N_SEEDS, rounds=SEED_ROUNDS, chunk_rounds=16,
+        rng=prng.PRNGKey(0, dev), data_key=prng.PRNGKey(1, dev),
+        fault=fault, stale=stale)
+    torch.cuda.synchronize()
+    launches = counts.read()
+    require(launches == dict(K1=0, K2=SEED_ROUNDS, K3=0, K4=0, K5=0),
+            f"seeds fault path launches {launches}")
+    sums = []
+    for j, h in enumerate(hists):
+        pending = staleness.pending_count(
+            {"ages": states.stale["ages"][j]}).item()
+        sj = {k: sum(r[k] for r in h)
+              for k in ("n_active", "n_stale", "n_dropped")}
+        require(all(math.isfinite(r["loss"]) for r in h),
+                f"seed {j}: loss not finite")
+        require(sj["n_active"] == sj["n_stale"] + pending,
+                f"seed {j}: sum(n_active) != sum(n_stale) + pending")
+        require(sj["n_dropped"] > 0 and sj["n_stale"] > 0,
+                f"seed {j}: nothing dropped or delivered late")
+        sums.append(dict(sj, pending=pending))
+    emit(dict(phase="seeds_fault_path", card=smi,
+              scenario="fedawe/stale_d2+midround", seeds=N_SEEDS,
+              rounds=SEED_ROUNDS, launches=launches, per_seed=sums))
+    return launches
+
+
+def packed_grid_path(torch, experiments, counts, smi):
+    """``run_packed_grid`` over the speedup-sine grid (7 cells), N_SEEDS
+    seeds, 16 rounds, with the kernel: K1 once a round in the fedawe and
+    fedawe_m cells and in no other (each cell's own run counted), every
+    cell's histories equal to its unpacked ``run_scenario`` (counts and
+    echoes to the bit; losses within 1e-4: cuDNN's convolution backward
+    need not give the same bits twice)."""
+    names = experiments.GRIDS["speedup-sine"]
+    kw = dict(seeds=N_SEEDS, rounds=16, chunk_rounds=16, use_kernel=True,
+              device="cuda", **SEED_TASK)
+    counts.reset()
+    t0 = time.perf_counter()
+    packed = experiments.run_packed_grid(names, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts.read()
+    stateful = [n for n in names
+                if n.split("/")[0] in ("fedawe", "fedawe_m")]
+    require(launches == dict(K1=16 * len(stateful), K2=0, K3=0, K4=0, K5=0),
+            f"packed grid launches {launches}")
+    loss_diff = 0.0
+    per_cell = {}
+    for name, rp in zip(names, packed):
+        counts.reset()
+        ru = experiments.run_scenario(experiments.get_scenario(name), **kw)
+        torch.cuda.synchronize()
+        per_cell[name] = counts.read()["K1"]
+        require(per_cell[name] == (16 if name in stateful else 0),
+                f"{name}: K1 launched {per_cell[name]} times")
+        for hp, hu in zip(rp["histories"], ru["histories"]):
+            require(len(hp) == len(hu) == 16, f"{name}: history lengths")
+            for a, b in zip(hp, hu):
+                require(set(a) == set(b), f"{name}: metric keys")
+                for k in a:
+                    if k == "loss":
+                        loss_diff = max(loss_diff, abs(a[k] - b[k]))
+                    else:
+                        require(a[k] == b[k], f"{name}: {k} differs")
+    require(loss_diff <= 1e-4, f"packed vs unpacked losses differ by "
+            f"{loss_diff}")
+    emit(dict(phase="packed_grid", card=smi, grid="speedup-sine",
+              cells=len(names), seeds=N_SEEDS, rounds=16, wall_s=wall,
+              launches=launches, k1_per_cell=per_cell,
+              packed_vs_unpacked_loss=loss_diff))
+
+
+def time_seeds(torch, train, engine, experiments, federated, ops, smi):
+    """ms per round of the 4-seed chunk and of the single-seed chunk of
+    the main path's flags with the kernel, built from one setup (CUDA
+    events, one 16-round chunk per turn: single, seeds, seeds, single),
+    seed-rounds per second, peak allocated memory over one chunk of
+    each, a profiler breakdown of a 4-round 4-seed chunk; then the
+    batched K1 at [4, 100, 27 370] float32 against four single launches
+    (CUDA graphs over 8 rotating operand sets) and against its HBM
+    bound."""
+    t0 = time.perf_counter()
+    args = train.build_parser().parse_args(MAIN_FLAGS + ["--use-kernel"])
+    dev = torch.device("cuda")
+    parts = train.setup(args, dev)
+    store = parts["ds"].device_store(dev)
+    init, sample = federated.make_device_sampler(args.m, args.s, args.batch)
+    key = parts["data_key"]
+    K = args.chunk_rounds
+    single = dict(state=parts["state"], ss=init(store, key), store=store,
+                  key=key, args=args, chunk=engine.make_chunk_fn(
+                      None, parts["round_fn"], sample, K))
+    states, sss, dks = experiments.build_seed_batch(
+        parts["fl"], parts["params"], parts["rng"], key, init, store,
+        N_SEEDS)
+    seeds = dict(single, state=states, ss=sss, key=dks,
+                 chunk=engine.make_seeds_chunk_fn(
+                     parts["fl"], parts["round_fn"], sample, K, N_SEEDS))
+    peaks = {}
+    for name, r in (("single", single), ("seeds", seeds)):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        chunks_ms(torch, r, 1)
+        peaks[name] = (torch.cuda.max_memory_allocated() - before) / 1e6
+    turns = {"single": [], "seeds": []}
+    for name in ("single", "seeds", "seeds", "single"):
+        turns[name].append(chunks_ms(torch, single if name == "single"
+                                     else seeds, 1))
+    ms = {k: sum(v) / len(v) for k, v in turns.items()}
+    t1 = time.perf_counter()
+    # the profiler's event list grows with the launches: 4 rounds
+    short = dict(seeds, args=types.SimpleNamespace(chunk_rounds=4),
+                 chunk=engine.make_seeds_chunk_fn(
+                     parts["fl"], parts["round_fn"], sample, 4, N_SEEDS))
+    prof = profile_chunk(torch, short, ms["seeds"])
+    t2 = time.perf_counter()
+    emit(dict(phase="seeds_round_time", card=smi, seeds=N_SEEDS,
+              chunk_rounds=K, round_ms_turns=turns, round_ms=ms,
+              seed_rounds_per_s={"single": 1e3 / ms["single"],
+                                 "seeds": N_SEEDS * 1e3 / ms["seeds"]},
+              speedup=N_SEEDS * ms["single"] / ms["seeds"],
+              peak_above_start_mb_one_chunk=peaks, seconds=t1 - t0))
+    emit(dict(phase="profile", card=smi, path=f"seeds_{N_SEEDS}",
+              seconds=t2 - t1, **prof))
+    del single, seeds, short, states, sss, parts
+    torch.cuda.empty_cache()
+
+    sets = [seed_inputs(torch, N_SEEDS, M_MAIN, N_MAIN, torch.float32,
+                        seed=600 + 10 * i, upload=False) for i in range(8)]
+
+    def batched(i):
+        a = sets[i % 8]
+        return ops.echo_aggregate_flat(a["x"], a["y"], a["g"], a["mask"],
+                                       a["echo"], ETA_G)
+
+    def four(i):
+        a = sets[i % 8]
+        return [ops.echo_aggregate_flat(a["x"][j], a["y"][j], a["g"][j],
+                                        a["mask"][j], a["echo"][j], ETA_G)
+                for j in range(N_SEEDS)]
+
+    t = [graph_ms(torch, f, 32) for f in (batched, four, four, batched)]
+    b_ms, b_by, nbytes = bound(M_MAIN, N_MAIN, 4, True, seeds=N_SEEDS)
+    rec = dict(ms=(t[0] + t[3]) / 2, turns_ms=[t[0], t[3]],
+               four_launches_ms=(t[1] + t[2]) / 2,
+               four_turns_ms=[t[1], t[2]], bound_ms=b_ms, bound_by=b_by,
+               bytes=nbytes, seconds=time.perf_counter() - t2)
+    rec["share"] = b_ms / rec["ms"]
+    emit(dict(phase="seed_kernel_time", card=smi, kernel="K1",
+              seeds=N_SEEDS, m=M_MAIN, n=N_MAIN, **rec))
+    del sets
+    torch.cuda.empty_cache()
+    return rec
 
 
 class Counts:
@@ -2450,7 +2859,7 @@ def main():
     from repro_torch.kernels.ssd_chunk import kernel as skernel
     from repro_torch.kernels.ssd_chunk import ops as sops
     from repro_torch.kernels.ssd_chunk import ref as sref
-    from repro_torch.launch import train
+    from repro_torch.launch import experiments, train
     from repro_torch.checkpointing import convert, io
     from repro_torch.models import cnn, model, reduced, ssm
 
@@ -2478,6 +2887,7 @@ def main():
     # phase 2: kernels against their plain versions
     t0 = time.perf_counter()
     errs = check_kernels(torch, ops, ref)
+    check_seed_axis(torch, ops, ref)
     t1 = time.perf_counter()
     for name, build in builds.items():
         lib = build.result()
@@ -2584,6 +2994,15 @@ def main():
     strategies_fault_path(torch, train, staleness, counts, smi)
     epoch_and_resume(torch, train, federated, io, smi)
 
+    # phase 3g: the seed-batched executor and the grid, every count at 0
+    # just before each path: 4 seeds of FedAWE with K1, of the fault and
+    # stale cell with K2, the packed speedup-sine grid against its cells
+    t0 = time.perf_counter()
+    seeds_main_path(torch, experiments, engine, federated, prng, counts, smi)
+    seeds_fault_path(torch, experiments, prng, staleness, counts, smi)
+    packed_grid_path(torch, experiments, counts, smi)
+    emit(dict(phase="seeds_paths_done", seconds=time.perf_counter() - t0))
+
     # phase 4: numbers
     triton_load_widths(torch, ops, smi)
     times = time_kernels(torch, ops, ref, strategies, smi)
@@ -2602,6 +3021,7 @@ def main():
     del runs
     time_fault_path(torch, train, engine, federated, prng, staleness, smi)
     time_strategies(torch, train, engine, federated, smi)
+    time_seeds(torch, train, engine, experiments, federated, ops, smi)
     for arch in ("zamba2-7b", "mamba2-130m"):
         emit(dict(phase="bound", **ssd_chunk_bound(get_config(arch), LM_B,
                                                    LM_L, 2)))

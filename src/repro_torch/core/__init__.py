@@ -7,11 +7,16 @@ from repro_torch.core.engine import (  # noqa: F401
     FLState,
     client_trainables,
     global_trainables,
+    index_seed,
     init_fl_state,
     local_sgd,
     make_chunk_fn,
+    make_grid_chunk_fn,
     make_round_fn,
+    make_seeds_chunk_fn,
     run_rounds,
+    seed_vmap,
+    stack_seeds,
 )
 from repro_torch.core.faults import (  # noqa: F401
     FaultCfg,

@@ -14,7 +14,7 @@ persistent state lives on the flat substrate (core/flatten.py): the global
 is one [N] float32 vector and the client stack one [m, N] buffer; trees
 appear only at the local-SGD entry (as views) and at eval.
 
-Two executors drive the round function, as in the reference:
+Four executors drive the round function, as in the reference:
 
   * host loop (``run_rounds`` default): one round per iteration and one
     blocking metrics fetch per round;
@@ -22,17 +22,26 @@ Two executors drive the round function, as in the reference:
     per call, batches drawn on the device by the stateful sampler keyed by
     ``fold_in(data_key, t)``, metrics stacked ``[K]`` on the device and
     fetched once per chunk.  The chunk is a Python loop of K rounds that
-    never reads a device value on the host.
+    never reads a device value on the host;
+  * seed-batched (``make_seeds_chunk_fn``): S independent seeds advance
+    K rounds per call, their state stacked ``[S, ...]`` (``stack_seeds``).
+    The reference vmaps the whole round; here the parts before and after
+    local SGD run under ``torch.func.vmap`` (``seed_vmap``) and local SGD
+    once over all S·m clients, so a round dispatches the operations of
+    one seed's round, each over S seeds' data (the echo-aggregate kernel
+    once for all of them);
+  * packed grid (``make_grid_chunk_fn``): several cells' seed chunks, one
+    after another, in one call.
 
 Ported so far: the dense flat round of all ten strategies, with fault
 injection (``fault_cfg``, core/faults.py) and semi-async rounds
 (``staleness_cfg``, core/staleness.py) alone or composed.  A stateful
 strategy (FedAWE, FedAWE-M) starts local SGD from its [m, N] client
 stack; a stateless one keeps no stack (``FLState.clients_tr is None``)
-and starts from a broadcast view of the flat global.  Both executors take
-a checkpoint hook (``ckpt_fn`` / ``ckpt_every``).  The tree path, the
-cohort path and the seed/grid executors belong to later slices of the
-port.
+and starts from a broadcast view of the flat global.  The host-loop and
+chunked executors take a checkpoint hook (``ckpt_fn`` / ``ckpt_every``),
+the seed-batched one through ``launch/experiments.run_seed_rounds``.  The
+tree path and the cohort path belong to later slices of the port.
 """
 from __future__ import annotations
 
@@ -40,6 +49,7 @@ import dataclasses
 from typing import Any, Callable, NamedTuple
 
 import torch
+import torch.utils._pytree as pytree
 
 from repro_torch.core import faults as _faults
 from repro_torch.core import prng
@@ -130,14 +140,23 @@ def client_trainables(state: FLState):
     return state.spec.unflatten_stacked(state.clients_tr)
 
 
-def _clip(g, max_norm):
-    """Per-client global-norm clip of a client-stacked gradient tree:
-    ``g_i * min(1, max_norm / max(||g_i||, 1e-12))``."""
+def _clip(g, max_norm, lead=1):
+    """Per-client global-norm clip of a client-stacked gradient tree
+    (``lead`` client axes): ``g_i * min(1, max_norm / max(||g_i||,
+    1e-12))``."""
     if not max_norm:
         return g
-    n = tree_client_norm(g)
+    n = tree_client_norm(g, lead)
     scale = torch.clamp(max_norm / torch.clamp(n, min=1e-12), max=1.0)
     return tree_client_scale(scale, g)
+
+
+def _per_client(v, leaf):
+    """``v`` (a number, a 0-d tensor, or a ``[S]`` per-seed tensor) shaped
+    to broadcast against a ``[S, m, ...]`` leaf."""
+    if torch.is_tensor(v) and v.dim() == 1:
+        return v.reshape((v.shape[0],) + (1,) * (leaf.dim() - 1))
+    return v
 
 
 def local_sgd(trainable, frozen, batches, rng, *, s, eta_l, loss_fn,
@@ -146,29 +165,35 @@ def local_sgd(trainable, frozen, batches, rng, *, s, eta_l, loss_fn,
 
     trainable: client-stacked tree (leaves [m, ...]); batches: {k: [m, s,
     ...]}; rng: [m, 2] per-client keys.  Returns (x_end, mean_loss [m]).
+    With two client axes — leaves [S, m, ...], batches [S, m, s, ...],
+    rng [S, m, 2] and ``eta_l`` a number or an [S] per-seed tensor — the
+    S seeds' clients take their steps together (the seed-batched round).
 
-    The loss is ``torch.func.vmap``-ed over clients and differentiated by
-    one backward over the sum of per-client losses: each loss depends
-    only on its own client's row, so the gradient of the sum is every
-    client's own gradient.  Each step splits every client's key as the
-    reference's scan does (the image loss ignores the subkey; keeping
-    the split count keeps key-consuming losses aligned)."""
-    per_client = torch.func.vmap(loss_fn, in_dims=(0, None, 0, 0))
+    The loss is ``torch.func.vmap``-ed over the client axes and
+    differentiated by one backward over the sum of per-client losses:
+    each loss depends only on its own client's row, so the gradient of the
+    sum is every client's own gradient.  Each step splits every client's
+    key as the reference's scan does (the image loss ignores the subkey;
+    keeping the split count keeps key-consuming losses aligned)."""
+    lead = rng.dim() - 1
+    per_client = loss_fn
+    for _ in range(lead):
+        per_client = torch.func.vmap(per_client, in_dims=(0, None, 0, 0))
     paths = [p for p, _ in tree_paths(trainable)]
     x, key, losses = trainable, rng, []
     for i in range(s):
         ks = prng.split(key)
-        key, sub = ks[:, 0], ks[:, 1]
-        mb = {k: v[:, i] for k, v in batches.items()}
+        key, sub = ks[..., 0, :], ks[..., 1, :]
+        mb = {k: v.select(lead, i) for k, v in batches.items()}
         with torch.enable_grad():
             xg = tree_map(lambda a: a.detach().requires_grad_(True), x)
             loss = per_client(xg, frozen, mb, sub)
             grads = torch.autograd.grad(loss.sum(), tree_leaves(xg))
-        g = _clip(tree_from_paths(paths, grads), grad_clip)
-        x = tree_map(lambda xx, gg: (xx.float() - eta_l * gg.float())
-                     .to(xx.dtype), x, g)
+        g = _clip(tree_from_paths(paths, grads), grad_clip, lead)
+        x = tree_map(lambda xx, gg: (xx.float() - _per_client(eta_l, xx)
+                                     * gg.float()).to(xx.dtype), x, g)
         losses.append(loss.detach())
-    return x, torch.stack(losses, dim=1).mean(dim=1)
+    return x, torch.stack(losses, dim=lead).mean(dim=lead)
 
 
 def make_round_fn(cfg: FLConfig, loss_fn: Callable, frozen: Any,
@@ -199,44 +224,62 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, frozen: Any,
         # tau_max = 0 IS the synchronous engine
         staleness_cfg = None
 
-    def round_fn(state: FLState, batches):
+    # The round is three parts: what comes before local SGD (keys,
+    # availability, faults, the ring's drain and delays), local SGD, and
+    # what comes after (innovations, delivery, aggregation, metrics, the
+    # ring's step).  ``round_fn`` composes them; ``round_fn.seeds`` runs
+    # the first and last under ``seed_vmap`` and local SGD once over the
+    # S seeds' clients, since ``torch.func.vmap`` cannot differentiate
+    # with ``torch.autograd.grad``.
+
+    def before(state):
         n_keys = 3 + (fault_cfg is not None) + (staleness_cfg is not None)
         keys = prng.split(state.rng, n_keys)
         rng, k_av, k_loc = keys[0], keys[1], keys[2]
-        k_up = keys[3] if fault_cfg is not None else None
-        k_delay = keys[-1] if staleness_cfg is not None else None
         mask, markov = sample_active(k_av, avail_cfg, base_p, state.t,
                                      state.markov)
-        probs_t = probs_at(avail_cfg, base_p, state.t)
+        pre = dict(rng=rng, markov=markov,
+                   probs=probs_at(avail_cfg, base_p, state.t))
         if fault_cfg is not None:
+            pre["k_up"] = keys[3]
             mask = _faults.compute_mask(fault_cfg, state.fault, mask,
                                         state.t)
         if staleness_cfg is not None:
             # arrivals due this round, then busy gating: an in-flight
             # client (including one landing now) does not compute at t
-            arrived, arr_age, arr_buf = _stale.drain(state.stale, state.t)
+            pre["arrived"], pre["arr_age"], pre["arr_buf"] = _stale.drain(
+                state.stale, state.t)
             mask = mask * (1.0 - _stale.busy_mask(state.stale))
-            delay = _stale.draw_delay(staleness_cfg, state.stale, k_delay,
-                                      state.t, cfg.m)
+            pre["delay"] = _stale.draw_delay(staleness_cfg, state.stale,
+                                             keys[-1], state.t, cfg.m)
+        pre.update(mask=mask, loc_rngs=prng.split(k_loc, cfg.m))
+        return pre
 
-        eta_l = cfg.eta_l
+    def eta_at(t):
+        """η_l of round ``t`` (a 0-d tensor, or [S] across seeds)."""
         if cfg.lr_schedule:
-            eta_l = cfg.eta_l / torch.sqrt(state.t.float() / 10.0 + 1.0)
+            return cfg.eta_l / torch.sqrt(t.float() / 10.0 + 1.0)
+        return cfg.eta_l
 
-        loc_rngs = prng.split(k_loc, cfg.m)
-        spec = state.spec
-        # stateless: a broadcast VIEW of the flat global, never a copy;
-        # nothing below writes into ``start`` in place
-        start = state.clients_tr if strat.stateful_clients else \
-            state.global_tr[None].expand(cfg.m, spec.size)
-        x_end_tr, losses = local_sgd(
-            spec.unflatten_stacked(start), frozen, batches, loc_rngs,
-            s=cfg.s, eta_l=eta_l, loss_fn=loss_fn, grad_clip=cfg.grad_clip)
-        x_end = spec.flatten_stacked(x_end_tr)
+    def start_of(state):
+        """Local SGD's start: the client stack, or for a stateless
+        strategy a broadcast VIEW of the flat global (``[m, N]``, or
+        ``[S, m, N]`` across seeds), never a copy; nothing writes into
+        it in place."""
+        if strat.stateful_clients:
+            return state.clients_tr
+        g = state.global_tr
+        return g.unsqueeze(-2).expand(g.shape[:-1] + (cfg.m, g.shape[-1]))
+
+    def after(state, pre, start, x_end, losses):
+        mask = pre["mask"]
         G = start - x_end
         if staleness_cfg is not None:
             # delivery candidates: synchronous computes (drawn d = 0) plus
             # ring arrivals — disjoint, since an arriving client was busy
+            arrived, arr_age, arr_buf = (pre["arrived"], pre["arr_age"],
+                                         pre["arr_buf"])
+            delay = pre["delay"]
             now = mask * (delay == 0).float()
             defer = mask * (delay > 0).float()
             deliver = now + arrived
@@ -250,7 +293,7 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, frozen: Any,
         mask_upload = None
         if fault_cfg is not None:
             mask_upload, n_dropped, n_rejected = _faults.upload_mask(
-                fault_cfg, k_up, deliver, G_eff)
+                fault_cfg, pre["k_up"], deliver, G_eff)
             if fault_cfg.sanitize:
                 # scrub demoted rows by selection: the kernel forms w·x†
                 # and 0 * NaN = NaN, so a rejected row must hold finite
@@ -270,7 +313,7 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, frozen: Any,
         new_global, new_clients, new_tau, new_extra = strat.aggregate_flat(
             global_flat=state.global_tr, clients_flat=start,
             x_end=x_end_eff, G=G_eff, mask=agg_mask, t=state.t,
-            tau=state.tau, probs=probs_t, extra=state.extra,
+            tau=state.tau, probs=pre["probs"], extra=state.extra,
             eta_g=cfg.eta_g, use_kernel=cfg.use_kernel, **agg_kwargs)
 
         echo = (state.t - state.tau).float()
@@ -303,7 +346,8 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, frozen: Any,
             metrics.update(n_dropped=n_dropped, n_rejected=n_rejected)
         new_state = state._replace(
             global_tr=new_global, clients_tr=new_clients, tau=new_tau,
-            t=state.t + 1, extra=new_extra, markov=markov, rng=rng)
+            t=state.t + 1, extra=new_extra, markov=pre["markov"],
+            rng=pre["rng"])
         if staleness_cfg is not None:
             # raw (unsanitized, undiscounted) innovations enter the ring;
             # faults and the discount apply at delivery
@@ -311,6 +355,32 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, frozen: Any,
                 state.stale, state.t, defer, delay, G))
         return new_state, metrics
 
+    def round_fn(state: FLState, batches):
+        pre = before(state)
+        start = start_of(state)
+        spec = state.spec
+        x_end_tr, losses = local_sgd(
+            spec.unflatten_stacked(start), frozen, batches, pre["loc_rngs"],
+            s=cfg.s, eta_l=eta_at(state.t), loss_fn=loss_fn,
+            grad_clip=cfg.grad_clip)
+        return after(state, pre, start, spec.flatten_stacked(x_end_tr),
+                     losses)
+
+    def seeds_round_fn(states: FLState, batches):
+        """The round of S independent seeds: ``states`` with ``[S, ...]``
+        leaves (``stack_seeds``), batches ``[S, m, s, ...]``; returns the
+        new states and metrics ``[S]`` per key."""
+        pre = seed_vmap(before)(states)
+        start = start_of(states)
+        spec = states.spec
+        x_end_tr, losses = local_sgd(
+            spec.unflatten_stacked(start), frozen, batches, pre["loc_rngs"],
+            s=cfg.s, eta_l=eta_at(states.t), loss_fn=loss_fn,
+            grad_clip=cfg.grad_clip)
+        return seed_vmap(after)(states, pre, start,
+                                spec.flatten_stacked(x_end_tr), losses)
+
+    round_fn.seeds = seeds_round_fn
     return round_fn
 
 
@@ -341,6 +411,153 @@ def make_chunk_fn(cfg, round_fn, sample_fn, chunk_rounds):
         return state, sampler_state, stacked
 
     return chunk
+
+
+def seed_vmap(part):
+    """``part`` over a leading seed axis: ``torch.func.vmap`` over every
+    tensor leaf of its arguments (dicts, tuples and ``FLState`` are
+    walked), while every other leaf — None, a ``FlatSpec``, a number —
+    passes through unbatched, as does every non-tensor leaf of the
+    result.  What ``part`` closes over is shared by the seeds."""
+    def batched(*args):
+        leaves, spec = pytree.tree_flatten(args)
+        at = [i for i, v in enumerate(leaves) if torch.is_tensor(v)]
+        out_tree = {}
+
+        def inner(*tensors):
+            ls = list(leaves)
+            for i, v in zip(at, tensors):
+                ls[i] = v
+            out = part(*pytree.tree_unflatten(ls, spec))
+            out_leaves, out_tree["spec"] = pytree.tree_flatten(out)
+            out_tree["at"] = [i for i, v in enumerate(out_leaves)
+                              if torch.is_tensor(v)]
+            out_tree["leaves"] = [None if torch.is_tensor(v) else v
+                                  for v in out_leaves]
+            return tuple(out_leaves[i] for i in out_tree["at"])
+
+        outs = torch.func.vmap(inner)(*(leaves[i] for i in at))
+        ls = out_tree["leaves"]
+        for i, v in zip(out_tree["at"], outs):
+            ls[i] = v
+        return pytree.tree_unflatten(ls, out_tree["spec"])
+
+    return batched
+
+
+def stack_seeds(trees):
+    """Stack identically structured trees along a new leading seed axis:
+    ``[tree_0, ..., tree_{S-1}] -> tree with [S, ...] leaves``.  Each seed
+    is built exactly as a single-seed run builds it and then stacked, so
+    slice ``j`` is bit for bit the input of run ``j``.  Leaves that are
+    not tensors (the ``FlatSpec`` in ``FLState.spec``, None) must agree
+    across the trees and pass through."""
+    if not trees:
+        raise ValueError("stack_seeds needs at least one tree")
+    flat = [pytree.tree_flatten(t) for t in trees]
+    spec = flat[0][1]
+    if any(f[1] != spec for f in flat[1:]):
+        raise ValueError("stack_seeds: the trees differ in structure")
+    out = []
+    for col in zip(*(f[0] for f in flat)):
+        tensors = sum(torch.is_tensor(v) for v in col)
+        if tensors and tensors < len(col):
+            raise ValueError("stack_seeds: the trees differ in structure "
+                             "(a tensor in one, not in another)")
+        if tensors:
+            out.append(torch.stack(col))
+        elif any(v != col[0] for v in col[1:]):
+            raise ValueError("stack_seeds: a non-tensor leaf differs "
+                             "across the trees")
+        else:
+            out.append(col[0])
+    return pytree.tree_unflatten(out, spec)
+
+
+def index_seed(tree, j):
+    """Seed ``j`` of a seed-stacked tree (``[S, ...]`` leaves -> ``[...]``
+    views); non-tensor leaves pass through."""
+    return pytree.tree_map(lambda v: v[j] if torch.is_tensor(v) else v,
+                           tree)
+
+
+def make_seeds_chunk_fn(cfg, round_fn, sample_fn, chunk_rounds, n_seeds):
+    """S-batched chunk executor: one call advances ``n_seeds`` independent
+    seed replicates by ``chunk_rounds`` rounds each.
+
+    Returned callable::
+
+        chunk(states, sampler_states, store, data_keys)
+            -> (states, sampler_states, metrics)     # metrics [S, K] per key
+
+    ``states`` and ``sampler_states`` carry ``[S, ...]`` leaves
+    (``stack_seeds``), ``data_keys`` is ``[S, 2]``; the ``store`` is
+    shared by every seed.  Per round, seed ``j``'s batches come from
+    ``sample_fn(store, sampler_states[j], fold_in(data_keys[j], t_j))``
+    and its round is ``round_fn``'s, so each seed evolves as its
+    single-seed chunked run would.  ``round_fn`` is the single-seed round
+    of ``make_round_fn``; its seed-batched form (``round_fn.seeds``) runs
+    the sampler and the parts of the round around local SGD under
+    ``seed_vmap`` and local SGD once over all S·m clients, so a round
+    dispatches one seed's operations, each over S seeds' data.  ``cfg``
+    is kept for signature symmetry with the reference."""
+    del cfg
+    K, S = int(chunk_rounds), int(n_seeds)
+    if K < 1:
+        raise ValueError(f"chunk_rounds must be >= 1; got {chunk_rounds}")
+    if S < 1:
+        raise ValueError(f"n_seeds must be >= 1; got {n_seeds}")
+    seeds_round = getattr(round_fn, "seeds", None)
+    if seeds_round is None:
+        raise ValueError("round_fn has no seed-batched form: build it with "
+                         "make_round_fn")
+
+    def chunk(states, sampler_states, store, data_keys):
+        if states.t.shape != (S,):
+            raise ValueError(f"states carry {tuple(states.t.shape)} seeds; "
+                             f"the executor was built for {S}")
+        sample = seed_vmap(lambda ss, key, t: sample_fn(
+            store, ss, prng.fold_in(key, t)))
+        per_round = []
+        for _ in range(K):
+            batches, sampler_states = sample(sampler_states, data_keys,
+                                             states.t)
+            states, metrics = seeds_round(states, batches)
+            per_round.append(metrics)
+        stacked = {k: torch.stack([r[k] for r in per_round], dim=1)
+                   for k in per_round[0]}
+        return states, sampler_states, stacked
+
+    return chunk
+
+
+def make_grid_chunk_fn(cells, chunk_rounds, n_seeds):
+    """Packed grid executor: one call advances C grid cells x ``n_seeds``
+    seeds x ``chunk_rounds`` rounds.  ``cells`` lists ``(round_fn,
+    sample_fn)`` pairs; the cells are different computations, so their
+    seed chunks (``make_seeds_chunk_fn``) run one after another.
+
+    Returned callable::
+
+        packed(states_t, sampler_states_t, stores_t, data_keys_t)
+            -> (states_t, sampler_states_t, metrics_t)
+
+    every argument and result a C-tuple over cells, element ``i`` laid
+    out as ``make_seeds_chunk_fn``'s."""
+    if not cells:
+        raise ValueError("make_grid_chunk_fn needs at least one cell")
+    bodies = [make_seeds_chunk_fn(None, rf, sf, chunk_rounds, n_seeds)
+              for rf, sf in cells]
+
+    def packed(states_t, sampler_states_t, stores_t, data_keys_t):
+        outs = [body(st, ss, store, dk)
+                for body, st, ss, store, dk in zip(
+                    bodies, states_t, sampler_states_t, stores_t,
+                    data_keys_t)]
+        return (tuple(o[0] for o in outs), tuple(o[1] for o in outs),
+                tuple(o[2] for o in outs))
+
+    return packed
 
 
 def _metrics_to_host(metrics):

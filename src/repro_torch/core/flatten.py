@@ -76,11 +76,12 @@ class FlatSpec:
                           for leaf in self._leaves(tree)])
 
     def flatten_stacked(self, tree) -> torch.Tensor:
-        """Ravel a client-stacked tree (leaves [m, ...]) into [m, N]."""
+        """Ravel a client-stacked tree (leaves [m, ...], or [S, m, ...])
+        into [m, N] (or [S, m, N])."""
         leaves = self._leaves(tree)
-        m = leaves[0].shape[0]
-        return torch.cat([leaf.reshape(m, -1).float() for leaf in leaves],
-                         dim=1)
+        lead = leaves[0].shape[:leaves[0].dim() - len(self.shapes[0])]
+        return torch.cat([leaf.reshape(lead + (-1,)).float()
+                          for leaf in leaves], dim=-1)
 
     def unflatten(self, flat) -> dict:
         """[N] vector -> tree of views with the recorded shapes/dtypes."""
@@ -90,9 +91,10 @@ class FlatSpec:
         return tree_from_paths(self.paths, leaves)
 
     def unflatten_stacked(self, flat) -> dict:
-        """[m, N] client stack -> tree of [m, ...] views."""
-        m = flat.shape[0]
-        leaves = [flat.narrow(1, o, s).view((m,) + shp).to(dt)
+        """[m, N] client stack -> tree of [m, ...] views ([S, m, N] ->
+        [S, m, ...] views)."""
+        lead = tuple(flat.shape[:-1])
+        leaves = [flat.narrow(-1, o, s).view(lead + shp).to(dt)
                   for o, s, shp, dt in zip(self.offsets, self.sizes,
                                            self.shapes, self.dtypes)]
         return tree_from_paths(self.paths, leaves)

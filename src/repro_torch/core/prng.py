@@ -131,9 +131,12 @@ def random_bits(key, shape):
 
 
 def _unit_floats(key, shape):
-    """Floats in [0, 1): the top 23 bits as a mantissa under exponent 0."""
-    bits = (random_bits(key, shape) >> 9) | 0x3F800000
-    return bits.to(torch.int32).view(torch.float32) - 1.0
+    """Floats in [0, 1): the top 23 bits as a mantissa under exponent 0,
+    minus 1.  That is ``mantissa * 2**-23`` exactly (the mantissa fits
+    float32's 24 bits, the product is a power-of-two scaling, and the
+    reference's subtraction is exact), computed without a dtype view,
+    which ``torch.func.vmap`` cannot batch in every supported torch."""
+    return (random_bits(key, shape) >> 9).to(torch.float32) * 2.0 ** -23
 
 
 def uniform(key, shape=(), minval=0.0, maxval=1.0):

@@ -1,6 +1,7 @@
 """Helpers over parameter trees: nested dicts of tensors, leaves in jax's
 flatten order (dict keys sorted at every level).  Client-stacked trees
-carry a leading client axis ``[m, ...]`` on every leaf."""
+carry a leading client axis ``[m, ...]`` on every leaf (two, ``[S, m,
+...]``, in the seed-batched round)."""
 from __future__ import annotations
 
 
@@ -37,8 +38,9 @@ def tree_map(f, tree, *rest):
 
 
 def _bshape(v, leaf):
-    """Reshape per-client vector v [m] to broadcast against leaf [m, ...]."""
-    return v.reshape((v.shape[0],) + (1,) * (leaf.dim() - 1))
+    """Reshape per-client values v [m] (or [S, m]) to broadcast against
+    leaf [m, ...] (or [S, m, ...])."""
+    return v.reshape(tuple(v.shape) + (1,) * (leaf.dim() - v.dim()))
 
 
 def tree_client_scale(v, tree):
@@ -46,8 +48,9 @@ def tree_client_scale(v, tree):
     return tree_map(lambda x: (x.float() * _bshape(v, x)).to(x.dtype), tree)
 
 
-def tree_client_norm(tree):
-    """Per-client global L2 norm ``[m]`` of a client-stacked tree: each
-    leaf's sum of squares, summed over leaves in flatten order."""
-    return sum((x.float() * x.float()).reshape(x.shape[0], -1).sum(1)
-               for x in tree_leaves(tree)) ** 0.5
+def tree_client_norm(tree, lead=1):
+    """Per-client global L2 norm ``[m]`` (``[S, m]`` with ``lead=2``) of a
+    client-stacked tree: each leaf's sum of squares, summed over leaves in
+    flatten order."""
+    return sum((x.float() * x.float()).reshape(x.shape[:lead] + (-1,))
+               .sum(-1) for x in tree_leaves(tree)) ** 0.5

@@ -9,6 +9,9 @@ from repro_torch.data.federated import (  # noqa: F401
     SAMPLING_MODES,
     FederatedDataset,
     device_store,
+    init_seed_sampler_states,
     make_device_sampler,
+    pad_store,
     padded_client_index,
+    seed_data_keys,
 )

@@ -14,6 +14,9 @@ as in the reference:
 ``make_device_sampler`` returns ``(init_sampler_state, sample)`` with
 ``sample(store, sampler_state, key) -> (batches, sampler_state)``, the
 stateful contract both executors of ``core/engine.py`` thread through.
+``seed_data_keys`` and ``init_seed_sampler_states`` give the seed-batched
+executor its ``[S]`` keys and carries; ``pad_store`` widens a store for
+the packed grid (``launch/experiments.pack_cells``).
 Both modes are ported, uniform draws and epoch permutations, each
 emitting gathered batches; the reference's ``emit="cols"`` (the sparse
 cohort path) belongs to a later slice.
@@ -100,6 +103,26 @@ def device_store(arrays: Dict[str, np.ndarray], client_indices, device):
         idx=_to_device(pad["idx"], device),
         counts=_to_device(pad["counts"], device),
     )
+
+
+def pad_store(store, *, m: int = 0, cap: int = 0):
+    """Pad a device store's client axis to ``m`` rows and/or its index
+    capacity to ``cap`` columns (the packed grid's bucket padding), as the
+    reference's ``jnp.pad`` does: new index entries 0, new clients'
+    counts 1 (one dummy sample each, so the sampler's invariants hold).
+
+    Cap padding leaves the uniform sampler's stream unchanged: its draws
+    are ``randint(0, counts)`` and the gather reads no column at or past a
+    row's count.  The epoch sampler's permutations are cap-shaped, so
+    callers pad uniform-mode cells only."""
+    idx, counts = store["idx"], store["counts"]
+    m0, cap0 = idx.shape
+    m, cap = max(int(m), m0), max(int(cap), cap0)
+    if (m, cap) == (m0, cap0):
+        return store
+    idx = torch.nn.functional.pad(idx, (0, cap - cap0, 0, m - m0))
+    counts = torch.nn.functional.pad(counts, (0, m - m0), value=1)
+    return dict(store, idx=idx, counts=counts)
 
 
 SAMPLING_MODES = ("uniform", "epoch")
@@ -210,3 +233,23 @@ def make_device_sampler(m: int, s: int, b: int, mode: str = "uniform",
             key=base)
 
     return init_sampler_state, sample
+
+
+def seed_data_keys(data_key, n_seeds):
+    """Per-seed data keys of the seed-batched executor: ``[S, 2]`` with row
+    ``j = fold_in(data_key, j)``, bit-equal to the reference's.  Seed
+    ``j`` sees the sample stream of a single-seed run driven by that
+    key."""
+    return prng.fold_in(data_key, torch.arange(int(n_seeds),
+                                               device=data_key.device))
+
+
+def init_seed_sampler_states(init_sampler_state, store, data_keys):
+    """Seed-stacked sampler carry: ``init_sampler_state(store,
+    data_keys[j])`` per seed, stacked along a new leading ``[S]`` axis
+    (``{}`` under uniform sampling) — bit for bit the carries the S
+    single-seed runs start from."""
+    from repro_torch.core.engine import stack_seeds
+
+    return stack_seeds([init_sampler_state(store, data_keys[j])
+                        for j in range(int(data_keys.shape[0]))])

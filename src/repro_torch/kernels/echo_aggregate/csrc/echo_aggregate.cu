@@ -62,7 +62,14 @@
 //     memory (distributed shared memory) and arrives on rank 0's `combine`
 //     mbarrier; rank 0 adds them to its own in rank order 1, ..., S - 1,
 //     divides and writes the tile.  Two launches on the same inputs give
-//     the same bits.
+//     the same bits;
+//   * a seed axis: the grid's z is the seed, as vmapping the Pallas call
+//     adds a grid axis on the TPU.  Seed z's [m, N] stacks start z m N
+//     elements in, its g and out z N, its mask, echo and upload z m; each
+//     seed is treated as a tensor of its own (its own bounds for the
+//     element-by-element edges), so its arithmetic, rank order included,
+//     is that of a launch on that seed alone at the same slice count.  The
+//     cluster stays (1, S, 1) within one seed.
 
 // Built by ../kernel.py (repro_torch.kernels.nvcc) with
 // nvcc -gencode arch=compute_90a,code=sm_90a into a shared library with a
@@ -242,6 +249,16 @@ __global__ void __launch_bounds__(kThreads)
   extern __shared__ __align__(16) unsigned char smem[];
 
   const int tid = threadIdx.x, lane = tid & 31;
+  // seed z's operands: its [m, N] stacks, [N] global and output, [m]
+  // vectors
+  const long long z = blockIdx.z;
+  const unsigned char* const xs = a.x + z * a.m * a.n * ES;
+  const unsigned char* const ys = a.y + z * a.m * a.n * ES;
+  const float* const gs = GUARD ? a.g + z * a.n : nullptr;
+  float* const outs = a.out + z * a.n;
+  const float* const masks = a.mask + z * a.m;
+  const float* const echos = a.echo + z * a.m;
+  const float* const uploads = UPLOAD ? a.upload + z * a.m : nullptr;
   const long long c0 = static_cast<long long>(blockIdx.x) * BN;
   const int ncols = static_cast<int>(min(static_cast<long long>(BN),
                                          a.n - c0));
@@ -249,8 +266,8 @@ __global__ void __launch_bounds__(kThreads)
   const int S = gridDim.y, rank = blockIdx.y;
   const long long r_begin = a.m * rank / S, r_end = a.m * (rank + 1) / S;
   const int nsteps = static_cast<int>((r_end - r_begin + kRows - 1) / kRows);
-  const uintptr_t xlo = reinterpret_cast<uintptr_t>(a.x);
-  const uintptr_t ylo = reinterpret_cast<uintptr_t>(a.y);
+  const uintptr_t xlo = reinterpret_cast<uintptr_t>(xs);
+  const uintptr_t ylo = reinterpret_cast<uintptr_t>(ys);
   const uintptr_t nbytes = static_cast<uintptr_t>(a.m * a.n) * ES;
   const uint32_t full0 = smem_addr(smem + kBarOffset);
   const uint32_t empty0 = full0 + 8 * kStages;
@@ -327,9 +344,9 @@ __global__ void __launch_bounds__(kThreads)
       const long long r = r_begin + static_cast<long long>(step) * kRows
                           + lane;
       if (lane < kRows && r < r_end) {
-        nm = __ldg(a.mask + r);
-        ne = __ldg(a.echo + r);
-        if (UPLOAD) nu = __ldg(a.upload + r);
+        nm = __ldg(masks + r);
+        ne = __ldg(echos + r);
+        if (UPLOAD) nu = __ldg(uploads + r);
       }
     };
     fetch(0);
@@ -402,7 +419,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int q = 0; q < CPT; ++q) {
     const int j = tid + q * kConsumers;
     if (j < ncols)
-      a.out[c0 + j] = keep ? a.g[c0 + j] : __fdiv_rn(acc[q], den);
+      outs[c0 + j] = keep ? gs[c0 + j] : __fdiv_rn(acc[q], den);
   }
 }
 
@@ -434,13 +451,14 @@ cudaError_t prepare() {
 }
 
 template <int DT>
-cudaLaunchConfig_t config(long long n, int slices, cudaStream_t stream,
-                          cudaLaunchAttribute* attr) {
+cudaLaunchConfig_t config(long long n, int slices, int seeds,
+                          cudaStream_t stream, cudaLaunchAttribute* attr) {
   constexpr int BN = kTileRowBytes / elem_bytes<DT>();
   const long long tiles = (n + BN - 1) / BN;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(tiles),
-                     static_cast<unsigned>(slices), 1);
+                     static_cast<unsigned>(slices),
+                     static_cast<unsigned>(seeds));
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = smem_bytes(BN, slices);
   cfg.stream = stream;
@@ -456,11 +474,13 @@ cudaLaunchConfig_t config(long long n, int slices, cudaStream_t stream,
 // Launches on the calling thread's current device (the wrapper selects
 // the tensors' device).
 template <int DT, bool GUARD, bool UPLOAD>
-cudaError_t launch(const Args& a, int slices, cudaStream_t stream) {
+cudaError_t launch(const Args& a, int slices, int seeds,
+                   cudaStream_t stream) {
   cudaError_t err = prepare<DT, GUARD, UPLOAD>();
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = config<DT>(a.n, slices, stream, attr);
+  const cudaLaunchConfig_t cfg =
+      config<DT>(a.n, slices, seeds, stream, attr);
   err = cudaLaunchKernelEx(&cfg, echo_aggregate_kernel<DT, GUARD, UPLOAD>,
                            a);
   if (err != cudaSuccess) return err;
@@ -468,11 +488,12 @@ cudaError_t launch(const Args& a, int slices, cudaStream_t stream) {
 }
 
 template <int DT>
-cudaError_t launch_dtype(const Args& a, int guard, int slices,
+cudaError_t launch_dtype(const Args& a, int guard, int slices, int seeds,
                          cudaStream_t stream) {
-  if (a.upload != nullptr) return launch<DT, true, true>(a, slices, stream);
-  if (guard) return launch<DT, true, false>(a, slices, stream);
-  return launch<DT, false, false>(a, slices, stream);
+  if (a.upload != nullptr)
+    return launch<DT, true, true>(a, slices, seeds, stream);
+  if (guard) return launch<DT, true, false>(a, slices, seeds, stream);
+  return launch<DT, false, false>(a, slices, seeds, stream);
 }
 
 // Blocks of the guarded float32 instantiation at `slices` resident on one
@@ -486,7 +507,8 @@ cudaError_t occupancy(int slices, int* blocks_per_sm, int* clusters) {
       smem_bytes(kTileRowBytes / 4, slices));
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = config<0>(1LL << 20, slices, nullptr, attr);
+  const cudaLaunchConfig_t cfg =
+      config<0>(1LL << 20, slices, 1, nullptr, attr);
   return cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
 }
 
@@ -494,12 +516,13 @@ cudaError_t occupancy(int slices, int* blocks_per_sm, int* clusters) {
 
 extern "C" {
 
-// x, y: contiguous [m, n] stacks of dtype 0 (float32) or 1 (bfloat16),
-// each at least element-aligned; g (read with guard), mask, upload (may be
-// null; needs guard) and echo float32; out [n] float32.  block_cols must be
-// the kernel's tile for the dtype (1024 bytes of a row) and slices in
-// 1..8; the grid is (ceil(n / block_cols), slices) in clusters of
-// (1, slices, 1).  Runs on the calling thread's current device, which must
+// x, y: contiguous [seeds, m, n] stacks of dtype 0 (float32) or 1
+// (bfloat16), each at least element-aligned; g ([seeds, n], read with
+// guard), mask, upload ([seeds, m]; may be null; needs guard) and echo
+// ([seeds, m]) float32; out [seeds, n] float32.  block_cols must be the
+// kernel's tile for the dtype (1024 bytes of a row), slices in 1..8 and
+// seeds in 1..65535; the grid is (ceil(n / block_cols), slices, seeds) in
+// clusters of (1, slices, 1).  Runs on the calling thread's current device, which must
 // be the one the tensors lie on.  Returns the launch's cudaError_t (0 on
 // success); arguments outside these ranges return cudaErrorInvalidValue
 // without launching.
@@ -507,9 +530,10 @@ int echo_aggregate_fwd(const void* x, const void* y, const void* g,
                        const void* mask, const void* upload,
                        const void* echo, void* out, int dtype, int guard,
                        long long m, long long n, float eta_g,
-                       int block_cols, int slices, void* stream) {
+                       int block_cols, int slices, int seeds, void* stream) {
   if ((dtype != 0 && dtype != 1) || m < 1 || n < 1 || slices < 1 ||
-      slices > kMaxSlices || (upload != nullptr && !guard) ||
+      slices > kMaxSlices || seeds < 1 || seeds > 65535 ||
+      (upload != nullptr && !guard) ||
       block_cols != kTileRowBytes / (dtype == 0 ? 4 : 2) ||
       (n + block_cols - 1) / block_cols > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -524,8 +548,9 @@ int echo_aggregate_fwd(const void* x, const void* y, const void* g,
                n,
                eta_g};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = dtype == 0 ? launch_dtype<0>(a, guard, slices, st)
-                                     : launch_dtype<1>(a, guard, slices, st);
+  const cudaError_t err =
+      dtype == 0 ? launch_dtype<0>(a, guard, slices, seeds, st)
+                 : launch_dtype<1>(a, guard, slices, seeds, st);
   return static_cast<int>(err);
 }
 

@@ -25,7 +25,7 @@ def _bind(lib):
     fn = lib.echo_aggregate_fwd
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 2
                    + [ctypes.c_longlong] * 2 + [ctypes.c_float]
-                   + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.echo_aggregate_error.argtypes = [ctypes.c_int]
     lib.echo_aggregate_error.restype = ctypes.c_char_p
@@ -63,14 +63,16 @@ def _ptr(t):
 
 
 def launch(x, y, g, mask, upload, echo, out, eta_g, *, guard, block_cols,
-           slices):
+           slices, seeds=1):
     """Run the kernel on the current stream.  x, y: contiguous [m, N] CUDA
     tensors (float32 or bfloat16); g ([N], read only with ``guard``),
     mask, echo, upload ([m]; ``upload`` may be None, and needs ``guard``)
     and out ([N]) contiguous float32; ``block_cols`` and ``slices`` from
-    ``ops.launch_geometry``.  The caller (``ops.py``) has checked every
-    operand.  Raises if the launch is refused."""
-    m, n = x.shape
+    ``ops.launch_geometry``.  With ``seeds`` S > 1 every operand has a
+    leading seed axis ([S, m, N], [S, N], [S, m]) and the one launch
+    covers them all.  The caller (``ops.py``) has checked every operand.
+    Raises if the launch is refused."""
+    m, n = x.shape[-2:]
     lib = LIBRARY.load()
     with torch.cuda.device_of(x):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -78,7 +80,7 @@ def launch(x, y, g, mask, upload, echo, out, eta_g, *, guard, block_cols,
             x.data_ptr(), y.data_ptr(), _ptr(g), mask.data_ptr(),
             _ptr(upload), echo.data_ptr(), out.data_ptr(),
             DTYPE_CODES[x.dtype], int(guard), m, n, eta_g, block_cols,
-            slices, stream)
+            slices, seeds, stream)
     if rc != 0:
         raise RuntimeError("echo-aggregate kernel launch failed: "
                            f"{lib.echo_aggregate_error(rc).decode()} "

@@ -4,6 +4,14 @@
 flat ``[m, N]`` substrate (core/flatten.py), guard included;
 ``echo_aggregate`` is the masked echo mean without the guard.
 
+``echo_aggregate_flat`` goes through the custom operator
+``repro_torch::echo_aggregate_flat``, whose ``torch.func.vmap`` rule is
+the kernel's seed axis: under the seed-batched round
+(``core.engine.seed_vmap``) S seeds' ``[S, m, N]`` stacks, ``[S, m]``
+vectors and ``[S, N]`` globals go to ONE launch (grid ``(tiles, slices,
+S)``), each seed's arithmetic that of a launch on that seed alone, as
+vmapping the Pallas call adds a grid axis on the TPU.
+
 Device dispatch is by the tensors' device and nothing else: CPU tensors
 take the plain version (``ref.py``); CUDA tensors launch the CUDA C++
 kernel (``kernel.py``, ``csrc/echo_aggregate.cu``) once a call, the upload
@@ -13,7 +21,8 @@ its kernel launches in plain integer attributes
 (``echo_aggregate_flat.launches`` for the fault-free update,
 ``echo_aggregate_flat.upload_launches`` for the ``upload=`` variant,
 ``echo_aggregate.launches``), so a run can show that it went through the
-kernel; a caller resets them by assigning 0.
+kernel; a launch over a seed axis counts once.  A caller resets them by
+assigning 0.
 
 ``launch_geometry`` chooses the kernel's grid from the shapes and the
 card's SM count alone.  ``_echo_aggregate_cuda`` launches the kernel at a
@@ -23,6 +32,8 @@ multiply: both are for ``chip_smoke.py``'s checks and timings, count no
 launch, and no path calls them.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -66,10 +77,10 @@ def blocks_per_sm(esize, slices):
                                + BLOCK_RESERVED_BYTES)
 
 
-def launch_geometry(m, n, esize, n_sm):
+def launch_geometry(m, n, esize, n_sm, seeds=1):
     """(block_cols, slices) of the kernel's grid, ``ceil(n / block_cols)``
-    column tiles by ``slices`` row slices, for an [m, n] stack of
-    ``esize``-byte elements on a card of ``n_sm`` SMs.
+    column tiles by ``slices`` row slices by ``seeds``, for ``seeds``
+    [m, n] stacks of ``esize``-byte elements on a card of ``n_sm`` SMs.
 
     The most slices (at most ``MAX_SLICES``, each of at least
     ``MIN_SLICE_ROWS`` rows) whose grid is one wave of resident blocks, so
@@ -77,30 +88,39 @@ def launch_geometry(m, n, esize, n_sm):
     block_cols = TILE_ROW_BYTES // esize
     tiles = -(-n // block_cols)
     for s in range(min(MAX_SLICES, m // MIN_SLICE_ROWS), 1, -1):
-        if tiles * s <= blocks_per_sm(esize, s) * n_sm:
+        if tiles * s * seeds <= blocks_per_sm(esize, s) * n_sm:
             return block_cols, s
     return block_cols, 1
 
 
+#: the kernel's seed axis is its grid's z, at most 65 535 blocks
+MAX_SEEDS = 65535
+
+
 def _check(x, y, vecs, g=None):
-    """Validate the operands the kernel takes; raise on anything else."""
-    if x.dim() != 2 or x.shape != y.shape:
-        raise ValueError(f"x, y must be [m, N] of one shape; got "
-                         f"{tuple(x.shape)} and {tuple(y.shape)}")
-    m, n = x.shape
-    if m < 1 or n < 1:
+    """Validate the operands the kernel takes, [m, N] stacks with [m]
+    vectors and an [N] global, or [S, m, N] stacks with [S, m] vectors
+    and an [S, N] global; raise on anything else."""
+    if x.dim() not in (2, 3) or x.shape != y.shape:
+        raise ValueError(f"x, y must be [m, N] (or [S, m, N]) of one shape; "
+                         f"got {tuple(x.shape)} and {tuple(y.shape)}")
+    lead, (m, n) = tuple(x.shape[:-2]), x.shape[-2:]
+    if m < 1 or n < 1 or x.numel() == 0:
         raise ValueError(f"empty client stack {tuple(x.shape)}")
+    if lead and lead[0] > MAX_SEEDS:
+        raise ValueError(f"at most {MAX_SEEDS} seeds; got {lead[0]}")
     if x.dtype not in STACK_DTYPES or y.dtype != x.dtype:
         raise TypeError(f"x, y must share a dtype in {STACK_DTYPES}; got "
                         f"{x.dtype} and {y.dtype}")
     if not (x.is_contiguous() and y.is_contiguous()):
         raise ValueError("x, y must be contiguous")
     for name, v in vecs.items():
-        if v is not None and tuple(v.shape) != (m,):
-            raise ValueError(f"{name} must be [m] = [{m}]; got "
+        if v is not None and tuple(v.shape) != lead + (m,):
+            raise ValueError(f"{name} must be {list(lead + (m,))}; got "
                              f"{tuple(v.shape)}")
-    if g is not None and tuple(g.shape) != (n,):
-        raise ValueError(f"global must be [N] = [{n}]; got {tuple(g.shape)}")
+    if g is not None and tuple(g.shape) != lead + (n,):
+        raise ValueError(f"global must be {list(lead + (n,))}; got "
+                         f"{tuple(g.shape)}")
     operands = [x, y, g] + list(vecs.values())
     if any(t is not None and t.device != x.device for t in operands):
         raise ValueError("all operands must lie on one device")
@@ -137,16 +157,19 @@ def _sm_count(device):
 
 
 def _launch(x, y, g, mask, echo, eta_g, upload, *, guard, slices=None):
-    """One launch of the CUDA kernel on checked operands; ``slices`` None
-    takes ``launch_geometry``'s."""
-    m, n = x.shape
+    """One launch of the CUDA kernel on checked operands (with a seed
+    axis, one launch for every seed); ``slices`` None takes
+    ``launch_geometry``'s."""
+    seeds = x.shape[0] if x.dim() == 3 else 1
+    m, n = x.shape[-2:]
     block_cols, s = launch_geometry(m, n, x.element_size(),
-                                    _sm_count(x.device))
-    out = torch.empty((n,), dtype=torch.float32, device=x.device)
+                                    _sm_count(x.device), seeds)
+    out = torch.empty(x.shape[:-2] + (n,), dtype=torch.float32,
+                      device=x.device)
     kernel.launch(x, y, _f32(g) if guard else None, _f32(mask),
                   _f32(upload), _f32(echo), out, eta_g, guard=guard,
                   block_cols=block_cols,
-                  slices=s if slices is None else slices)
+                  slices=s if slices is None else slices, seeds=seeds)
     return out
 
 
@@ -163,16 +186,29 @@ def echo_aggregate_flat(clients_flat, x_end_flat, global_flat, mask, echo,
     clients_flat, x_end_flat: [m, N] start / post-local-SGD stacks;
     global_flat: [N] previous global (returned verbatim on empty rounds).
     ``upload`` ([m], optional) is the mid-round delivery weight fused into
-    the kernel weights.  Returns the new [N] float32 global."""
-    _check(clients_flat, x_end_flat, dict(mask=mask, echo=echo,
-                                          upload=upload), g=global_flat)
+    the kernel weights.  Returns the new [N] float32 global.  Under
+    ``torch.func.vmap`` over seeds the S calls are one launch (see the
+    module note); ``[S, m, N]`` stacks may also be passed directly."""
     _check_eta(eta_g)
-    if clients_flat.device.type == "cpu":
-        return echo_aggregate_fused_ref(clients_flat, x_end_flat,
-                                        global_flat, mask, echo, eta_g,
+    return _fused_op(clients_flat, x_end_flat, global_flat, mask, echo,
+                     eta_g, upload)
+
+
+echo_aggregate_flat.launches = 0
+echo_aggregate_flat.upload_launches = 0
+
+
+@torch.library.custom_op("repro_torch::echo_aggregate_flat", mutates_args=())
+def _fused_op(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor,
+              mask: torch.Tensor, echo: torch.Tensor, eta_g: float,
+              upload: Optional[torch.Tensor]) -> torch.Tensor:
+    """``echo_aggregate_flat`` on real tensors: the plain version on the
+    CPU, one counted launch of the kernel on the card."""
+    _check(x, y, dict(mask=mask, echo=echo, upload=upload), g=g)
+    if x.device.type == "cpu":
+        return echo_aggregate_fused_ref(x, y, g, mask, echo, eta_g,
                                         upload=upload)
-    out = _launch(clients_flat, x_end_flat, global_flat, mask, echo, eta_g,
-                  upload, guard=True)
+    out = _launch(x, y, g, mask, echo, eta_g, upload, guard=True)
     if upload is None:
         echo_aggregate_flat.launches += 1
     else:
@@ -180,8 +216,31 @@ def echo_aggregate_flat(clients_flat, x_end_flat, global_flat, mask, echo,
     return out
 
 
-echo_aggregate_flat.launches = 0
-echo_aggregate_flat.upload_launches = 0
+@_fused_op.register_fake
+def _(x, y, g, mask, echo, eta_g, upload):
+    return x.new_empty(x.shape[:-2] + x.shape[-1:], dtype=torch.float32)
+
+
+def _fused_seeds(info, in_dims, x, y, g, mask, echo, eta_g, upload):
+    """The operator's vmap rule: every operand brought to a leading seed
+    axis (an unbatched one broadcast, the stacks made contiguous where
+    they are not), then the operator once on the ``[S, ...]`` tensors."""
+    S = info.batch_size
+
+    def seeds_first(t, d):
+        if t is None:
+            return None
+        return t.movedim(d, 0) if d is not None \
+            else t.expand((S,) + tuple(t.shape))
+
+    x, y, g, mask, echo = (seeds_first(t, d) for t, d in zip(
+        (x, y, g, mask, echo), in_dims[:5]))
+    upload = seeds_first(upload, in_dims[6])
+    return _fused_op(x.contiguous(), y.contiguous(), g, mask, echo, eta_g,
+                     upload), 0
+
+
+torch.library.register_vmap(_fused_op, _fused_seeds)
 
 
 def echo_aggregate(x, y, mask, echo, eta_g):
@@ -206,10 +265,11 @@ echo_aggregate.launches = 0
 
 def _echo_aggregate_cuda(x, y, g, mask, echo, eta_g, *, upload=None,
                          slices=None):
-    """The CUDA kernel on [m, N] CUDA stacks at ``slices`` row slices
-    (``launch_geometry``'s where None), guarded unless ``g`` is None;
-    counts no launch.  ``chip_smoke.py`` checks the kernel with it at more
-    slices than rows."""
+    """The CUDA kernel on [m, N] (or [S, m, N]) CUDA stacks at ``slices``
+    row slices (``launch_geometry``'s where None), guarded unless ``g`` is
+    None; counts no launch.  ``chip_smoke.py`` checks the kernel with it
+    at more slices than rows, and a seed stack's launch against one
+    launch per seed."""
     _check(x, y, dict(mask=mask, echo=echo, upload=upload), g=g)
     _check_eta(eta_g)
     _on_card(x)

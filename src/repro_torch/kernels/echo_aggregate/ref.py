@@ -2,7 +2,13 @@
 10-11 + line 4 of Algorithm 1, fused over the client axis): ports of the
 JAX package's ``kernels/echo_aggregate/ref.py``; and
 ``echo_aggregate_split_ref``, the CUDA kernel's own arithmetic (row
-slices, rank-ordered combine) in plain torch, an oracle for the kernel."""
+slices, rank-ordered combine) in plain torch, an oracle for the kernel.
+
+Each takes an optional leading seed axis: ``[S, m, N]`` stacks with
+``[S, m]`` vectors and ``[S, N]`` globals give ``[S, N]``, seed ``j``'s
+row bit-equal to the function on seed ``j`` alone (the reductions run
+over the client axis, as ``torch.func.vmap`` of the single-seed function
+runs them)."""
 from __future__ import annotations
 
 import torch
@@ -22,9 +28,9 @@ def echo_aggregate_ref(x, y, mask, echo, eta_g, *, upload=None):
     if upload is not None:
         w = w * upload.float()
     e = echo.float()
-    xd = x32 - eta_g * e[:, None] * (x32 - y32)
-    denom = torch.clamp(w.sum(), min=1.0)
-    return (w[:, None] * xd).sum(dim=0) / denom
+    xd = x32 - eta_g * e[..., None] * (x32 - y32)
+    denom = torch.clamp(w.sum(dim=-1), min=1.0)
+    return (w[..., None] * xd).sum(dim=-2) / denom[..., None]
 
 
 def echo_aggregate_fused_ref(x, y, g, mask, echo, eta_g, *, upload=None):
@@ -34,7 +40,7 @@ def echo_aggregate_fused_ref(x, y, g, mask, echo, eta_g, *, upload=None):
     w = mask.float()
     if upload is not None:
         w = w * upload.float()
-    return torch.where(w.sum() > 0, acc, g.float())
+    return torch.where(w.sum(dim=-1)[..., None] > 0, acc, g.float())
 
 
 def slice_bounds(m, slices):
@@ -52,7 +58,13 @@ def echo_aggregate_split_ref(x, y, g, mask, echo, eta_g, *, slices,
     added in rank order 0, 1, ...; then ``acc / max(sum w, 1)``, and with
     a global ``g`` (None: no guard) ``g`` where ``sum w <= 0``.  Columns
     are independent, so the column tiles do not enter.  x, y: [m, N];
-    mask, echo, upload: [m].  Returns [N] float32."""
+    mask, echo, upload: [m].  Returns [N] float32.  With a seed axis each
+    seed is its own launch's arithmetic (the kernel's ``blockIdx.z``)."""
+    if x.dim() == 3:
+        return torch.stack([echo_aggregate_split_ref(
+            x[j], y[j], None if g is None else g[j], mask[j], echo[j],
+            eta_g, slices=slices, upload=None if upload is None
+            else upload[j]) for j in range(x.shape[0])])
     m, n = x.shape
     w = mask.float()
     if upload is not None:

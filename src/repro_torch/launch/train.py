@@ -4,7 +4,8 @@
         --flat-state --chunk-rounds 16 --use-kernel --rounds 300 \
         [--midround-drop 0.3 --sanitize --stale-max 4 --stale-kind geom] \
         [--sampling epoch] [--ckpt PATH --ckpt-every N] \
-        [--resume PATH --ckpt-every N]
+        [--resume PATH --ckpt-every N] [--scenario NAME] \
+        [--seeds S [--replicate full]]
 
 The port of ``python -m repro.launch.train --preset image``, for all ten
 strategies of the reference's registry (FedAWE, FedAWE-M and the eight
@@ -13,7 +14,10 @@ baselines).  It runs on the card (``--device cuda``, the default) unless
 keep the reference's names and defaults; flags of paths not ported yet
 are not defined, so argparse refuses them.  Checkpoints are written in
 the reference's format (``checkpointing/io.py``), so either launcher
-resumes the other's ``--resume`` artifact.
+resumes the other's ``--resume`` artifact.  ``--scenario`` takes a cell
+of ``launch/experiments``' registry (an explicit flag wins over the cell,
+the cell over the default); ``--seeds S > 1`` runs S seeds together
+through the seed-batched executor (``experiments.run_multi_seed``).
 """
 from __future__ import annotations
 
@@ -28,10 +32,11 @@ import torch
 from repro_torch.checkpointing import (restore_run_state, save_fl_state,
                                        save_run_state)
 from repro_torch.core import (REGISTRY, AvailabilityCfg, FaultCfg, FLConfig,
-                              FlatSpec, StalenessCfg, global_trainables,
-                              init_fl_state, init_staleness_state,
-                              make_round_fn, prng, run_rounds,
-                              staircase_delay_trace)
+                              FlatSpec, StalenessCfg, clusters_from_nu,
+                              diurnal_trace, global_trainables, index_seed,
+                              init_fault_state, init_fl_state,
+                              init_staleness_state, make_round_fn, prng,
+                              run_rounds, staircase_delay_trace)
 from repro_torch.core.availability import base_probs_from_data
 from repro_torch.data import (SAMPLING_MODES, FederatedDataset,
                               dirichlet_partition, make_device_sampler,
@@ -42,7 +47,9 @@ from repro_torch.models import cnn
 
 def build_image_task(args, rng, device):
     """Synthetic image-classification task.  Returns ``(params, loss_fn,
-    ds, base_p, eval_fn)``, all tensors on ``device``."""
+    ds, base_p, eval_fn, init_fn)``, all tensors on ``device``;
+    ``init_fn(key)`` initializes the model from any key (``--replicate
+    full`` draws seed j's from ``init_fn(fold_in(model_rng, j))``)."""
     task = make_image_classification(seed=args.seed, n=args.n_samples,
                                      shape=(8, 8, 1))
     nprng = np.random.default_rng(args.seed)
@@ -54,8 +61,11 @@ def build_image_task(args, rng, device):
     # (nu-correlated availability, cluster blackouts — core/faults.py)
     ds.nu = nu.astype(np.float32)
     base_p = base_probs_from_data(rng, torch.from_numpy(ds.nu).to(device))
-    params = cnn.init_cnn(prng.PRNGKey(args.seed, device),
-                          in_shape=(8, 8, 1), n_classes=task.n_classes)
+    def init_fn(key):
+        return cnn.init_cnn(key, in_shape=(8, 8, 1),
+                            n_classes=task.n_classes)
+
+    params = init_fn(prng.PRNGKey(args.seed, device))
     loss_fn = cnn.make_image_loss_fn(cnn.cnn_apply)
     eval_batch = {k: torch.from_numpy(v).to(device)
                   for k, v in ds.eval_batch(1024, seed=1).items()}
@@ -65,28 +75,38 @@ def build_image_task(args, rng, device):
                            eval_batch)
         return {"eval_acc": float(acc)}
 
-    return params, loss_fn, ds, base_p, eval_fn
+    return params, loss_fn, ds, base_p, eval_fn, init_fn
+
+
+#: the flags a --scenario cell supplies: explicit flag (even at its
+#: default value) > scenario cell > this default.  Their argparse defaults
+#: are None, so "passed the default" and "not passed" differ.
+_SCENARIO_FLAG_DEFAULTS = dict(strategy="fedawe", dynamics="stationary",
+                               sampling="uniform", gamma=0.3, alpha=0.1,
+                               eta_l=0.05, eta_g=1.0)
 
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
-    ap.add_argument("--strategy", default="fedawe",
-                    help="aggregation strategy: "
+    ap.add_argument("--strategy", default=None,
+                    help="aggregation strategy (default: fedawe): "
                          + ", ".join(REGISTRY))
-    ap.add_argument("--dynamics", default="stationary",
+    ap.add_argument("--dynamics", default=None,
                     choices=["stationary", "staircase", "sine",
                              "interleaved_sine", "markov"],
-                    help="availability process")
-    ap.add_argument("--gamma", type=float, default=0.3,
-                    help="sine-family amplitude")
+                    help="availability process (default: stationary)")
+    ap.add_argument("--gamma", type=float, default=None,
+                    help="sine-family amplitude (default: 0.3)")
     ap.add_argument("--rounds", type=int, default=200)
     ap.add_argument("--m", type=int, default=32)
     ap.add_argument("--s", type=int, default=5)
     ap.add_argument("--batch", type=int, default=32)
-    ap.add_argument("--eta-l", type=float, default=0.05, help="local lr")
-    ap.add_argument("--eta-g", type=float, default=1.0, help="global lr")
-    ap.add_argument("--alpha", type=float, default=0.1,
-                    help="Dirichlet heterogeneity")
+    ap.add_argument("--eta-l", type=float, default=None,
+                    help="local lr (default: 0.05)")
+    ap.add_argument("--eta-g", type=float, default=None,
+                    help="global lr (default: 1.0)")
+    ap.add_argument("--alpha", type=float, default=None,
+                    help="Dirichlet heterogeneity (default: 0.1)")
     ap.add_argument("--n-samples", type=int, default=20000)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--use-kernel", action="store_true",
@@ -98,12 +118,30 @@ def build_parser() -> argparse.ArgumentParser:
                     help="K>0: chunked executor — K rounds per call, "
                          "device-resident batch sampling, one metrics "
                          "fetch per chunk, eval at chunk boundaries "
-                         "(0 = host loop)")
-    ap.add_argument("--sampling", default="uniform",
+                         "(0 = host loop single-seed, K=8 with --seeds "
+                         "> 1)")
+    ap.add_argument("--sampling", default=None,
                     choices=list(SAMPLING_MODES),
-                    help="device-sampler mode: uniform draws with "
-                         "replacement, or epoch permutations (every "
-                         "sample once an epoch)")
+                    help="device-sampler mode (default: uniform): uniform "
+                         "draws with replacement, or epoch permutations "
+                         "(every sample once an epoch)")
+    ap.add_argument("--seeds", type=int, default=1,
+                    help="S>1: run S seeds together through the "
+                         "seed-batched executor (seed j's keys are "
+                         "fold_in(seed_key, j)); reports mean±std over "
+                         "seeds")
+    ap.add_argument("--replicate", default="shared",
+                    choices=["shared", "full"],
+                    help="with --seeds S>1: 'shared' starts every seed "
+                         "from one model init, 'full' re-initializes the "
+                         "model per seed from fold_in(model_rng, j)")
+    ap.add_argument("--scenario", default=None,
+                    help="named experiment-grid cell (launch/experiments "
+                         "--list): supplies --strategy/--dynamics/"
+                         "--sampling/--gamma/--alpha/--eta-l/--eta-g, the "
+                         "availability, fault and staleness knobs; a flag "
+                         "passed explicitly still wins, even at its "
+                         "default value")
     ap.add_argument("--midround-drop", type=float, default=0.0,
                     help="P(a computed update fails to upload) per client "
                          "per round — mid-round dropout fault injection "
@@ -141,8 +179,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt", default=None,
                     help="write the final FLState to PATH.npz + PATH.json")
     ap.add_argument("--ckpt-every", type=int, default=0,
-                    help="overwrite --ckpt every N rounds (chunk-aligned); "
-                         "with --resume, overwrite the resumable artifact")
+                    help="overwrite --ckpt every N rounds (chunk-aligned; "
+                         "multi-seed runs write seed 0 at the end); with "
+                         "--resume, overwrite the resumable artifact")
     ap.add_argument("--resume", default=None, metavar="PATH",
                     help="resumable run artifact prefix (PATH.npz + "
                          "PATH.json holding the FLState and the carried "
@@ -156,26 +195,51 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def fault_configs(args):
-    """``(fault_cfg, stale_cfg)`` from the fault and stale flags, composed
-    as the reference launcher composes them (train.py:279-299, :319-326):
-    any fault flag builds a ``FaultCfg``, any stale flag a
-    ``StalenessCfg`` over its defaults; ``tau_max = 0`` means none."""
-    fault_cfg = None
+def resolve_flags(args):
+    """Fill the scenario-overridable flags left at None: from the
+    ``--scenario`` cell where one is named, else from the defaults; an
+    explicit flag wins.  Returns the ``Scenario`` or None; calling it
+    again changes nothing."""
+    scenario = None
+    if args.scenario:
+        from repro_torch.launch.experiments import get_scenario
+        scenario = get_scenario(args.scenario)
+        args.flat_state = args.flat_state or scenario.flat_state
+    for attr, fallback in _SCENARIO_FLAG_DEFAULTS.items():
+        if getattr(args, attr) is None:
+            if scenario is not None:
+                sc_attr = "kind" if attr == "dynamics" else attr
+                setattr(args, attr, getattr(scenario, sc_attr))
+            else:
+                setattr(args, attr, fallback)
+    return scenario
+
+
+def fault_configs(args, scenario=None):
+    """``(fault_cfg, stale_cfg)``: the scenario cell's (or none) with the
+    explicit fault and stale flags composed on top, as the reference
+    launcher composes them (train.py:262-330): the fault flags build or
+    amend a ``FaultCfg``, any stale flag a ``StalenessCfg``;
+    ``tau_max = 0`` means none."""
+    fault_cfg = scenario.fault() if scenario is not None else None
     if args.midround_drop or args.sanitize or args.norm_cap:
-        fault_cfg = FaultCfg(upload_survival=1.0 - args.midround_drop,
-                             sanitize=args.sanitize or args.norm_cap > 0,
-                             norm_cap=args.norm_cap)
-    stale_cfg = None
+        fc0 = fault_cfg or FaultCfg()
+        fault_cfg = dataclasses.replace(
+            fc0,
+            upload_survival=(1.0 - args.midround_drop if args.midround_drop
+                             else fc0.upload_survival),
+            sanitize=fc0.sanitize or args.sanitize or args.norm_cap > 0,
+            norm_cap=args.norm_cap or fc0.norm_cap)
+    stale_cfg = scenario.staleness() if scenario is not None else None
     flags = dict(tau_max=args.stale_max, kind=args.stale_kind,
                  delay=args.stale_delay, p_next=args.stale_p,
                  gamma=args.stale_gamma)
     if any(v is not None for v in flags.values()):
         stale_cfg = dataclasses.replace(
-            StalenessCfg(), **{k: v for k, v in flags.items()
-                               if v is not None})
-        if stale_cfg.tau_max == 0:
-            stale_cfg = None
+            stale_cfg or StalenessCfg(),
+            **{k: v for k, v in flags.items() if v is not None})
+    if stale_cfg is not None and stale_cfg.tau_max == 0:
+        stale_cfg = None
     return fault_cfg, stale_cfg
 
 
@@ -183,17 +247,34 @@ def setup(args, device):
     """Everything a run needs, built on ``device`` as the reference
     launcher builds it (train.py:302-357): the same ``PRNGKey(seed)``
     feeds ``base_probs_from_data`` and ``init_fl_state``,
-    ``PRNGKey(seed + 1)`` is the data key and ``PRNGKey(seed + 3)`` draws
-    the replayed delay trace of ``--stale-kind trace``.  Returns a dict
-    with ``state``, ``round_fn``, ``ds``, ``eval_fn`` and ``data_key``."""
+    ``PRNGKey(seed + 1)`` is the data key, ``PRNGKey(seed + 2)`` draws a
+    fault cell's replayed trace and ``PRNGKey(seed + 3)`` the delay trace
+    of ``--stale-kind trace``.  Returns a dict with ``state``,
+    ``round_fn``, ``ds``, ``eval_fn``, ``data_key`` and, for the
+    multi-seed run, ``fl``, ``params``, ``init_fn``, ``rng`` and the
+    ``fault`` and ``stale`` carries."""
+    scenario = resolve_flags(args)
     rng = prng.PRNGKey(args.seed, device)
-    params, loss_fn, ds, base_p, eval_fn = build_image_task(args, rng,
-                                                            device)
+    params, loss_fn, ds, base_p, eval_fn, init_fn = build_image_task(
+        args, rng, device)
     fl = FLConfig(m=args.m, s=args.s, eta_l=args.eta_l, eta_g=args.eta_g,
                   strategy=args.strategy, use_kernel=args.use_kernel,
                   flat_state=args.flat_state)
-    av = AvailabilityCfg(kind=args.dynamics, gamma=args.gamma)
-    fault_cfg, stale_cfg = fault_configs(args)
+    if scenario is not None:
+        # the cell's availability knobs, with any explicit flag on top
+        av = dataclasses.replace(scenario.availability(),
+                                 kind=args.dynamics, gamma=args.gamma)
+    else:
+        av = AvailabilityCfg(kind=args.dynamics, gamma=args.gamma)
+    fault_cfg, stale_cfg = fault_configs(args, scenario)
+    fault_state = None
+    if fault_cfg is not None and fault_cfg.needs_state:
+        trace = (diurnal_trace(prng.PRNGKey(args.seed + 2, device), base_p,
+                               args.rounds) if fault_cfg.trace else None)
+        clusters = (clusters_from_nu(torch.from_numpy(ds.nu).to(device))
+                    if fault_cfg.blackout_len > 0 else None)
+        fault_state = init_fault_state(fault_cfg, trace=trace,
+                                       clusters=clusters)
     stale_state = None
     if stale_cfg is not None:
         dtrace = None
@@ -203,25 +284,34 @@ def setup(args, device):
         stale_state = init_staleness_state(
             stale_cfg, FlatSpec.from_tree(params).size, args.m,
             dtrace=dtrace, device=device)
-    return dict(state=init_fl_state(rng, fl, params, stale=stale_state),
+    return dict(state=init_fl_state(rng, fl, params, fault=fault_state,
+                                    stale=stale_state),
                 round_fn=make_round_fn(fl, loss_fn, {}, av, base_p,
                                        fault_cfg=fault_cfg,
                                        staleness_cfg=stale_cfg),
                 ds=ds, eval_fn=eval_fn,
-                data_key=prng.PRNGKey(args.seed + 1, device))
+                data_key=prng.PRNGKey(args.seed + 1, device), fl=fl,
+                params=params, init_fn=init_fn, rng=rng, fault=fault_state,
+                stale=stale_state)
 
 
 def run(args):
     """Train as the parsed ``args`` say; returns ``(state, history,
-    final)``.  The body of ``main``, checkpoints included, without its
-    printing and ``--out``."""
+    final)``, or with ``--seeds S > 1`` ``(states, histories, final)``:
+    the seed-stacked state, one history per seed and the mean±std over
+    seeds of the final eval.  The body of ``main``, checkpoints included,
+    without its printing and ``--out``."""
+    scenario = resolve_flags(args)
     # the pending-update ring rides the flat [m, N] substrate
-    args.flat_state = args.flat_state or fault_configs(args)[1] is not None
+    args.flat_state = (args.flat_state
+                       or fault_configs(args, scenario)[1] is not None)
     if not args.flat_state:
         raise NotImplementedError(
             "tree-state path not ported: pass --flat-state")
     device = resolve_device(args.device)
     parts = setup(args, device)
+    if args.seeds > 1:
+        return _run_multi_seed(args, parts)
     state, round_fn, ds = parts["state"], parts["round_fn"], parts["ds"]
     eval_fn = parts["eval_fn"]
     ckpt_fn = None
@@ -277,14 +367,46 @@ def run(args):
     return state, hist, final
 
 
+def _run_multi_seed(args, parts):
+    """``--seeds S > 1``: the seed-batched executor, always chunked
+    (``--chunk-rounds``, or K = 8).  Seed j uses ``fold_in(rng, j)`` /
+    ``fold_in(data_key, j)``; ``--replicate full`` also re-initializes
+    the model per seed.  ``--ckpt`` saves seed 0's final state."""
+    from repro_torch.launch import analysis
+    from repro_torch.launch.experiments import run_multi_seed
+
+    states, hists, finals = run_multi_seed(
+        parts["fl"], parts["round_fn"], parts["params"], parts["ds"],
+        sampling=args.sampling, batch=args.batch, seeds=args.seeds,
+        rounds=args.rounds,
+        # 0 is the CLI's auto value; the driver itself rejects K <= 0
+        chunk_rounds=args.chunk_rounds or 8, rng=parts["rng"],
+        data_key=parts["data_key"], eval_fn=parts["eval_fn"],
+        eval_every=args.eval_every, log_every=max(1, args.rounds // 10),
+        template_fn=(parts["init_fn"] if args.replicate == "full"
+                     else None),
+        fault=parts["fault"], stale=parts["stale"])
+    if args.ckpt:
+        save_fl_state(args.ckpt, index_seed(states, 0))
+    return states, hists, analysis.seed_summary(finals)
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     _, hist, final = run(args)
-    print("final:", final)
+    if args.seeds > 1:
+        from repro_torch.launch import analysis
+        print("final (mean±std over seeds):", final)
+        record = dict(args=vars(args), final=final,
+                      curves=analysis.aggregate_seed_histories(hist),
+                      history_per_seed=hist)
+    else:
+        print("final:", final)
+        record = dict(args=vars(args), final=final, history=hist)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
-            json.dump(dict(args=vars(args), final=final, history=hist), f)
+            json.dump(record, f)
     return final
 
 

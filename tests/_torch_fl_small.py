@@ -7,7 +7,10 @@ and the comparison both parity files apply to the two runs.
 staleness configs as plain dicts of ``FaultCfg`` / ``StalenessCfg``
 fields, so one description builds both packages' configs; ``setup`` and
 ``drive`` are its two halves, for runs that restart from a checkpoint.
-The sampler is uniform unless ``sampling="epoch"``."""
+The sampler is uniform unless ``sampling="epoch"``.  ``setup(...,
+seed=j)`` is seed j of a multi-seed run (state key ``fold_in(0, j)``,
+data key ``fold_in(42, j)``); ``run_seeds`` drives S such seeds through
+either package's seed-batched executor."""
 import numpy as np
 import torch
 
@@ -51,7 +54,8 @@ def _torch_loss(tr, frozen, batch, rng):
 
 
 def _setup_ref(strategy, fault, stale, *, use_kernel, trace, clusters,
-               dtrace, nan_client, base_p, kind, sampling, min_count):
+               dtrace, nan_client, base_p, kind, sampling, min_count,
+               seed=None):
     store = ref_fed.device_store(*arrays(nan_client))
     init_fn, sample_fn = ref_fed.make_device_sampler(
         M, S, B, mode=sampling, min_count=min_count)
@@ -64,18 +68,25 @@ def _setup_ref(strategy, fault, stale, *, use_kernel, trace, clusters,
         cfg, _jax_loss, {}, ref_core.AvailabilityCfg(kind=kind, gamma=0.3),
         jnp.full((M,), base_p), fault_cfg=fc, staleness_cfg=sc)
     tr0 = {"w": jnp.ones((DIM, DIM)) * 0.1, "b": jnp.zeros((7,))}
-    state = ref_core.init_fl_state(
-        jax.random.PRNGKey(0), cfg, tr0,
-        fault=ref_faults.init_fault_state(fc, trace=trace,
-                                          clusters=clusters),
-        stale=ref_stale.init_staleness_state(sc, N_FLAT, M, dtrace=dtrace))
-    key = jax.random.PRNGKey(42)
+    fault_state = ref_faults.init_fault_state(fc, trace=trace,
+                                              clusters=clusters)
+    stale_state = ref_stale.init_staleness_state(sc, N_FLAT, M,
+                                                 dtrace=dtrace)
+    rng, key = jax.random.PRNGKey(0), jax.random.PRNGKey(42)
+    if seed is not None:
+        rng, key = (jax.random.fold_in(rng, seed),
+                    jax.random.fold_in(key, seed))
+    state = ref_core.init_fl_state(rng, cfg, tr0, fault=fault_state,
+                                   stale=stale_state)
     return dict(state=state, round_fn=rf, store=store, sample_fn=sample_fn,
-                data_key=key, sampler_state=init_fn(store, key))
+                data_key=key, sampler_state=init_fn(store, key), cfg=cfg,
+                template=tr0, init_fn=init_fn, fault=fault_state,
+                stale=stale_state)
 
 
 def _setup_port(strategy, fault, stale, *, use_kernel, trace, clusters,
-                dtrace, nan_client, base_p, kind, sampling, min_count):
+                dtrace, nan_client, base_p, kind, sampling, min_count,
+                seed=None):
     store = fed.device_store(*arrays(nan_client), "cpu")
     init_fn, sample_fn = fed.make_device_sampler(
         M, S, B, mode=sampling, min_count=min_count)
@@ -88,27 +99,34 @@ def _setup_port(strategy, fault, stale, *, use_kernel, trace, clusters,
         cfg, _torch_loss, {}, core.AvailabilityCfg(kind=kind, gamma=0.3),
         torch.full((M,), base_p), fault_cfg=fc, staleness_cfg=sc)
     tr0 = {"w": torch.ones((DIM, DIM)) * 0.1, "b": torch.zeros((7,))}
-    state = core.init_fl_state(
-        prng.PRNGKey(0, "cpu"), cfg, tr0,
-        fault=faults.init_fault_state(fc, trace=trace, clusters=clusters),
-        stale=staleness.init_staleness_state(sc, N_FLAT, M, dtrace=dtrace))
-    key = prng.PRNGKey(42, "cpu")
+    fault_state = faults.init_fault_state(fc, trace=trace,
+                                          clusters=clusters)
+    stale_state = staleness.init_staleness_state(sc, N_FLAT, M,
+                                                 dtrace=dtrace)
+    rng, key = prng.PRNGKey(0, "cpu"), prng.PRNGKey(42, "cpu")
+    if seed is not None:
+        rng, key = prng.fold_in(rng, seed), prng.fold_in(key, seed)
+    state = core.init_fl_state(rng, cfg, tr0, fault=fault_state,
+                               stale=stale_state)
     return dict(state=state, round_fn=rf, store=store, sample_fn=sample_fn,
-                data_key=key, sampler_state=init_fn(store, key))
+                data_key=key, sampler_state=init_fn(store, key), cfg=cfg,
+                template=tr0, init_fn=init_fn, fault=fault_state,
+                stale=stale_state)
 
 
 def setup(pkg, strategy="fedawe", fault=None, stale=None, *,
           use_kernel=False, trace=None, clusters=None, dtrace=None,
           nan_client=None, base_p=0.6, kind="sine", sampling="uniform",
-          min_count=1):
+          min_count=1, seed=None):
     """The fresh run of ``pkg`` ("ref" or "port"): a dict with ``state``,
     ``round_fn``, ``store``, ``sample_fn``, ``data_key`` and
-    ``sampler_state``."""
+    ``sampler_state`` (and the ``cfg``, ``template``, ``init_fn`` and
+    ``fault`` / ``stale`` carries a multi-seed run is built from)."""
     fn = _setup_ref if pkg == "ref" else _setup_port
     return fn(strategy, fault, stale, use_kernel=use_kernel, trace=trace,
               clusters=clusters, dtrace=dtrace, nan_client=nan_client,
               base_p=base_p, kind=kind, sampling=sampling,
-              min_count=min_count)
+              min_count=min_count, seed=seed)
 
 
 def drive(pkg, parts, T, *, chunk=False, K=4, carry=False, **kw):
@@ -137,6 +155,40 @@ def run(pkg, strategy="fedawe", fault=None, stale=None, *, chunk=False,
     the final sampler carry with ``carry``; ``kw`` goes to ``setup``."""
     return drive(pkg, setup(pkg, strategy, fault, stale, **kw), T,
                  chunk=chunk, K=K, carry=carry)
+
+
+def run_seeds(pkg, n_seeds, strategy="fedawe", fault=None, stale=None, *,
+              T=5, K=2, **kw):
+    """``n_seeds`` seeds of ``setup``'s run through ``pkg``'s seed-batched
+    executor (``build_seed_batch``, ``make_seeds_chunk_fn``,
+    ``run_seed_rounds`` with a ``T % K`` tail): ``(states, histories,
+    sampler_states)``, seed j driven by ``fold_in(0, j)`` /
+    ``fold_in(42, j)``."""
+    if pkg == "ref":
+        from repro.launch import experiments as ex
+        make = ref_core.make_seeds_chunk_fn
+        base = (jax.random.PRNGKey(0), jax.random.PRNGKey(42))
+    else:
+        from repro_torch.launch import experiments as ex
+        make = core.make_seeds_chunk_fn
+        base = (prng.PRNGKey(0, "cpu"), prng.PRNGKey(42, "cpu"))
+    p = setup(pkg, strategy, fault, stale, **kw)
+    states, sss, dks = ex.build_seed_batch(
+        p["cfg"], p["template"], *base, p["init_fn"], p["store"], n_seeds,
+        fault=p["fault"], stale=p["stale"])
+    got = {}
+
+    def grab(st, done, ss):
+        got["ss"] = ss
+
+    def seeds_chunk(k):
+        return make(p["cfg"], p["round_fn"], p["sample_fn"], k, n_seeds)
+
+    states, hists = ex.run_seed_rounds(
+        states, seeds_chunk(K), T, K, sampler_states=sss, store=p["store"],
+        data_keys=dks, n_seeds=n_seeds, make_tail_fn=seeds_chunk, ckpt_fn=grab,
+        ckpt_every=T)
+    return states, hists, got["ss"]
 
 
 def _close(got, want):
