@@ -24,7 +24,8 @@ printed as JSON lines:
      Variants: K1 the fused FedAWE update, K2 with non-binary upload
      weights, K3 without the empty-round guard; ``ECHO_CASES`` lists the
      shapes (N odd, stacks off a 16-byte boundary, m = 1, m = 7 at 8
-     forced slices, the tall m = 16 384).  Then the kernel's seed axis
+     forced slices, the tall m = 16 384, the cohort's [256, 27 370]).
+     Then the kernel's seed axis
      (``SEED_CASES``: [4, 100, 27 370] and [3, 1 024, 4 099], float32 and
      bfloat16, K1, K2 and K3 in one launch each): every seed's output
      bit-equal to a launch on that seed alone at the same slice count and
@@ -154,6 +155,29 @@ printed as JSON lines:
         each of the fedawe and fedawe_m cells and never in the five
         others, every cell's histories equal to its unpacked
         ``run_scenario`` (losses within 1e-4).
+     h. The sparse cohort round: FedAWE with the kernel at m = 100 000
+        clients (``contiguous_client_index``, 8 of 800 000 synthetic
+        8x8x1 images each), sine availability around p = 0.002, s = 5,
+        batch 32, ``sparse_cohort=256`` over a bfloat16 [m, N] client
+        stack (5.47 GB), 32 rounds in chunks of 8 through
+        ``make_round_fn`` and ``make_chunk_fn``: K1 once a round on the
+        [256, 27 370] working set, every loss finite, the rows of clients
+        that never computed bit-unchanged, each chunk's peak allocated
+        memory above the resident state below one bfloat16 [m, N] stack;
+        the same run without the kernel with n_active and n_deferred
+        bit-equal, τ equal and the global within 1e-4.  MIFA 8 rounds at
+        the same size (its memory a second bfloat16 [m, N] stack): no
+        launch, finite.  ms per round by chunk, a profiler breakdown of
+        a 4-round chunk and K1 alone at [256, 27 370] float32 against its
+        16.8 µs bound.  At m = 100 through ``train.run`` (24 rounds, K =
+        16): ``--sparse-cohort 100`` against the dense run, with the
+        kernel, fault-free and under the fault and stale flags: counts,
+        τ and keys bit-equal, launches equal, globals within 1e-4;
+        bfloat16 residency within 2e-2 of float32.  ``train --seeds 4
+        --sparse-cohort 32``: K1 32 times (once a round for all seeds, on
+        [4, 32, 27 370]), every loss finite; each seed through the
+        executor bit-equal to its single-seed cohort run (n_active,
+        n_deferred, τ, key, carry), globals within 1e-4.
   4. numbers  — K1-K3: the Triton yardstick's global loads by width in
      its SASS at rows 8 bytes off 16 and at aligned rows; the CUDA kernel
      and the Triton yardstick in turns (K2's yardstick with its own weight
@@ -304,6 +328,8 @@ def nvidia_smi():
 #: the cohort's shape: a tall stack of m = 16 384 clients at the FL path's
 #: N (3.6 GB in float32), the shape the kernel's split over rows is for
 TALL_M = 16384
+#: the sparse cohort's cap (phase 3h): K1 and K2 see [COHORT_C, N] rows
+COHORT_C = 256
 
 
 def make_inputs(torch, m, n, dtype, seed, mask_p=0.7, upload=False,
@@ -381,7 +407,8 @@ def n_sm(torch):
 #: (rows 4-byte aligned in float32, 2-byte in bfloat16), also with the
 #: stacks starting off a 16-byte boundary (``offset``); m = 1; m = 7 at 8
 #: forced slices (fewer rows than slices); the main-path shape at 3 forced
-#: slices (timed beside its own geometry's 1); the tall shape (3 slices)
+#: slices (timed beside its own geometry's 1); the tall shape (3 slices);
+#: the cohort's working set, [256, N] (phase 3h)
 ECHO_CASES = [
     ("K1", M_MAIN, N_MAIN, "float32", {}),
     ("K2", M_MAIN, N_MAIN, "float32", dict(upload=True)),
@@ -406,6 +433,8 @@ ECHO_CASES = [
     ("K3", 7, 4099, "float32", dict(slices=8, offset=True)),
     ("K2", M_MAIN, N_MAIN, "float32", dict(upload=True, slices=3)),
     ("K1", TALL_M, N_MAIN, "float32", {}),
+    ("K1", COHORT_C, N_MAIN, "float32", {}),
+    ("K2", COHORT_C, N_MAIN, "float32", dict(upload=True)),
 ]
 #: cases up to this many rows are also held against the kernel's own
 #: arithmetic, ``echo_aggregate_split_ref`` (a Python loop over rows)
@@ -2811,6 +2840,356 @@ def time_seeds(torch, train, engine, experiments, federated, ops, smi):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 3h: the sparse cohort round, K1 on its [c, N] working set
+# ---------------------------------------------------------------------------
+
+#: the scale tier (tests/test_sparse_cohort.py:342,
+#: benchmarks/kernels_bench.py:405-495): m = 10^5 clients owning 8
+#: contiguous samples each, sine availability around p = 0.002 (about 200
+#: actives a round), a cohort of at most 256 over a bfloat16 [m, N] stack
+COHORT_M, COHORT_N_PER, COHORT_P = 100_000, 8, 0.002
+COHORT_K, COHORT_ROUNDS, COHORT_MIFA_ROUNDS = 8, 32, 8
+#: phase 3h's m = 100 runs: 24 rounds in chunks of 16 (a T % K tail)
+COHORT_SMALL = dict(rounds=24)
+
+
+def cohort_store(torch, federated):
+    """The m = 10^5 store: 800 000 synthetic 8x8x1 images (seed 0), client
+    i owning rows [8 i, 8 i + 8) (``contiguous_client_index``; the image
+    preset's Dirichlet split cannot give 10^5 clients a sample each)."""
+    from repro_torch.data import make_image_classification
+    from repro_torch.device import resolve_device
+
+    task = make_image_classification(seed=0, n=COHORT_M * COHORT_N_PER,
+                                     shape=(8, 8, 1))
+    # the entry points' device policy, TF32 off included: this path is
+    # built from the engine, not through a launcher
+    return federated.device_store(
+        dict(images=task.images, labels=task.labels), None,
+        resolve_device("cuda"),
+        padded=federated.contiguous_client_index(COHORT_M, COHORT_N_PER))
+
+
+def cohort_scale_setup(torch, engine, federated, cnn, prng, availability,
+                       store, strategy, use_kernel):
+    """The m = 10^5 cohort run on ``store``, built from the engine's entry
+    points: the chunk executor of COHORT_K rounds, the state, the sampler
+    carry and the initial global."""
+    dev = torch.device("cuda")
+    cfg = engine.FLConfig(m=COHORT_M, s=5, strategy=strategy,
+                          use_kernel=use_kernel, flat_state=True,
+                          sparse_cohort=COHORT_C, resident_dtype="bfloat16")
+    params = cnn.init_cnn(prng.PRNGKey(0, dev), in_shape=(8, 8, 1),
+                          n_classes=10)
+    rf = engine.make_round_fn(
+        cfg, cnn.make_image_loss_fn(cnn.cnn_apply), {},
+        availability.AvailabilityCfg(kind="sine", gamma=0.3),
+        torch.full((COHORT_M,), COHORT_P, device=dev))
+    init, sample = federated.make_device_sampler(
+        COHORT_M, 5, 32, min_count=COHORT_N_PER, emit="cols")
+    key = prng.PRNGKey(1, dev)
+    state = engine.init_fl_state(prng.PRNGKey(0, dev), cfg, params)
+    return dict(cfg=cfg, rf=rf, sample=sample, store=store, key=key,
+                state=state, ss=init(store, key),
+                g0=state.global_tr.clone(),
+                chunk=engine.make_chunk_fn(cfg, rf, sample, COHORT_K))
+
+
+def cohort_chunks(torch, engine, r, n_chunks):
+    """``n_chunks`` chunks of the run ``r`` (carried on): per chunk the ms
+    per round between CUDA events and the peak allocated memory above
+    what was allocated before it; the metrics of every round."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    ms, peaks, hist = [], [], []
+    for _ in range(n_chunks):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        start.record()
+        r["state"], r["ss"], metrics = r["chunk"](r["state"], r["ss"],
+                                                  r["store"], r["key"])
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end) / COHORT_K)
+        peaks.append(torch.cuda.max_memory_allocated() - before)
+        vals = engine._metrics_to_host(metrics)
+        hist += [{k: v[j] for k, v in vals.items()} for j in range(COHORT_K)]
+    return ms, peaks, hist
+
+
+def rows_unchanged(torch, stack, tau, g0, step=8192):
+    """Do the rows of clients that never computed (τ < 0) still hold the
+    initial global in the stack's dtype, bit for bit?  (Row blocks, so no
+    [m, N] temporary.)"""
+    want = g0.to(stack.dtype)
+    for lo in range(0, stack.shape[0], step):
+        idle = tau[lo:lo + step] < 0
+        if not bool(torch.equal(stack[lo:lo + step][idle],
+                                want.expand(int(idle.sum()), -1))):
+            return False
+    return True
+
+
+def all_finite(torch, stack, step=8192):
+    return all(bool(torch.isfinite(stack[lo:lo + step]).all())
+               for lo in range(0, stack.shape[0], step))
+
+
+def cohort_scale_path(torch, engine, federated, cnn, prng, availability,
+                      ops, ref, counts, smi):
+    """FedAWE with the kernel at m = 10^5 for COHORT_ROUNDS rounds, every
+    count at 0 just before: K1 once a round on the [256, 27 370] working
+    set, every loss finite, the rows of clients that never computed
+    bit-unchanged, and each chunk's peak allocated memory above the
+    resident state under one bfloat16 [m, N] stack.  The same run without
+    the kernel: n_active and n_deferred bit-equal, τ equal, the global
+    within 1e-4.  MIFA for COHORT_MIFA_ROUNDS rounds (a second bfloat16
+    [m, N] stack, its memory).  Then one profiled 4-round chunk and K1
+    alone at [256, 27 370] float32 against its bound."""
+    t0 = time.perf_counter()
+    stack_bytes = COHORT_M * N_MAIN * 2
+    store = cohort_store(torch, federated)
+    runs = {}
+    for use_kernel in (True, False):
+        r = cohort_scale_setup(torch, engine, federated, cnn, prng,
+                               availability, store, "fedawe", use_kernel)
+        counts.reset()
+        ms, peaks, hist = cohort_chunks(torch, engine, r,
+                                        COHORT_ROUNDS // COHORT_K)
+        launches = counts.read()
+        st = r["state"]
+        require(st.clients_tr.dtype == torch.bfloat16
+                and st.clients_tr.shape == (COHORT_M, N_MAIN),
+                "the resident stack is not bf16 [m, N]")
+        require(all(math.isfinite(h["loss"]) for h in hist),
+                f"cohort losses {[h['loss'] for h in hist]}")
+        require(max(peaks) < stack_bytes, f"peak above the resident state "
+                f"{max(peaks)} B: not below one bf16 [m, N] stack")
+        runs[use_kernel] = dict(
+            ms=ms, peaks=peaks, hist=hist, launches=launches,
+            tau=st.tau.clone(), g=st.global_tr.clone(),
+            unchanged=rows_unchanged(torch, st.clients_tr, st.tau,
+                                     r["g0"]))
+        require(runs[use_kernel]["unchanged"],
+                "rows of clients that never computed changed")
+        if use_kernel:
+            # one profiled 4-round chunk, after the checked rounds
+            r["chunk"] = engine.make_chunk_fn(r["cfg"], r["rf"], r["sample"],
+                                              4)
+            r["args"] = types.SimpleNamespace(chunk_rounds=4)
+            prof = profile_chunk(torch, r, sum(ms[1:]) / len(ms[1:]))
+        del r, st
+        torch.cuda.empty_cache()
+    k, p = runs[True], runs[False]
+    require(k["launches"] == dict(K1=COHORT_ROUNDS, K2=0, K3=0, K4=0, K5=0),
+            f"cohort path launches {k['launches']}")
+    require(p["launches"]["K1"] == 0, "the plain cohort run launched K1")
+    for key in ("n_active", "n_deferred"):
+        require([h[key] for h in k["hist"]] == [h[key] for h in p["hist"]],
+                f"kernel vs plain {key} differ")
+    require(torch.equal(k["tau"], p["tau"]), "kernel vs plain tau differ")
+    diff = (k["g"] - p["g"]).abs().max().item()
+    require(diff <= 1e-4, f"kernel vs plain cohort global differ by {diff}")
+    n_act = [h["n_active"] for h in k["hist"]]
+    n_def = [h["n_deferred"] for h in k["hist"]]
+    require(all(a <= COHORT_C for a in n_act) and sum(n_act) > 0,
+            f"n_active {n_act}")
+    computed = int((k["tau"] >= 0).sum())
+    t1 = time.perf_counter()
+
+    r = cohort_scale_setup(torch, engine, federated, cnn, prng,
+                           availability, store, "mifa", True)
+    counts.reset()
+    mifa_ms, mifa_peaks, mifa_hist = cohort_chunks(
+        torch, engine, r, COHORT_MIFA_ROUNDS // COHORT_K)
+    mifa_launches = counts.read()
+    st = r["state"]
+    require(mifa_launches == dict(K1=0, K2=0, K3=0, K4=0, K5=0),
+            f"mifa cohort launches {mifa_launches}")
+    require(st.clients_tr is None and st.extra["mem"].dtype == torch.bfloat16
+            and st.extra["mem"].shape == (COHORT_M, N_MAIN),
+            "mifa's memory is not a bf16 [m, N] stack")
+    require(all(math.isfinite(h["loss"]) for h in mifa_hist)
+            and all_finite(torch, st.extra["mem"])
+            and bool(torch.isfinite(st.extra["mem_sum"]).all())
+            and bool(torch.isfinite(st.global_tr).all()),
+            "mifa cohort run not finite")
+    require(max(mifa_peaks) < stack_bytes,
+            f"mifa peak above the resident state {max(mifa_peaks)} B")
+    del r, st, store
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+
+    # K1 alone at the path's shape: 8 rotating float32 operand sets
+    # (8 x 56 MB, none still in the 50 MB L2 when it comes round again)
+    sets = [make_inputs(torch, COHORT_C, N_MAIN, torch.float32,
+                        seed=700 + i, mask_p=0.8) for i in range(8)]
+    t = [graph_ms(torch, lambda i: call_kernel(ops, "K1", sets[i % 8]), 32)
+         for _ in range(2)]
+    plain = graph_ms(torch, lambda i: call_plain(ref, "K1", sets[i % 8]), 32)
+    b_ms, b_by, nbytes = bound(COHORT_C, N_MAIN, 4, True)
+    kernel_rec = dict(ms=sum(t) / 2, turns_ms=t, plain_ms=plain,
+                      bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+                      share=b_ms / (sum(t) / 2))
+    del sets
+    torch.cuda.empty_cache()
+    steady = k["ms"][1:]
+    emit(dict(phase="cohort_scale_path", card=smi, m=COHORT_M, c=COHORT_C,
+              n=N_MAIN, resident="bfloat16", rounds=COHORT_ROUNDS,
+              chunk_rounds=COHORT_K, launches=k["launches"],
+              ms_per_round_by_chunk={"kernel": k["ms"], "plain": p["ms"]},
+              round_ms=sum(steady) / len(steady),
+              peak_above_resident_mb={"kernel": [b / 1e6 for b in k["peaks"]],
+                                      "plain": [b / 1e6 for b in p["peaks"]]},
+              stack_mb=stack_bytes / 1e6, n_active=n_act, n_deferred=n_def,
+              clients_computed=computed, kernel_vs_plain_global=diff,
+              idle_rows_unchanged=True, seconds=t1 - t0))
+    emit(dict(phase="profile", card=smi, path="cohort_scale", **prof))
+    emit(dict(phase="cohort_scale_mifa", card=smi, m=COHORT_M, c=COHORT_C,
+              rounds=COHORT_MIFA_ROUNDS, launches=mifa_launches,
+              ms_per_round_by_chunk=mifa_ms,
+              peak_above_resident_mb=[b / 1e6 for b in mifa_peaks],
+              last_loss=mifa_hist[-1]["loss"], seconds=t2 - t1))
+    emit(dict(phase="kernel_time", card=smi, kernel="K1", path="cohort",
+              m=COHORT_C, n=N_MAIN, **kernel_rec))
+    return k["launches"], kernel_rec
+
+
+def cohort_dense_path(torch, train, counts, smi):
+    """At m = 100 through ``train.run``: ``--sparse-cohort 100`` (c = m)
+    in float32 against the dense run, with the kernel, under the main
+    path's flags and under FAULT_FLAGS (faults and staleness through the
+    chunked executor with a T % K tail): counts, τ and keys bit-equal,
+    n_deferred 0, globals within 1e-4.  bfloat16 residency within the
+    reference's 2e-2 of the float32 cohort run."""
+    parser = train.build_parser()
+    out = {}
+    for name, flags in (("sync", MAIN_FLAGS), ("faults_stale", FAULT_FLAGS)):
+        base = with_flags(flags, **COHORT_SMALL) + ["--use-kernel"]
+        res = {}
+        for kind, extra in (("dense", []),
+                            ("cohort", ["--sparse-cohort", str(M_MAIN)]),
+                            ("cohort_bf16", ["--sparse-cohort", str(M_MAIN),
+                                             "--resident-dtype",
+                                             "bfloat16"])):
+            if name == "faults_stale" and kind == "cohort_bf16":
+                continue
+            counts.reset()
+            state, hist, _ = train.run(parser.parse_args(base + extra))
+            res[kind] = (state, hist, counts.read())
+        (sd, hd, ld), (sc, hc, lc) = res["dense"], res["cohort"]
+        keys = [k for k in hd[0] if k.startswith("n_")]
+        require(len(hd) == len(hc) == COHORT_SMALL["rounds"],
+                f"{name}: round counts")
+        for hist in [hc] + ([res["cohort_bf16"][1]]
+                            if "cohort_bf16" in res else []):
+            require(all(h["n_deferred"] == 0.0 for h in hist),
+                    f"{name}: deferrals at c = m")
+            for key in keys:
+                require([h[key] for h in hist] == [h[key] for h in hd],
+                        f"{name}: {key} differs between cohort and dense")
+        for key in ("tau", "t", "rng", "markov"):
+            require(torch.equal(getattr(sc, key), getattr(sd, key)),
+                    f"{name}: {key} differs between cohort and dense")
+        require(ld == lc, f"{name}: launches {ld} dense, {lc} cohort")
+        diff = (sc.global_tr - sd.global_tr).abs().max().item()
+        require(diff <= 1e-4, f"{name}: cohort vs dense global {diff}")
+        rec = dict(launches=lc, cohort_vs_dense_global=diff,
+                   sum_n_active=sum(h["n_active"] for h in hc))
+        if "cohort_bf16" in res:
+            sb = res["cohort_bf16"][0]
+            require(sb.clients_tr.dtype == torch.bfloat16,
+                    "bf16 run's stack is not bf16")
+            bdiff = (sb.global_tr - sc.global_tr).abs().max().item()
+            require(bdiff <= 2e-2, f"bf16 vs f32 cohort global {bdiff}")
+            rec["bf16_vs_f32_global"] = bdiff
+        out[name] = rec
+        del res
+    emit(dict(phase="cohort_dense_path", card=smi, m=M_MAIN, c=M_MAIN,
+              **COHORT_SMALL, **out))
+    return out
+
+
+def cohort_seeds_path(torch, train, engine, experiments, federated, prng,
+                      counts, smi):
+    """``train --seeds 4 --sparse-cohort 32`` at m = 100 with the kernel:
+    K1 once a round for all seeds (on [4, 32, 27 370]), every loss finite.
+    Then the same seeds through the executor against four single-seed
+    cohort runs driven by fold_in(rng, j) / fold_in(data_key, j): n_active
+    and n_deferred histories, τ, key, markov state and sampler carry
+    bit-equal, globals within 1e-4."""
+    flags = with_flags(MAIN_FLAGS, rounds=SEED_ROUNDS) + [
+        "--use-kernel", "--sparse-cohort", "32"]
+    args = train.build_parser().parse_args(flags + ["--seeds",
+                                                    str(N_SEEDS)])
+    counts.reset()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message=".*performance drop")
+        states, hists, _ = train.run(args)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts.read()
+    require(launches == dict(K1=SEED_ROUNDS, K2=0, K3=0, K4=0, K5=0),
+            f"cohort seeds launches {launches}")
+    require(all(len(h) == SEED_ROUNDS and all(
+        math.isfinite(r["loss"]) for r in h) for h in hists),
+        "cohort seeds: histories or losses")
+
+    dev = torch.device("cuda")
+    parts = train.setup(args, dev)
+    fl, rf, params = parts["fl"], parts["round_fn"], parts["params"]
+    store = parts["ds"].device_store(dev)
+    init, sample = federated.make_device_sampler(
+        fl.m, fl.s, args.batch, emit="cols",
+        min_count=min(len(ix) for ix in parts["ds"].client_indices))
+    rng, dk = parts["rng"], parts["data_key"]
+    states, sss, dks = experiments.build_seed_batch(fl, params, rng, dk,
+                                                    init, store, N_SEEDS)
+    got, K = {}, args.chunk_rounds
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message=".*performance drop")
+        states, seed_hists = experiments.run_seed_rounds(
+            states, engine.make_seeds_chunk_fn(fl, rf, sample, K, N_SEEDS),
+            SEED_ROUNDS, K, sampler_states=sss, store=store, data_keys=dks,
+            n_seeds=N_SEEDS,
+            ckpt_fn=lambda st, done, ss: got.update(ss=ss),
+            ckpt_every=SEED_ROUNDS)
+    diffs = []
+    for j in range(N_SEEDS):
+        single = {}
+        st, h = engine.run_rounds(
+            engine.init_fl_state(prng.fold_in(rng, j), fl, params), rf,
+            None, SEED_ROUNDS, chunk_rounds=K, sample_fn=sample,
+            store=store, data_key=prng.fold_in(dk, j),
+            sampler_state=init(store, prng.fold_in(dk, j)),
+            ckpt_fn=lambda s_, done, ss: single.update(ss=ss),
+            ckpt_every=SEED_ROUNDS)
+        sj = engine.index_seed(states, j)
+        for key in ("n_active", "n_deferred"):
+            require([r[key] for r in h] == [r[key] for r in seed_hists[j]]
+                    == [r[key] for r in hists[j]],
+                    f"cohort seed {j}: {key} differs from its single run")
+        for key in ("tau", "rng", "t", "markov"):
+            require(torch.equal(getattr(st, key), getattr(sj, key)),
+                    f"cohort seed {j}: {key} differs from its single run")
+        carry = engine.index_seed(got["ss"], j)
+        require(set(carry) == set(single["ss"]) and all(
+            torch.equal(carry[k], single["ss"][k]) for k in carry),
+            f"cohort seed {j}: sampler carry differs")
+        diffs.append((st.global_tr - sj.global_tr).abs().max().item())
+        require(diffs[-1] <= 1e-4,
+                f"cohort seed {j}: globals differ by {diffs[-1]}")
+    emit(dict(phase="cohort_seeds_path", card=smi, seeds=N_SEEDS, m=M_MAIN,
+              c=32, rounds=SEED_ROUNDS, launches=launches, wall_s=wall,
+              sum_n_deferred=[sum(r["n_deferred"] for r in h)
+                              for h in hists],
+              single_seed_global_diff=diffs))
+    return launches
+
+
 class Counts:
     """Every kernel wrapper's launch count, set to 0 and read together."""
 
@@ -2849,7 +3228,8 @@ def main():
         return 1
     sys.path.insert(0, os.path.join(REPO, "src"))
     from repro_torch.configs import get_config
-    from repro_torch.core import engine, faults, prng, staleness, strategies
+    from repro_torch.core import (availability, engine, faults, prng,
+                                  staleness, strategies)
     from repro_torch.data import federated
     from repro_torch.device import resolve_device
     from repro_torch.kernels.echo_aggregate import kernel, ops, ref
@@ -3002,6 +3382,17 @@ def main():
     seeds_fault_path(torch, experiments, prng, staleness, counts, smi)
     packed_grid_path(torch, experiments, counts, smi)
     emit(dict(phase="seeds_paths_done", seconds=time.perf_counter() - t0))
+
+    # phase 3h: the sparse cohort round, every count at 0 just before each
+    # path: FedAWE and MIFA at m = 10^5 (K1 on [256, N]), the cohort
+    # against the dense run at m = 100, 4 seeds of the cohort
+    t0 = time.perf_counter()
+    cohort_scale_path(torch, engine, federated, cnn, prng, availability,
+                      ops, ref, counts, smi)
+    cohort_dense_path(torch, train, counts, smi)
+    cohort_seeds_path(torch, train, engine, experiments, federated, prng,
+                      counts, smi)
+    emit(dict(phase="cohort_paths_done", seconds=time.perf_counter() - t0))
 
     # phase 4: numbers
     triton_load_widths(torch, ops, smi)

@@ -35,13 +35,22 @@ Four executors drive the round function, as in the reference:
 
 Ported so far: the dense flat round of all ten strategies, with fault
 injection (``fault_cfg``, core/faults.py) and semi-async rounds
-(``staleness_cfg``, core/staleness.py) alone or composed.  A stateful
-strategy (FedAWE, FedAWE-M) starts local SGD from its [m, N] client
-stack; a stateless one keeps no stack (``FLState.clients_tr is None``)
-and starts from a broadcast view of the flat global.  The host-loop and
-chunked executors take a checkpoint hook (``ckpt_fn`` / ``ckpt_every``),
-the seed-batched one through ``launch/experiments.run_seed_rounds``.  The
-tree path and the cohort path belong to later slices of the port.
+(``staleness_cfg``, core/staleness.py) alone or composed, and the sparse
+cohort round (``FLConfig.sparse_cohort``, core/cohort.py) with all of
+them.  A stateful strategy (FedAWE, FedAWE-M) starts local SGD from its
+[m, N] client stack; a stateless one keeps no stack (``FLState.clients_tr
+is None``) and starts from a broadcast view of the flat global.  The
+host-loop and chunked executors take a checkpoint hook (``ckpt_fn`` /
+``ckpt_every``), the seed-batched one through
+``launch/experiments.run_seed_rounds``.  The tree path belongs to a later
+slice of the port.
+
+A cohort round gathers the round's active clients, at most ``c_max``,
+into a float32 ``[c, N]`` working set, runs local SGD and aggregation
+there, and writes the touched rows back into the resident ``[m, N]``
+stacks IN PLACE (the client stack, and a memory strategy's memory): it
+consumes the state it is given, as the reference's donated scan carry
+does.  Read the state a round returns, never the one passed in.
 """
 from __future__ import annotations
 
@@ -53,14 +62,17 @@ import torch.utils._pytree as pytree
 
 from repro_torch.core import faults as _faults
 from repro_torch.core import prng
+from repro_torch.core.cohort import (cohort_payload, cohort_rows,
+                                     cohort_select, cohort_write)
 from repro_torch.core import staleness as _stale
 from repro_torch.core.availability import (AvailabilityCfg, probs_at,
                                            sample_active)
-from repro_torch.core.flatten import FlatSpec
+from repro_torch.core.flatten import FlatSpec, resident_dtype
 from repro_torch.core.strategies import get_strategy
 from repro_torch.core.tree_util import (tree_client_norm, tree_client_scale,
                                         tree_from_paths, tree_leaves,
                                         tree_map, tree_paths)
+from repro_torch.data.federated import gather_batches_at
 
 _TREE_PATH = ("the tree-state path is not ported yet (a later slice of the "
               "port); use flat_state=True (--flat-state)")
@@ -69,7 +81,16 @@ _TREE_PATH = ("the tree-state path is not ported yet (a later slice of the "
 @dataclasses.dataclass(frozen=True)
 class FLConfig:
     """Static config of the federated optimization (the reference's
-    ``FLConfig`` without the cohort fields, which are not ported)."""
+    ``FLConfig``).
+
+    ``sparse_cohort`` > 0 switches the flat round to the cohort round
+    (module docstring): at most ``c_max = sparse_cohort`` active clients
+    compute, the actives beyond the cap are deferred (``n_deferred``
+    metric).  It needs ``flat_state`` and a sampler built with
+    ``emit="cols"``.  ``resident_dtype`` stores the resident stacks (the
+    client stack, a memory strategy's memory) below float32
+    (``flatten.RESIDENT_DTYPES``; gather promotes, scatter demotes): only
+    the cohort round has that boundary."""
     m: int                      # number of clients
     s: int = 10                 # local steps per round
     eta_l: float = 0.05         # local lr (eta_0; 1/sqrt(t/10+1) schedule)
@@ -79,13 +100,32 @@ class FLConfig:
     use_kernel: bool = False    # fused echo-aggregate kernel
     flat_state: bool = False    # flat [m, N] substrate (core/flatten.py)
     grad_clip: float = 0.5      # paper uses max-norm 0.5
+    sparse_cohort: int = 0      # cohort cap c_max (0 = dense rounds)
+    resident_dtype: str = "float32"   # [m, N] stack storage dtype
+
+    def __post_init__(self):
+        resident_dtype(self.resident_dtype)  # validate the name eagerly
+        if self.sparse_cohort:
+            if self.sparse_cohort < 0:
+                raise ValueError(f"sparse_cohort must be >= 0; got "
+                                 f"{self.sparse_cohort}")
+            if not self.flat_state:
+                raise ValueError("sparse_cohort needs the flat [m, N] "
+                                 "substrate (flat_state)")
+        elif self.resident_dtype != "float32":
+            raise ValueError(
+                "resident_dtype below float32 needs sparse_cohort > 0: only "
+                "the cohort round has the gather-promote / accumulate-"
+                "demote boundary (core/cohort.py); the dense round reads "
+                "the stack in place")
 
 
 class FLState(NamedTuple):
     """Whole persistent state of a run, on one device."""
     global_tr: Any              # [N] float32 flat global
-    clients_tr: Any             # [m, N] float32 client stack, or None
-                                # (stateless strategies keep none)
+    clients_tr: Any             # [m, N] client stack (float32, or the
+                                # resident dtype), or None (stateless
+                                # strategies keep none)
     tau: torch.Tensor           # [m] int32, init -1
     t: torch.Tensor             # scalar int32 round counter
     extra: Any                  # strategy state
@@ -104,22 +144,33 @@ def init_fl_state(rng, cfg: FLConfig, trainable_template, *, fault=None,
     """Fresh state on the device of ``rng``; every field owns its buffer
     (nothing aliases the caller's template).  ``fault`` is the read-only
     carry from ``faults.init_fault_state``, ``stale`` the ring the round
-    advances, from ``staleness.init_staleness_state`` (or None)."""
+    advances, from ``staleness.init_staleness_state`` (or None).
+
+    Under the cohort the client stack is born in the resident dtype, and
+    so is a memory strategy's memory (``init_extra_cohort``, with its
+    float32 column sum) unless ``stale`` is given: with a ring the round
+    runs in dense lanes, and the memory keeps its dense float32 form."""
     if not cfg.flat_state:
         raise NotImplementedError(_TREE_PATH)
     strat = get_strategy(cfg.strategy)
     dev = rng.device
     spec = FlatSpec.from_tree(trainable_template)
     g = spec.flatten(trainable_template).to(dev).clone()
+    rdt = resident_dtype(cfg.resident_dtype)
     # stateless strategies never materialize the [m, N] client stack
-    clients = (g[None].expand(cfg.m, spec.size).clone()
+    clients = (g.to(rdt)[None].expand(cfg.m, spec.size).contiguous()
                if strat.stateful_clients else None)
+    if cfg.sparse_cohort and stale is None \
+            and strat.init_extra_cohort is not None:
+        extra = strat.init_extra_cohort(g, cfg.m, rdt)
+    else:
+        extra = strat.init_extra(g, cfg.m)
     return FLState(
         global_tr=g,
         clients_tr=clients,
         tau=torch.full((cfg.m,), -1, dtype=torch.int32, device=dev),
         t=torch.zeros((), dtype=torch.int32, device=dev),
-        extra=strat.init_extra(g, cfg.m),
+        extra=extra,
         markov=torch.ones((cfg.m,), dtype=torch.float32, device=dev),
         rng=rng.clone(),
         spec=spec,
@@ -216,21 +267,33 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, frozen: Any,
     the fault layer acts at delivery; the metrics grow ``n_stale`` /
     ``mean_staleness``.  Either left None (or ``tau_max = 0``) keeps the
     key split, the metrics keys and every value of the synchronous,
-    fault-free round."""
+    fault-free round.
+
+    ``cfg.sparse_cohort`` makes it a cohort round: ``batches`` is the
+    ``emit="cols"`` sampler's ``{"cols", "store"}``, the cohort is chosen
+    after every availability layer (trace, blackout, busy gating), and
+    the metrics grow ``n_deferred``.  Without a ring the round runs at
+    O(c·N) and writes the resident stacks in place (it consumes its
+    state); with one, the cohort's results fill dense lanes of the
+    synchronous path, whose ring is O(m·N) anyway."""
     if not cfg.flat_state:
         raise NotImplementedError(_TREE_PATH)
     strat = get_strategy(cfg.strategy)
     if staleness_cfg is not None and staleness_cfg.tau_max == 0:
         # tau_max = 0 IS the synchronous engine
         staleness_cfg = None
+    c_max = min(cfg.sparse_cohort, cfg.m)
+    rdt = resident_dtype(cfg.resident_dtype)
 
     # The round is three parts: what comes before local SGD (keys,
-    # availability, faults, the ring's drain and delays), local SGD, and
-    # what comes after (innovations, delivery, aggregation, metrics, the
-    # ring's step).  ``round_fn`` composes them; ``round_fn.seeds`` runs
-    # the first and last under ``seed_vmap`` and local SGD once over the
-    # S seeds' clients, since ``torch.func.vmap`` cannot differentiate
-    # with ``torch.autograd.grad``.
+    # availability, faults, the ring's drain and delays, the cohort), local
+    # SGD, and what comes after (innovations, delivery, aggregation,
+    # metrics, the ring's step).  ``round_fn`` composes them;
+    # ``round_fn.seeds`` runs the first and last under ``seed_vmap`` and
+    # local SGD once over the S seeds' clients, since ``torch.func.vmap``
+    # cannot differentiate with ``torch.autograd.grad``.  The cohort's
+    # gathers and in-place writes run between the parts, on every seed's
+    # rows at once (core/cohort.py).
 
     def before(state):
         n_keys = 3 + (fault_cfg is not None) + (staleness_cfg is not None)
@@ -252,7 +315,19 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, frozen: Any,
             mask = mask * (1.0 - _stale.busy_mask(state.stale))
             pre["delay"] = _stale.draw_delay(staleness_cfg, state.stale,
                                              keys[-1], state.t, cfg.m)
-        pre.update(mask=mask, loc_rngs=prng.split(k_loc, cfg.m))
+        loc_rngs = prng.split(k_loc, cfg.m)
+        if c_max:
+            # after every availability layer, so no slot goes to a client
+            # that could not compute; the actives beyond the cap are
+            # deferred before local work (the effective mask zeroes them).
+            # The keys split over the full [m] and are gathered, so a
+            # cohort row draws what the dense round would give its client
+            idx, pre["n_deferred"] = cohort_select(mask, c_max)
+            pre["mask_c"] = torch.gather(mask, -1, idx)
+            mask = torch.zeros_like(mask).scatter(-1, idx, pre["mask_c"])
+            loc_rngs = loc_rngs.index_select(0, idx)
+            pre["idx"] = idx
+        pre.update(mask=mask, loc_rngs=loc_rngs)
         return pre
 
     def eta_at(t):
@@ -261,15 +336,35 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, frozen: Any,
             return cfg.eta_l / torch.sqrt(t.float() / 10.0 + 1.0)
         return cfg.eta_l
 
-    def start_of(state):
+    def start_of(state, n):
         """Local SGD's start: the client stack, or for a stateless
-        strategy a broadcast VIEW of the flat global (``[m, N]``, or
-        ``[S, m, N]`` across seeds), never a copy; nothing writes into
+        strategy a broadcast VIEW of the flat global (``[n, N]``, or
+        ``[S, n, N]`` across seeds), never a copy; nothing writes into
         it in place."""
         if strat.stateful_clients:
             return state.clients_tr
         g = state.global_tr
-        return g.unsqueeze(-2).expand(g.shape[:-1] + (cfg.m, g.shape[-1]))
+        return g.unsqueeze(-2).expand(g.shape[:-1] + (n, g.shape[-1]))
+
+    def local_update(state, start, batches, rngs):
+        spec = state.spec
+        x_end_tr, losses = local_sgd(
+            spec.unflatten_stacked(start), frozen, batches, rngs, s=cfg.s,
+            eta_l=eta_at(state.t), loss_fn=loss_fn, grad_clip=cfg.grad_clip)
+        return spec.flatten_stacked(x_end_tr), losses
+
+    def sync_metrics(state, mask, mask_upload, losses):
+        """The synchronous round's metrics: under faults the delivered
+        clients define them, and a rejected client's loss (possibly
+        non-finite) is excluded by value, not just by weight."""
+        safe = losses if fault_cfg is None else torch.where(
+            torch.isfinite(losses), losses, 0.0)
+        echo = (state.t - state.tau).float()
+        mu = mask if mask_upload is None else mask_upload
+        denom = torch.clamp(torch.sum(mu), min=1.0)
+        return dict(loss=torch.sum(safe * mu) / denom,
+                    n_active=torch.sum(mask),
+                    mean_echo=torch.sum(echo * mu) / denom)
 
     def after(state, pre, start, x_end, losses):
         mask = pre["mask"]
@@ -316,14 +411,12 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, frozen: Any,
             tau=state.tau, probs=pre["probs"], extra=state.extra,
             eta_g=cfg.eta_g, use_kernel=cfg.use_kernel, **agg_kwargs)
 
-        echo = (state.t - state.tau).float()
-        # under faults a rejected client's loss may be non-finite: it is
-        # excluded by value, not just by weight
-        safe = losses if fault_cfg is None else torch.where(
-            torch.isfinite(losses), losses, 0.0)
         if staleness_cfg is not None:
             # loss / n_active describe who COMPUTED this round; the
             # delivery side gets its own keys
+            safe = losses if fault_cfg is None else torch.where(
+                torch.isfinite(losses), losses, 0.0)
+            echo = (state.t - state.tau).float()
             den_mu = torch.clamp(torch.sum(mu0), min=1.0)
             metrics = dict(
                 loss=torch.sum(safe * mask)
@@ -334,14 +427,7 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, frozen: Any,
                 mean_staleness=torch.sum(age_eff * mu0) / den_mu,
             )
         else:
-            # under faults the delivered clients define the metrics
-            mu = mask if mask_upload is None else mask_upload
-            denom = torch.clamp(torch.sum(mu), min=1.0)
-            metrics = dict(
-                loss=torch.sum(safe * mu) / denom,
-                n_active=torch.sum(mask),
-                mean_echo=torch.sum(echo * mu) / denom,
-            )
+            metrics = sync_metrics(state, mask, mask_upload, losses)
         if fault_cfg is not None:
             metrics.update(n_dropped=n_dropped, n_rejected=n_rejected)
         new_state = state._replace(
@@ -355,30 +441,123 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, frozen: Any,
                 state.stale, state.t, defer, delay, G))
         return new_state, metrics
 
+    def after_cohort(state, pre, old_c, start_c, x_end_c, losses_c, mem_c):
+        """The pure cohort round's aggregation on the [c, N] working set:
+        returns the new state's fields (without the resident stacks), the
+        rows to write into each resident stack at the cohort
+        (``"clients"`` and the strategy's memories), and the metrics."""
+        idx, mask_c, mask = pre["idx"], pre["mask_c"], pre["mask"]
+        G_c = start_c - x_end_c
+        mask_upload_c = None
+        if fault_cfg is not None:
+            mask_upload_c, n_dropped, n_rejected = \
+                _faults.upload_mask_cohort(fault_cfg, pre["k_up"], cfg.m,
+                                           idx, mask_c, G_c)
+            if fault_cfg.sanitize:
+                keep = mask_upload_c[:, None] > 0
+                x_end_c = torch.where(keep, x_end_c, start_c)
+                G_c = torch.where(keep, G_c, 0.0)
+        mu_c = mask_c if mask_upload_c is None else mask_upload_c
+        mu_full = torch.zeros_like(mask).scatter(-1, idx, mu_c)
+        new_global, rows, write, new_extra = strat.aggregate_cohort(
+            global_flat=state.global_tr, cohort_flat=start_c, x_end=x_end_c,
+            G=G_c, mask=mask_c, t=state.t,
+            tau_c=torch.gather(state.tau, -1, idx),
+            probs_c=torch.gather(pre["probs"], -1, idx), extra=state.extra,
+            mem_c=mem_c, eta_g=cfg.eta_g, m_total=cfg.m, idx=idx,
+            mu_full=mu_full, use_kernel=cfg.use_kernel,
+            mask_upload=mask_upload_c)
+        writes = {k: new_extra[k] for k in strat.cohort_memory}
+        if strat.cohort_memory:
+            new_extra = {k: v for k, v in new_extra.items()
+                         if k not in writes}
+        if rows is not None and old_c is not None:
+            writes["clients"] = cohort_payload(old_c, rows, write)
+        # full-[m] metric inputs (O(m) vectors): the scattered lanes hold
+        # exact zeros wherever the mask does
+        losses = torch.zeros_like(mask).scatter(-1, idx, losses_c)
+        metrics = sync_metrics(state, mask,
+                               None if mask_upload_c is None else mu_full,
+                               losses)
+        if fault_cfg is not None:
+            metrics.update(n_dropped=n_dropped, n_rejected=n_rejected)
+        fields = dict(global_tr=new_global,
+                      tau=torch.where(mu_full > 0, state.t, state.tau),
+                      t=state.t + 1, extra=new_extra, markov=pre["markov"],
+                      rng=pre["rng"])
+        return fields, writes, metrics
+
+    def cohort_part(state, batches, pre, vm):
+        """The cohort's part of a round between ``before`` and the
+        aggregation: its batches and rows gathered at O(c), local SGD over
+        c clients, then ``after_cohort`` and the in-place writes — or,
+        with a ring, ``after`` on dense lanes."""
+        idx = pre["idx"]
+        cols = batches["cols"]
+        q = cols.shape[-1]
+        cols_c = torch.gather(cols, -2,
+                              idx.unsqueeze(-1).expand(idx.shape + (q,)))
+        b_c = gather_batches_at(batches["store"], cols_c, idx, cfg.s,
+                                q // cfg.s)
+        old_c = None
+        if strat.stateful_clients:
+            old_c = cohort_rows(state.clients_tr, idx)
+            start_c = old_c.float()
+        else:
+            start_c = start_of(state, c_max)
+        x_end_c, losses_c = local_update(state, start_c, b_c,
+                                         pre["loc_rngs"])
+        if staleness_cfg is not None:
+            # the ring is O(m·N) a round regardless: the cohort's results
+            # fill dense lanes (G = 0 exactly off the cohort) and the
+            # synchronous path runs unchanged, then the stack is demoted
+            start = (state.clients_tr.float() if strat.stateful_clients
+                     else start_of(state, cfg.m))
+            x_end = cohort_write(
+                start.clone(memory_format=torch.contiguous_format), idx,
+                x_end_c)
+            losses = torch.zeros(idx.shape[:-1] + (cfg.m,),
+                                 device=losses_c.device).scatter(
+                                     -1, idx, losses_c)
+            new_state, metrics = vm(after)(state, pre, start, x_end, losses)
+            if new_state.clients_tr is not None:
+                new_state = new_state._replace(
+                    clients_tr=new_state.clients_tr.to(rdt))
+        else:
+            mem_c = {k: cohort_rows(state.extra[k], idx)
+                     for k in strat.cohort_memory}
+            fields, writes, metrics = vm(after_cohort)(
+                state, pre, old_c, start_c, x_end_c, losses_c, mem_c)
+            # the in-place writes: the round consumes ``state``'s stacks
+            if "clients" in writes:
+                cohort_write(state.clients_tr, idx, writes.pop("clients"))
+            for k, payload in writes.items():
+                cohort_write(state.extra[k], idx, payload)
+            if writes:
+                fields["extra"] = dict(
+                    fields["extra"], **{k: state.extra[k] for k in writes})
+            new_state = state._replace(**fields)
+        metrics["n_deferred"] = pre["n_deferred"]
+        return new_state, metrics
+
+    def compose_round(state, batches, vm):
+        pre = vm(before)(state)
+        if c_max:
+            return cohort_part(state, batches, pre, vm)
+        start = start_of(state, cfg.m)
+        x_end, losses = local_update(state, start, batches,
+                                     pre["loc_rngs"])
+        return vm(after)(state, pre, start, x_end, losses)
+
     def round_fn(state: FLState, batches):
-        pre = before(state)
-        start = start_of(state)
-        spec = state.spec
-        x_end_tr, losses = local_sgd(
-            spec.unflatten_stacked(start), frozen, batches, pre["loc_rngs"],
-            s=cfg.s, eta_l=eta_at(state.t), loss_fn=loss_fn,
-            grad_clip=cfg.grad_clip)
-        return after(state, pre, start, spec.flatten_stacked(x_end_tr),
-                     losses)
+        return compose_round(state, batches, lambda part: part)
 
     def seeds_round_fn(states: FLState, batches):
         """The round of S independent seeds: ``states`` with ``[S, ...]``
-        leaves (``stack_seeds``), batches ``[S, m, s, ...]``; returns the
-        new states and metrics ``[S]`` per key."""
-        pre = seed_vmap(before)(states)
-        start = start_of(states)
-        spec = states.spec
-        x_end_tr, losses = local_sgd(
-            spec.unflatten_stacked(start), frozen, batches, pre["loc_rngs"],
-            s=cfg.s, eta_l=eta_at(states.t), loss_fn=loss_fn,
-            grad_clip=cfg.grad_clip)
-        return seed_vmap(after)(states, pre, start,
-                                spec.flatten_stacked(x_end_tr), losses)
+        leaves (``stack_seeds``), batches ``[S, m, s, ...]`` (or the
+        cohort sampler's ``[S, m, s*b]`` columns beside the shared
+        store); returns the new states and metrics ``[S]`` per key."""
+        return compose_round(states, batches, seed_vmap)
 
     round_fn.seeds = seeds_round_fn
     return round_fn
@@ -492,7 +671,9 @@ def make_seeds_chunk_fn(cfg, round_fn, sample_fn, chunk_rounds, n_seeds):
 
     ``states`` and ``sampler_states`` carry ``[S, ...]`` leaves
     (``stack_seeds``), ``data_keys`` is ``[S, 2]``; the ``store`` is
-    shared by every seed.  Per round, seed ``j``'s batches come from
+    shared by every seed (a cohort sampler's ``{"cols", "store"}``
+    batches get ``[S, m, s*b]`` columns and the one store).  Per round,
+    seed ``j``'s batches come from
     ``sample_fn(store, sampler_states[j], fold_in(data_keys[j], t_j))``
     and its round is ``round_fn``'s, so each seed evolves as its
     single-seed chunked run would.  ``round_fn`` is the single-seed round
@@ -512,16 +693,23 @@ def make_seeds_chunk_fn(cfg, round_fn, sample_fn, chunk_rounds, n_seeds):
         raise ValueError("round_fn has no seed-batched form: build it with "
                          "make_round_fn")
 
+    def draw(store, ss, key, t):
+        batches, ss = sample_fn(store, ss, prng.fold_in(key, t))
+        # the cohort sampler hands back its store beside the columns: the
+        # seeds share it, so it stays out of the vmap
+        return {k: v for k, v in batches.items() if k != "store"}, ss
+
     def chunk(states, sampler_states, store, data_keys):
         if states.t.shape != (S,):
             raise ValueError(f"states carry {tuple(states.t.shape)} seeds; "
                              f"the executor was built for {S}")
-        sample = seed_vmap(lambda ss, key, t: sample_fn(
-            store, ss, prng.fold_in(key, t)))
+        sample = seed_vmap(lambda ss, key, t: draw(store, ss, key, t))
         per_round = []
         for _ in range(K):
             batches, sampler_states = sample(sampler_states, data_keys,
                                              states.t)
+            if "cols" in batches:
+                batches["store"] = store
             states, metrics = seeds_round(states, batches)
             per_round.append(metrics)
         stacked = {k: torch.stack([r[k] for r in per_round], dim=1)

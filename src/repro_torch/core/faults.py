@@ -24,8 +24,8 @@ round engine already threads:
 Draws come from ``core/prng.py`` with the reference's keys, and the
 survival threshold is compared as a float32 value, as JAX rounds the
 Python float: ``mask_upload`` equals the reference's bit for bit.  No
-function reads a device value on the host.  The cohort variant
-(``upload_mask_cohort``) belongs with the cohort path, not ported yet.
+function reads a device value on the host.  ``upload_mask_cohort`` is
+the cohort round's variant (core/cohort.py): the same fates at O(c).
 """
 from __future__ import annotations
 
@@ -141,14 +141,9 @@ def update_norms_sq(G):
     return tot
 
 
-def upload_mask(cfg: FaultCfg, rng, mask, G):
-    """Post-compute fate of each active client's update.
-
-    Returns ``(mask_upload, n_dropped, n_rejected)``: the survival draw
-    marks mid-round dropouts, then sanitization demotes non-finite /
-    norm-exploded innovations.  ``mask_upload`` is the effective
-    aggregation mask (``<= mask`` elementwise); a client dropped or
-    rejected here behaves exactly as if it had never been sampled."""
+def _fates(cfg: FaultCfg, survive_u, mask, G):
+    """``upload_mask``'s body on given survival uniforms ``survive_u``
+    (None without mid-round dropout)."""
     keep = mask
     dropped = torch.zeros((), dtype=torch.float32, device=mask.device)
     rejected = torch.zeros((), dtype=torch.float32, device=mask.device)
@@ -157,7 +152,7 @@ def upload_mask(cfg: FaultCfg, rng, mask, G):
         # the compare, so the mask agrees bit for bit
         thr = torch.full((), cfg.upload_survival, dtype=torch.float32,
                          device=mask.device)
-        survive = (prng.uniform(rng, mask.shape) < thr).float()
+        survive = (survive_u < thr).float()
         dropped = torch.sum(keep * (1.0 - survive))
         keep = keep * survive
     if cfg.sanitize:
@@ -171,6 +166,30 @@ def upload_mask(cfg: FaultCfg, rng, mask, G):
         rejected = torch.sum(keep * badf)
         keep = keep * (1.0 - badf)
     return keep, dropped, rejected
+
+
+def upload_mask(cfg: FaultCfg, rng, mask, G):
+    """Post-compute fate of each active client's update.
+
+    Returns ``(mask_upload, n_dropped, n_rejected)``: the survival draw
+    marks mid-round dropouts, then sanitization demotes non-finite /
+    norm-exploded innovations.  ``mask_upload`` is the effective
+    aggregation mask (``<= mask`` elementwise); a client dropped or
+    rejected here behaves exactly as if it had never been sampled."""
+    u = prng.uniform(rng, mask.shape) if cfg.mid_round else None
+    return _fates(cfg, u, mask, G)
+
+
+def upload_mask_cohort(cfg: FaultCfg, rng, m: int, idx, mask, G):
+    """``upload_mask`` on the cohort: ``mask`` and ``G`` are the cohort's
+    ``[c]`` and ``[c, N]``.  The survival draw is still taken over the
+    full ``[m]`` population and gathered at ``idx``, so a client's fate
+    depends on ``(rng, client index)`` alone, as in a dense round;
+    sanitization runs on the ``[c, N]`` working set."""
+    u = None
+    if cfg.mid_round:
+        u = torch.gather(prng.uniform(rng, (m,)), -1, idx)
+    return _fates(cfg, u, mask, G)
 
 
 def adversarial_probs_from_nu(nu, *, hot=0.9, cold=0.05):

@@ -18,8 +18,23 @@ strategy returns ``None`` clients (the engine starts local SGD from a
 broadcast view of the global, so no [m, N] client copy exists).  FedAWE's
 server update is the fused echo-aggregate kernel under ``use_kernel``;
 the baselines ignore ``use_kernel``, as in the reference.  The tree path
-(``aggregate``) raises for every strategy, and the cohort path
-(``aggregate_cohort``) belongs to a later slice of the port.
+(``aggregate``) raises for every strategy.
+
+``aggregate_cohort`` is the sparse cohort path (core/cohort.py,
+``FLConfig.sparse_cohort``): the round's math runs on the gathered
+float32 ``[c, N]`` working set, and it returns ``(new_global, rows,
+write, new_extra)``, where ``rows`` / ``write`` are what the engine
+writes into the resident client stack at the cohort's rows (None for a
+stateless strategy); the engine advances τ.  The ``/m`` baselines divide
+by the population ``m_total``, not by c.  A memory strategy (MIFA,
+FedVARP, FedAR) names its resident ``[m, N]`` memory in
+``cohort_memory``: it is born in the resident dtype beside a float32
+``[N]`` running column sum (``init_extra_cohort``), the engine hands the
+aggregate the memory's resident rows at the cohort (``mem_c``), and the
+aggregate returns, under the memory's key, the rows the engine writes
+back in place (``cohort.cohort_payload``).  The column sum moves by the
+rows as stored, after the demote, so the population mean costs O(c·N) a
+round and tracks the bfloat16 content exactly.
 
 Scalar strategy state (FedAU's cutoff ``K``, F3AST's ``beta``, FedAWE-M's
 ``beta``) is a 0-d float32 tensor on the state's device, so a round never
@@ -37,6 +52,8 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from repro_torch.core.cohort import cohort_payload
+
 
 @dataclasses.dataclass(frozen=True)
 class Strategy:
@@ -48,6 +65,13 @@ class Strategy:
     # echoes the paper's grouping (Table 2)
     memory_aided: bool = False
     uses_true_probs: bool = False
+    # the sparse cohort path (module docstring): aggregate_cohort runs the
+    # round on the [c, N] working set; init_extra_cohort(g, m, dtype)
+    # builds the resident memory and its running sum (None: init_extra);
+    # cohort_memory names the extra's resident [m, N] stacks
+    aggregate_cohort: Optional[Callable[..., Any]] = None
+    init_extra_cohort: Optional[Callable[..., Any]] = None
+    cohort_memory: tuple = ()
 
 
 def flat_weighted_sum(w, G):
@@ -113,8 +137,33 @@ def _fedawe_aggregate_flat(*, global_flat, clients_flat, x_end, G, mask, t,
     return new_global, new_clients, new_tau, extra
 
 
+def _fedawe_aggregate_cohort(*, global_flat, cohort_flat, x_end, G, mask, t,
+                             tau_c, probs_c, extra, eta_g, m_total, idx,
+                             mu_full, mem_c=None, use_kernel=False,
+                             mask_upload=None, ages=None):
+    """FedAWE on the [c, N] working set: the flat path's update, every
+    client outside the cohort carrying zero weight there.  With
+    ``use_kernel`` one launch of the fused kernel on the [c, N] operands
+    (``upload=`` under faults)."""
+    mu = mask if mask_upload is None else mask_upload
+    echo = (t - tau_c).float()
+    if use_kernel:
+        from repro_torch.kernels.echo_aggregate import ops as ea_ops
+        new_global = ea_ops.echo_aggregate_flat(
+            cohort_flat, x_end, global_flat, mask, echo, eta_g,
+            upload=mask_upload)
+    else:
+        denom = torch.clamp(torch.sum(mu), min=1.0)
+        acc = (flat_weighted_sum(mu, cohort_flat)
+               - eta_g * flat_weighted_sum(mu * echo, G)) / denom
+        new_global = torch.where(torch.sum(mu) > 0, acc, global_flat)
+    rows = torch.where(mu[:, None] > 0, new_global[None], cohort_flat)
+    return new_global, rows, mu, extra
+
+
 FEDAWE = Strategy("fedawe", True, _no_extra, _tree_path,
-                  aggregate_flat=_fedawe_aggregate_flat)
+                  aggregate_flat=_fedawe_aggregate_flat,
+                  aggregate_cohort=_fedawe_aggregate_cohort)
 
 
 # ---------------------------------------------------------------------------
@@ -136,8 +185,19 @@ def _mk_weighted_fedavg(weight_fn, name, uses_true_probs=False):
         new_global = global_flat - eta_g * flat_weighted_sum(w, G) / _denom(mu)
         return new_global, None, _stateless_tau(mu, t, tau), extra
 
+    def agg_cohort(*, global_flat, cohort_flat, x_end, G, mask, t, tau_c,
+                   probs_c, extra, eta_g, m_total, idx, mu_full, mem_c=None,
+                   use_kernel=False, mask_upload=None, ages=None):
+        mu = mask if mask_upload is None else mask_upload
+        w = weight_fn(mu, probs_c) * mu
+        # the /m variants divide by the population, not the cohort
+        denom = _denom(mu) if name == "fedavg_active" else m_total
+        new_global = global_flat - eta_g * flat_weighted_sum(w, G) / denom
+        return new_global, None, None, extra
+
     return Strategy(name, False, _no_extra, _tree_path,
-                    aggregate_flat=agg_flat, uses_true_probs=uses_true_probs)
+                    aggregate_flat=agg_flat, uses_true_probs=uses_true_probs,
+                    aggregate_cohort=agg_cohort)
 
 
 FEDAVG_ACTIVE = _mk_weighted_fedavg(lambda mu, p: torch.ones_like(mu),
@@ -186,8 +246,22 @@ def _fedau_aggregate_flat(*, global_flat, clients_flat, x_end, G, mask, t,
     return new_global, None, _stateless_tau(mu, t, tau), new_extra
 
 
+def _fedau_aggregate_cohort(*, global_flat, cohort_flat, x_end, G, mask, t,
+                            tau_c, probs_c, extra, eta_g, m_total, idx,
+                            mu_full, mem_c=None, use_kernel=False,
+                            mask_upload=None, ages=None):
+    # the interval estimates advance for every client every round, so the
+    # [m] scalar state stays dense (O(m), not O(m·N)); only the weighted
+    # innovation sum runs on the cohort
+    w_full, new_extra = _fedau_weights(mu_full, extra)
+    new_global = global_flat - eta_g * flat_weighted_sum(
+        torch.gather(w_full, -1, idx), G) / m_total
+    return new_global, None, None, new_extra
+
+
 FEDAU = Strategy("fedau", False, _fedau_init, _tree_path,
-                 aggregate_flat=_fedau_aggregate_flat)
+                 aggregate_flat=_fedau_aggregate_flat,
+                 aggregate_cohort=_fedau_aggregate_cohort)
 
 
 # ---------------------------------------------------------------------------
@@ -204,16 +278,33 @@ def _f3ast_aggregate_flat(*, global_flat, clients_flat, x_end, G, mask, t,
                           tau, probs, extra, eta_g, use_kernel=False,
                           mask_upload=None, ages=None):
     mu = mask if mask_upload is None else mask_upload
+    w, new_extra = _f3ast_weights(mu, extra)
+    new_global = global_flat - eta_g * flat_weighted_sum(w, G) / mu.shape[0]
+    return new_global, None, _stateless_tau(mu, t, tau), new_extra
+
+
+def _f3ast_weights(mu, extra):
+    """Per-client weights ``mu / clip(rate)`` and the new EMA rates."""
     beta = extra["beta"]
     rate = (1 - beta) * extra["rate"] + beta * mu
-    w = mu / torch.clamp(rate, 1e-2, 1.0)
-    new_global = global_flat - eta_g * flat_weighted_sum(w, G) / mu.shape[0]
-    return (new_global, None, _stateless_tau(mu, t, tau),
-            dict(rate=rate, beta=beta))
+    return mu / torch.clamp(rate, 1e-2, 1.0), dict(rate=rate, beta=beta)
+
+
+def _f3ast_aggregate_cohort(*, global_flat, cohort_flat, x_end, G, mask, t,
+                            tau_c, probs_c, extra, eta_g, m_total, idx,
+                            mu_full, mem_c=None, use_kernel=False,
+                            mask_upload=None, ages=None):
+    # the EMA rates decay for every client every round: dense [m] state,
+    # as FedAU's, and the innovation sum on the cohort
+    w_full, new_extra = _f3ast_weights(mu_full, extra)
+    new_global = global_flat - eta_g * flat_weighted_sum(
+        torch.gather(w_full, -1, idx), G) / m_total
+    return new_global, None, None, new_extra
 
 
 F3AST = Strategy("f3ast", False, _f3ast_init, _tree_path,
-                 aggregate_flat=_f3ast_aggregate_flat)
+                 aggregate_flat=_f3ast_aggregate_flat,
+                 aggregate_cohort=_f3ast_aggregate_cohort)
 
 
 # ---------------------------------------------------------------------------
@@ -228,6 +319,27 @@ def _memory_init(key):
     return init
 
 
+def _memory_init_cohort(key):
+    def init(g, m, dtype):
+        n = g.shape[0]
+        return {key: torch.zeros((m, n), dtype=dtype, device=g.device),
+                key + "_sum": torch.zeros((n,), dtype=torch.float32,
+                                          device=g.device)}
+    return init
+
+
+def _memory_step(extra, mem_c, key, new_rows, mu):
+    """The cohort rows ``new_rows`` (float32, written where ``mu`` > 0)
+    demoted into the memory's resident rows ``mem_c[key]``: the rows the
+    engine stores, and the running column sum moved by what they change
+    as stored."""
+    old = mem_c[key]
+    payload = cohort_payload(old, new_rows, mu)
+    col_sum = extra[key + "_sum"] + torch.sum(payload.float() - old.float(),
+                                              dim=0)
+    return {key: payload, key + "_sum": col_sum}
+
+
 def _mifa_aggregate_flat(*, global_flat, clients_flat, x_end, G, mask, t,
                          tau, probs, extra, eta_g, use_kernel=False,
                          mask_upload=None, ages=None):
@@ -240,8 +352,24 @@ def _mifa_aggregate_flat(*, global_flat, clients_flat, x_end, G, mask, t,
     return new_global, None, _stateless_tau(mu, t, tau), dict(mem=mem)
 
 
+def _mifa_aggregate_cohort(*, global_flat, cohort_flat, x_end, G, mask, t,
+                           tau_c, probs_c, extra, eta_g, m_total, idx,
+                           mu_full, mem_c=None, use_kernel=False,
+                           mask_upload=None, ages=None):
+    """MIFA on the cohort: the memory's population mean is its carried
+    float32 column sum over m."""
+    mu = mask if mask_upload is None else mask_upload
+    new_rows = torch.where(mu[:, None] > 0, G, mem_c["mem"].float())
+    new_extra = _memory_step(extra, mem_c, "mem", new_rows, mu)
+    new_global = global_flat - eta_g * new_extra["mem_sum"] / m_total
+    return new_global, None, None, new_extra
+
+
 MIFA = Strategy("mifa", False, _memory_init("mem"), _tree_path,
-                aggregate_flat=_mifa_aggregate_flat, memory_aided=True)
+                aggregate_flat=_mifa_aggregate_flat, memory_aided=True,
+                aggregate_cohort=_mifa_aggregate_cohort,
+                init_extra_cohort=_memory_init_cohort("mem"),
+                cohort_memory=("mem",))
 
 
 def _fedvarp_aggregate_flat(*, global_flat, clients_flat, x_end, G, mask, t,
@@ -261,8 +389,28 @@ def _fedvarp_aggregate_flat(*, global_flat, clients_flat, x_end, G, mask, t,
     return new_global, None, _stateless_tau(mu, t, tau), dict(y=new_y)
 
 
+def _fedvarp_aggregate_cohort(*, global_flat, cohort_flat, x_end, G, mask,
+                              t, tau_c, probs_c, extra, eta_g, m_total, idx,
+                              mu_full, mem_c=None, use_kernel=False,
+                              mask_upload=None, ages=None):
+    mu = mask if mask_upload is None else mask_upload
+    y_c = mem_c["y"].float()
+    denom = torch.clamp(torch.sum(mu), min=1.0)
+    diff_mean = flat_weighted_sum(mu, G - y_c) / denom
+    # the population mean of the OLD memory, from its column sum
+    y_mean = extra["y_sum"] / m_total
+    any_active = (torch.sum(mu) > 0).float()
+    new_global = global_flat - eta_g * (any_active * diff_mean + y_mean)
+    new_rows = torch.where(mu[:, None] > 0, G, y_c)
+    return new_global, None, None, _memory_step(extra, mem_c, "y",
+                                                new_rows, mu)
+
+
 FEDVARP = Strategy("fedvarp", False, _memory_init("y"), _tree_path,
-                   aggregate_flat=_fedvarp_aggregate_flat, memory_aided=True)
+                   aggregate_flat=_fedvarp_aggregate_flat, memory_aided=True,
+                   aggregate_cohort=_fedvarp_aggregate_cohort,
+                   init_extra_cohort=_memory_init_cohort("y"),
+                   cohort_memory=("y",))
 
 
 # ---------------------------------------------------------------------------
@@ -293,8 +441,26 @@ def _fedawe_m_aggregate_flat(*, global_flat, clients_flat, x_end, G, mask, t,
     return new_global, new_clients, new_tau, dict(v=v, beta=beta)
 
 
+def _fedawe_m_aggregate_cohort(*, global_flat, cohort_flat, x_end, G, mask,
+                               t, tau_c, probs_c, extra, eta_g, m_total,
+                               idx, mu_full, mem_c=None, use_kernel=False,
+                               mask_upload=None, ages=None):
+    mu = mask if mask_upload is None else mask_upload
+    gossip, _, _, _ = _fedawe_aggregate_cohort(
+        global_flat=global_flat, cohort_flat=cohort_flat, x_end=x_end, G=G,
+        mask=mask, t=t, tau_c=tau_c, probs_c=probs_c, extra=(), eta_g=eta_g,
+        m_total=m_total, idx=idx, mu_full=mu_full, use_kernel=use_kernel,
+        mask_upload=mask_upload)
+    beta = extra["beta"]
+    v = beta * extra["v"] + (gossip - global_flat)  # gossip is guarded
+    new_global = torch.where(torch.sum(mu) > 0, global_flat + v, global_flat)
+    rows = torch.where(mu[:, None] > 0, new_global[None], cohort_flat)
+    return new_global, rows, mu, dict(v=v, beta=beta)
+
+
 FEDAWE_M = Strategy("fedawe_m", True, _fedawe_m_init, _tree_path,
-                    aggregate_flat=_fedawe_m_aggregate_flat)
+                    aggregate_flat=_fedawe_m_aggregate_flat,
+                    aggregate_cohort=_fedawe_m_aggregate_cohort)
 
 
 # ---------------------------------------------------------------------------
@@ -316,8 +482,25 @@ def _fedar_aggregate_flat(*, global_flat, clients_flat, x_end, G, mask, t,
     return new_global, None, _stateless_tau(mu, t, tau), dict(mem=mem)
 
 
+def _fedar_aggregate_cohort(*, global_flat, cohort_flat, x_end, G, mask, t,
+                            tau_c, probs_c, extra, eta_g, m_total, idx,
+                            mu_full, mem_c=None, use_kernel=False,
+                            mask_upload=None, ages=None):
+    mu = mask if mask_upload is None else mask_upload
+    r = torch.ones_like(mask) if ages is None else 1.0 / (1.0 + ages.float())
+    mem = mem_c["mem"].float()
+    new_rows = torch.where(mu[:, None] > 0, mem + r[:, None] * (G - mem),
+                           mem)
+    new_extra = _memory_step(extra, mem_c, "mem", new_rows, mu)
+    new_global = global_flat - eta_g * new_extra["mem_sum"] / m_total
+    return new_global, None, None, new_extra
+
+
 FEDAR = Strategy("fedar", False, _memory_init("mem"), _tree_path,
-                 aggregate_flat=_fedar_aggregate_flat, memory_aided=True)
+                 aggregate_flat=_fedar_aggregate_flat, memory_aided=True,
+                 aggregate_cohort=_fedar_aggregate_cohort,
+                 init_extra_cohort=_memory_init_cohort("mem"),
+                 cohort_memory=("mem",))
 
 
 REGISTRY = {s.name: s for s in

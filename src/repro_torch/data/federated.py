@@ -17,9 +17,12 @@ stateful contract both executors of ``core/engine.py`` thread through.
 ``seed_data_keys`` and ``init_seed_sampler_states`` give the seed-batched
 executor its ``[S]`` keys and carries; ``pad_store`` widens a store for
 the packed grid (``launch/experiments.pack_cells``).
-Both modes are ported, uniform draws and epoch permutations, each
-emitting gathered batches; the reference's ``emit="cols"`` (the sparse
-cohort path) belongs to a later slice.
+Both modes are ported, uniform draws and epoch permutations.  Each emits
+gathered batches, or with ``emit="cols"`` (the sparse cohort round) the
+per-client column draws and the store, from which the round gathers its
+cohort's rows alone (``gather_batches_at``); ``contiguous_client_index``
+builds the index of a store of 10⁵ clients without a Python loop over
+them.
 """
 from __future__ import annotations
 
@@ -82,6 +85,19 @@ def padded_client_index(client_indices) -> Dict[str, np.ndarray]:
     return dict(idx=flat[pos].astype(np.int32), counts=counts)
 
 
+def contiguous_client_index(m: int, n_per: int) -> Dict[str, np.ndarray]:
+    """Padded index for the contiguous layout where client ``i`` owns rows
+    ``[i * n_per, (i + 1) * n_per)``, built without the m per-client
+    arrays, so a store of 10⁵ clients is O(m * n_per) numpy work.  Feed
+    it to ``device_store(..., padded=...)``."""
+    if n_per <= 0:
+        raise ValueError(f"n_per must be > 0; got {n_per}")
+    counts = np.full((m,), n_per, np.int32)
+    idx = (np.arange(m, dtype=np.int64)[:, None] * n_per
+           + np.arange(n_per, dtype=np.int64)[None, :]).astype(np.int32)
+    return dict(idx=idx, counts=counts)
+
+
 def _to_device(x, device):
     t = torch.from_numpy(np.ascontiguousarray(x))
     # integer arrays become int64, torch's index dtype
@@ -90,14 +106,21 @@ def _to_device(x, device):
     return t.to(device)
 
 
-def device_store(arrays: Dict[str, np.ndarray], client_indices, device):
+def device_store(arrays: Dict[str, np.ndarray], client_indices, device, *,
+                 padded=None):
     """The on-device store consumed by ``make_device_sampler``:
 
       {'arrays': {k: [n, ...]}, 'idx': [m, cap] i64, 'counts': [m] i64}
 
     Integer arrays (labels, indices) are held as int64 for gathers; their
-    values equal the reference store's int32 ones."""
-    pad = padded_client_index(client_indices)
+    values equal the reference store's int32 ones.  ``padded`` (a prebuilt
+    ``{'idx', 'counts'}``, e.g. ``contiguous_client_index``) takes the
+    place of ``client_indices``."""
+    if padded is None:
+        if client_indices is None:
+            raise ValueError("device_store needs client_indices or padded=")
+        padded = padded_client_index(client_indices)
+    pad = padded
     return dict(
         arrays={k: _to_device(v, device) for k, v in arrays.items()},
         idx=_to_device(pad["idx"], device),
@@ -137,8 +160,24 @@ def _gather_batches(store, cols, m, s, b):
             for k, v in store["arrays"].items()}
 
 
+def gather_batches_at(store, cols, rows_idx, s, b):
+    """The cohort's batch gather: ``cols [c, s*b]`` column draws of the
+    cohort rows ``rows_idx [c]`` -> ``{k: [c, s, b, ...]}`` batches, bit
+    for bit rows ``rows_idx`` of the dense gather of the full ``[m, s*b]``
+    draw, at O(c) data rows.  A leading seed axis (``cols [S, c, s*b]``,
+    ``rows_idx [S, c]``) gathers every seed's cohort from the shared
+    store at once."""
+    pad = store["idx"]
+    own = pad.index_select(0, rows_idx.reshape(-1)).view(
+        tuple(rows_idx.shape) + (pad.shape[1],))
+    flat = torch.gather(own, -1, cols).reshape(-1)
+    lead = tuple(rows_idx.shape) + (s, b)
+    return {k: v.index_select(0, flat).reshape(lead + v.shape[1:])
+            for k, v in store["arrays"].items()}
+
+
 def make_device_sampler(m: int, s: int, b: int, mode: str = "uniform",
-                        min_count: int = 1):
+                        min_count: int = 1, emit: str = "batches"):
     """Stateful round-batch sampler over a ``device_store``.
 
     ``mode="uniform"``: i.i.d. draws with replacement within each client
@@ -154,11 +193,25 @@ def make_device_sampler(m: int, s: int, b: int, mode: str = "uniform",
     ``min_count`` is a lower bound on every shard's size: a client
     crosses at most ``(s*b - 1) // min_count + 1`` epoch boundaries a
     round, so it sizes the per-round permutation stack (1 is always
-    safe); ``init_sampler_state`` checks it against the store."""
+    safe); ``init_sampler_state`` checks it against the store.
+
+    ``emit="batches"`` gathers the round's ``{k: [m, s, b, ...]}`` rows;
+    ``emit="cols"`` returns ``{'cols': [m, s*b], 'store': store}``, the
+    column draws and the store, for the cohort round, which gathers only
+    its cohort's rows (``gather_batches_at``) while the draws and the
+    carry advance over the full population, as a dense run's."""
     if mode not in SAMPLING_MODES:
         raise ValueError(f"unknown sampling mode {mode!r}; "
                          f"expected one of {SAMPLING_MODES}")
+    if emit not in ("batches", "cols"):
+        raise ValueError(f"unknown emit mode {emit!r}; "
+                         "expected 'batches' or 'cols'")
     q = s * b
+
+    def _emit(store, cols):
+        if emit == "cols":
+            return dict(cols=cols, store=store)
+        return _gather_batches(store, cols, m, s, b)
 
     if mode == "uniform":
         def init_sampler_state(store, key):
@@ -167,7 +220,7 @@ def make_device_sampler(m: int, s: int, b: int, mode: str = "uniform",
 
         def sample(store, sampler_state, key):
             cols = prng.randint(key, (m, q), 0, store["counts"][:, None])
-            return _gather_batches(store, cols, m, s, b), sampler_state
+            return _emit(store, cols), sampler_state
 
         return init_sampler_state, sample
 
@@ -226,7 +279,7 @@ def make_device_sampler(m: int, s: int, b: int, mode: str = "uniform",
         cols = stack[d, rows[:, None], r].long()                 # [m, q]
         total = cursor + q
         wraps = total // counts
-        return _gather_batches(store, cols, m, s, b), dict(
+        return _emit(store, cols), dict(
             perm=stack[wraps, rows],
             cursor=(total % counts).to(torch.int32),
             epoch=epoch + wraps.to(torch.int32),

@@ -416,7 +416,8 @@ def run_multi_seed(fl: FLConfig, round_fn, template, ds, *, sampling,
     store = ds.device_store(rng.device)
     init_fn, sample_fn = make_device_sampler(
         fl.m, fl.s, batch, mode=sampling,
-        min_count=min(len(ix) for ix in ds.client_indices))
+        min_count=min(len(ix) for ix in ds.client_indices),
+        emit="cols" if fl.sparse_cohort else "batches")
     states, sampler_states, data_keys = build_seed_batch(
         fl, template, rng, data_key, init_fn, store, seeds,
         template_fn=template_fn, fault=fault, stale=stale)
@@ -590,7 +591,8 @@ def build_cell(sc: Scenario, *, seeds, rounds, chunk_rounds, m, s, batch,
         store = pad_store(store, m=fl.m)
     init_sampler, sample_fn = make_device_sampler(
         fl.m, fl.s, batch, mode=sc.sampling,
-        min_count=min(len(ix) for ix in ds.client_indices))
+        min_count=min(len(ix) for ix in ds.client_indices),
+        emit="cols" if fl.sparse_cohort else "batches")
     states, sampler_states, data_keys = build_seed_batch(
         fl, params, prng.PRNGKey(seed, dev), prng.PRNGKey(seed + 1, dev),
         init_sampler, store, seeds,

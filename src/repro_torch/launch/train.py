@@ -5,7 +5,8 @@
         [--midround-drop 0.3 --sanitize --stale-max 4 --stale-kind geom] \
         [--sampling epoch] [--ckpt PATH --ckpt-every N] \
         [--resume PATH --ckpt-every N] [--scenario NAME] \
-        [--seeds S [--replicate full]]
+        [--seeds S [--replicate full]] \
+        [--sparse-cohort C_MAX [--resident-dtype bfloat16]]
 
 The port of ``python -m repro.launch.train --preset image``, for all ten
 strategies of the reference's registry (FedAWE, FedAWE-M and the eight
@@ -18,6 +19,8 @@ resumes the other's ``--resume`` artifact.  ``--scenario`` takes a cell
 of ``launch/experiments``' registry (an explicit flag wins over the cell,
 the cell over the default); ``--seeds S > 1`` runs S seeds together
 through the seed-batched executor (``experiments.run_multi_seed``).
+``--sparse-cohort C_MAX`` runs O(cohort) rounds over a resident ``[m,
+N]`` stack (core/cohort.py), stored in ``--resident-dtype``.
 """
 from __future__ import annotations
 
@@ -120,6 +123,25 @@ def build_parser() -> argparse.ArgumentParser:
                          "fetch per chunk, eval at chunk boundaries "
                          "(0 = host loop single-seed, K=8 with --seeds "
                          "> 1)")
+    ap.add_argument("--sparse-cohort", type=int, default=0,
+                    metavar="C_MAX",
+                    help="O(cohort) rounds (core/cohort.py): gather the "
+                         "round's active clients — capped at C_MAX, "
+                         "overflow defers deterministically to later "
+                         "rounds — into a [C_MAX, N] f32 working set, run "
+                         "local updates and aggregation there, scatter "
+                         "the touched rows back; the resident [m, N] "
+                         "stack is never touched O(m*N) per round "
+                         "(0 = dense rounds, the default; implies "
+                         "--flat-state)")
+    ap.add_argument("--resident-dtype", default="float32",
+                    choices=["float32", "bfloat16"],
+                    help="storage dtype of the resident [m, N] client "
+                         "stack under --sparse-cohort: bfloat16 halves "
+                         "residency; the cohort gather promotes rows to "
+                         "f32, the scatter-back demote confines "
+                         "non-finite rows (int8 is reserved — see "
+                         "core/flatten.py)")
     ap.add_argument("--sampling", default=None,
                     choices=list(SAMPLING_MODES),
                     help="device-sampler mode (default: uniform): uniform "
@@ -259,7 +281,9 @@ def setup(args, device):
         args, rng, device)
     fl = FLConfig(m=args.m, s=args.s, eta_l=args.eta_l, eta_g=args.eta_g,
                   strategy=args.strategy, use_kernel=args.use_kernel,
-                  flat_state=args.flat_state)
+                  flat_state=args.flat_state,
+                  sparse_cohort=args.sparse_cohort,
+                  resident_dtype=args.resident_dtype)
     if scenario is not None:
         # the cell's availability knobs, with any explicit flag on top
         av = dataclasses.replace(scenario.availability(),
@@ -302,9 +326,11 @@ def run(args):
     seeds of the final eval.  The body of ``main``, checkpoints included,
     without its printing and ``--out``."""
     scenario = resolve_flags(args)
-    # the pending-update ring rides the flat [m, N] substrate
+    # the pending-update ring and the cohort's gather and scatter both
+    # ride the flat [m, N] substrate
     args.flat_state = (args.flat_state
-                       or fault_configs(args, scenario)[1] is not None)
+                       or fault_configs(args, scenario)[1] is not None
+                       or args.sparse_cohort > 0)
     if not args.flat_state:
         raise NotImplementedError(
             "tree-state path not ported: pass --flat-state")
@@ -319,14 +345,17 @@ def run(args):
         def ckpt_fn(st, t):
             save_fl_state(args.ckpt, st, round_t=t)
 
-    if args.chunk_rounds or args.sampling == "epoch" or args.resume:
+    if args.chunk_rounds or args.sampling == "epoch" or args.resume \
+            or args.sparse_cohort:
         # the device sampler: always for the chunked executor, and for the
         # host loop under epoch sampling or --resume, whose carry lives on
-        # the device (and in the resumable artifact)
+        # the device (and in the resumable artifact), and under the
+        # cohort, whose round gathers its batches from the column draws
         store = ds.device_store(device)
         init_sampler_fn, sample_fn = make_device_sampler(
             args.m, args.s, args.batch, mode=args.sampling,
-            min_count=min(len(ix) for ix in ds.client_indices))
+            min_count=min(len(ix) for ix in ds.client_indices),
+            emit="cols" if args.sparse_cohort else "batches")
         data_key = parts["data_key"]
         sampler_state = init_sampler_fn(store, data_key)
         rounds_left = args.rounds

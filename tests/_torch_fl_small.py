@@ -10,7 +10,9 @@ fields, so one description builds both packages' configs; ``setup`` and
 The sampler is uniform unless ``sampling="epoch"``.  ``setup(...,
 seed=j)`` is seed j of a multi-seed run (state key ``fold_in(0, j)``,
 data key ``fold_in(42, j)``); ``run_seeds`` drives S such seeds through
-either package's seed-batched executor."""
+either package's seed-batched executor.  ``setup(..., sparse=C)`` runs
+the sparse cohort round with cap C (the sampler emits columns), its
+stacks resident in ``rdt``."""
 import numpy as np
 import torch
 
@@ -55,13 +57,15 @@ def _torch_loss(tr, frozen, batch, rng):
 
 def _setup_ref(strategy, fault, stale, *, use_kernel, trace, clusters,
                dtrace, nan_client, base_p, kind, sampling, min_count,
-               seed=None):
+               seed=None, sparse=0, rdt="float32"):
     store = ref_fed.device_store(*arrays(nan_client))
     init_fn, sample_fn = ref_fed.make_device_sampler(
-        M, S, B, mode=sampling, min_count=min_count)
+        M, S, B, mode=sampling, min_count=min_count,
+        emit="cols" if sparse else "batches")
     cfg = ref_core.FLConfig(m=M, s=S, eta_l=0.03, strategy=strategy,
                             lr_schedule=False, grad_clip=0.0,
-                            use_kernel=use_kernel, flat_state=True)
+                            use_kernel=use_kernel, flat_state=True,
+                            sparse_cohort=sparse, resident_dtype=rdt)
     fc = None if fault is None else ref_faults.FaultCfg(**fault)
     sc = None if stale is None else ref_stale.StalenessCfg(**stale)
     rf = ref_core.make_round_fn(
@@ -86,13 +90,15 @@ def _setup_ref(strategy, fault, stale, *, use_kernel, trace, clusters,
 
 def _setup_port(strategy, fault, stale, *, use_kernel, trace, clusters,
                 dtrace, nan_client, base_p, kind, sampling, min_count,
-                seed=None):
+                seed=None, sparse=0, rdt="float32"):
     store = fed.device_store(*arrays(nan_client), "cpu")
     init_fn, sample_fn = fed.make_device_sampler(
-        M, S, B, mode=sampling, min_count=min_count)
+        M, S, B, mode=sampling, min_count=min_count,
+        emit="cols" if sparse else "batches")
     cfg = core.FLConfig(m=M, s=S, eta_l=0.03, strategy=strategy,
                         lr_schedule=False, grad_clip=0.0,
-                        use_kernel=use_kernel, flat_state=True)
+                        use_kernel=use_kernel, flat_state=True,
+                        sparse_cohort=sparse, resident_dtype=rdt)
     fc = None if fault is None else faults.FaultCfg(**fault)
     sc = None if stale is None else staleness.StalenessCfg(**stale)
     rf = core.make_round_fn(
@@ -117,7 +123,7 @@ def _setup_port(strategy, fault, stale, *, use_kernel, trace, clusters,
 def setup(pkg, strategy="fedawe", fault=None, stale=None, *,
           use_kernel=False, trace=None, clusters=None, dtrace=None,
           nan_client=None, base_p=0.6, kind="sine", sampling="uniform",
-          min_count=1, seed=None):
+          min_count=1, seed=None, sparse=0, rdt="float32"):
     """The fresh run of ``pkg`` ("ref" or "port"): a dict with ``state``,
     ``round_fn``, ``store``, ``sample_fn``, ``data_key`` and
     ``sampler_state`` (and the ``cfg``, ``template``, ``init_fn`` and
@@ -126,7 +132,7 @@ def setup(pkg, strategy="fedawe", fault=None, stale=None, *,
     return fn(strategy, fault, stale, use_kernel=use_kernel, trace=trace,
               clusters=clusters, dtrace=dtrace, nan_client=nan_client,
               base_p=base_p, kind=kind, sampling=sampling,
-              min_count=min_count, seed=seed)
+              min_count=min_count, seed=seed, sparse=sparse, rdt=rdt)
 
 
 def drive(pkg, parts, T, *, chunk=False, K=4, carry=False, **kw):
@@ -191,9 +197,21 @@ def run_seeds(pkg, n_seeds, strategy="fedawe", fault=None, stale=None, *,
     return states, hists, got["ss"]
 
 
-def _close(got, want):
-    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4,
+def _close(got, want, tol=1e-4):
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol,
                                equal_nan=True)
+
+
+def _f32(x):
+    """A tensor or an array of either package as a float32 numpy array
+    (bfloat16 included)."""
+    if torch.is_tensor(x):
+        return x.float().numpy()
+    return np.asarray(jnp.asarray(x).astype(jnp.float32))
+
+
+def _dtype_name(x):
+    return str(x.dtype).replace("torch.", "")
 
 
 def _leaves(tree, prefix=""):
@@ -225,9 +243,10 @@ def assert_carry_equal(port, ref):
         np.testing.assert_array_equal(_np(got[k]), w, err_msg=k)
 
 
-def assert_parity(ref, port):
+def assert_parity(ref, port, tol=1e-4):
     """Counts, τ, keys and ring ages bit-equal; states, strategy state and
-    losses within 1e-4 (tests/test_engine_kernel_path.py's bound)."""
+    losses within ``tol`` (1e-4, tests/test_engine_kernel_path.py's
+    bound); every state leaf in the reference's dtype."""
     (rs, rh), (ps, ph) = ref[:2], port[:2]
     assert len(rh) == len(ph)
     for w, g in zip(rh, ph):
@@ -236,24 +255,25 @@ def assert_parity(ref, port):
             if k in EXACT:
                 assert g[k] == w[k], (k, g[k], w[k])
             else:
-                _close(g[k], w[k])
+                _close(g[k], w[k], tol)
     np.testing.assert_array_equal(ps.tau.numpy(), np.asarray(rs.tau))
     np.testing.assert_array_equal(ps.rng.numpy(),
                                   np.asarray(rs.rng).astype(np.int64))
-    _close(ps.global_tr.numpy(), np.asarray(rs.global_tr))
+    _close(ps.global_tr.numpy(), np.asarray(rs.global_tr), tol)
     assert (ps.clients_tr is None) == (rs.clients_tr is None)
     if rs.clients_tr is not None:
-        _close(ps.clients_tr.numpy(), np.asarray(rs.clients_tr))
+        assert _dtype_name(ps.clients_tr) == _dtype_name(rs.clients_tr)
+        _close(_f32(ps.clients_tr), _f32(rs.clients_tr), tol)
     got, want = _leaves(ps.extra), _leaves(rs.extra)
     assert set(got) == set(want), (set(got), set(want))
     for k in want:
-        assert got[k].dtype == torch.float32, k
-        _close(got[k].numpy(), np.asarray(want[k]))
+        assert _dtype_name(got[k]) == _dtype_name(want[k]), k
+        _close(_f32(got[k]), _f32(want[k]), tol)
     assert (ps.stale is None) == (rs.stale is None)
     if rs.stale is not None:
         np.testing.assert_array_equal(ps.stale["ages"].numpy(),
                                       np.asarray(rs.stale["ages"]))
-        _close(ps.stale["buf"].numpy(), np.asarray(rs.stale["buf"]))
+        _close(ps.stale["buf"].numpy(), np.asarray(rs.stale["buf"]), tol)
 
 
 def assert_same_port(a, b):

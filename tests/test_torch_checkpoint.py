@@ -8,8 +8,9 @@ checkpoint written by either package restores in the other and continues
 there as it continues at home (masks, τ, keys and the sampler carry
 bit-equal, states within 1e-4); wrong shapes and missing leaves are
 refused; a chunked run resumed and finished in the host loop lands on the
-uninterrupted run bit for bit; and the two launchers agree, a resumed
-run included."""
+uninterrupted run bit for bit, and so does a bfloat16-resident MIFA
+cohort run, whose artifact the reference restores too; and the two
+launchers agree, a resumed run included."""
 import json
 
 import pytest
@@ -183,6 +184,48 @@ def test_chunked_resume_finishes_in_the_host_loop(tmp_path):
     assert_carry_equal(full[2], rest[2])
 
 
+def test_bf16_cohort_resume_bit_equal_and_read_by_the_reference(tmp_path):
+    """A MIFA cohort run with its memory resident in bfloat16 (beside the
+    float32 ``mem_sum``), written at round 2 and resumed, lands on the
+    uninterrupted 4-round run bit for bit; the reference writes the same
+    manifest and restores the port's artifact, bfloat16 memory included."""
+    kw = dict(sampling="epoch", sparse=5, rdt="bfloat16")
+    path = str(tmp_path / "cohort")
+    full = drive("port", setup("port", "mifa", **kw), 4, chunk=True, K=2,
+                 carry=True)
+    _save_at("port", setup("port", "mifa", **kw), path, 2)
+    parts = setup("port", "mifa", **kw)
+    parts["state"], parts["sampler_state"] = ckpt.restore_run_state(
+        path, parts["state"], parts["sampler_state"])
+    assert parts["state"].extra["mem"].dtype == torch.bfloat16
+    rest = drive("port", parts, 2, chunk=True, K=2, carry=True)
+    assert full[1][2:] == [dict(r, t=r["t"] + 2) for r in rest[1]]
+    a, b = full[0], rest[0]
+    for k in ("global_tr", "tau", "t", "markov", "rng"):
+        assert torch.equal(getattr(a, k), getattr(b, k)), k
+    for k in ("mem", "mem_sum"):
+        assert a.extra[k].dtype == b.extra[k].dtype
+        assert torch.equal(a.extra[k], b.extra[k]), k
+    assert_carry_equal(full[2], rest[2])
+
+    _save_at("ref", setup("ref", "mifa", **kw), str(tmp_path / "ref"), 2)
+    assert json.load(open(path + ".json")) == \
+        json.load(open(tmp_path / "ref.json"))
+    rparts = setup("ref", "mifa", **kw)
+    rstate, rss = ref_ckpt.restore_run_state(path, rparts["state"],
+                                             rparts["sampler_state"])
+    mem = np.asarray(rstate.extra["mem"])
+    assert str(mem.dtype) == "bfloat16"
+    saved = ckpt.restore_run_state(path, parts["state"],
+                                   parts["sampler_state"])[0]
+    np.testing.assert_array_equal(mem.astype(np.float32),
+                                  saved.extra["mem"].float().numpy())
+    np.testing.assert_array_equal(np.asarray(rstate.extra["mem_sum"]),
+                                  saved.extra["mem_sum"].numpy())
+    np.testing.assert_array_equal(np.asarray(rstate.tau),
+                                  saved.tau.numpy())
+
+
 # ---------------------------------------------------------------------------
 # the launchers
 # ---------------------------------------------------------------------------
@@ -262,3 +305,36 @@ def test_cli_resumes_the_reference_artifact(tmp_path):
     np.testing.assert_allclose(port_state.global_tr.numpy(),
                                ref_state.global_tr.numpy(), rtol=1e-4,
                                atol=1e-4)
+
+
+def test_cli_bf16_cohort_resumes_bit_equal(tmp_path):
+    """``--strategy mifa --sparse-cohort 5 --resident-dtype bfloat16``
+    through the port's launcher, stopped at round 4 of 8 by ``--resume P
+    --ckpt-every 4`` and resumed: the artifact at round 8 equals the
+    uninterrupted run's bit for bit (τ, key, global, the bf16 memory, its
+    float32 column sum and the sampler carry)."""
+    from repro_torch.data import make_device_sampler
+    from repro_torch.launch import train
+
+    flags = CLI + ["--ckpt-every", "4", "--sparse-cohort", "5",
+                   "--resident-dtype", "bfloat16", "--device", "cpu"]
+    art, full = str(tmp_path / "run"), str(tmp_path / "full")
+    train.main(flags + ["--rounds", "4", "--resume", art])
+    train.main(flags + ["--rounds", "8", "--resume", art])
+    train.main(flags + ["--rounds", "8", "--resume", full])
+    args = train.build_parser().parse_args(flags)
+    got = []
+    for path in (art, full):
+        parts = train.setup(args, torch.device("cpu"))
+        store = parts["ds"].device_store("cpu")
+        init, _ = make_device_sampler(8, 2, 4, mode="epoch", emit="cols")
+        got.append(ckpt.restore_run_state(path, parts["state"],
+                                          init(store, parts["data_key"])))
+    (a, ssa), (b, ssb) = got
+    assert int(a.t) == int(b.t) == 8
+    assert a.extra["mem"].dtype == torch.bfloat16
+    for k in ("global_tr", "tau", "rng", "markov"):
+        assert torch.equal(getattr(a, k), getattr(b, k)), k
+    for k in ("mem", "mem_sum"):
+        assert torch.equal(a.extra[k], b.extra[k]), k
+    assert_carry_equal(ssa, ssb)

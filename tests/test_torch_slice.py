@@ -162,13 +162,19 @@ def test_cli_history_matches_reference_cli(tmp_path, chunk):
                - want["final"]["eval_acc"]) <= 2 / 1024
 
 
-def test_cli_refuses_without_card_or_flat_state():
+def test_cli_refuses_without_card_or_flat_state(tmp_path):
     from repro_torch.launch import train
 
     with pytest.raises(NotImplementedError, match="tree-state"):
         train.main(["--device", "cpu", "--rounds", "1"])
-    with pytest.raises(SystemExit):
-        train.main(["--flat-state", "--sparse-cohort", "4"])
+    # --sparse-cohort implies the flat substrate and reports n_deferred
+    out = tmp_path / "cohort.json"
+    train.main(CLI[:4] + CLI[5:] + ["--sparse-cohort", "4", "--device",
+                                    "cpu", "--out", str(out)])
+    hist = json.load(open(out))["history"]
+    assert len(hist) == 8
+    assert all("n_deferred" in h and h["n_deferred"] >= 0 for h in hist)
+    assert all(h["n_active"] <= 4 for h in hist)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             train.main(["--flat-state", "--rounds", "1"])
