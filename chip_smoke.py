@@ -31,7 +31,12 @@ printed as JSON lines:
      bit-equal to a launch on that seed alone at the same slice count and
      to ``echo_aggregate_split_ref``, within 1e-5 / 5e-2 of the plain
      version, and with the guard an all-zero mask in seed 1 returning
-     seed 1's global exactly while the others aggregate.  Then K4
+     seed 1's global exactly while the others aggregate.  Then K1 and K2
+     through the tree route (``ops.echo_aggregate_tree``) on the
+     full-width CNN's 8 leaves at [100, 27 370]: one launch a call, equal
+     bits twice, bit-equal to the flat wrapper on the raveled stacks,
+     within 1e-5 of the route's plain version and within 1e-4 of FedAWE's
+     per-leaf plain tree update.  Then K4
      (ptxas's registers, spills and remarks per instantiation printed,
      and the bf16 kernel's dynamic
      shared memory) against its plain version in float32 and bfloat16:
@@ -178,6 +183,23 @@ printed as JSON lines:
         [4, 32, 27 370]), every loss finite; each seed through the
         executor bit-equal to its single-seed cohort run (n_active,
         n_deferred, τ, key, carry), globals within 1e-4.
+     i. The tree-state round, the JAX package's default substrate:
+        ``train.run`` with the FL flags without ``--flat-state``, with the
+        kernel: K1 64 times in 64 rounds, each on [100, 27 370] (the CNN's
+        8 leaves raveled), against phase a's flat run n_active,
+        mean_echo, τ and key bit-equal, the raveled global within 1e-4;
+        the same under ``--midround-drop 0.3 --sanitize`` against the flat
+        run of those flags, K2 64 times.  The ten strategies on tree state
+        for one 16-round chunk each: K1 only for fedawe and fedawe_m,
+        every loss finite, every strategy a client tree, a memory
+        strategy's memory a tree; one FedAWE tree chunk under
+        ``set_sync_debug_mode("error")``.  ``--seeds 4`` on tree state: K1
+        once a round for all seeds on [4, 100, 27 370], each seed's
+        n_active, τ and key bit-equal to its single-seed tree run.  The
+        paper harness's linear model (benchmarks/common.py, N = 650) at m
+        = 32 built from the engine, with both TF32 flags set first: the
+        engine-built CUDA state turns both off; K1 once a round on
+        [32, 650], held against the run without the kernel.
   4. numbers  — K1-K3: the Triton yardstick's global loads by width in
      its SASS at rows 8 bytes off 16 and at aligned rows; the CUDA kernel
      and the Triton yardstick in turns (K2's yardstick with its own weight
@@ -203,7 +225,10 @@ printed as JSON lines:
      (one setup, one chunk a turn, in turns), seed-rounds per second,
      peak memory and a profiler breakdown of a 4-round 4-seed chunk; the
      batched K1 at [4, 100, 27 370] against four single launches and its
-     HBM bound.  K4 at gemma2-2b's two shapes: kernel, plain
+     HBM bound.  K1 and K2 through the tree route against the flat
+     wrapper in turns, its plain version and the bound; ms per round of
+     the tree and flat rounds with K1 (one chunk a turn, six turns) and a
+     profiler breakdown of one tree chunk.  K4 at gemma2-2b's two shapes: kernel, plain
      version, the compiled flex_attention yardstick and SDPA (no soft-cap
      or window) in CUDA events, the bound in tensor-core flops, the
      share of the bound, the kernel's time over the library's and the
@@ -2859,15 +2884,14 @@ def cohort_store(torch, federated):
     i owning rows [8 i, 8 i + 8) (``contiguous_client_index``; the image
     preset's Dirichlet split cannot give 10^5 clients a sample each)."""
     from repro_torch.data import make_image_classification
-    from repro_torch.device import resolve_device
 
     task = make_image_classification(seed=0, n=COHORT_M * COHORT_N_PER,
                                      shape=(8, 8, 1))
-    # the entry points' device policy, TF32 off included: this path is
-    # built from the engine, not through a launcher
+    # TF32 stays off: the engine applies the float32 policy where it
+    # builds this path's state and round
     return federated.device_store(
         dict(images=task.images, labels=task.labels), None,
-        resolve_device("cuda"),
+        torch.device("cuda"),
         padded=federated.contiguous_client_index(COHORT_M, COHORT_N_PER))
 
 
@@ -3190,6 +3214,460 @@ def cohort_seeds_path(torch, train, engine, experiments, federated, prng,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 3i: the tree-state round, K1 and K2 through their tree route
+# ---------------------------------------------------------------------------
+
+#: the main path's flags on tree state, the JAX package's default
+#: substrate: MAIN_FLAGS without --flat-state
+TREE_FLAGS = [f for f in MAIN_FLAGS if f != "--flat-state"]
+#: the tree round's fault path: mid-round dropout with sanitization (K2)
+TREE_FAULT = ["--midround-drop", "0.3", "--sanitize"]
+TREE_ROUNDS, TREE_STRAT_ROUNDS = 64, 16
+#: the paper harness's "linear" model (benchmarks/common.py:31-56, run_fl
+#: :64-80): Gaussian 8x8 classes at margin 0.3, Dirichlet(0.05) over m =
+#: 32 clients, s = 4, batch 16; N = 650
+LINEAR_M, LINEAR_ROUNDS = 32, 32
+LINEAR_N = 650
+
+
+@contextlib.contextmanager
+def launch_shapes(ops):
+    """The shapes of the stacks K1-K3 are launched on inside the block
+    (``ops._launch`` wrapped; the wrappers count their launches as
+    always)."""
+    shapes = []
+    launch = ops._launch
+
+    def recording(x, *args, **kw):
+        shapes.append(tuple(x.shape))
+        return launch(x, *args, **kw)
+
+    ops._launch = recording
+    try:
+        yield shapes
+    finally:
+        ops._launch = launch
+
+
+def only(**kv):
+    """A launch-count dict with every kernel at 0 but ``kv``."""
+    return dict(dict(K1=0, K2=0, K3=0, K4=0, K5=0), **kv)
+
+
+def tree_leaves_finite(torch, tree):
+    from repro_torch.core.tree_util import tree_leaves
+    return all(bool(torch.isfinite(x).all()) for x in tree_leaves(tree))
+
+
+def tree_route_inputs(torch, spec, seed, upload):
+    """The tree FedAWE update's operands at the main path's shapes: the
+    full-width CNN's 8 leaves stacked over M_MAIN clients (start and
+    post-SGD models, each leaf its own buffer), the global tree, and
+    ``make_inputs``' mask and echo, and for K2 a 0/1 upload mask (the
+    tree round delivers or drops; the plain tree update weighs the echo
+    term by its mask too, so it equals the kernel only on 0/1 weights);
+    also the raveled stacks they came from."""
+    from repro_torch.core.tree_util import tree_map
+
+    a = make_inputs(torch, M_MAIN, N_MAIN, torch.float32, seed,
+                    upload=upload)
+    if upload:
+        a["upload"] = (a["upload"] > 0.6).float()
+
+    def own(t):
+        return tree_map(lambda v: v.contiguous(), t)
+
+    return dict(a, spec=spec, xt=own(spec.unflatten_stacked(a["x"])),
+                yt=own(spec.unflatten_stacked(a["y"])),
+                gt=own(spec.unflatten(a["g"])))
+
+
+def call_tree(ops, a):
+    return ops.echo_aggregate_tree(a["xt"], a["yt"], a["mask"], a["echo"],
+                                   ETA_G, a["gt"], upload=a["upload"])
+
+
+def call_tree_plain(ref, a):
+    """The tree route's plain version: the same raveling around the plain
+    fused update (what ``echo_aggregate_tree`` computes on the CPU)."""
+    spec = a["spec"]
+    return spec.unflatten(ref.echo_aggregate_fused_ref(
+        spec.flatten_stacked(a["xt"]), spec.flatten_stacked(a["yt"]),
+        spec.flatten(a["gt"]), a["mask"], a["echo"], ETA_G,
+        upload=a["upload"]))
+
+
+def cnn_spec(cnn, prng, FlatSpec):
+    return FlatSpec.from_tree(cnn.init_cnn(prng.PRNGKey(0, "cuda"),
+                                           in_shape=(8, 8, 1)))
+
+
+def check_tree_route(torch, ops, ref, strategies, cnn, prng, FlatSpec):
+    """K1 and K2 through ``ops.echo_aggregate_tree`` on the CNN's 8 leaves
+    at [100, 27 370]: two calls, one launch each and equal bits; bit-equal
+    to ``echo_aggregate_flat`` on the raveled stacks (the same launch);
+    within 1e-5 of the plain version (the raveling around the plain fused
+    update, as K1's bound) and within 1e-4 of FedAWE's per-leaf plain tree
+    update (``aggregate`` with ``use_kernel=False``: the reference's
+    plain branch, its sums taken in another order, given the delivered
+    weights ``mask * upload`` as the round gives them).  Returns the max
+    abs error against the plain version per variant."""
+    from repro_torch.core.tree_util import tree_sub
+
+    spec = cnn_spec(cnn, prng, FlatSpec)
+    require(spec.size == N_MAIN and spec.n_leaves == 8,
+            f"CNN spec {spec.size}, {spec.n_leaves} leaves")
+    errs = {}
+    for i, variant in enumerate(("K1", "K2")):
+        a = tree_route_inputs(torch, spec, 300 + i, variant == "K2")
+        before = launch_count(ops, variant)
+        outs = [spec.flatten(call_tree(ops, a)) for _ in range(2)]
+        flat = call_kernel(ops, variant, a)
+        torch.cuda.synchronize()
+        launched = launch_count(ops, variant) - before
+        plain = spec.flatten(call_tree_plain(ref, a))
+        t = torch.full((), 12, dtype=torch.int32, device="cuda")
+        per_leaf = strategies.get_strategy("fedawe").aggregate(
+            global_tr=a["gt"], clients_tr=a["xt"],
+            G=tree_sub(a["xt"], a["yt"]), mask=a["mask"], t=t,
+            tau=(t - a["echo"]).to(torch.int32), probs=None, extra=(),
+            eta_g=ETA_G, use_kernel=False, x_end=a["yt"],
+            mask_upload=(None if a["upload"] is None
+                         else a["mask"] * a["upload"]))[0]
+        per_leaf = spec.flatten(per_leaf)
+        torch.cuda.synchronize()
+        err = (outs[0] - plain).abs().max().item()
+        leaf_err = (outs[0] - per_leaf).abs().max().item()
+        ok = (launched == 3 and torch.equal(outs[0], outs[1])
+              and torch.equal(outs[0], flat)
+              and torch.allclose(outs[0], plain, rtol=1e-5, atol=1e-5)
+              and torch.allclose(outs[0], per_leaf, rtol=1e-4, atol=1e-4))
+        emit(dict(phase="kernel_check", kernel=variant, route="tree",
+                  m=M_MAIN, n=N_MAIN, leaves=spec.n_leaves, launches=launched,
+                  two_launches_bit_equal=torch.equal(outs[0], outs[1]),
+                  flat_wrapper_bit_equal=torch.equal(outs[0], flat),
+                  max_abs_err=err, tol=1e-5, per_leaf_plain_err=leaf_err,
+                  per_leaf_tol=1e-4, ok=ok))
+        require(ok, f"{variant} tree route disagrees: {err}, {leaf_err}")
+        errs[variant] = err
+        del a, outs, flat, plain, per_leaf
+    torch.cuda.empty_cache()
+    return errs
+
+
+def tree_main_path(torch, train, ops, counts, flat_run, smi):
+    """``train.run`` with TREE_FLAGS and ``--use-kernel``, every count at 0
+    just before: K1 TREE_ROUNDS times on [100, 27 370] and nothing else,
+    every loss finite, the state a tree of the CNN's 8 leaves; against
+    ``flat_run`` (phase 3a's flat run of the same flags): the n_active
+    and mean_echo histories, τ, t and the key bit-equal, the raveled
+    global within 1e-4.  Then both under TREE_FAULT: K2 TREE_ROUNDS times,
+    n_dropped and n_rejected bit-equal too.  Returns the launches."""
+    from repro_torch.core import FlatSpec
+
+    parser = train.build_parser()
+    out = {}
+    for name, extra, variant in (("sync", [], "K1"),
+                                 ("faults", TREE_FAULT, "K2")):
+        counts.reset()
+        t0 = time.perf_counter()
+        with launch_shapes(ops) as shapes:
+            st, hist, final = train.run(parser.parse_args(
+                TREE_FLAGS + extra + ["--use-kernel"]))
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counts.read()
+        require(launches == only(**{variant: TREE_ROUNDS}),
+                f"tree {name} launches {launches}")
+        require(set(shapes) == {(M_MAIN, N_MAIN)},
+                f"tree {name} launched on {set(shapes)}")
+        spec = FlatSpec.from_tree(st.global_tr)
+        require(st.spec is None and spec.n_leaves == 8
+                and spec.size == N_MAIN
+                and tree_leaves_finite(torch, st.global_tr),
+                f"tree {name}: not a finite tree of the CNN's leaves")
+        require(len(hist) == TREE_ROUNDS
+                and all(math.isfinite(h["loss"]) for h in hist),
+                f"tree {name}: losses")
+        if name == "sync":
+            fst, fhist = flat_run
+        else:
+            fst, fhist, _ = train.run(parser.parse_args(
+                MAIN_FLAGS + extra + ["--use-kernel"]))
+        keys = [k for k in ("n_active", "mean_echo", "n_dropped",
+                            "n_rejected") if k in hist[0]]
+        for k in keys:
+            require([h[k] for h in hist] == [h[k] for h in fhist],
+                    f"tree {name}: {k} differs from the flat run")
+        for k in ("tau", "t", "rng"):
+            require(torch.equal(getattr(st, k), getattr(fst, k)),
+                    f"tree {name}: {k} differs from the flat run")
+        diff = (spec.flatten(st.global_tr) - fst.global_tr).abs().max() \
+            .item()
+        require(diff <= 1e-4, f"tree {name}: globals differ by {diff}")
+        sums = {f"sum_{k}": sum(h[k] for h in hist) for k in keys
+                if k != "mean_echo"}
+        require(0 < sums["sum_n_active"] < TREE_ROUNDS * M_MAIN,
+                f"tree {name}: n_active {sums}")
+        if name == "faults":
+            require(sums["sum_n_dropped"] > 0, "tree faults: none dropped")
+        emit(dict(phase="tree_main_path", card=smi, path=name,
+                  rounds=TREE_ROUNDS, m=M_MAIN, n=N_MAIN,
+                  leaves=spec.n_leaves, launches=launches, wall_s=wall,
+                  last_loss=hist[-1]["loss"], final_eval_acc=final,
+                  tree_vs_flat_global=diff, **sums))
+        out[variant] = launches[variant]
+        del st, fst
+    return out
+
+
+def tree_strategies_path(torch, train, engine, federated, strategies, counts,
+                         smi):
+    """Each of the ten strategies on tree state for one chunk
+    (TREE_STRAT_ROUNDS rounds) with ``--use-kernel``, every count at 0 just
+    before each: K1 once a round for FedAWE and FedAWE-M only, every loss
+    and the global finite, every strategy with a client tree, a memory
+    strategy's memory a finite tree of [100, ...] leaves; then one FedAWE
+    tree chunk under ``set_sync_debug_mode("error")``."""
+    from repro_torch.core import FlatSpec
+
+    parser = train.build_parser()
+    n_active = None
+    for name in STRATEGIES:
+        counts.reset()
+        st, hist, _ = train.run(parser.parse_args(with_flags(
+            TREE_FLAGS, strategy=name, rounds=TREE_STRAT_ROUNDS)
+            + ["--use-kernel"]))
+        torch.cuda.synchronize()
+        launched = counts.read()
+        strat = strategies.get_strategy(name)
+        k1 = TREE_STRAT_ROUNDS if strat.stateful_clients else 0
+        require(launched == only(K1=k1), f"tree {name} launches {launched}")
+        require(len(hist) == TREE_STRAT_ROUNDS
+                and all(math.isfinite(h["loss"]) for h in hist)
+                and tree_leaves_finite(torch, st.global_tr)
+                and st.clients_tr is not None and st.spec is None,
+                f"tree {name}: losses, global or client tree")
+        series = [h["n_active"] for h in hist]
+        n_active = n_active or series
+        require(series == n_active, f"tree {name}: n_active differs")
+        # a memory strategy's [m, ...] tree (FedAWE-M's velocity is one
+        # model's tree)
+        memory = [v for v in (st.extra.values()
+                              if isinstance(st.extra, dict) else ())
+                  if isinstance(v, dict)
+                  and FlatSpec.from_tree(v).size == M_MAIN * N_MAIN]
+        require(len(memory) == int(strat.memory_aided) and all(
+            tree_leaves_finite(torch, v) for v in memory),
+            f"tree {name}: memory")
+        emit(dict(phase="tree_strategy", card=smi, strategy=name,
+                  rounds=TREE_STRAT_ROUNDS, launches=launched,
+                  last_loss=hist[-1]["loss"], memory_tree=bool(memory)))
+        del st
+    r = chunk_setup(torch, train, engine, federated,
+                    TREE_FLAGS + ["--use-kernel"])
+    torch.cuda.set_sync_debug_mode("error")
+    r["state"], r["ss"], _ = r["chunk"](r["state"], r["ss"], r["store"],
+                                        r["key"])
+    torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    emit(dict(phase="tree_sync_free", card=smi, strategy="fedawe",
+              rounds=r["args"].chunk_rounds))
+
+
+def tree_seeds_path(torch, train, engine, federated, prng, ops, counts, smi):
+    """``train --seeds N_SEEDS`` on tree state with the kernel for
+    SEED_ROUNDS rounds, every count at 0 just before: K1 once a round for
+    all seeds, on [4, 100, 27 370], no ``torch.func.vmap`` slow-path
+    warning; each seed's n_active history, τ, t and key bit-equal to its
+    single-seed tree run driven by fold_in(rng, j) / fold_in(data_key,
+    j), its global within 1e-4."""
+    from repro_torch.core import FlatSpec
+
+    parser = train.build_parser()
+    flags = with_flags(TREE_FLAGS, rounds=SEED_ROUNDS) + ["--use-kernel"]
+    counts.reset()
+    with launch_shapes(ops) as shapes, warnings.catch_warnings():
+        warnings.filterwarnings("error", message=".*performance drop")
+        states, hists, final = train.run(parser.parse_args(
+            flags + ["--seeds", str(N_SEEDS)]))
+        torch.cuda.synchronize()
+    launches = counts.read()
+    require(launches == only(K1=SEED_ROUNDS), f"tree seeds {launches}")
+    require(set(shapes) == {(N_SEEDS, M_MAIN, N_MAIN)},
+            f"tree seeds launched on {set(shapes)}")
+    args = parser.parse_args(flags)
+    dev = torch.device("cuda")
+    parts = train.setup(args, dev)
+    store = parts["ds"].device_store(dev)
+    init, sample = federated.make_device_sampler(
+        args.m, args.s, args.batch,
+        min_count=min(len(ix) for ix in parts["ds"].client_indices))
+    diffs = []
+    for j in range(N_SEEDS):
+        dkj = prng.fold_in(parts["data_key"], j)
+        st, h = engine.run_rounds(
+            engine.init_fl_state(prng.fold_in(parts["rng"], j), parts["fl"],
+                                 parts["params"]),
+            parts["round_fn"], None, SEED_ROUNDS, chunk_rounds=16,
+            sample_fn=sample, store=store, data_key=dkj,
+            sampler_state=init(store, dkj))
+        sj = engine.index_seed(states, j)
+        require([r["n_active"] for r in h]
+                == [r["n_active"] for r in hists[j]],
+                f"tree seed {j}: n_active differs from its single run")
+        for k in ("tau", "t", "rng"):
+            require(torch.equal(getattr(st, k), getattr(sj, k)),
+                    f"tree seed {j}: {k} differs from its single run")
+        spec = FlatSpec.from_tree(st.global_tr)
+        diffs.append((spec.flatten(st.global_tr)
+                      - spec.flatten(sj.global_tr)).abs().max().item())
+        require(diffs[-1] <= 1e-4, f"tree seed {j}: globals {diffs[-1]}")
+    emit(dict(phase="tree_seeds_path", card=smi, seeds=N_SEEDS,
+              rounds=SEED_ROUNDS, launches=launches,
+              launch_shape=list(shapes[0]), single_seed_global_diff=diffs,
+              sum_n_active=[sum(r["n_active"] for r in h) for h in hists],
+              final_eval_acc=final["eval_acc"]))
+
+
+def tree_linear_path(torch, engine, cnn, prng, availability, ops, counts,
+                     smi):
+    """The paper harness's "linear" model on tree state at m = LINEAR_M
+    (its task, split and base probabilities as benchmarks/common.py
+    builds them, its host loop over ``round_batches``), FedAWE with K1
+    and without, LINEAR_ROUNDS rounds each, built from the engine: with
+    both TF32 flags set first, the engine-built CUDA state leaves both
+    off; K1 once a round on [32, 650]; n_active and τ equal to the plain
+    run's, the global within 1e-4."""
+    import numpy as np
+
+    from repro_torch.core import FlatSpec
+    from repro_torch.data import (FederatedDataset, dirichlet_partition,
+                                  make_image_classification)
+
+    dev = torch.device("cuda")
+    task = make_image_classification(seed=0, n=12000, shape=(8, 8, 1),
+                                     margin=0.3, noise=1.0)
+    idx, nu = dirichlet_partition(np.random.default_rng(0), task.labels,
+                                  LINEAR_M, alpha=0.05, min_per_client=32)
+    gen = np.random.default_rng(2)
+    phi = np.concatenate([gen.uniform(0.3, 1.0, 5),
+                          gen.uniform(0.02, 0.12, 5)])
+    base_p = torch.from_numpy(np.clip(nu @ phi, 0.02, 1.0)
+                              .astype(np.float32)).to(dev)
+    params = cnn.init_mlp(prng.PRNGKey(0, dev), d_in=64, n_classes=10,
+                          hidden=())
+    loss_fn = cnn.make_image_loss_fn(cnn.mlp_apply)
+    flags = (torch.backends.cuda.matmul, torch.backends.cudnn)
+    runs = {}
+    for use_kernel in (True, False):
+        for f in flags:
+            f.allow_tf32 = True
+        fl = engine.FLConfig(m=LINEAR_M, s=4, strategy="fedawe",
+                             use_kernel=use_kernel)
+        state = engine.init_fl_state(prng.PRNGKey(0, dev), fl, params)
+        tf32 = [f.allow_tf32 for f in flags]
+        require(tf32 == [False, False],
+                f"engine-built CUDA state left TF32 at {tf32}")
+        rf = engine.make_round_fn(
+            fl, loss_fn, {}, availability.AvailabilityCfg(kind="sine"),
+            base_p)
+        ds = FederatedDataset(dict(images=task.images, labels=task.labels),
+                              idx, seed=0)
+
+        def batch_fn(t):
+            return {k: torch.from_numpy(v).to(dev)
+                    for k, v in ds.round_batches(t, 4, 16).items()}
+
+        counts.reset()
+        with launch_shapes(ops) as shapes:
+            state, hist = engine.run_rounds(state, rf, batch_fn,
+                                            LINEAR_ROUNDS)
+            torch.cuda.synchronize()
+        runs[use_kernel] = (state, hist, counts.read(), shapes)
+    (st, hist, launches, shapes), (pst, phist, plaunches, _) = \
+        runs[True], runs[False]
+    spec = FlatSpec.from_tree(st.global_tr)
+    require(spec.size == LINEAR_N and spec.n_leaves == 2,
+            f"linear model N = {spec.size}")
+    require(launches == only(K1=LINEAR_ROUNDS) and plaunches == only()
+            and set(shapes) == {(LINEAR_M, LINEAR_N)},
+            f"linear launches {launches}, {plaunches} on {set(shapes)}")
+    require([h["n_active"] for h in hist] == [h["n_active"] for h in phist]
+            and torch.equal(st.tau, pst.tau), "linear: kernel vs plain")
+    require(all(math.isfinite(h["loss"]) for h in hist), "linear: losses")
+    diff = (spec.flatten(st.global_tr) - spec.flatten(pst.global_tr)).abs() \
+        .max().item()
+    require(diff <= 1e-4, f"linear kernel vs plain global {diff}")
+    emit(dict(phase="tree_linear_path", card=smi, m=LINEAR_M, n=LINEAR_N,
+              rounds=LINEAR_ROUNDS, launches=launches,
+              launch_shape=[LINEAR_M, LINEAR_N], kernel_vs_plain_global=diff,
+              tf32_after_engine_build=tf32,
+              sum_n_active=sum(h["n_active"] for h in hist),
+              last_loss=hist[-1]["loss"]))
+
+
+def time_tree_route(torch, ops, ref, cnn, prng, FlatSpec, smi):
+    """K1 and K2 through the tree route at [100, 27 370] over 8 rotating
+    operand sets (CUDA graphs, as ``time_kernels``): the route (two
+    concatenations, the launch, the unflatten views) and the flat wrapper
+    on the raveled stacks in turns, the route's plain version, and the
+    kernel's bound.  Returns the times per variant."""
+    spec = cnn_spec(cnn, prng, FlatSpec)
+    out = {}
+    for variant in ("K1", "K2"):
+        sets = [tree_route_inputs(torch, spec, 600 + i, variant == "K2")
+                for i in range(8)]
+        t = {"tree": [], "flat": []}
+        for name in ("tree", "flat", "flat", "tree"):
+            fn = (call_tree if name == "tree" else
+                  (lambda o, a: call_kernel(o, variant, a)))
+            t[name].append(graph_ms(torch, lambda i: fn(ops, sets[i % 8]),
+                                    64))
+        plain_ms = graph_ms(torch, lambda i: call_tree_plain(ref,
+                                                             sets[i % 8]),
+                            64)
+        b_ms, b_by, nbytes = bound(M_MAIN, N_MAIN, 4, True, variant == "K2")
+        ms = (t["tree"][0] + t["tree"][1]) / 2
+        out[variant] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                            bound_by=b_by)
+        emit(dict(phase="kernel_time", card=smi, kernel=variant,
+                  route="tree", m=M_MAIN, n=N_MAIN, leaves=spec.n_leaves,
+                  ms=ms, turns_ms=t["tree"], flat_wrapper_turns_ms=t["flat"],
+                  flat_wrapper_ms=(t["flat"][0] + t["flat"][1]) / 2,
+                  plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                  bytes=nbytes, share=b_ms / ms))
+        del sets
+        torch.cuda.empty_cache()
+    return out
+
+
+def time_tree_rounds(torch, train, engine, federated, smi):
+    """ms per round of the chunked tree and flat rounds with K1 (TREE_FLAGS
+    and MAIN_FLAGS), one chunk a turn between CUDA events, in turns
+    (tree, flat, flat, tree, tree, flat; each one's median compared), and
+    a profiler breakdown of one tree chunk (phase 4's ``profile`` line is
+    the flat chunk's)."""
+    runs = {"tree": chunk_setup(torch, train, engine, federated,
+                                TREE_FLAGS + ["--use-kernel"]),
+            "flat": chunk_setup(torch, train, engine, federated,
+                                MAIN_FLAGS + ["--use-kernel"])}
+    turns = {name: [] for name in runs}
+    for name in ("tree", "flat", "flat", "tree", "tree", "flat"):
+        turns[name].append(chunks_ms(torch, runs[name], 1))
+    median = {name: statistics.median(t) for name, t in turns.items()}
+    emit(dict(phase="tree_round_time", card=smi, use_kernel=True,
+              tree_ms_turns=turns["tree"], flat_ms_turns=turns["flat"],
+              tree_ms=median["tree"], flat_ms=median["flat"],
+              tree_over_flat=median["tree"] / median["flat"]))
+    emit(dict(phase="profile", card=smi, path="tree_round", use_kernel=True,
+              **profile_chunk(torch, runs["tree"], median["tree"])))
+    del runs
+    torch.cuda.empty_cache()
+    return median
+
+
 class Counts:
     """Every kernel wrapper's launch count, set to 0 and read together."""
 
@@ -3228,8 +3706,8 @@ def main():
         return 1
     sys.path.insert(0, os.path.join(REPO, "src"))
     from repro_torch.configs import get_config
-    from repro_torch.core import (availability, engine, faults, prng,
-                                  staleness, strategies)
+    from repro_torch.core import (FlatSpec, availability, engine, faults,
+                                  prng, staleness, strategies)
     from repro_torch.data import federated
     from repro_torch.device import resolve_device
     from repro_torch.kernels.echo_aggregate import kernel, ops, ref
@@ -3268,6 +3746,8 @@ def main():
     t0 = time.perf_counter()
     errs = check_kernels(torch, ops, ref)
     check_seed_axis(torch, ops, ref)
+    tree_errs = check_tree_route(torch, ops, ref, strategies, cnn, prng,
+                                 FlatSpec)
     t1 = time.perf_counter()
     for name, build in builds.items():
         lib = build.result()
@@ -3394,6 +3874,20 @@ def main():
                       counts, smi)
     emit(dict(phase="cohort_paths_done", seconds=time.perf_counter() - t0))
 
+    # phase 3i: the tree-state round (the JAX package's default substrate),
+    # every count at 0 just before each path: K1 and K2 through the tree
+    # route against the flat runs, the ten strategies, 4 seeds, the paper
+    # harness's linear model built from the engine
+    t0 = time.perf_counter()
+    tree_launches = tree_main_path(torch, train, ops, counts,
+                                   (state_k, hist_k), smi)
+    tree_strategies_path(torch, train, engine, federated, strategies,
+                         counts, smi)
+    tree_seeds_path(torch, train, engine, federated, prng, ops, counts, smi)
+    tree_linear_path(torch, engine, cnn, prng, availability, ops, counts,
+                     smi)
+    emit(dict(phase="tree_paths_done", seconds=time.perf_counter() - t0))
+
     # phase 4: numbers
     triton_load_widths(torch, ops, smi)
     times = time_kernels(torch, ops, ref, strategies, smi)
@@ -3413,6 +3907,8 @@ def main():
     time_fault_path(torch, train, engine, federated, prng, staleness, smi)
     time_strategies(torch, train, engine, federated, smi)
     time_seeds(torch, train, engine, experiments, federated, ops, smi)
+    tree_times = time_tree_route(torch, ops, ref, cnn, prng, FlatSpec, smi)
+    time_tree_rounds(torch, train, engine, federated, smi)
     for arch in ("zamba2-7b", "mamba2-130m"):
         emit(dict(phase="bound", **ssd_chunk_bound(get_config(arch), LM_B,
                                                    LM_L, 2)))
@@ -3449,6 +3945,19 @@ def main():
                    "echo_aggregate.cu",
             replaces=replaces[v], launches=path_launches[v],
             max_abs_err=errs[v], ms=t["ms"], plain_ms=t["plain_ms"],
+            bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+            library_ms=None))
+    # K1 and K2 through the tree route (``ops.echo_aggregate_tree``): the
+    # same kernel, one launch a round over the raveled leaves; its time is
+    # the route's (concatenations and launch), its launches the tree paths'
+    for v in ("K1", "K2"):
+        t = tree_times[v]
+        kernels.append(dict(
+            name=names[v] + ", tree route", route="cuda",
+            source="src/repro_torch/kernels/echo_aggregate/csrc/"
+                   "echo_aggregate.cu",
+            replaces=replaces[v], launches=tree_launches[v],
+            max_abs_err=tree_errs[v], ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=None))
     # K4: per launch, the mean of the prefill's two shapes (13 windowed and

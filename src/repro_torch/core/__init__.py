@@ -1,7 +1,10 @@
 """FedAWE's federated-round system in torch: PRNG, flat substrate,
 availability processes, fault injection, semi-async rounds, the sparse
 cohort, the FedAWE strategies and the round engine."""
-from repro_torch.core.availability import AvailabilityCfg  # noqa: F401
+from repro_torch.core.availability import (  # noqa: F401
+    AvailabilityCfg,
+    base_probs,
+)
 from repro_torch.core.cohort import (  # noqa: F401
     cohort_gather,
     cohort_scatter,

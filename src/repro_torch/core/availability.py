@@ -58,6 +58,18 @@ def base_probs_from_data(rng, nu):
     return torch.clamp(p, 1e-3, 1.0)
 
 
+def base_probs(rng, m, alpha=0.1, n_classes=10):
+    """The paper's construction from scratch: ν_i ~ Dirichlet(alpha) per
+    client (``prng.dirichlet``, under the first half of ``split(rng)``),
+    then ``base_probs_from_data`` under the second.  Returns ``(p [m],
+    nu [m, n_classes])`` on the device of ``rng``."""
+    k1, k2 = prng.split(rng)
+    nu = prng.dirichlet(k1, torch.full((n_classes,), alpha,
+                                       dtype=torch.float32,
+                                       device=rng.device), (m,))
+    return base_probs_from_data(k2, nu), nu
+
+
 def _f32(x: float) -> float:
     """Round a Python float to the nearest float32 value (a product of
     two float32 values is exact in double, so this is a float32 multiply

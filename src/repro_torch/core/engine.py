@@ -1,4 +1,4 @@
-"""Federated round engine, flat substrate.
+"""Federated round engine, on tree state or the flat substrate.
 
 One ``round_fn`` executes a full FL round for every client in lockstep:
 
@@ -10,9 +10,14 @@ One ``round_fn`` executes a full FL round for every client in lockstep:
 
 The engine is model-agnostic: it sees only a trainable tree and a loss
 function ``loss_fn(trainable, frozen, batch, rng) -> scalar``.  The
-persistent state lives on the flat substrate (core/flatten.py): the global
-is one [N] float32 vector and the client stack one [m, N] buffer; trees
-appear only at the local-SGD entry (as views) and at eval.
+persistent state is a tree by default, as in the reference: the global
+is the trainable tree, the client stack the same tree with ``[m, ...]``
+leaves for every strategy (a stateless one's mirrors the global as a
+broadcast view), and strategies aggregate leaf by leaf (``aggregate``;
+FedAWE's kernel route ravels the leaves into one launch).  With
+``FLConfig.flat_state`` it lives on the flat substrate (core/flatten.py):
+the global is one [N] float32 vector and the client stack one [m, N]
+buffer; trees appear only at the local-SGD entry (as views) and at eval.
 
 Four executors drive the round function, as in the reference:
 
@@ -33,17 +38,19 @@ Four executors drive the round function, as in the reference:
   * packed grid (``make_grid_chunk_fn``): several cells' seed chunks, one
     after another, in one call.
 
-Ported so far: the dense flat round of all ten strategies, with fault
-injection (``fault_cfg``, core/faults.py) and semi-async rounds
-(``staleness_cfg``, core/staleness.py) alone or composed, and the sparse
-cohort round (``FLConfig.sparse_cohort``, core/cohort.py) with all of
-them.  A stateful strategy (FedAWE, FedAWE-M) starts local SGD from its
-[m, N] client stack; a stateless one keeps no stack (``FLState.clients_tr
-is None``) and starts from a broadcast view of the flat global.  The
-host-loop and chunked executors take a checkpoint hook (``ckpt_fn`` /
-``ckpt_every``), the seed-batched one through
-``launch/experiments.run_seed_rounds``.  The tree path belongs to a later
-slice of the port.
+The round of all ten strategies on tree state, with fault injection
+(``fault_cfg``, core/faults.py); on the flat substrate also semi-async
+rounds (``staleness_cfg``, core/staleness.py) alone or composed with
+faults, and the sparse cohort round (``FLConfig.sparse_cohort``,
+core/cohort.py) with all of them — both need the flat substrate, as in
+the reference.  A stateful strategy (FedAWE, FedAWE-M) starts local SGD
+from its client stack; a stateless one starts from a broadcast view of
+the global (on the flat substrate it keeps no stack at all,
+``FLState.clients_tr is None``).  The host-loop and chunked executors
+take a checkpoint hook (``ckpt_fn`` / ``ckpt_every``), the seed-batched
+one through ``launch/experiments.run_seed_rounds``.  Building a state or
+a round applies the port's float32 policy (``device.float32_policy``:
+TF32 off), as the entry points do.
 
 A cohort round gathers the round's active clients, at most ``c_max``,
 into a float32 ``[c, N]`` working set, runs local SGD and aggregation
@@ -69,13 +76,12 @@ from repro_torch.core.availability import (AvailabilityCfg, probs_at,
                                            sample_active)
 from repro_torch.core.flatten import FlatSpec, resident_dtype
 from repro_torch.core.strategies import get_strategy
-from repro_torch.core.tree_util import (tree_client_norm, tree_client_scale,
+from repro_torch.core.tree_util import (_bshape, tree_broadcast,
+                                        tree_client_norm, tree_client_scale,
                                         tree_from_paths, tree_leaves,
                                         tree_map, tree_paths)
 from repro_torch.data.federated import gather_batches_at
-
-_TREE_PATH = ("the tree-state path is not ported yet (a later slice of the "
-              "port); use flat_state=True (--flat-state)")
+from repro_torch.device import float32_policy
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,16 +128,18 @@ class FLConfig:
 
 class FLState(NamedTuple):
     """Whole persistent state of a run, on one device."""
-    global_tr: Any              # [N] float32 flat global
-    clients_tr: Any             # [m, N] client stack (float32, or the
-                                # resident dtype), or None (stateless
+    global_tr: Any              # global trainable tree ([N] float32 when
+                                # flat_state)
+    clients_tr: Any             # [m, ...] client-stacked tree; when
+                                # flat_state the [m, N] stack (float32, or
+                                # the resident dtype), or None (stateless
                                 # strategies keep none)
     tau: torch.Tensor           # [m] int32, init -1
     t: torch.Tensor             # scalar int32 round counter
     extra: Any                  # strategy state
     markov: torch.Tensor        # availability markov state [m]
     rng: torch.Tensor           # PRNG key [2] (core/prng.py)
-    spec: Any = None            # FlatSpec
+    spec: Any = None            # FlatSpec (flat_state), or None
     fault: Any = None           # fault-injection carry (core/faults.py):
                                 # [T, m] trace / [m] cluster labels, or None
     stale: Any = None           # semi-async carry (core/staleness.py):
@@ -146,14 +154,28 @@ def init_fl_state(rng, cfg: FLConfig, trainable_template, *, fault=None,
     carry from ``faults.init_fault_state``, ``stale`` the ring the round
     advances, from ``staleness.init_staleness_state`` (or None).
 
+    On tree state (``cfg.flat_state`` False, the reference's default) the
+    global is a copy of the template on that device and the client stack
+    its ``[m, ...]`` copies, for every strategy; ``spec`` is None.
+
     Under the cohort the client stack is born in the resident dtype, and
     so is a memory strategy's memory (``init_extra_cohort``, with its
     float32 column sum) unless ``stale`` is given: with a ring the round
     runs in dense lanes, and the memory keeps its dense float32 form."""
-    if not cfg.flat_state:
-        raise NotImplementedError(_TREE_PATH)
+    float32_policy()
     strat = get_strategy(cfg.strategy)
     dev = rng.device
+    tau = torch.full((cfg.m,), -1, dtype=torch.int32, device=dev)
+    t = torch.zeros((), dtype=torch.int32, device=dev)
+    markov = torch.ones((cfg.m,), dtype=torch.float32, device=dev)
+    if not cfg.flat_state:
+        g = tree_map(lambda x: x.to(dev).clone(), trainable_template)
+        return FLState(
+            global_tr=g,
+            clients_tr=tree_map(lambda x: x.contiguous(),
+                                tree_broadcast(g, cfg.m)),
+            tau=tau, t=t, extra=strat.init_extra(g, cfg.m), markov=markov,
+            rng=rng.clone(), fault=fault, stale=stale)
     spec = FlatSpec.from_tree(trainable_template)
     g = spec.flatten(trainable_template).to(dev).clone()
     rdt = resident_dtype(cfg.resident_dtype)
@@ -165,29 +187,25 @@ def init_fl_state(rng, cfg: FLConfig, trainable_template, *, fault=None,
         extra = strat.init_extra_cohort(g, cfg.m, rdt)
     else:
         extra = strat.init_extra(g, cfg.m)
-    return FLState(
-        global_tr=g,
-        clients_tr=clients,
-        tau=torch.full((cfg.m,), -1, dtype=torch.int32, device=dev),
-        t=torch.zeros((), dtype=torch.int32, device=dev),
-        extra=extra,
-        markov=torch.ones((cfg.m,), dtype=torch.float32, device=dev),
-        rng=rng.clone(),
-        spec=spec,
-        fault=fault,
-        stale=stale)
+    return FLState(global_tr=g, clients_tr=clients, tau=tau, t=t,
+                   extra=extra, markov=markov, rng=rng.clone(), spec=spec,
+                   fault=fault, stale=stale)
 
 
 def global_trainables(state: FLState):
-    """Trainable tree of the global model (views of the flat global)."""
+    """Trainable tree of the global model (on the flat substrate, views of
+    the flat global)."""
+    if state.spec is None:
+        return state.global_tr
     return state.spec.unflatten(state.global_tr)
 
 
 def client_trainables(state: FLState):
-    """Client-stacked trainable tree (views, leaves ``[m, ...]``), or None
-    when the strategy keeps no per-client state."""
-    if state.clients_tr is None:
-        return None
+    """Client-stacked trainable tree (leaves ``[m, ...]``; views on the
+    flat substrate), or None when the strategy keeps no per-client
+    state."""
+    if state.spec is None or state.clients_tr is None:
+        return state.clients_tr
     return state.spec.unflatten_stacked(state.clients_tr)
 
 
@@ -275,13 +293,20 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, frozen: Any,
     the metrics grow ``n_deferred``.  Without a ring the round runs at
     O(c·N) and writes the resident stacks in place (it consumes its
     state); with one, the cohort's results fill dense lanes of the
-    synchronous path, whose ring is O(m·N) anyway."""
-    if not cfg.flat_state:
-        raise NotImplementedError(_TREE_PATH)
+    synchronous path, whose ring is O(m·N) anyway.
+
+    On tree state (``cfg.flat_state`` False) the round runs local SGD on
+    the client-stacked tree, forms ``G = start − x_end`` and sanitizes
+    per leaf, and aggregates through the strategy's ``aggregate``;
+    staleness needs the flat substrate, as in the reference."""
+    float32_policy()
     strat = get_strategy(cfg.strategy)
     if staleness_cfg is not None and staleness_cfg.tau_max == 0:
         # tau_max = 0 IS the synchronous engine
         staleness_cfg = None
+    if staleness_cfg is not None and not cfg.flat_state:
+        raise ValueError("staleness_cfg needs the flat [m, N] substrate "
+                         "(flat_state)")
     c_max = min(cfg.sparse_cohort, cfg.m)
     rdt = resident_dtype(cfg.resident_dtype)
 
@@ -338,19 +363,23 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, frozen: Any,
 
     def start_of(state, n):
         """Local SGD's start: the client stack, or for a stateless
-        strategy a broadcast VIEW of the flat global (``[n, N]``, or
-        ``[S, n, N]`` across seeds), never a copy; nothing writes into
-        it in place."""
+        strategy a broadcast VIEW of the global (leaves ``[n, ...]``, or
+        ``[S, n, ...]`` across seeds: ``[n, N]`` on the flat substrate),
+        never a copy; nothing writes into it in place."""
         if strat.stateful_clients:
             return state.clients_tr
-        g = state.global_tr
-        return g.unsqueeze(-2).expand(g.shape[:-1] + (n, g.shape[-1]))
+        lead = state.t.dim()
+        return tree_map(lambda g: g.unsqueeze(lead).expand(
+            g.shape[:lead] + (n,) + g.shape[lead:]), state.global_tr)
 
     def local_update(state, start, batches, rngs):
         spec = state.spec
-        x_end_tr, losses = local_sgd(
-            spec.unflatten_stacked(start), frozen, batches, rngs, s=cfg.s,
-            eta_l=eta_at(state.t), loss_fn=loss_fn, grad_clip=cfg.grad_clip)
+        kw = dict(s=cfg.s, eta_l=eta_at(state.t), loss_fn=loss_fn,
+                  grad_clip=cfg.grad_clip)
+        if spec is None:
+            return local_sgd(start, frozen, batches, rngs, **kw)
+        x_end_tr, losses = local_sgd(spec.unflatten_stacked(start), frozen,
+                                     batches, rngs, **kw)
         return spec.flatten_stacked(x_end_tr), losses
 
     def sync_metrics(state, mask, mask_upload, losses):
@@ -367,8 +396,11 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, frozen: Any,
                     mean_echo=torch.sum(echo * mu) / denom)
 
     def after(state, pre, start, x_end, losses):
+        """The round after local SGD.  ``start`` and ``x_end`` are
+        [m, N] stacks on the flat substrate, client-stacked trees on tree
+        state (one leaf or many: ``G`` and the scrub go leaf by leaf)."""
         mask = pre["mask"]
-        G = start - x_end
+        G = tree_map(torch.sub, start, x_end)
         if staleness_cfg is not None:
             # delivery candidates: synchronous computes (drawn d = 0) plus
             # ring arrivals — disjoint, since an arriving client was busy
@@ -393,9 +425,12 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, frozen: Any,
                 # scrub demoted rows by selection: the kernel forms w·x†
                 # and 0 * NaN = NaN, so a rejected row must hold finite
                 # values, not just zero weight
-                keep = mask_upload[:, None] > 0
-                x_end_eff = torch.where(keep, x_end_eff, start)
-                G_eff = torch.where(keep, G_eff, 0.0)
+                keep = mask_upload > 0
+                x_end_eff = tree_map(
+                    lambda xe, st: torch.where(_bshape(keep, xe), xe, st),
+                    x_end_eff, start)
+                G_eff = tree_map(
+                    lambda g: torch.where(_bshape(keep, g), g, 0.0), G_eff)
         if staleness_cfg is not None:
             mu0 = deliver if mask_upload is None else mask_upload
             w_disc = mu0 if staleness_cfg.gamma >= 1.0 else mu0 * torch.pow(
@@ -405,11 +440,16 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, frozen: Any,
                                              ages=age_eff)
         else:
             agg_mask, agg_kwargs = mask, dict(mask_upload=mask_upload)
-        new_global, new_clients, new_tau, new_extra = strat.aggregate_flat(
-            global_flat=state.global_tr, clients_flat=start,
-            x_end=x_end_eff, G=G_eff, mask=agg_mask, t=state.t,
-            tau=state.tau, probs=pre["probs"], extra=state.extra,
-            eta_g=cfg.eta_g, use_kernel=cfg.use_kernel, **agg_kwargs)
+        agg = dict(x_end=x_end_eff, G=G_eff, mask=agg_mask, t=state.t,
+                   tau=state.tau, probs=pre["probs"], extra=state.extra,
+                   eta_g=cfg.eta_g, use_kernel=cfg.use_kernel, **agg_kwargs)
+        if cfg.flat_state:
+            new_global, new_clients, new_tau, new_extra = \
+                strat.aggregate_flat(global_flat=state.global_tr,
+                                     clients_flat=start, **agg)
+        else:
+            new_global, new_clients, new_tau, new_extra = strat.aggregate(
+                global_tr=state.global_tr, clients_tr=start, **agg)
 
         if staleness_cfg is not None:
             # loss / n_active describe who COMPUTED this round; the

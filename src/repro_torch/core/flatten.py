@@ -64,6 +64,10 @@ class FlatSpec:
                    tuple(leaf.dtype for _, leaf in pl), tuple(offsets),
                    sizes, off)
 
+    @property
+    def n_leaves(self) -> int:
+        return len(self.sizes)
+
     def _leaves(self, tree):
         pl = tree_paths(tree)
         if tuple(p for p, _ in pl) != self.paths:
@@ -98,3 +102,11 @@ class FlatSpec:
                   for o, s, shp, dt in zip(self.offsets, self.sizes,
                                            self.shapes, self.dtypes)]
         return tree_from_paths(self.paths, leaves)
+
+    def leaf_views(self, flat):
+        """Per-leaf views of an [N] or [m, N] (or [S, m, N]) buffer, in
+        the buffer's dtype (no cast: ``unflatten`` gives the leaf
+        dtypes)."""
+        lead = tuple(flat.shape[:-1])
+        return [flat.narrow(-1, o, s).view(lead + shp)
+                for o, s, shp in zip(self.offsets, self.sizes, self.shapes)]

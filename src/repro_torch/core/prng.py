@@ -23,7 +23,11 @@ counterpart of ``jax.vmap(jax.random.split)``).
 ``split``, ``fold_in``, ``uniform`` and ``randint`` are bit-exact against
 jax 0.9.0.  ``normal`` evaluates the same Giles polynomial as XLA's
 ``erf_inv`` but through torch's ``log1p``/``sqrt``, so it agrees within a
-tolerance, not bitwise.
+tolerance, not bitwise.  ``gamma``, ``loggamma`` and ``dirichlet`` run
+jax's Marsaglia–Tsang rejection sampler with its key splits; they agree
+within a tolerance, and an accept test that an ulp of ``normal`` or
+``log`` tips the other way draws a different value (counted by the
+tests).
 """
 from __future__ import annotations
 
@@ -193,3 +197,90 @@ def normal(key, shape=()):
     see the module docstring)."""
     u = uniform(key, shape, _NORMAL_LO, 1.0)
     return math.sqrt(2) * _erf_inv(u)
+
+
+def _marsaglia_tsang(keys, alpha, log_space):
+    """jax's ``_gamma_one`` (``jax/_src/random.py``) for every element of
+    ``alpha`` at once, element i under ``keys[i]``.  Each rejection loop
+    runs over a mask of the elements still in it, and an element's key
+    splits, normal and uniform draws are those jax makes for it, so
+    every element follows its own sequential loop.  It reads the masks on
+    the host (a setup-time draw, never inside a round)."""
+    f32 = dict(dtype=torch.float32, device=alpha.device)
+    one = torch.ones((), **f32)
+    third = torch.full((), 1.0 / 3.0, **f32)
+    # alpha < 1 is boosted to alpha + 1: Gamma(a) ~ Gamma(a + 1) U^(1/a)
+    boost = alpha >= one
+    a = torch.where(boost, alpha, alpha + one)
+    d = a - third
+    c = third / torch.sqrt(d)
+    ks = split(keys)
+    key, subkey = ks[..., 0, :], ks[..., 1, :]
+
+    def rejecting(X, V, U):
+        return ((U >= one - torch.full((), 0.0331, **f32) * (X * X))
+                & (torch.log(U) >= X * torch.full((), 0.5, **f32)
+                   + d * ((one - V) + torch.log(V))))
+
+    X, V = torch.zeros_like(alpha), torch.ones_like(alpha)
+    U = torch.full_like(alpha, 2.0)
+    todo = rejecting(X, V, U)
+    while bool(todo.any()):
+        k3 = split(key, 3)
+        nkey, xkey, ukey = k3[..., 0, :], k3[..., 1, :], k3[..., 2, :]
+        x, v = torch.zeros_like(alpha), -torch.ones_like(alpha)
+        inner = v <= 0
+        while bool(inner.any()):
+            k2 = split(xkey)
+            xn = normal(k2[..., 1, :], ())
+            vn = one + xn * c
+            xkey = torch.where(inner[..., None], k2[..., 0, :], xkey)
+            x, v = torch.where(inner, xn, x), torch.where(inner, vn, v)
+            inner = inner & (v <= 0)
+        Un = uniform(ukey, ())
+        key = torch.where(todo[..., None], nkey, key)
+        X = torch.where(todo, x * x, X)
+        V = torch.where(todo, v * v * v, V)
+        U = torch.where(todo, Un, U)
+        todo = todo & rejecting(X, V, U)
+    if log_space:
+        # -exponential(subkey) = log1p(-u)
+        log_u = torch.log1p(-uniform(subkey, ()))
+        log_boost = torch.where(boost | (log_u == 0), 0.0,
+                                log_u * (one / alpha))
+        return (torch.log(d) + torch.log(V)) + log_boost
+    u = one - uniform(subkey, ())
+    return d * V * torch.where(boost, one, torch.pow(u, one / alpha))
+
+
+def _gamma_draw(key, a, shape, log_space):
+    """``jax.random.gamma``'s body: ``a`` broadcast to ``shape``, one key
+    of ``split(key, prod(shape))`` per element, row-major."""
+    a = torch.as_tensor(a, dtype=torch.float32, device=key.device)
+    shape = tuple(a.shape) if shape is None else _shape(shape)
+    a = torch.broadcast_to(a, shape)
+    keys = split(key, math.prod(shape)).reshape(shape + (2,))
+    return _marsaglia_tsang(keys, a, log_space)
+
+
+def gamma(key, a, shape=None):
+    """``jax.random.gamma(key, a, shape)`` in float32 (within a tolerance:
+    see the module docstring)."""
+    return _gamma_draw(key, a, shape, log_space=False)
+
+
+def loggamma(key, a, shape=None):
+    """``jax.random.loggamma(key, a, shape)``: the log of a gamma draw,
+    computed in log space (exact for small ``a``)."""
+    return _gamma_draw(key, a, shape, log_space=True)
+
+
+def dirichlet(key, alpha, shape=None):
+    """``jax.random.dirichlet(key, alpha, shape)``: ``shape + alpha.shape
+    [-1:]`` float32 draws (``shape`` defaults to ``alpha.shape[:-1]``),
+    the softmax of log-gamma draws."""
+    alpha = torch.as_tensor(alpha, dtype=torch.float32, device=key.device)
+    shape = tuple(alpha.shape[:-1]) if shape is None else _shape(shape)
+    logs = loggamma(key, alpha, shape + tuple(alpha.shape[-1:]))
+    un = torch.exp(logs - torch.amax(logs, dim=-1, keepdim=True))
+    return un / torch.sum(un, dim=-1, keepdim=True)

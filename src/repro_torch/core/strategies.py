@@ -1,5 +1,5 @@
 """Aggregation strategies: FedAWE (the paper) and the baselines it is
-compared with, on the flat substrate.
+compared with, on tree state, on the flat substrate and on the cohort.
 
 The uniform interface of the reference: a strategy consumes the per-round
 quantities (client-stacked innovations ``G`` = x_start − x_end, the
@@ -11,14 +11,19 @@ own auxiliary state.
   stateless (clients restart from the broadcast global): the baselines
   memory-aided (an [m, N] server memory): MIFA, FedVARP, FedAR
 
-Every strategy of the reference's registry has its ``aggregate_flat``
-here: the global is one [N] float32 vector, every weighted sum and memory
-update is one reduction through ``flat_weighted_sum``, and a stateless
-strategy returns ``None`` clients (the engine starts local SGD from a
-broadcast view of the global, so no [m, N] client copy exists).  FedAWE's
-server update is the fused echo-aggregate kernel under ``use_kernel``;
-the baselines ignore ``use_kernel``, as in the reference.  The tree path
-(``aggregate``) raises for every strategy.
+Every strategy of the reference's registry has its three paths here.
+``aggregate`` is the tree path (leaves keep their shapes, one reduction
+per leaf, float32 arithmetic cast back to the leaf dtype); a stateless
+strategy's client stack mirrors the global as a broadcast view.
+``init_extra`` takes a tree template (a flat vector is a one-leaf tree).
+In ``aggregate_flat`` the global is one [N] float32 vector, every
+weighted sum and memory update is one reduction through
+``flat_weighted_sum``, and a stateless strategy returns ``None`` clients
+(the engine starts local SGD from a broadcast view of the global, so no
+[m, N] client copy exists).  FedAWE's server update is the fused
+echo-aggregate kernel under ``use_kernel`` on both paths (on tree state
+through ``ops.echo_aggregate_tree``: one launch over the raveled
+leaves); the baselines ignore ``use_kernel``, as in the reference.
 
 ``aggregate_cohort`` is the sparse cohort path (core/cohort.py,
 ``FLConfig.sparse_cohort``): the round's math runs on the gathered
@@ -53,6 +58,11 @@ from typing import Any, Callable, Optional
 import torch
 
 from repro_torch.core.cohort import cohort_payload
+from repro_torch.core.tree_util import (_bshape, tree_broadcast,
+                                        tree_leaves, tree_map,
+                                        tree_masked_mean, tree_mean,
+                                        tree_select, tree_select_broadcast,
+                                        tree_sub, tree_zeros_like)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,22 +90,35 @@ def flat_weighted_sum(w, G):
     return w.float() @ G.float()
 
 
-def _scalar(value, like):
-    """A 0-d float32 tensor on ``like``'s device."""
-    return torch.full((), value, dtype=torch.float32, device=like.device)
+def _scalar(value, template):
+    """A 0-d float32 tensor on the device of ``template``'s leaves."""
+    return torch.full((), value, dtype=torch.float32,
+                      device=tree_leaves(template)[0].device)
 
 
 def _stateless_tau(mask, t, tau):
     return torch.where(mask > 0, t, tau)
 
 
-def _tree_path(*, global_tr, clients_tr, G, mask, t, tau, probs, extra,
-               eta_g, use_kernel=False, x_end=None, mask_upload=None,
-               ages=None):
-    """The tree-state path of the reference (leaves keep their shapes)."""
-    raise NotImplementedError(
-        "the tree-state strategy path is not ported yet (a later slice of "
-        "the port); run with FLConfig.flat_state=True")
+def _stateless_wrap(new_global, clients_tr, mask, t, tau):
+    """A stateless strategy's tree clients restart from the global: the
+    client stack mirrors it (a broadcast view)."""
+    new_clients = (tree_broadcast(new_global, tau.shape[0])
+                   if clients_tr is not None else None)
+    return new_clients, _stateless_tau(mask, t, tau)
+
+
+def _tree_step(global_tr, upd, eta_g):
+    """``x − η_g·u`` per leaf in float32, cast back to the leaf dtype."""
+    return tree_map(lambda x, u: (x.float() - eta_g * u.float())
+                    .to(x.dtype), global_tr, upd)
+
+
+def _weighted_sum(w, G):
+    """The tree counterpart of ``flat_weighted_sum``: Σ_i w_i G_i per
+    leaf, in float32."""
+    return tree_map(lambda g: torch.sum(g.float() * _bshape(w, g), dim=0),
+                    G)
 
 
 # ---------------------------------------------------------------------------
@@ -106,19 +129,47 @@ def _no_extra(template, m):
     return ()
 
 
-def _fedawe_aggregate_flat(*, global_flat, clients_flat, x_end, G, mask, t,
-                           tau, probs, extra, eta_g, use_kernel=False,
-                           mask_upload=None, ages=None):
-    """Adaptive innovation echoing + implicit gossiping on the flat stack.
+def _fedawe_aggregate(*, global_tr, clients_tr, G, mask, t, tau, probs,
+                      extra, eta_g, use_kernel=False, x_end=None,
+                      mask_upload=None, ages=None):
+    """Adaptive innovation echoing + implicit gossiping on tree state.
 
     x_i^† = x_i − η_g (t − τ_i) G_i            (echo, active clients)
     x^{t+1} = mean_{i∈A} x_i^†                  (gossip mean)
     x_i^{t+1} = x^{t+1} for i∈A, else x_i^t     (postponed multicast)
     τ_i ← t for i∈A.
-    Empty rounds keep the previous global (W = I).
+    Empty rounds keep the previous global (W = I); under faults only the
+    delivering clients (``mask_upload``) count.
 
     With ``use_kernel`` the server update is one launch of the fused
-    kernel; otherwise two matvecs, with no [m, N] temporary."""
+    kernel over the raveled leaves (``ops.echo_aggregate_tree``), from
+    ``x_end`` (or ``x − G``); otherwise a masked mean per leaf."""
+    mu = mask if mask_upload is None else mask_upload
+    echo = (t - tau).float()
+    if use_kernel:
+        from repro_torch.kernels.echo_aggregate import ops as ea_ops
+        y = x_end if x_end is not None else tree_sub(clients_tr, G)
+        new_global = ea_ops.echo_aggregate_tree(
+            clients_tr, y, mask, echo, eta_g, global_tr, upload=mask_upload)
+    else:
+        x_dagger = tree_map(
+            lambda x, g: (x.float() - eta_g * _bshape(echo * mu, g)
+                          * g.float()).to(x.dtype), clients_tr, G)
+        any_active = torch.sum(mu) > 0
+        new_global = tree_map(
+            lambda n, o: torch.where(any_active, n, o.to(n.dtype)),
+            tree_masked_mean(x_dagger, mu), global_tr)
+    new_clients = tree_select_broadcast(mu, new_global, clients_tr)
+    new_tau = torch.where(mu > 0, t, tau)
+    return new_global, new_clients, new_tau, extra
+
+
+def _fedawe_aggregate_flat(*, global_flat, clients_flat, x_end, G, mask, t,
+                           tau, probs, extra, eta_g, use_kernel=False,
+                           mask_upload=None, ages=None):
+    """FedAWE (``_fedawe_aggregate``) on the flat stack: with
+    ``use_kernel`` one launch of the fused kernel; otherwise two
+    matvecs, with no [m, N] temporary."""
     mu = mask if mask_upload is None else mask_upload
     echo = (t - tau).float()
     if use_kernel:
@@ -161,7 +212,7 @@ def _fedawe_aggregate_cohort(*, global_flat, cohort_flat, x_end, G, mask, t,
     return new_global, rows, mu, extra
 
 
-FEDAWE = Strategy("fedawe", True, _no_extra, _tree_path,
+FEDAWE = Strategy("fedawe", True, _no_extra, _fedawe_aggregate,
                   aggregate_flat=_fedawe_aggregate_flat,
                   aggregate_cohort=_fedawe_aggregate_cohort)
 
@@ -177,6 +228,18 @@ def _mk_weighted_fedavg(weight_fn, name, uses_true_probs=False):
         if name == "fedavg_active":
             return torch.clamp(torch.sum(mu), min=1.0)
         return mu.shape[0]
+
+    def agg(*, global_tr, clients_tr, G, mask, t, tau, probs, extra, eta_g,
+            use_kernel=False, x_end=None, mask_upload=None, ages=None):
+        mu = mask if mask_upload is None else mask_upload
+        w = weight_fn(mu, probs) * mu
+        denom = _denom(mu)
+        new_global = tree_map(
+            lambda x, u: (x.float() - eta_g * u / denom).to(x.dtype),
+            global_tr, _weighted_sum(w, G))
+        new_clients, new_tau = _stateless_wrap(new_global, clients_tr, mu,
+                                               t, tau)
+        return new_global, new_clients, new_tau, extra
 
     def agg_flat(*, global_flat, clients_flat, x_end, G, mask, t, tau, probs,
                  extra, eta_g, use_kernel=False, mask_upload=None, ages=None):
@@ -195,7 +258,7 @@ def _mk_weighted_fedavg(weight_fn, name, uses_true_probs=False):
         new_global = global_flat - eta_g * flat_weighted_sum(w, G) / denom
         return new_global, None, None, extra
 
-    return Strategy(name, False, _no_extra, _tree_path,
+    return Strategy(name, False, _no_extra, agg,
                     aggregate_flat=agg_flat, uses_true_probs=uses_true_probs,
                     aggregate_cohort=agg_cohort)
 
@@ -214,7 +277,7 @@ FEDAVG_KNOWN_P = _mk_weighted_fedavg(
 # ---------------------------------------------------------------------------
 
 def _fedau_init(template, m, K=50):
-    f32 = dict(dtype=torch.float32, device=template.device)
+    f32 = dict(dtype=torch.float32, device=tree_leaves(template)[0].device)
     return dict(interval=torch.zeros((m,), **f32),   # rounds since active
                 omega=torch.ones((m,), **f32),       # est. mean interval
                 n_intervals=torch.zeros((m,), **f32),
@@ -235,6 +298,18 @@ def _fedau_weights(mu, extra):
     new_extra = dict(interval=torch.where(mu > 0, 0.0, interval),
                      omega=new_omega, n_intervals=new_n, K=extra["K"])
     return new_omega * mu, new_extra
+
+
+def _fedau_aggregate(*, global_tr, clients_tr, G, mask, t, tau, probs, extra,
+                     eta_g, use_kernel=False, x_end=None, mask_upload=None,
+                     ages=None):
+    mu = mask if mask_upload is None else mask_upload
+    w, new_extra = _fedau_weights(mu, extra)
+    m = mu.shape[0]
+    upd = tree_map(lambda u: u / m, _weighted_sum(w, G))
+    new_global = _tree_step(global_tr, upd, eta_g)
+    new_clients, new_tau = _stateless_wrap(new_global, clients_tr, mu, t, tau)
+    return new_global, new_clients, new_tau, new_extra
 
 
 def _fedau_aggregate_flat(*, global_flat, clients_flat, x_end, G, mask, t,
@@ -259,7 +334,7 @@ def _fedau_aggregate_cohort(*, global_flat, cohort_flat, x_end, G, mask, t,
     return new_global, None, None, new_extra
 
 
-FEDAU = Strategy("fedau", False, _fedau_init, _tree_path,
+FEDAU = Strategy("fedau", False, _fedau_init, _fedau_aggregate,
                  aggregate_flat=_fedau_aggregate_flat,
                  aggregate_cohort=_fedau_aggregate_cohort)
 
@@ -270,8 +345,20 @@ FEDAU = Strategy("fedau", False, _fedau_init, _tree_path,
 
 def _f3ast_init(template, m, beta=0.001):
     return dict(rate=torch.full((m,), 0.5, dtype=torch.float32,
-                                device=template.device),
+                                device=tree_leaves(template)[0].device),
                 beta=_scalar(beta, template))
+
+
+def _f3ast_aggregate(*, global_tr, clients_tr, G, mask, t, tau, probs, extra,
+                     eta_g, use_kernel=False, x_end=None, mask_upload=None,
+                     ages=None):
+    mu = mask if mask_upload is None else mask_upload
+    w, new_extra = _f3ast_weights(mu, extra)
+    m = mu.shape[0]
+    upd = tree_map(lambda u: u / m, _weighted_sum(w, G))
+    new_global = _tree_step(global_tr, upd, eta_g)
+    new_clients, new_tau = _stateless_wrap(new_global, clients_tr, mu, t, tau)
+    return new_global, new_clients, new_tau, new_extra
 
 
 def _f3ast_aggregate_flat(*, global_flat, clients_flat, x_end, G, mask, t,
@@ -302,7 +389,7 @@ def _f3ast_aggregate_cohort(*, global_flat, cohort_flat, x_end, G, mask, t,
     return new_global, None, None, new_extra
 
 
-F3AST = Strategy("f3ast", False, _f3ast_init, _tree_path,
+F3AST = Strategy("f3ast", False, _f3ast_init, _f3ast_aggregate,
                  aggregate_flat=_f3ast_aggregate_flat,
                  aggregate_cohort=_f3ast_aggregate_cohort)
 
@@ -312,10 +399,11 @@ F3AST = Strategy("f3ast", False, _f3ast_init, _tree_path,
 # ---------------------------------------------------------------------------
 
 def _memory_init(key):
+    """An all-zero client-stacked copy of the template under ``key``
+    (``[m, N]`` for a flat vector, ``[m, ...]`` leaves for a tree)."""
     def init(template, m):
-        return {key: torch.zeros((m,) + tuple(template.shape),
-                                 dtype=template.dtype,
-                                 device=template.device)}
+        return {key: tree_map(lambda x: x.new_zeros((m,) + tuple(x.shape)),
+                              template)}
     return init
 
 
@@ -340,11 +428,21 @@ def _memory_step(extra, mem_c, key, new_rows, mu):
     return {key: payload, key + "_sum": col_sum}
 
 
+def _mifa_aggregate(*, global_tr, clients_tr, G, mask, t, tau, probs, extra,
+                    eta_g, use_kernel=False, x_end=None, mask_upload=None,
+                    ages=None):
+    """MIFA: memorize every client's latest innovation; step by the mean
+    of the whole memory."""
+    mu = mask if mask_upload is None else mask_upload
+    mem = tree_select(mu, G, extra["mem"])
+    new_global = _tree_step(global_tr, tree_mean(mem), eta_g)
+    new_clients, new_tau = _stateless_wrap(new_global, clients_tr, mu, t, tau)
+    return new_global, new_clients, new_tau, dict(mem=mem)
+
+
 def _mifa_aggregate_flat(*, global_flat, clients_flat, x_end, G, mask, t,
                          tau, probs, extra, eta_g, use_kernel=False,
                          mask_upload=None, ages=None):
-    """MIFA: memorize every client's latest innovation; step by the mean
-    of the whole memory."""
     mu = mask if mask_upload is None else mask_upload
     mem = torch.where(mu[:, None] > 0, G, extra["mem"])
     new_global = global_flat - eta_g * flat_weighted_sum(
@@ -365,19 +463,33 @@ def _mifa_aggregate_cohort(*, global_flat, cohort_flat, x_end, G, mask, t,
     return new_global, None, None, new_extra
 
 
-MIFA = Strategy("mifa", False, _memory_init("mem"), _tree_path,
+MIFA = Strategy("mifa", False, _memory_init("mem"), _mifa_aggregate,
                 aggregate_flat=_mifa_aggregate_flat, memory_aided=True,
                 aggregate_cohort=_mifa_aggregate_cohort,
                 init_extra_cohort=_memory_init_cohort("mem"),
                 cohort_memory=("mem",))
 
 
-def _fedvarp_aggregate_flat(*, global_flat, clients_flat, x_end, G, mask, t,
-                            tau, probs, extra, eta_g, use_kernel=False,
-                            mask_upload=None, ages=None):
+def _fedvarp_aggregate(*, global_tr, clients_tr, G, mask, t, tau, probs,
+                       extra, eta_g, use_kernel=False, x_end=None,
+                       mask_upload=None, ages=None):
     """FedVARP: server-side variance reduction — the delivered clients'
     mean correction ``G − y`` (zero on an empty round) plus the mean of
     the memory ``y``."""
+    mu = mask if mask_upload is None else mask_upload
+    y = extra["y"]
+    any_active = (torch.sum(mu) > 0).float()
+    new_global = tree_map(
+        lambda x, d, ym: (x.float() - eta_g * (any_active * d.float()
+                                               + ym.float())).to(x.dtype),
+        global_tr, tree_masked_mean(tree_sub(G, y), mu), tree_mean(y))
+    new_clients, new_tau = _stateless_wrap(new_global, clients_tr, mu, t, tau)
+    return new_global, new_clients, new_tau, dict(y=tree_select(mu, G, y))
+
+
+def _fedvarp_aggregate_flat(*, global_flat, clients_flat, x_end, G, mask, t,
+                            tau, probs, extra, eta_g, use_kernel=False,
+                            mask_upload=None, ages=None):
     mu = mask if mask_upload is None else mask_upload
     y = extra["y"]
     denom = torch.clamp(torch.sum(mu), min=1.0)
@@ -406,7 +518,8 @@ def _fedvarp_aggregate_cohort(*, global_flat, cohort_flat, x_end, G, mask,
                                                 new_rows, mu)
 
 
-FEDVARP = Strategy("fedvarp", False, _memory_init("y"), _tree_path,
+FEDVARP = Strategy("fedvarp", False, _memory_init("y"),
+                   _fedvarp_aggregate,
                    aggregate_flat=_fedvarp_aggregate_flat, memory_aided=True,
                    aggregate_cohort=_fedvarp_aggregate_cohort,
                    init_extra_cohort=_memory_init_cohort("y"),
@@ -419,7 +532,29 @@ FEDVARP = Strategy("fedvarp", False, _memory_init("y"), _tree_path,
 # ---------------------------------------------------------------------------
 
 def _fedawe_m_init(template, m, beta=0.9):
-    return dict(v=torch.zeros_like(template), beta=_scalar(beta, template))
+    return dict(v=tree_zeros_like(template), beta=_scalar(beta, template))
+
+
+def _fedawe_m_aggregate(*, global_tr, clients_tr, G, mask, t, tau, probs,
+                        extra, eta_g, use_kernel=False, x_end=None,
+                        mask_upload=None, ages=None):
+    """v ← β v + (gossip − x), x ← x + v on non-empty rounds, per leaf;
+    an empty round keeps the global (its gossip is the guarded previous
+    global, so v decays by β)."""
+    mu = mask if mask_upload is None else mask_upload
+    gossip, _, new_tau, _ = _fedawe_aggregate(
+        global_tr=global_tr, clients_tr=clients_tr, G=G, mask=mask, t=t,
+        tau=tau, probs=probs, extra=(), eta_g=eta_g, use_kernel=use_kernel,
+        x_end=x_end, mask_upload=mask_upload)
+    beta = extra["beta"]
+    v = tree_map(lambda vv, d: beta * vv + d.float(), extra["v"],
+                 tree_sub(gossip, global_tr))
+    any_active = torch.sum(mu) > 0
+    new_global = tree_map(
+        lambda x, vv: torch.where(any_active, (x.float() + vv).to(x.dtype),
+                                  x), global_tr, v)
+    new_clients = tree_select_broadcast(mu, new_global, clients_tr)
+    return new_global, new_clients, new_tau, dict(v=v, beta=beta)
 
 
 def _fedawe_m_aggregate_flat(*, global_flat, clients_flat, x_end, G, mask, t,
@@ -458,7 +593,7 @@ def _fedawe_m_aggregate_cohort(*, global_flat, cohort_flat, x_end, G, mask,
     return new_global, rows, mu, dict(v=v, beta=beta)
 
 
-FEDAWE_M = Strategy("fedawe_m", True, _fedawe_m_init, _tree_path,
+FEDAWE_M = Strategy("fedawe_m", True, _fedawe_m_init, _fedawe_m_aggregate,
                     aggregate_flat=_fedawe_m_aggregate_flat,
                     aggregate_cohort=_fedawe_m_aggregate_cohort)
 
@@ -470,11 +605,34 @@ FEDAWE_M = Strategy("fedawe_m", True, _fedawe_m_init, _tree_path,
 # (the synchronous engine) replaces in full: FedAR is then MIFA.
 # ---------------------------------------------------------------------------
 
+def _fedar_rect(mask, ages):
+    """The rectification factor 1 / (1 + d) of a delivery d rounds late
+    (1 when the engine passes no ages)."""
+    return torch.ones_like(mask) if ages is None else 1.0 / (1.0
+                                                             + ages.float())
+
+
+def _fedar_aggregate(*, global_tr, clients_tr, G, mask, t, tau, probs, extra,
+                     eta_g, use_kernel=False, x_end=None, mask_upload=None,
+                     ages=None):
+    mu = mask if mask_upload is None else mask_upload
+    sel = mu > 0
+    r = _fedar_rect(mask, ages)
+    mem = tree_map(
+        lambda mm, g: torch.where(
+            _bshape(sel, mm),
+            (mm.float() + _bshape(r, mm) * (g.float() - mm.float()))
+            .to(mm.dtype), mm), extra["mem"], G)
+    new_global = _tree_step(global_tr, tree_mean(mem), eta_g)
+    new_clients, new_tau = _stateless_wrap(new_global, clients_tr, mu, t, tau)
+    return new_global, new_clients, new_tau, dict(mem=mem)
+
+
 def _fedar_aggregate_flat(*, global_flat, clients_flat, x_end, G, mask, t,
                           tau, probs, extra, eta_g, use_kernel=False,
                           mask_upload=None, ages=None):
     mu = mask if mask_upload is None else mask_upload
-    r = torch.ones_like(mask) if ages is None else 1.0 / (1.0 + ages.float())
+    r = _fedar_rect(mask, ages)
     mem = extra["mem"]
     mem = torch.where(mu[:, None] > 0, mem + r[:, None] * (G - mem), mem)
     new_global = global_flat - eta_g * flat_weighted_sum(
@@ -487,7 +645,7 @@ def _fedar_aggregate_cohort(*, global_flat, cohort_flat, x_end, G, mask, t,
                             mu_full, mem_c=None, use_kernel=False,
                             mask_upload=None, ages=None):
     mu = mask if mask_upload is None else mask_upload
-    r = torch.ones_like(mask) if ages is None else 1.0 / (1.0 + ages.float())
+    r = _fedar_rect(mask, ages)
     mem = mem_c["mem"].float()
     new_rows = torch.where(mu[:, None] > 0, mem + r[:, None] * (G - mem),
                            mem)
@@ -496,7 +654,7 @@ def _fedar_aggregate_cohort(*, global_flat, cohort_flat, x_end, G, mask, t,
     return new_global, None, None, new_extra
 
 
-FEDAR = Strategy("fedar", False, _memory_init("mem"), _tree_path,
+FEDAR = Strategy("fedar", False, _memory_init("mem"), _fedar_aggregate,
                  aggregate_flat=_fedar_aggregate_flat, memory_aided=True,
                  aggregate_cohort=_fedar_aggregate_cohort,
                  init_extra_cohort=_memory_init_cohort("mem"),

@@ -2,7 +2,10 @@
 
 ``echo_aggregate_flat`` is the single-launch FedAWE server update over the
 flat ``[m, N]`` substrate (core/flatten.py), guard included;
-``echo_aggregate`` is the masked echo mean without the guard.
+``echo_aggregate_tree`` is the same update on tree state, its leaves
+raveled into one ``echo_aggregate_flat`` call (one launch a round
+whatever the leaf count); ``echo_aggregate`` is the masked echo mean
+without the guard.
 
 ``echo_aggregate_flat`` goes through the custom operator
 ``repro_torch::echo_aggregate_flat``, whose ``torch.func.vmap`` rule is
@@ -37,6 +40,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.flatten import FlatSpec
 from repro_torch.kernels.echo_aggregate import kernel, kernel_triton
 from repro_torch.kernels.echo_aggregate.ref import (echo_aggregate_fused_ref,
                                                     echo_aggregate_ref)
@@ -241,6 +245,24 @@ def _fused_seeds(info, in_dims, x, y, g, mask, echo, eta_g, upload):
 
 
 torch.library.register_vmap(_fused_op, _fused_seeds)
+
+
+def echo_aggregate_tree(clients_tr, x_end, mask, echo, eta_g, global_tr, *,
+                        upload=None):
+    """The tree-state FedAWE update in one launch: the leaves of the
+    client-stacked start models ``clients_tr`` and post-local-SGD models
+    ``x_end`` ([m, ...], or [S, m, ...] under the seed axis) are raveled
+    into two float32 ``[m, N]`` buffers by ``FlatSpec.from_tree(
+    global_tr)``, the previous global into ``[N]``, for one
+    ``echo_aggregate_flat`` call whatever the leaf count (under
+    ``torch.func.vmap`` the operator's rule makes it one launch for all
+    seeds); the new global comes back as a tree of views in the leaf
+    dtypes."""
+    spec = FlatSpec.from_tree(global_tr)
+    out = echo_aggregate_flat(
+        spec.flatten_stacked(clients_tr), spec.flatten_stacked(x_end),
+        spec.flatten(global_tr), mask, echo, eta_g, upload=upload)
+    return spec.unflatten(out)
 
 
 def echo_aggregate(x, y, mask, echo, eta_g):

@@ -1,7 +1,7 @@
 """FedAWE training launcher (simulation tier, image preset):
 
     python -m repro_torch.launch.train --strategy fedawe --dynamics sine \
-        --flat-state --chunk-rounds 16 --use-kernel --rounds 300 \
+        [--flat-state] --chunk-rounds 16 --use-kernel --rounds 300 \
         [--midround-drop 0.3 --sanitize --stale-max 4 --stale-kind geom] \
         [--sampling epoch] [--ckpt PATH --ckpt-every N] \
         [--resume PATH --ckpt-every N] [--scenario NAME] \
@@ -10,7 +10,8 @@
 
 The port of ``python -m repro.launch.train --preset image``, for all ten
 strategies of the reference's registry (FedAWE, FedAWE-M and the eight
-baselines).  It runs on the card (``--device cuda``, the default) unless
+baselines), on tree state (the reference's default) or, with
+``--flat-state``, on the flat ``[m, N]`` substrate.  It runs on the card (``--device cuda``, the default) unless
 ``--device cpu`` is passed, and raises when the card is missing.  Flags
 keep the reference's names and defaults; flags of paths not ported yet
 are not defined, so argparse refuses them.  Checkpoints are written in
@@ -113,10 +114,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--n-samples", type=int, default=20000)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--use-kernel", action="store_true",
-                    help="fused echo-aggregate kernel (Triton on the card)")
+                    help="fused echo-aggregate kernel for FedAWE and "
+                         "FedAWE-M (CUDA C++ on the card; one launch a "
+                         "round, over the raveled leaves on tree state)")
     ap.add_argument("--flat-state", action="store_true",
-                    help="flat [m, N] client-state substrate (required: "
-                         "the tree-state path is not ported)")
+                    help="flat [m, N] client-state substrate (default: "
+                         "tree state, one tensor per model leaf; staleness "
+                         "and --sparse-cohort imply it)")
     ap.add_argument("--chunk-rounds", type=int, default=0,
                     help="K>0: chunked executor — K rounds per call, "
                          "device-resident batch sampling, one metrics "
@@ -331,9 +335,6 @@ def run(args):
     args.flat_state = (args.flat_state
                        or fault_configs(args, scenario)[1] is not None
                        or args.sparse_cohort > 0)
-    if not args.flat_state:
-        raise NotImplementedError(
-            "tree-state path not ported: pass --flat-state")
     device = resolve_device(args.device)
     parts = setup(args, device)
     if args.seeds > 1:

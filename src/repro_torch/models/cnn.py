@@ -1,5 +1,6 @@
 """Small CNN classifier for the paper-faithful simulation tier
-(Table 6: C(3,32)-R-M-C(32,32)-R-M-L(...)-R-L(10), cross-entropy).
+(Table 6: C(3,32)-R-M-C(32,32)-R-M-L(...)-R-L(10), cross-entropy), and
+the MLP of the paper harness (``init_mlp`` / ``mlp_apply``).
 
 Parameters keep the JAX package's layout — HWIO conv kernels, ``[din,
 dout]`` dense weights — and activations are NHWC at the function
@@ -55,6 +56,36 @@ def cnn_apply(params, x):
         h = F.conv2d(h, p["w"].permute(3, 2, 0, 1), p["b"], padding=1)
         h = F.max_pool2d(torch.relu(h), 2, 2)       # 2x2 VALID
     h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)   # NHWC ravel order
+    for j in range(n_fc):
+        p = params[f"fc{j}"]
+        h = torch.relu(h @ p["w"] + p["b"])
+    p = params["head"]
+    return h @ p["w"] + p["b"]
+
+
+def init_mlp(rng, d_in, n_classes=10, hidden=(64,)):
+    """The reference's MLP (the paper harness's ``"linear"`` model at
+    ``hidden=()``, its ``"mlp"`` at ``(64,)``): dense ``[din, dout]``
+    weights drawn from ``rng`` as the reference draws them, zero
+    biases."""
+    ks = prng.split(rng, len(hidden) + 1)
+    dev = rng.device
+    params, din = {}, d_in
+    for j, dout in enumerate(hidden):
+        params[f"fc{j}"] = dict(
+            w=prng.normal(ks[j], (din, dout)) * din ** -0.5,
+            b=torch.zeros((dout,), device=dev))
+        din = dout
+    params["head"] = dict(
+        w=prng.normal(ks[-1], (din, n_classes)) * din ** -0.5,
+        b=torch.zeros((n_classes,), device=dev))
+    return params
+
+
+def mlp_apply(params, x):
+    """x: [B, ...] (raveled per example) -> logits [B, n_classes]."""
+    h = x.reshape(x.shape[0], -1)
+    n_fc = sum(1 for k in params if k.startswith("fc"))
     for j in range(n_fc):
         p = params[f"fc{j}"]
         h = torch.relu(h @ p["w"] + p["b"])

@@ -12,7 +12,10 @@ seed=j)`` is seed j of a multi-seed run (state key ``fold_in(0, j)``,
 data key ``fold_in(42, j)``); ``run_seeds`` drives S such seeds through
 either package's seed-batched executor.  ``setup(..., sparse=C)`` runs
 the sparse cohort round with cap C (the sampler emits columns), its
-stacks resident in ``rdt``."""
+stacks resident in ``rdt``; ``setup(..., flat=False)`` the tree-state
+round (the reference's default: the state is the ``{"w", "b"}`` tree,
+and every strategy keeps a client stack).  The comparisons take tree
+states and flat ones alike."""
 import numpy as np
 import torch
 
@@ -57,14 +60,14 @@ def _torch_loss(tr, frozen, batch, rng):
 
 def _setup_ref(strategy, fault, stale, *, use_kernel, trace, clusters,
                dtrace, nan_client, base_p, kind, sampling, min_count,
-               seed=None, sparse=0, rdt="float32"):
+               seed=None, sparse=0, rdt="float32", flat=True):
     store = ref_fed.device_store(*arrays(nan_client))
     init_fn, sample_fn = ref_fed.make_device_sampler(
         M, S, B, mode=sampling, min_count=min_count,
         emit="cols" if sparse else "batches")
     cfg = ref_core.FLConfig(m=M, s=S, eta_l=0.03, strategy=strategy,
                             lr_schedule=False, grad_clip=0.0,
-                            use_kernel=use_kernel, flat_state=True,
+                            use_kernel=use_kernel, flat_state=flat,
                             sparse_cohort=sparse, resident_dtype=rdt)
     fc = None if fault is None else ref_faults.FaultCfg(**fault)
     sc = None if stale is None else ref_stale.StalenessCfg(**stale)
@@ -90,14 +93,14 @@ def _setup_ref(strategy, fault, stale, *, use_kernel, trace, clusters,
 
 def _setup_port(strategy, fault, stale, *, use_kernel, trace, clusters,
                 dtrace, nan_client, base_p, kind, sampling, min_count,
-                seed=None, sparse=0, rdt="float32"):
+                seed=None, sparse=0, rdt="float32", flat=True):
     store = fed.device_store(*arrays(nan_client), "cpu")
     init_fn, sample_fn = fed.make_device_sampler(
         M, S, B, mode=sampling, min_count=min_count,
         emit="cols" if sparse else "batches")
     cfg = core.FLConfig(m=M, s=S, eta_l=0.03, strategy=strategy,
                         lr_schedule=False, grad_clip=0.0,
-                        use_kernel=use_kernel, flat_state=True,
+                        use_kernel=use_kernel, flat_state=flat,
                         sparse_cohort=sparse, resident_dtype=rdt)
     fc = None if fault is None else faults.FaultCfg(**fault)
     sc = None if stale is None else staleness.StalenessCfg(**stale)
@@ -123,7 +126,7 @@ def _setup_port(strategy, fault, stale, *, use_kernel, trace, clusters,
 def setup(pkg, strategy="fedawe", fault=None, stale=None, *,
           use_kernel=False, trace=None, clusters=None, dtrace=None,
           nan_client=None, base_p=0.6, kind="sine", sampling="uniform",
-          min_count=1, seed=None, sparse=0, rdt="float32"):
+          min_count=1, seed=None, sparse=0, rdt="float32", flat=True):
     """The fresh run of ``pkg`` ("ref" or "port"): a dict with ``state``,
     ``round_fn``, ``store``, ``sample_fn``, ``data_key`` and
     ``sampler_state`` (and the ``cfg``, ``template``, ``init_fn`` and
@@ -132,7 +135,8 @@ def setup(pkg, strategy="fedawe", fault=None, stale=None, *,
     return fn(strategy, fault, stale, use_kernel=use_kernel, trace=trace,
               clusters=clusters, dtrace=dtrace, nan_client=nan_client,
               base_p=base_p, kind=kind, sampling=sampling,
-              min_count=min_count, seed=seed, sparse=sparse, rdt=rdt)
+              min_count=min_count, seed=seed, sparse=sparse, rdt=rdt,
+              flat=flat)
 
 
 def drive(pkg, parts, T, *, chunk=False, K=4, carry=False, **kw):
@@ -215,7 +219,10 @@ def _dtype_name(x):
 
 
 def _leaves(tree, prefix=""):
-    """``{path: array}`` of a dict tree of arrays or tensors."""
+    """``{path: array}`` of a dict tree of arrays or tensors (``{}`` for
+    None, ``{"": x}`` for a bare array)."""
+    if tree is None:
+        return {}
     if isinstance(tree, dict):
         out = {}
         for k in sorted(tree):
@@ -259,16 +266,15 @@ def assert_parity(ref, port, tol=1e-4):
     np.testing.assert_array_equal(ps.tau.numpy(), np.asarray(rs.tau))
     np.testing.assert_array_equal(ps.rng.numpy(),
                                   np.asarray(rs.rng).astype(np.int64))
-    _close(ps.global_tr.numpy(), np.asarray(rs.global_tr), tol)
+    assert (ps.spec is None) == (rs.spec is None)
     assert (ps.clients_tr is None) == (rs.clients_tr is None)
-    if rs.clients_tr is not None:
-        assert _dtype_name(ps.clients_tr) == _dtype_name(rs.clients_tr)
-        _close(_f32(ps.clients_tr), _f32(rs.clients_tr), tol)
-    got, want = _leaves(ps.extra), _leaves(rs.extra)
-    assert set(got) == set(want), (set(got), set(want))
-    for k in want:
-        assert _dtype_name(got[k]) == _dtype_name(want[k]), k
-        _close(_f32(got[k]), _f32(want[k]), tol)
+    for name in ("global_tr", "clients_tr", "extra"):
+        got = _leaves(getattr(ps, name))
+        want = _leaves(getattr(rs, name))
+        assert set(got) == set(want), (name, set(got), set(want))
+        for k in want:
+            assert _dtype_name(got[k]) == _dtype_name(want[k]), (name, k)
+            _close(_f32(got[k]), _f32(want[k]), tol)
     assert (ps.stale is None) == (rs.stale is None)
     if rs.stale is not None:
         np.testing.assert_array_equal(ps.stale["ages"].numpy(),
@@ -280,11 +286,14 @@ def assert_same_port(a, b):
     """Two port runs (host loop against chunked) agree exactly."""
     (sa, ha), (sb, hb) = a[:2], b[:2]
     assert ha == hb
-    for name in ("global_tr", "tau", "t", "markov", "rng"):
+    for name in ("tau", "t", "markov", "rng"):
         assert torch.equal(getattr(sa, name), getattr(sb, name)), name
     assert (sa.clients_tr is None) == (sb.clients_tr is None)
-    if sa.clients_tr is not None:
-        assert torch.equal(sa.clients_tr, sb.clients_tr)
+    for name in ("global_tr", "clients_tr"):
+        ea, eb = _leaves(getattr(sa, name)), _leaves(getattr(sb, name))
+        assert set(ea) == set(eb), name
+        for k in ea:
+            assert torch.equal(ea[k], eb[k]), (name, k)
     ea, eb = _leaves(sa.extra), _leaves(sb.extra)
     assert set(ea) == set(eb)
     for k in ea:

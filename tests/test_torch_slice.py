@@ -7,8 +7,11 @@ n_active, τ and mean_echo must be exact (the port's PRNG draws the
 reference's masks and batch columns bit for bit); the global [N] and the
 losses within 1e-4, the reference's own kernel-vs-jnp bound
 (tests/test_engine_kernel_path.py).  The port's host loop and chunked
-mode must agree exactly.  A CLI case compares the two launchers' --out
-histories."""
+mode must agree exactly.  CLI cases compare the two launchers' --out
+histories, on the flat substrate and on tree state (no --flat-state, the
+default of both), and the refusals left: staleness and the cohort need
+the flat substrate, an unknown strategy is refused, and so is the card
+where none is visible."""
 import json
 
 import pytest
@@ -120,11 +123,18 @@ def test_slice_matches_reference_host_and_chunked(setup):
 
 
 def test_tree_path_and_unported_flags_refuse():
-    with pytest.raises(NotImplementedError, match="tree-state"):
-        core.init_fl_state(prng.PRNGKey(0, "cpu"), core.FLConfig(m=2), {})
-    with pytest.raises(NotImplementedError, match="tree-state"):
+    """Tree state builds (it is the default); what still refuses it is
+    what the reference refuses: the staleness ring and the cohort need the
+    flat substrate.  An unknown strategy is refused with the ten names."""
+    state = core.init_fl_state(prng.PRNGKey(0, "cpu"), core.FLConfig(m=2),
+                               {"w": torch.ones(3)})
+    assert state.spec is None and state.clients_tr["w"].shape == (2, 3)
+    with pytest.raises(ValueError, match="flat"):
         core.make_round_fn(core.FLConfig(m=2), None, {},
-                           core.AvailabilityCfg(), None)
+                           core.AvailabilityCfg(), None,
+                           staleness_cfg=core.StalenessCfg(tau_max=1))
+    with pytest.raises(ValueError, match="flat"):
+        core.FLConfig(m=2, sparse_cohort=1)
     with pytest.raises(KeyError) as err:
         core.get_strategy("fedsgd")
     for name in ("fedawe", "fedawe_m", "fedavg_active", "fedavg_all",
@@ -163,10 +173,32 @@ def test_cli_history_matches_reference_cli(tmp_path, chunk):
 
 
 def test_cli_refuses_without_card_or_flat_state(tmp_path):
+    """Without --flat-state both launchers run tree state: the port's
+    history and final eval equal the reference CLI's (n_active, mean_echo
+    exact, losses within 1e-4, eval_acc within 2/1024), the kernel route
+    included.  --sparse-cohort still implies the flat substrate, and
+    without --device cpu the port refuses when no card is visible."""
+    from repro.launch import train as ref_train
     from repro_torch.launch import train
 
-    with pytest.raises(NotImplementedError, match="tree-state"):
-        train.main(["--device", "cpu", "--rounds", "1"])
+    a, b = tmp_path / "tree.json", tmp_path / "tree_ref.json"
+    tree = [f for f in CLI if f != "--flat-state"] + ["--chunk-rounds", "4"]
+    train.main(tree + ["--device", "cpu", "--out", str(a)])
+    ref_train.main(tree + ["--out", str(b)])
+    got, want = json.load(open(a)), json.load(open(b))
+    assert got["args"]["flat_state"] is False
+    assert want["args"]["flat_state"] is False
+    assert len(got["history"]) == len(want["history"]) == 8
+    for g, w in zip(got["history"], want["history"]):
+        assert set(g) == set(w)
+        assert g["n_active"] == w["n_active"]
+        assert g["mean_echo"] == w["mean_echo"]
+        np.testing.assert_allclose(g["loss"], w["loss"], rtol=1e-4,
+                                   atol=1e-4)
+        if "eval_acc" in w:
+            assert abs(g["eval_acc"] - w["eval_acc"]) <= 2 / 1024
+    assert abs(got["final"]["eval_acc"]
+               - want["final"]["eval_acc"]) <= 2 / 1024
     # --sparse-cohort implies the flat substrate and reports n_deferred
     out = tmp_path / "cohort.json"
     train.main(CLI[:4] + CLI[5:] + ["--sparse-cohort", "4", "--device",
