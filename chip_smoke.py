@@ -50,7 +50,12 @@ printed as JSON lines:
      outputs near 0.03); zamba2-7b's attention (head dim 112, 32 heads,
      global) at full length on one batch row and 8 heads, and at 256
      tokens on all; ragged shapes (L and S off the tiles, head dim 112
-     with GQA and a window, suffixes, head dim 16).  In bfloat16, up to
+     with GQA and a window, suffixes, head dim 16, head dim 128 with GQA,
+     a window and a soft-cap); head dim 128 at full length, where the
+     products run over all 128 dims: olmoe-1b-7b's attention (B 2, H 16,
+     K 16, L = S = 8192, global; moonshot-v1-16b-a3b's too) and
+     mixtral-8x22b's on one batch row (H 48, K 8, window 4096).  In
+     bfloat16, up to
      1 024 queries, the same bounds also against ``flash_mha_tiled_ref``,
      the kernel's own tile-by-tile algorithm in plain torch.  Then K5
      (ptxas's report printed for both kernels, and the tensor-core
@@ -200,6 +205,40 @@ printed as JSON lines:
         = 32 built from the engine, with both TF32 flags set first: the
         engine-built CUDA state turns both off; K1 once a round on
         [32, 650], held against the run without the kernel.
+     j. MoE serving, run after phase 4's gemma2-2b and zamba2-7b timings
+        have freed those models' weights, with its own numbers.
+        olmoe-1b-7b at its published widths and depth (16 layers,
+        d_model 2048, 16 heads of 128, 64 experts top-8 of width 1024,
+        vocab 50 304; 6.92 B parameters) in bfloat16 with
+        ``attn_backend="flash"``, random weights from a seed: the LM
+        path's prefill and 16 greedy steps; K4 16 times in the prefill
+        (once per layer), never in decode; every logit finite.  A second
+        prefill bit-equal (logits, and the cache over the prompt's
+        slots), each layer's share of dropped slots at cf 1.25 printed.
+        Prefill ms, decode ms per step and a profiler breakdown by part
+        (K4, cuBLAS, the router, the dispatch's sort, gathers and
+        scatters, the rest).  In float32 (B 1, the bf16 weights
+        upcast): inside the model's own layer loop each layer's
+        ``moe_ffn`` at cf = E against ``moe_ffn_dense_ref`` on the same
+        input, and at cf 1.25 every token whose k slots were all kept,
+        within 2e-4 (tests/test_moe.py:28) of the layer's largest dense
+        output, on a 2048-token prompt; the flash prefill against the
+        xla branch's with the xla run's routing pinned to the flash
+        run's experts (a router is discontinuous: unpinned, a near tie
+        that the branches' 1e-5 attention differences tip sends a token
+        to other experts, and the change spreads): each layer's
+        attention output on the same input, the logits and every cache
+        leaf within 1e-3, and every token whose own top-k set differs
+        from the pinned one a near tie of its router (ROUTE_TIE).
+        moonshot-v1-16b-a3b at its published widths and depth (48
+        layers, 64 experts top-6 of width 1408 and 2 shared experts,
+        vocab 163 840; 28.89 B parameters, 57.8 GB) the same way: K4 48
+        times in the prefill, 0 in decode, finite logits, its memory and
+        times.  Small: reduced olmoe-1b-7b, moonshot-v1-16b-a3b and
+        mixtral-8x22b (fl_mode "full"; cf = E) prefill then decode
+        against the full forward within 1e-3; ``launch.serve``'s CLI on
+        the reduced olmoe-1b-7b and moonshot-v1-16b-a3b finishes its
+        requests.
   4. numbers  — K1-K3: the Triton yardstick's global loads by width in
      its SASS at rows 8 bytes off 16 and at aligned rows; the CUDA kernel
      and the Triton yardstick in turns (K2's yardstick with its own weight
@@ -242,8 +281,10 @@ printed as JSON lines:
      computes its function.  K4 at zamba2-7b's attention
      with SDPA (the same function there) as the yardstick; zamba2-7b's
      prefill ms, decode ms per step and a profiler breakdown by part
-     (K5, K4, cuBLAS, the inter-chunk loop, the conv).  Each line
-     carries the card's name and power limit.
+     (K5, K4, cuBLAS, the inter-chunk loop, the conv).  K4 at
+     olmoe-1b-7b's attention (head dim 128) with SDPA (the same function
+     there) as the yardstick.  Each line carries the card's name and
+     power limit.
   5. the ``{"kernels": [...]}`` line; the last line is
      ``{"ok": true, "device": {...}}``.
 
@@ -252,6 +293,7 @@ non-zero exit code and no result line.
 """
 import concurrent.futures
 import contextlib
+import io
 import json
 import math
 import os
@@ -942,12 +984,14 @@ GEMMA_ATTN = [(2, 8, 4, 8192, 8192, 256, 4096, 50.0, True),
 #: ragged shapes for the bf16 kernel's TMA out-of-bounds fill and edge
 #: tiles: L and S not multiples of its 128-query or 64-key tiles, head dim
 #: 112 (zamba2-7b's, products over 112 of the 128 padded dims) with GQA
-#: and a window, suffixes with L < S, head dim 16 (padded to 64)
+#: and a window, suffixes with L < S, head dim 16 (padded to 64), head dim
+#: 128 with GQA, a window and a soft-cap
 FLASH_RAGGED_CASES = [(1, 4, 2, 100, 100, 64, None, 0.0, True),
                       (2, 8, 4, 200, 333, 256, 77, 50.0, True),
                       (1, 8, 2, 130, 130, 112, 40, 0.0, True),
                       (1, 4, 4, 70, 300, 112, None, 0.0, False),
-                      (1, 2, 1, 129, 257, 16, 3, 20.0, True)]
+                      (1, 2, 1, 129, 257, 16, 3, 20.0, True),
+                      (2, 4, 2, 200, 333, 128, 77, 30.0, True)]
 FLASH_TOL = {"float32": 1e-4, "bfloat16": 3e-2}  # tests/test_kernels.py
 #: every output row (one query, one head) against its own scale: max over
 #: the head dim of |kernel - plain| over max over the head dim of |plain|.
@@ -1020,13 +1064,15 @@ def check_flash(torch, fops, fref):
     tests/test_kernels.py and the row-scaled one; in bfloat16 up to
     TILED_MAX_L queries also the same bounds against
     ``flash_mha_tiled_ref``, the kernel's own algorithm in plain torch.
-    Returns the largest error of the main path's cases (bfloat16 at the
-    gemma2-2b shapes)."""
-    worst = 0.0
+    Returns the largest error of each main path's cases in bfloat16: at
+    the gemma2-2b shapes (head dim 256) and at olmoe-1b-7b's (head dim
+    128)."""
+    worst = {256: 0.0, 128: 0.0}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).replace("torch.", "")
         for i, case in enumerate(FLASH_CASES + HEAD256_CASES + GEMMA_ATTN
-                                 + ZAMBA_ATTN_CHECK + FLASH_RAGGED_CASES):
+                                 + ZAMBA_ATTN_CHECK + FLASH_RAGGED_CASES
+                                 + MOE_ATTN_CHECK):
             q, k, v = flash_inputs(torch, case, dtype, seed=300 + i)
             before = fops.flash_mha.launches
             out = fops.flash_mha(q, k, v, **flash_kw(case))
@@ -1065,8 +1111,10 @@ def check_flash(torch, fops, fref):
             if not ok:
                 raise AssertionError(f"flash attention at {case} {name} "
                                      "disagrees with its plain version")
-            if case in GEMMA_ATTN[:2] and dtype == torch.bfloat16:
-                worst = max(worst, err)
+            if dtype == torch.bfloat16 and case in GEMMA_ATTN[:2]:
+                worst[256] = max(worst[256], err)
+            if dtype == torch.bfloat16 and case == OLMOE_ATTN:
+                worst[128] = err
             del q, k, v, out, plain
     torch.cuda.empty_cache()
     return worst
@@ -1241,10 +1289,14 @@ def decode(torch, model, params, cfg, cache, logits, start, steps):
     return out
 
 
-def lm_main_path(torch, model, cfg, params, tokens, counts):
+def lm_main_path(torch, model, cfg, params, tokens, counts,
+                 layers=LM_LAYERS, phase="lm_main_path", **extra):
     """prefill (B 2, L 8192, cache 8192 + 16) then 16 greedy decode steps,
     with every launch count at 0 just before: K4 must launch once per
-    layer in the prefill and never in decode; all logits finite."""
+    layer (``layers`` of them) in the prefill and never in decode; all
+    logits finite.  Prints ``phase`` with ``extra``.  Returns the
+    launches, the prefill's logits and the cache (decode wrote its slots
+    from LM_L on)."""
     cache = model.init_cache(cfg, LM_B, LM_L + LM_NEW)
     torch.cuda.synchronize()
     counts.reset()
@@ -1258,22 +1310,22 @@ def lm_main_path(torch, model, cfg, params, tokens, counts):
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
     launches = counts.read()
-    require(after_prefill == dict(K1=0, K2=0, K3=0, K4=LM_LAYERS, K5=0),
-            f"prefill launches {after_prefill}")
-    require(launches == after_prefill, f"decode launched {launches}")
+    require(after_prefill == dict(K1=0, K2=0, K3=0, K4=layers, K5=0),
+            f"{cfg.name} prefill launches {after_prefill}")
+    require(launches == after_prefill,
+            f"{cfg.name} decode launched {launches}")
     all_logits = torch.stack([logits] + steps)
     require(all_logits.shape == (LM_NEW + 1, LM_B, cfg.vocab),
             f"logits shape {tuple(all_logits.shape)}")
-    require(bool(torch.isfinite(all_logits).all()), "non-finite logits")
-    emit(dict(phase="lm_main_path", arch=cfg.name, dtype=cfg.dtype,
+    require(bool(torch.isfinite(all_logits).all()),
+            f"{cfg.name}: non-finite logits")
+    emit(dict(phase=phase, arch=cfg.name, dtype=cfg.dtype,
               params=cfg.param_count(), batch=LM_B, prompt=LM_L,
               decode_steps=LM_NEW, launches=launches,
               first_prefill_s=prefill_s, decode_s=decode_s,
               tokens=torch.argmax(all_logits, -1).T.tolist(),
-              logits_absmax=all_logits.abs().max().item()))
-    del cache, all_logits, steps
-    torch.cuda.empty_cache()
-    return launches
+              logits_absmax=all_logits.abs().max().item(), **extra))
+    return launches, logits, cache
 
 
 @contextlib.contextmanager
@@ -1843,25 +1895,25 @@ ZAMBA_ATTN_CHECK = [(1, 8, 8, 8192, 8192, 112, None, 0.0, True),
 ZAMBA_ATTN = (2, 32, 32, 8192, 8192, 112, None, 0.0, True)
 
 
-def time_flash_zamba(torch, fops, fref, smi):
-    """K4 at zamba2-7b's attention (bf16): the kernel over 20 calls at the
-    full shape; SDPA (is_causal, the same function here: no soft-cap, no
-    window, G = 1) over 20 as the library yardstick; the plain version at
-    the check's cut shape (one batch row, 8 heads) and the kernel there."""
-    q, k, v = flash_inputs(torch, ZAMBA_ATTN, torch.bfloat16, seed=710)
+def time_flash_sdpa(torch, fops, fref, smi, arch, case, cut):
+    """K4 (bf16) at an attention shape where SDPA computes the same
+    function (is_causal, no soft-cap, no window, G = 1): the kernel over
+    20 calls at ``case``; SDPA over 20 as the library yardstick; the plain
+    version and the kernel at ``cut`` (``case``, or its first batch rows
+    and heads where the plain version's scores would not fit)."""
+    q, k, v = flash_inputs(torch, case, torch.bfloat16, seed=710)
     k_ms = events_ms(torch, lambda: fops.flash_mha(q, k, v), 20)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib_err = (sdpa(qt, kt, vt, is_causal=True).transpose(1, 2).float()
                - fops.flash_mha(q, k, v).float()).abs().max().item()
     lib_ms = events_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True), 20)
-    cut = ZAMBA_ATTN_CHECK[0]
-    qc, kc, vc = (x[:1, :, :cut[1]] for x in (q, k, v))
+    qc, kc, vc = (x[:cut[0], :, :cut[1]] for x in (q, k, v))
     cut_ms = events_ms(torch, lambda: fops.flash_mha(qc, kc, vc), 5)
     plain_cut_ms = events_ms(torch, lambda: fref.flash_mha_ref(qc, kc, vc), 2)
-    b_ms, b_by, flops = flash_bound(ZAMBA_ATTN, 2, BF16_FLOP_PER_S)
-    issued = flash_issued_flops(ZAMBA_ATTN, FLASH_BM, FLASH_BN,
-                                flash_product_dims(ZAMBA_ATTN[5]))
+    b_ms, b_by, flops = flash_bound(case, 2, BF16_FLOP_PER_S)
+    issued = flash_issued_flops(case, FLASH_BM, FLASH_BN,
+                                flash_product_dims(case[5]))
     rec = dict(ms=k_ms, library_ms=lib_ms,
                library="torch scaled_dot_product_attention (is_causal)",
                library_max_abs_err_vs_kernel=lib_err, bound_ms=b_ms,
@@ -1869,8 +1921,8 @@ def time_flash_zamba(torch, fops, fref, smi):
                share_of_bound=b_ms / k_ms, vs_library=k_ms / lib_ms,
                issued_flops=issued, issued_tflop_per_s=issued / k_ms / 1e9,
                cut_shape=cut[:6], ms_at_cut=cut_ms, plain_ms_at_cut=plain_cut_ms)
-    emit(dict(phase="kernel_time", card=smi, kernel="K4", arch="zamba2-7b",
-              shape=ZAMBA_ATTN[:6], dtype="bfloat16", **rec))
+    emit(dict(phase="kernel_time", card=smi, kernel="K4", arch=arch,
+              shape=case[:6], dtype="bfloat16", **rec))
     del q, k, v, qt, kt, vt, qc, kc, vc
     torch.cuda.empty_cache()
     return rec
@@ -2046,11 +2098,13 @@ ZAMBA_PARTS = {"K5": ("ssd_chunk_wgmma", "ssd_chunk_kernel"),
                "conv": ("conv", "cudnn")}
 
 
-def time_zamba(torch, model, cfg, params, tokens, smi):
+def time_serve(torch, model, cfg, params, tokens, smi, tag, parts):
     """Prefill ms (2 calls) and decode ms per step (16 steps), CUDA events
     after the main path's warm run; one prefill and one decode step under
     the profiler, with the device busy share and the device time of the
-    parts named in ZAMBA_PARTS (first match wins)."""
+    ``parts`` (name -> kernel-name substrings, first match wins) and of
+    the rest.  Prints ``profile`` lines ``{tag}_prefill`` and
+    ``{tag}_decode_step`` and the ``{tag}_time`` line."""
     cache = model.init_cache(cfg, LM_B, LM_L + LM_NEW)
     holder = {}
 
@@ -2066,15 +2120,18 @@ def time_zamba(torch, model, cfg, params, tokens, smi):
     decode_ms = events_ms(torch, run_decode, 1) / LM_NEW
     tok = torch.argmax(holder["logits"], -1)[:, None]
     pos = torch.full((LM_B,), LM_L, device="cuda")
-    pre = profile_ms(torch, run_prefill, parts=ZAMBA_PARTS)
+    pre = profile_ms(torch, run_prefill, parts=parts)
     dec = profile_ms(torch, lambda: model.serve_step(params, cfg, cache,
                                                      tok, pos),
-                     parts=ZAMBA_PARTS)
+                     parts=parts)
     for name, prof, wall in (("prefill", pre, prefill_ms),
                              ("decode_step", dec, decode_ms)):
         busy = None if prof["device_ms"] is None else prof["device_ms"] / wall
-        emit(dict(phase="profile", card=smi, path=f"zamba_{name}",
-                  wall_ms=wall, device_busy_share=busy, **prof))
+        rest = None if prof["parts_ms"] is None else \
+            prof["device_ms"] - sum(prof["parts_ms"].values())
+        emit(dict(phase="profile", card=smi, path=f"{tag}_{name}",
+                  wall_ms=wall, device_busy_share=busy, rest_ms=rest,
+                  **prof))
     rec = dict(prefill_ms=prefill_ms, prefill_tok_per_s=LM_B * LM_L
                / prefill_ms * 1e3, decode_ms_per_step=decode_ms,
                decode_tok_per_s=LM_B / decode_ms * 1e3,
@@ -2082,8 +2139,8 @@ def time_zamba(torch, model, cfg, params, tokens, smi):
                prefill_shares=({k: v / prefill_ms
                                 for k, v in pre["parts_ms"].items()}
                                if pre["parts_ms"] else None))
-    emit(dict(phase="zamba_time", card=smi, arch=cfg.name, dtype=cfg.dtype,
-              batch=LM_B, prompt=LM_L, **rec))
+    emit(dict(phase=f"{tag}_time", card=smi, arch=cfg.name,
+              dtype=cfg.dtype, batch=LM_B, prompt=LM_L, **rec))
     del cache, holder
     torch.cuda.empty_cache()
     return rec
@@ -3668,6 +3725,338 @@ def time_tree_rounds(torch, train, engine, federated, smi):
     return median
 
 
+# ---------------------------------------------------------------------------
+# phase 3j: MoE serving, olmoe-1b-7b and moonshot-v1-16b-a3b, K4 at head
+# dim 128
+# ---------------------------------------------------------------------------
+
+#: K4's head-dim-128 checks (phase 2): olmoe-1b-7b's attention at the MoE
+#: path's prefill (B 2, 16 heads, global) and mixtral-8x22b's (48 query
+#: over 8 kv heads, window 4096) at one batch row; the products run over
+#: all 128 head dims, no padded lanes
+MOE_ATTN_CHECK = [(2, 16, 16, 8192, 8192, 128, None, 0.0, True),
+                  (1, 48, 8, 8192, 8192, 128, 4096, 0.0, True)]
+OLMOE_ATTN = MOE_ATTN_CHECK[0]
+MOE_ARCHS = ("olmoe-1b-7b", "moonshot-v1-16b-a3b", "mixtral-8x22b")
+#: moe_vs_dense: the prompt's length, and the bound (tests/test_moe.py:28)
+#: as a share of each layer's largest dense output
+MOE_DENSE_L, MOE_DENSE_TOL = 2048, 2e-4
+#: moe_flash_vs_xla: with the xla run's routing pinned to the flash run's
+#: experts, a token whose own top-k set differs from the pinned one must
+#: be a near tie of its router (its k-th and (k+1)-th logits within
+#: ROUTE_TIE; the attention outputs that feed the router differ by about
+#: 1e-5 between the two branches)
+ROUTE_TIE = 1e-4
+#: kernel-name substrings of the MoE profiles' parts (first match wins):
+#: the router's softmax and top-k (with its in-place sorts), the
+#: dispatch's stable sort, searchsorted, gathers and scatters
+MOE_PARTS = {"K4": ("flash_fwd",),
+             "cublas": ("nvjet", "gemm", "cutlass", "sm90_xmma"),
+             "router": ("softmax", "topk", "sortkvinplace",
+                        "sortkeyvalueinplace"),
+             "dispatch": ("radixsort", "onesweep", "sort", "searchsorted",
+                          "indexselect", "index_select", "scatter",
+                          "gather")}
+
+
+def tree_bytes(tree):
+    """Bytes of a nested dict's tensors."""
+    return sum(tree_bytes(v) if isinstance(v, dict)
+               else v.numel() * v.element_size() for v in tree.values())
+
+
+def moe_config(get_config, arch, dtype):
+    """``arch`` at its published widths and depth in ``dtype`` with
+    attn_backend="flash", nothing cut."""
+    return get_config(arch).replace(dtype=dtype, attn_backend="flash")
+
+
+@contextlib.contextmanager
+def moe_layers(model, fn):
+    """Inside the block every MoE layer of the port's model (the
+    ``model.moe_ffn`` call of its own layer loop) runs
+    ``fn(moe_ffn, x, bp, cfg)`` in its place."""
+    orig = model.moe_ffn
+    model.moe_ffn = lambda x, bp, cfg: fn(orig, x, bp, cfg)
+    try:
+        yield
+    finally:
+        model.moe_ffn = orig
+
+
+def kept_slots(moe, x, bp, cfg):
+    """The kept slots [B L, k] of a layer's routing of x [B, L, d] at
+    cfg's capacity."""
+    B, L, _ = x.shape
+    _, topi, _ = moe._route(x, bp["router"], cfg.top_k)
+    _, _, keep = moe.dispatch(topi, cfg.n_experts, moe.capacity(cfg, L))
+    return keep.view(B * L, -1)
+
+
+@contextlib.contextmanager
+def pinned_routes(torch, moe, record, replay=None):
+    """Inside the block ``moe_ffn``'s router (``moe._route``, called once
+    per MoE layer of the model's own loop) appends each layer's top-k
+    experts to ``record``.  With ``replay`` (an earlier run's record) each
+    layer routes to the replayed experts instead, weighted by its own
+    probabilities there renormalised, and ``record`` gets the experts it
+    would have chosen and the gap between its k-th and (k+1)-th router
+    logits."""
+    orig = moe._route
+
+    def route(x, router_w, top_k):
+        topw, topi, aux = orig(x, router_w, top_k)
+        if replay is None:
+            record.append(topi)
+            return topw, topi, aux
+        pinned = replay[len(record)]
+        logits = x.float() @ router_w.float()
+        top = logits.topk(top_k + 1, dim=-1).values
+        record.append((topi, top[..., -2] - top[..., -1]))
+        w = torch.softmax(logits, dim=-1).gather(-1, pinned)
+        return w / w.sum(-1, keepdim=True), pinned, aux
+
+    moe._route = route
+    try:
+        yield
+    finally:
+        moe._route = orig
+
+
+def moe_repeat(torch, model, moe, cfg, params, tokens, first):
+    """A second prefill of the main path's prompts into a new cache, each
+    MoE layer's kept slots recorded on the way: logits and every cache
+    leaf over the prompt's slots bit-equal to the main path's prefill
+    (``first``: its logits and cache).  Returns each layer's share of
+    dropped slots at cfg's capacity factor."""
+    dropped = []
+
+    def fn(orig, x, bp, c):
+        dropped.append(1.0 - kept_slots(moe, x, bp, c).float().mean().item())
+        return orig(x, bp, c)
+
+    cache = model.init_cache(cfg, LM_B, LM_L + LM_NEW)
+    with moe_layers(model, fn):
+        logits, cache = model.prefill(params, cfg, cache, tokens)
+    torch.cuda.synchronize()
+    first_logits, first_cache = first
+    require(torch.equal(logits, first_logits),
+            f"{cfg.name}: a second prefill's logits differ in bits")
+    require(all(torch.equal(a[name][:, :, :LM_L], b[name][:, :, :LM_L])
+                for a, b in zip(cache["stack"].values(),
+                                first_cache["stack"].values())
+                for name in a) and not cache["tail"],
+            f"{cfg.name}: a second prefill's cache differs in bits")
+    require(len(dropped) == cfg.n_layers, f"{len(dropped)} MoE layers")
+    return dropped
+
+
+def moe_vs_dense(torch, model, moe, cfg, params, tokens, smi):
+    """olmoe-1b-7b at full width in float32 (B 1, the first MOE_DENSE_L
+    prompt tokens), inside the model's own layer loop: each MoE layer's
+    ``moe_ffn`` at cf = E (nothing dropped) against ``moe_ffn_dense_ref``
+    on the same input, within MOE_DENSE_TOL as a share of the dense
+    output's largest element; at cfg's cf (1.25) the tokens whose k slots
+    were all kept within the same bound.  The run goes on with the cf 1.25
+    output."""
+    rec = []
+
+    def fn(orig, x, bp, c):
+        y, aux = orig(x, bp, c)
+        dense, _ = moe.moe_ffn_dense_ref(x, bp, c)
+        scale = dense.abs().max()
+        whole = kept_slots(moe, x, bp, c).all(-1)
+        kept = (y - dense).abs().amax(-1).reshape(-1)[whole].max()
+        nodrop, _ = orig(x, bp, c.replace(capacity_factor=float(
+            c.n_experts)))
+        rec.append(dict(nodrop=((nodrop - dense).abs().max() / scale).item(),
+                        kept=(kept / scale).item(),
+                        whole_share=whole.float().mean().item(),
+                        absmax=scale.item()))
+        return y, aux
+
+    cache = model.init_cache(cfg, 1, MOE_DENSE_L)
+    with moe_layers(model, fn):
+        model.prefill(params, cfg, cache, tokens[:1, :MOE_DENSE_L])
+    torch.cuda.synchronize()
+    del cache
+    worst = {key: max(r[key] for r in rec) for key in ("nodrop", "kept")}
+    emit(dict(phase="moe_vs_dense", card=smi, arch=cfg.name,
+              dtype=cfg.dtype, batch=1, prompt=MOE_DENSE_L, tol=MOE_DENSE_TOL,
+              capacity_factor=cfg.capacity_factor,
+              nodrop_rel=[r["nodrop"] for r in rec],
+              kept_rel=[r["kept"] for r in rec],
+              tokens_all_kept_share=[r["whole_share"] for r in rec],
+              dense_absmax=[r["absmax"] for r in rec], worst=worst))
+    require(len(rec) == cfg.n_layers, f"{len(rec)} MoE layers")
+    require(max(worst.values()) <= MOE_DENSE_TOL,
+            f"moe_ffn vs moe_ffn_dense_ref: {worst} > {MOE_DENSE_TOL}")
+    torch.cuda.empty_cache()
+
+
+def moe_flash_vs_xla(torch, model, moe, cfg, params, tokens, smi):
+    """olmoe-1b-7b in float32 (B 1, the bf16 weights upcast): the flash
+    prefill against the xla branch's, with the xla run's routing pinned
+    to the flash run's experts (``pinned_routes``).  A router is
+    discontinuous: free-running, a top-k near tie that the two branches'
+    1e-5 attention differences tip sends a token to other experts, its
+    hidden state moves by tenths, and the change spreads through the
+    later layers' attention and capacity ranks.  Pinned, the comparison
+    holds what the flash kernel changes: each layer's attention output on
+    the same input (``both_backends``), the logits and every cache leaf
+    within LM_TOL_F32, the positions equal; and every token whose own
+    top-k set in the xla run differs from the pinned one must be a near
+    tie there (its k-th and (k+1)-th logits within ROUTE_TIE)."""
+    tok = tokens[:1]
+    routes, own, layers, runs = [], [], [], {}
+    for backend in ("flash", "xla"):
+        c = cfg.replace(attn_backend=backend)
+        cache = model.init_cache(c, 1, LM_L + LM_NEW)
+        with contextlib.ExitStack() as stack:
+            if backend == "flash":
+                stack.enter_context(pinned_routes(torch, moe, routes))
+            else:
+                stack.enter_context(pinned_routes(torch, moe, own, routes))
+                stack.enter_context(both_backends(model, layers))
+            runs[backend] = model.prefill(params, c, cache, tok)
+        torch.cuda.synchronize()
+    (lf, cf), (lx, cx) = runs["flash"], runs["xla"]
+    require(len(routes) == len(own) == cfg.n_layers,
+            f"{len(routes)}, {len(own)} MoE layer calls")
+    flips, gaps = [], []
+    for pinned, (topi, gap) in zip(routes, own):
+        member = (topi[..., :, None] == pinned[..., None, :]).any(-1)
+        flip = ~member.all(-1)
+        flips.append(int(flip.sum()))
+        gaps.append(gap[flip].max().item() if flips[-1] else 0.0)
+    for key in cf["stack"]:
+        require(torch.equal(cf["stack"][key]["pos"], cx["stack"][key]["pos"]),
+                "cache positions")
+    d = dict(attn_layers=[e for e, _ in layers],
+             attn_layer_absmax=[m for _, m in layers],
+             logits=(lf - lx).abs().max().item(),
+             logits_absmax=lx.abs().max().item(),
+             cache=max((a - b).abs().max().item()
+                       for a, b in zip(cache_kv(cf), cache_kv(cx))),
+             topk_differs=flips, topk_differs_gap_max=gaps)
+    emit(dict(phase="moe_flash_vs_xla", card=smi, arch=cfg.name,
+              dtype=cfg.dtype, batch=1, prompt=LM_L, tol=LM_TOL_F32,
+              route_tie=ROUTE_TIE,
+              routing="xla run pinned to the flash run's experts", **d))
+    require(max(d["attn_layers"]) <= LM_TOL_F32,
+            f"flash vs xla attention per layer (float32): {d['attn_layers']}")
+    require(max(gaps) <= ROUTE_TIE,
+            f"a top-k set differs at a router gap of {max(gaps)}")
+    require(d["logits"] <= LM_TOL_F32 and d["cache"] <= LM_TOL_F32,
+            f"flash vs xla prefill (float32): logits {d['logits']}, "
+            f"caches {d['cache']} > {LM_TOL_F32}")
+    del runs, lf, cf, lx, cx, routes, own
+    torch.cuda.empty_cache()
+
+
+def moe_parity_small(torch, model, get_config, reduced, smi):
+    """On the card at a small size: reduced olmoe-1b-7b,
+    moonshot-v1-16b-a3b and mixtral-8x22b (fl_mode="full"), float32,
+    flash backend, cf = E (nothing dropped: which slots an expert drops
+    depends on the sequence's length, so a prefill and the full forward
+    drop different ones; tests/test_decode_parity.py's moe family runs at
+    cf = E for that reason): prefill of 128 tokens then 16 decode steps
+    against the full forward over all 144, within 1e-3."""
+    worst = {}
+    for i, arch in enumerate(MOE_ARCHS):
+        cfg = reduced(get_config(arch))
+        cfg = cfg.replace(attn_backend="flash", fl_mode="full",
+                          capacity_factor=float(cfg.n_experts))
+        params = lm_weights(torch, model, cfg, seed=20 + i)
+        gen = torch.Generator(device="cuda").manual_seed(30 + i)
+        toks = torch.randint(0, cfg.vocab, (2, 144), generator=gen,
+                             device="cuda")
+        h, _ = model.forward_hidden(params, cfg, toks)
+        full = model.lm_logits(h, params, cfg)
+        cache = model.init_cache(cfg, 2, 144)
+        logits, cache = model.prefill(params, cfg, cache, toks[:, :128])
+        errs = [(logits - full[:, 127]).abs().max().item()]
+        for t in range(128, 144):
+            logits, cache = model.serve_step(
+                params, cfg, cache, toks[:, t:t + 1],
+                torch.full((2,), t, device="cuda"))
+            errs.append((logits - full[:, t]).abs().max().item())
+        worst[arch] = max(errs)
+    emit(dict(phase="moe_parity_small", card=smi, max_abs_err=worst,
+              tol=1e-3))
+    require(max(worst.values()) < 1e-3, f"MoE decode parity {worst}")
+
+
+def moe_serve_cli(serve, smi):
+    """``launch.serve``'s CLI on the card for the reduced MoE models
+    (its default): every request finishes and prints its tokens (the
+    CLI's own output is kept off this script's standard output)."""
+    stats = {}
+    for arch in MOE_ARCHS[:2]:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            stats[arch] = serve.main(["--arch", arch, "--requests", "3",
+                                      "--slots", "2", "--max-new", "4"])
+        require(all(f"req{i}: " in out.getvalue() for i in range(3)),
+                f"{arch}: the serve CLI printed {out.getvalue()!r}")
+    emit(dict(phase="moe_serve_cli", card=smi, stats=stats))
+
+
+def moe_paths(torch, model, moe, serve, get_config, reduced, counts, smi):
+    """Phase 3j, with its numbers: olmoe-1b-7b's main path (every count
+    at 0 just before), a repeated prefill, its times; then in float32
+    moe_vs_dense and moe_flash_vs_xla; then moonshot-v1-16b-a3b's main
+    path and times (olmoe's weights freed first); then the small decode
+    parity and the serve CLI.  Returns the two main paths' launches."""
+    t0 = time.perf_counter()
+    launches = {}
+    cfg = moe_config(get_config, "olmoe-1b-7b", "bfloat16")
+    params = lm_weights(torch, model, cfg, seed=11)
+    tokens = lm_tokens(torch, cfg.vocab, seed=12)
+    launches[cfg.name], logits, cache = lm_main_path(
+        torch, model, cfg, params, tokens, counts, cfg.n_layers,
+        "moe_main_path", card=smi)
+    dropped = moe_repeat(torch, model, moe, cfg, params, tokens,
+                         (logits, cache))
+    del logits, cache
+    emit(dict(phase="moe_repeat", card=smi, arch=cfg.name, bit_equal=True,
+              capacity_factor=cfg.capacity_factor,
+              capacity=moe.capacity(cfg, LM_L),
+              dropped_share_per_layer=dropped))
+    time_serve(torch, model, cfg, params, tokens, smi, "olmoe", MOE_PARTS)
+    c32 = cfg.replace(dtype="float32")
+    p32 = tree_map(lambda k, t: t.float(), params)
+    del params
+    torch.cuda.empty_cache()
+    moe_vs_dense(torch, model, moe, c32, p32, tokens, smi)
+    moe_flash_vs_xla(torch, model, moe, c32, p32, tokens, smi)
+    del p32
+    torch.cuda.empty_cache()
+
+    cfg = moe_config(get_config, "moonshot-v1-16b-a3b", "bfloat16")
+    torch.cuda.reset_peak_memory_stats()
+    params = lm_weights(torch, model, cfg, seed=13)
+    tokens = lm_tokens(torch, cfg.vocab, seed=14)
+    launches[cfg.name], _, cache = lm_main_path(
+        torch, model, cfg, params, tokens, counts, cfg.n_layers,
+        "moonshot_main_path", card=smi)
+    emit(dict(phase="moonshot_memory", card=smi,
+              weights_gb=tree_bytes(params) / 1e9,
+              cache_gb=tree_bytes(cache) / 1e9,
+              peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9))
+    del cache
+    torch.cuda.empty_cache()
+    time_serve(torch, model, cfg, params, tokens, smi, "moonshot",
+               MOE_PARTS)
+    del params
+    torch.cuda.empty_cache()
+    moe_parity_small(torch, model, get_config, reduced, smi)
+    moe_serve_cli(serve, smi)
+    emit(dict(phase="moe_paths_done", card=smi,
+              seconds=time.perf_counter() - t0))
+    return launches
+
+
 class Counts:
     """Every kernel wrapper's launch count, set to 0 and read together."""
 
@@ -3717,9 +4106,9 @@ def main():
     from repro_torch.kernels.ssd_chunk import kernel as skernel
     from repro_torch.kernels.ssd_chunk import ops as sops
     from repro_torch.kernels.ssd_chunk import ref as sref
-    from repro_torch.launch import experiments, train
+    from repro_torch.launch import experiments, serve, train
     from repro_torch.checkpointing import convert, io
-    from repro_torch.models import cnn, model, reduced, ssm
+    from repro_torch.models import cnn, model, moe, reduced, ssm
 
     counts = Counts(ops, fops, sops)
     # K1-K3's kernel, K4's and K5's two are built by four nvcc processes,
@@ -3822,7 +4211,8 @@ def main():
     lm_params = lm_weights(torch, model, lm_cfg)
     tokens = lm_tokens(torch, lm_cfg.vocab)
     lm_launches = lm_main_path(torch, model, lm_cfg, lm_params, tokens,
-                               counts)
+                               counts)[0]
+    torch.cuda.empty_cache()
     # phase 3c: flash against xla, on the reference's witness inputs and
     # at full width; decode parity when small
     drift_witness(torch, np, model, convert, get_config, reduced)
@@ -3915,13 +4305,24 @@ def main():
     # the LM paths are timed before the flex_attention yardstick compiles:
     # torch.compile's worker processes would share the host with decode
     time_lm(torch, model, lm_cfg, lm_params, tokens, smi)
-    time_zamba(torch, model, z_cfg, z_params, z_tokens, smi)
-    del z_params
+    time_serve(torch, model, z_cfg, z_params, z_tokens, smi, "zamba",
+               ZAMBA_PARTS)
+    del z_params, lm_params
     torch.cuda.empty_cache()
+
+    # phase 3j: MoE serving, every count at 0 just before each main path:
+    # olmoe-1b-7b and moonshot-v1-16b-a3b (its 57.8 GB of weights need the
+    # dense and Mamba2 models' freed first, so the phase runs here, its
+    # numbers with it)
+    moe_launches = moe_paths(torch, model, moe, serve, get_config, reduced,
+                             counts, smi)
+
     ssd_times = time_ssd(torch, sops, sref, get_config, smi)
-    time_flash_zamba(torch, fops, fref, smi)
+    time_flash_sdpa(torch, fops, fref, smi, "zamba2-7b", ZAMBA_ATTN,
+                    ZAMBA_ATTN_CHECK[0])
+    moe_flash = time_flash_sdpa(torch, fops, fref, smi, "olmoe-1b-7b",
+                                OLMOE_ATTN, OLMOE_ATTN)
     flash_times = time_flash(torch, fops, fref, smi)
-    del lm_params
     torch.cuda.empty_cache()
     print(smi, flush=True)
 
@@ -3972,9 +4373,22 @@ def main():
         source="src/repro_torch/kernels/flash_attention/csrc/"
                "flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:90",
-        launches=lm_launches["K4"], max_abs_err=flash_err, ms=mean("ms"),
-        plain_ms=mean("plain_ms"), bound_ms=mean("bound_ms"),
+        launches=lm_launches["K4"], max_abs_err=flash_err[256],
+        ms=mean("ms"), plain_ms=mean("plain_ms"), bound_ms=mean("bound_ms"),
         bound_by=both[0]["bound_by"], library_ms=mean("library_ms")))
+    # K4 at head dim 128: per launch at olmoe-1b-7b's attention, which is
+    # moonshot-v1-16b-a3b's too (B 2, 16 heads, L = S = 8192, global); its
+    # launches are both MoE prefills'; SDPA computes the same function
+    kernels.append(dict(
+        name="flash_attention (K4), head dim 128", route="cuda",
+        source="src/repro_torch/kernels/flash_attention/csrc/"
+               "flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:90",
+        launches=sum(n["K4"] for n in moe_launches.values()),
+        max_abs_err=flash_err[128], ms=moe_flash["ms"],
+        plain_ms=moe_flash["plain_ms_at_cut"],
+        bound_ms=moe_flash["bound_ms"], bound_by=moe_flash["bound_by"],
+        library_ms=moe_flash["library_ms"]))
     # K5: per launch at zamba2-7b's shape (the main path's 68 launches, all
     # on the tensor-core kernel)
     zt = ssd_times["zamba2-7b"]

@@ -1,11 +1,13 @@
 """Architecture registry: ``--arch <id>`` resolution, input shapes and
 long-context support flags; a copy of ``repro/configs`` holding the
 architectures this port runs or reads: the dense attention models
-(gemma2-2b, internlm2-20b, llama3-8b, tiny), gemma3-27b (dense, but its
+(gemma2-2b, internlm2-20b, llama3-8b, tiny), the MoE models olmoe-1b-7b
+and moonshot-v1-16b-a3b, gemma3-27b and mixtral-8x22b (their
 ``fl_mode="lora"`` raises until LM training is ported), and the Mamba2
 models mamba2-130m (pure SSM) and zamba2-7b (Mamba2 with a weight-shared
-attention block).  The reference's other architectures come over with the
-slice that ports their block kind."""
+attention block).  The reference's encoder-decoder and frontend models
+(seamless-m4t-large-v2, internvl2-2b) come over with the slice that ports
+them."""
 from __future__ import annotations
 
 import importlib
@@ -15,9 +17,12 @@ from repro_torch.configs.shapes import SHAPES, InputShape  # noqa: F401
 _MODULES = {
     "gemma2-2b": "gemma2_2b",
     "internlm2-20b": "internlm2_20b",
+    "olmoe-1b-7b": "olmoe_1b_7b",
     "mamba2-130m": "mamba2_130m",
-    "zamba2-7b": "zamba2_7b",
     "gemma3-27b": "gemma3_27b",
+    "mixtral-8x22b": "mixtral_8x22b",
+    "zamba2-7b": "zamba2_7b",
+    "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
     # extras beyond the reference's assigned pool
     "llama3-8b": "llama3_8b",
     "tiny": "tiny",

@@ -1,6 +1,6 @@
-"""Unified model, dense attention and Mamba2 / shared-attention subset:
-parameter init, the unit loop, logits, caches, prefill and decode; a port
-of ``repro/models/model.py``.
+"""Unified model, dense attention, MoE and Mamba2 / shared-attention
+blocks: parameter init, the unit loop, logits, caches, prefill and
+decode; a port of ``repro/models/model.py``.
 
 The layer stack is grouped into repeating *units* (cfg.pattern).  Weights
 and caches of the full units are stacked on a leading ``[n_units]`` axis,
@@ -12,13 +12,16 @@ across through ``repro_torch.checkpointing.params_from_numpy``.
 reads the one attention block ``params["shared"]``, each with its own
 cache.
 
-MoE blocks, encoder-decoder models, modality frontends and LoRA raise
-NotImplementedError naming the ROADMAP item that ports them.  Caches are
-updated in place (the reference returns new ones): ``prefill`` and
-``serve_step`` write into the cache they are given and return it.
+An MoE block is an attention block whose gated MLP is ``moe.moe_ffn``;
+the stack sums its router losses as the reference does.  Encoder-decoder
+models, modality frontends and LoRA raise NotImplementedError naming the
+ROADMAP item that ports them.  Caches are updated in place (the
+reference returns new ones): ``prefill`` and ``serve_step`` write into
+the cache they are given and return it.
 """
 from __future__ import annotations
 
+import itertools
 import math
 
 import torch
@@ -27,9 +30,9 @@ from repro_torch.device import resolve_device
 from repro_torch.models import ssm
 from repro_torch.models.config import BlockCfg, ModelConfig
 from repro_torch.models.layers import attn_qkvo, rms_norm, softcap, swiglu
+from repro_torch.models.moe import moe_ffn
 
 _TODO = {
-    "moe": "MoE blocks (models/moe.py) are ROADMAP queue 1 item 4",
     "enc_dec": "encoder-decoder models are ROADMAP queue 1 item 16",
     "frontend": "modality frontends (stub embeddings) are ROADMAP queue 1 "
                 "item 16",
@@ -45,9 +48,6 @@ def _dt(cfg):
 
 def check_supported(cfg: ModelConfig):
     """Raise NotImplementedError for what this slice does not run."""
-    for blk in cfg.pattern:
-        if blk.kind not in ("attn", "mamba", "shared_attn"):
-            raise NotImplementedError(f"{cfg.name}: {_TODO[blk.kind]}")
     if cfg.enc_dec:
         raise NotImplementedError(f"{cfg.name}: {_TODO['enc_dec']}")
     if cfg.frontend != "none":
@@ -72,6 +72,27 @@ def _attn_block_shapes(cfg: ModelConfig):
     return shapes
 
 
+def _moe_block_shapes(cfg: ModelConfig):
+    """name -> (shape, dtype) of one MoE block's leaves
+    (``repro/models/model.py:67-81``): the attention block's without its
+    dense MLP, the float32 router [d, E], the experts' stacked SwiGLU
+    ``wi_e`` [E, d, 2 eff] and ``wd_e`` [E, eff, d], and with shared
+    experts their one SwiGLU of width n_shared * eff."""
+    dt, f32 = _dt(cfg), torch.float32
+    out = {name: (shape, f32 if name.startswith("ln") else dt)
+           for name, shape in _attn_block_shapes(cfg).items()
+           if name not in ("wi", "wd")}
+    d, eff, E = cfg.d_model, cfg.expert_ff, cfg.n_experts
+    out["router"] = ((d, E), f32)
+    out["wi_e"] = ((E, d, 2 * eff), dt)
+    out["wd_e"] = ((E, eff, d), dt)
+    if cfg.n_shared_experts:
+        sff = cfg.n_shared_experts * eff
+        out["wi_s"] = ((d, 2 * sff), dt)
+        out["wd_s"] = ((sff, d), dt)
+    return out
+
+
 def _dense_init(gen, shape, dtype, scale=None, lead=()):
     """N(0, 1) * scale (default fan_in^-0.5, fan_in = shape[0]) drawn in
     float32 and cast; ``lead`` prepends stacking axes."""
@@ -89,6 +110,28 @@ def init_attn_block(gen, cfg: ModelConfig, lead=()):
                                     device=gen.device)
         else:
             out[name] = _dense_init(gen, shape, _dt(cfg), lead=lead)
+    return out
+
+
+def init_moe_block(gen, cfg: ModelConfig, lead=()):
+    """Norms zero; the router and the shared experts dense (fan_in^-0.5);
+    the experts' ``wi_e`` at d^-0.5 and ``wd_e`` at eff^-0.5, as the
+    reference scales them.  The expert leaves are drawn one stacked unit
+    at a time: drawing a whole stack in float32 before the cast would take
+    70.9 GB for moonshot-v1-16b-a3b's ``wi_e``."""
+    scales = {"wi_e": cfg.d_model ** -0.5, "wd_e": cfg.expert_ff ** -0.5}
+    out = {}
+    for name, (shape, dtype) in _moe_block_shapes(cfg).items():
+        if name.startswith("ln"):
+            out[name] = torch.zeros(tuple(lead) + shape, dtype=dtype,
+                                    device=gen.device)
+        elif name in scales:
+            out[name] = torch.empty(tuple(lead) + shape, dtype=dtype,
+                                    device=gen.device)
+            for u in itertools.product(*map(range, lead)):
+                out[name][u] = _dense_init(gen, shape, dtype, scales[name])
+        else:
+            out[name] = _dense_init(gen, shape, dtype, lead=lead)
     return out
 
 
@@ -138,6 +181,8 @@ def init_mamba_block(gen, cfg: ModelConfig, lead=()):
 def _init_block(gen, blk: BlockCfg, cfg: ModelConfig, lead=()):
     if blk.kind == "attn":
         return init_attn_block(gen, cfg, lead)
+    if blk.kind == "moe":
+        return init_moe_block(gen, cfg, lead)
     if blk.kind == "mamba":
         return init_mamba_block(gen, cfg, lead)
     return {}  # shared_attn: weights live in params["shared"]
@@ -178,8 +223,10 @@ def count_params(cfg: ModelConfig, trainable_only: bool = False) -> int:
     nothing."""
     check_supported(cfg)
     attn = sum(math.prod(s) for s in _attn_block_shapes(cfg).values())
-    per_kind = {"attn": attn, "shared_attn": 0, "mamba": sum(
-        math.prod(s) for s, _ in _mamba_block_shapes(cfg).values())}
+    per_kind = {"attn": attn, "shared_attn": 0}
+    for kind, shapes in (("moe", _moe_block_shapes),
+                         ("mamba", _mamba_block_shapes)):
+        per_kind[kind] = sum(math.prod(s) for s, _ in shapes(cfg).values())
     n = cfg.vocab * cfg.d_model + cfg.d_model
     n += sum(per_kind[b.kind] for b in cfg.layer_blocks())
     if _has_shared(cfg):
@@ -200,13 +247,15 @@ def _unit_slice(tree, u):
 def apply_block(blk: BlockCfg, bp, h, cfg, positions, *, shared=None,
                 cache=None, mode="train"):
     """One block, residual: ``mamba`` runs the Mamba2 mixer; ``attn`` and
-    ``shared_attn`` (weights ``shared``) run attention then the gated MLP.
-    Returns h; the cache (prefill/decode modes) is written in place."""
+    ``shared_attn`` (weights ``shared``) run attention then the gated MLP,
+    ``moe`` attention then ``moe_ffn``.  Returns (h, aux): aux the MoE
+    block's router loss, None for the other kinds.  The cache
+    (prefill/decode modes) is written in place."""
     if blk.kind == "mamba":
         return h + ssm.mamba_block(
             rms_norm(h, bp["ln1"], cfg.norm_eps), bp, cfg,
             decode_cache=cache if mode == "decode" else None,
-            prefill_cache=cache if mode == "prefill" else None)
+            prefill_cache=cache if mode == "prefill" else None), None
     if blk.kind == "shared_attn":
         bp = shared
     x = rms_norm(h, bp["ln1"], cfg.norm_eps)
@@ -220,27 +269,32 @@ def apply_block(blk: BlockCfg, bp, h, cfg, positions, *, shared=None,
     h = h + attn_qkvo(x, bp, cfg, positions, decode_cache=dec,
                       prefill_cache=pre, window=blk.window)
     x = rms_norm(h, bp["ln2"], cfg.norm_eps)
-    return h + swiglu(x, bp["wi"], bp["wd"])
+    if blk.kind == "moe":
+        y, aux = moe_ffn(x, bp, cfg)
+        return h + y, aux
+    return h + swiglu(x, bp["wi"], bp["wd"]), None
 
 
 def _run_stack(h, params, cfg: ModelConfig, positions, *, caches=None,
                mode="train"):
-    """The unit loop, then the tail.  Returns h; the caches are written in
-    place."""
+    """The unit loop, then the tail.  Returns (h, aux): aux the summed
+    router loss of the MoE blocks (a float32 scalar, 0 without them); the
+    caches are written in place."""
     shared = params.get("shared")
-    for u in range(cfg.n_units):
-        for j, blk in enumerate(cfg.pattern):
-            key = f"pos{j}"
-            c = _unit_slice(caches["stack"][key], u) if caches else None
-            h = apply_block(blk, _unit_slice(params["stack"][key], u), h,
-                            cfg, positions, shared=shared, cache=c,
-                            mode=mode)
-    for i in range(cfg.n_tail):
-        key = f"blk{i}"
-        c = caches["tail"][key] if caches else None
-        h = apply_block(cfg.pattern[i], params["tail"][key], h, cfg,
-                        positions, shared=shared, cache=c, mode=mode)
-    return h
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    blocks = [(blk, _unit_slice(params["stack"][f"pos{j}"], u),
+               _unit_slice(caches["stack"][f"pos{j}"], u) if caches else None)
+              for u in range(cfg.n_units)
+              for j, blk in enumerate(cfg.pattern)]
+    blocks += [(cfg.pattern[i], params["tail"][f"blk{i}"],
+                caches["tail"][f"blk{i}"] if caches else None)
+               for i in range(cfg.n_tail)]
+    for blk, bp, c in blocks:
+        h, aux = apply_block(blk, bp, h, cfg, positions, shared=shared,
+                             cache=c, mode=mode)
+        if aux is not None:
+            total = total + aux
+    return h, total
 
 
 def _embed(params, cfg, tokens):
@@ -250,13 +304,12 @@ def _embed(params, cfg, tokens):
 
 def forward_hidden(params, cfg: ModelConfig, tokens, *, positions=None):
     """Training/prefill forward. tokens: [B, L]. Returns (h, aux); aux is the
-    router loss of MoE blocks, 0 for the dense blocks of this slice."""
+    summed router loss of the MoE blocks, 0 without them."""
     B, L = tokens.shape
     h = _embed(params, cfg, tokens)
     if positions is None:
         positions = torch.arange(L, device=h.device).expand(B, L)
-    h = _run_stack(h, params, cfg, positions)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    h, aux = _run_stack(h, params, cfg, positions)
     return rms_norm(h, params["ln_f"], cfg.norm_eps), aux
 
 
@@ -317,7 +370,8 @@ def serve_step(params, cfg: ModelConfig, cache, tokens, pos):
     the new token). Returns (logits [B,V], cache), the cache written in
     place."""
     h = _embed(params, cfg, tokens)
-    h = _run_stack(h, params, cfg, pos[:, None], caches=cache, mode="decode")
+    h, _ = _run_stack(h, params, cfg, pos[:, None], caches=cache,
+                      mode="decode")
     h = rms_norm(h, params["ln_f"], cfg.norm_eps)
     return lm_logits(h[:, 0], params, cfg), cache
 
@@ -332,6 +386,7 @@ def prefill(params, cfg: ModelConfig, cache, tokens, *, start_pos=0):
     h = _embed(params, cfg, tokens)
     positions = torch.arange(start_pos, start_pos + L,
                              device=h.device).expand(B, L)
-    h = _run_stack(h, params, cfg, positions, caches=cache, mode="prefill")
+    h, _ = _run_stack(h, params, cfg, positions, caches=cache,
+                      mode="prefill")
     h = rms_norm(h, params["ln_f"], cfg.norm_eps)
     return lm_logits(h[:, -1], params, cfg), cache

@@ -9,8 +9,8 @@ against the JAX package on the CPU, with weights made by the reference's
     (tests/test_decode_parity.py's dense_windowed family), the rolling
     cache's wraparound, and slot isolation (tests/test_launchers.py);
   * the bf16 checkpoint conversion bit for bit, the parameter tree and
-    count (the Mamba2 models too), the serve CLI on the CPU (the reduced
-    Mamba2 models too).
+    count (the MoE and Mamba2 models too), the serve CLI on the CPU (the
+    reduced Mamba2 models too; the MoE models' in tests/test_torch_moe.py).
 
 Logits are compared, never greedy tokens: near ties flip."""
 import pytest
@@ -305,9 +305,13 @@ def test_bf16_tree_converts_bit_for_bit():
             np.testing.assert_array_equal(t.numpy(), a, err_msg=key)
 
 
-@pytest.mark.parametrize("arch", DENSE_ARCHS + ["zamba2-7b", "mamba2-130m"])
+@pytest.mark.parametrize("arch", DENSE_ARCHS + [
+    "zamba2-7b", "mamba2-130m", "olmoe-1b-7b", "moonshot-v1-16b-a3b",
+    "mixtral-8x22b"])
 def test_param_tree_and_count_match(arch):
-    cfg = reduced(get_config(arch))
+    """Trees and counts in fl_mode "full" (mixtral-8x22b's LoRA mode
+    belongs to LM training; the other configs are "full" already)."""
+    cfg = reduced(get_config(arch)).replace(fl_mode="full")
     gen = torch.Generator().manual_seed(0)
     tp = tm.init_params(gen, cfg)
     shapes = jax.eval_shape(lambda: jm.init_params(jax.random.PRNGKey(0),
@@ -316,25 +320,25 @@ def test_param_tree_and_count_match(arch):
     got = {k: (tuple(v.shape), str(v.dtype).replace("torch.", ""))
            for k, v in _leaves(tp)}
     assert got == want
-    full = get_config(arch)
-    assert full.param_count() == jax_get_config(arch).param_count()
+    full = get_config(arch).replace(fl_mode="full")
+    assert full.param_count() == \
+        jax_get_config(arch).replace(fl_mode="full").param_count()
 
 
 def _unported(kind):
     """A reduced config whose one feature this slice does not run: the
-    registry's own where the port carries one, else tiny with it set."""
-    if kind == "gemma3-27b":
+    registry's own where the port carries one (the LoRA mode of
+    gemma3-27b and mixtral-8x22b), else tiny with it set."""
+    if kind in ("gemma3-27b", "mixtral-8x22b"):
         return reduced(get_config(kind))
     tiny = reduced(get_config("tiny"))
     return {
-        "moe": tiny.replace(pattern=(BlockCfg("moe"),), n_experts=4,
-                            top_k=2, expert_ff=64),
         "enc_dec": tiny.replace(enc_dec=True, n_enc_layers=2, enc_len=16),
         "frontend": tiny.replace(frontend="vision", frontend_len=8),
     }[kind]
 
 
-@pytest.mark.parametrize("arch", ["gemma3-27b", "moe", "enc_dec",
+@pytest.mark.parametrize("arch", ["gemma3-27b", "mixtral-8x22b", "enc_dec",
                                   "frontend"])
 def test_unported_architectures_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
