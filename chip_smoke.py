@@ -54,7 +54,10 @@ printed as JSON lines:
      a window and a soft-cap); head dim 128 at full length, where the
      products run over all 128 dims: olmoe-1b-7b's attention (B 2, H 16,
      K 16, L = S = 8192, global; moonshot-v1-16b-a3b's too) and
-     mixtral-8x22b's on one batch row (H 48, K 8, window 4096).  In
+     mixtral-8x22b's on one batch row (H 48, K 8, window 4096); the
+     enc-dec and frontend decoders' self-attention in full:
+     seamless-m4t-large-v2's (B 2, H 16, K 16, L = S = 8192, head dim
+     64, global) and internvl2-2b's (H 16 over K 8, head dim 128).  In
      bfloat16, up to
      1 024 queries, the same bounds also against ``flash_mha_tiled_ref``,
      the kernel's own tile-by-tile algorithm in plain torch.  Then K5
@@ -239,6 +242,29 @@ printed as JSON lines:
         against the full forward within 1e-3; ``launch.serve``'s CLI on
         the reduced olmoe-1b-7b and moonshot-v1-16b-a3b finishes its
         requests.
+     k. Encoder-decoder and frontend serving, run after phase 3j, with
+        its own numbers.  seamless-m4t-large-v2 (12 encoder and 12
+        decoder layers, d_model 1024, 16 heads of 64, d_ff 8192, vocab
+        256 206 tied; 1.02 B parameters) and then internvl2-2b (24
+        layers, d_model 2048, 16 query over 8 kv heads of 128, vocab
+        92 553; 1.89 B) at their published widths and depth in bfloat16
+        with ``attn_backend="flash"``, random weights from a seed, and
+        the stub frontends' outputs drawn from a seed: seamless's
+        ``enc_embeds`` [2, 1536, 1024] (audio frames), internvl2's
+        ``embeds`` [2, 1024, 2048] in place of the first 1 024 token
+        embeddings.  The LM path's prefill and 16 greedy steps: K4 once
+        per decoder layer in the prefill (12 and 24), never in decode
+        (the encoder and the cross-attention take the plain attention);
+        every logit finite; a second prefill bit-equal (logits, the
+        cache over the prompt's slots, the encoder output).  Prefill ms,
+        decode ms per step, a profiler breakdown by part (K4, cuBLAS,
+        the encoder's attention, the cross-attention, the rest) and the
+        encoder's ms.  In float32 (B 1, weights and inputs upcast): the
+        flash prefill against the xla branch's, each layer's attention
+        sub-block on the same input, the logits and every cache leaf
+        (the encoder output included) within 1e-3.  Small: the reduced
+        models prefill then decode against the full forward within
+        1e-3; ``launch.serve``'s CLI finishes its requests on both.
   4. numbers  — K1-K3: the Triton yardstick's global loads by width in
      its SASS at rows 8 bytes off 16 and at aligned rows; the CUDA kernel
      and the Triton yardstick in turns (K2's yardstick with its own weight
@@ -282,8 +308,10 @@ printed as JSON lines:
      with SDPA (the same function there) as the yardstick; zamba2-7b's
      prefill ms, decode ms per step and a profiler breakdown by part
      (K5, K4, cuBLAS, the inter-chunk loop, the conv).  K4 at
-     olmoe-1b-7b's attention (head dim 128) with SDPA (the same function
-     there) as the yardstick.  Each line carries the card's name and
+     olmoe-1b-7b's attention (head dim 128), at seamless-m4t-large-v2's
+     (head dim 64) and at internvl2-2b's (head dim 128, two query heads
+     per kv head) with SDPA (the same function there; ``enable_gqa`` for
+     the last) as the yardstick.  Each line carries the card's name and
      power limit.
   5. the ``{"kernels": [...]}`` line; the last line is
      ``{"ok": true, "device": {...}}``.
@@ -1065,14 +1093,16 @@ def check_flash(torch, fops, fref):
     TILED_MAX_L queries also the same bounds against
     ``flash_mha_tiled_ref``, the kernel's own algorithm in plain torch.
     Returns the largest error of each main path's cases in bfloat16: at
-    the gemma2-2b shapes (head dim 256) and at olmoe-1b-7b's (head dim
-    128)."""
-    worst = {256: 0.0, 128: 0.0}
+    the gemma2-2b shapes (head dim 256, key "gemma"), at olmoe-1b-7b's
+    (head dim 128, "olmoe"), at seamless-m4t-large-v2's (head dim 64,
+    "seamless") and at internvl2-2b's (head dim 128 with G = 2,
+    "internvl")."""
+    worst = dict(gemma=0.0, olmoe=0.0, seamless=0.0, internvl=0.0)
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).replace("torch.", "")
         for i, case in enumerate(FLASH_CASES + HEAD256_CASES + GEMMA_ATTN
                                  + ZAMBA_ATTN_CHECK + FLASH_RAGGED_CASES
-                                 + MOE_ATTN_CHECK):
+                                 + MOE_ATTN_CHECK + ENCDEC_ATTN_CHECK):
             q, k, v = flash_inputs(torch, case, dtype, seed=300 + i)
             before = fops.flash_mha.launches
             out = fops.flash_mha(q, k, v, **flash_kw(case))
@@ -1112,9 +1142,12 @@ def check_flash(torch, fops, fref):
                 raise AssertionError(f"flash attention at {case} {name} "
                                      "disagrees with its plain version")
             if dtype == torch.bfloat16 and case in GEMMA_ATTN[:2]:
-                worst[256] = max(worst[256], err)
-            if dtype == torch.bfloat16 and case == OLMOE_ATTN:
-                worst[128] = err
+                worst["gemma"] = max(worst["gemma"], err)
+            for key, main in (("olmoe", OLMOE_ATTN),
+                              ("seamless", SEAMLESS_ATTN),
+                              ("internvl", INTERNVL_ATTN)):
+                if dtype == torch.bfloat16 and case == main:
+                    worst[key] = err
             del q, k, v, out, plain
     torch.cuda.empty_cache()
     return worst
@@ -1290,10 +1323,12 @@ def decode(torch, model, params, cfg, cache, logits, start, steps):
 
 
 def lm_main_path(torch, model, cfg, params, tokens, counts,
-                 layers=LM_LAYERS, phase="lm_main_path", **extra):
-    """prefill (B 2, L 8192, cache 8192 + 16) then 16 greedy decode steps,
-    with every launch count at 0 just before: K4 must launch once per
-    layer (``layers`` of them) in the prefill and never in decode; all
+                 layers=LM_LAYERS, phase="lm_main_path", inputs=None,
+                 **extra):
+    """prefill (B 2, L 8192, cache 8192 + 16; ``inputs`` the frontend's
+    or encoder's embeddings, passed to ``prefill``) then 16 greedy decode
+    steps, with every launch count at 0 just before: K4 must launch once
+    per layer (``layers`` of them) in the prefill and never in decode; all
     logits finite.  Prints ``phase`` with ``extra``.  Returns the
     launches, the prefill's logits and the cache (decode wrote its slots
     from LM_L on)."""
@@ -1301,7 +1336,8 @@ def lm_main_path(torch, model, cfg, params, tokens, counts,
     torch.cuda.synchronize()
     counts.reset()
     t0 = time.perf_counter()
-    logits, cache = model.prefill(params, cfg, cache, tokens)
+    logits, cache = model.prefill(params, cfg, cache, tokens,
+                                  **(inputs or {}))
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     after_prefill = counts.read()
@@ -1358,29 +1394,32 @@ CACHE_LEAVES = ("k", "v", "conv", "state")
 
 def cache_kv(cache, rows=slice(None)):
     """Every floating-point leaf of a cache, stacked units then the tail,
-    in layer order, for the batch rows ``rows``."""
+    in layer order, then an enc-dec model's encoder output, for the batch
+    rows ``rows``."""
     return ([leaf[name][:, rows] for leaf in cache["stack"].values()
              for name in CACHE_LEAVES if name in leaf]
             + [leaf[name][rows] for leaf in cache["tail"].values()
-               for name in CACHE_LEAVES if name in leaf])
+               for name in CACHE_LEAVES if name in leaf]
+            + ([cache["enc_out"][rows]] if "enc_out" in cache else []))
 
 
-def prefill_drift(torch, model, cfg, params, tokens, seq_len):
+def prefill_drift(torch, model, cfg, params, tokens, seq_len, inputs=None):
     """The prefill through the flash kernel, then through the xla branch
     with ``both_backends`` on: each layer's flash-vs-xla difference on the
     xla run's own layer input, and the end-to-end max abs differences of
-    the logits and the caches (k, v; the positions must be equal).
-    Returns those with both runs' logits and caches."""
+    the logits and the caches (k, v and an encoder output; the positions
+    must be equal).  ``inputs`` go to both prefills.  Returns those with
+    both runs' logits and caches."""
     layers = []
     res = {}
     for backend in ("flash", "xla"):
         c = cfg.replace(attn_backend=backend)
         cache = model.init_cache(c, tokens.shape[0], seq_len)
-        if backend == "xla":
-            with both_backends(model, layers):
-                logits, cache = model.prefill(params, c, cache, tokens)
-        else:
-            logits, cache = model.prefill(params, c, cache, tokens)
+        with contextlib.ExitStack() as stack:
+            if backend == "xla":
+                stack.enter_context(both_backends(model, layers))
+            logits, cache = model.prefill(params, c, cache, tokens,
+                                          **(inputs or {}))
         torch.cuda.synchronize()
         res[backend] = (logits, cache)
     (lf, cf), (lx, cx) = res["flash"], res["xla"]
@@ -1560,22 +1599,72 @@ def decode_parity_small(torch, model, get_config, reduced):
     require(max(errs) < 1e-3, f"decode parity {errs}")
 
 
-def profile_ms(torch, fn, parts=None):
+@contextlib.contextmanager
+def labelled(torch, owner, attr, label):
+    """Inside the block ``owner.attr`` (a function the model calls
+    through its module global) runs under
+    ``torch.profiler.record_function(label)``."""
+    orig = getattr(owner, attr)
+
+    def wrapped(*a, **kw):
+        with torch.profiler.record_function(label):
+            return orig(*a, **kw)
+
+    setattr(owner, attr, wrapped)
+    try:
+        yield
+    finally:
+        setattr(owner, attr, orig)
+
+
+def range_kernels(evt):
+    """(name, µs) of every device kernel launched inside a profiled CPU
+    event and its children."""
+    out = [(k.name, k.duration) for k in evt.kernels]
+    for child in evt.cpu_children:
+        out += range_kernels(child)
+    return out
+
+
+def by_part(kernels, parts):
+    """ms of each part (name -> kernel-name substrings) over (name, µs)
+    pairs: a kernel counts for the first part one of whose substrings its
+    name contains."""
+    split = dict.fromkeys(parts, 0.0)
+    for name, us in kernels:
+        low = name.lower()
+        hit = next((p for p, subs in parts.items()
+                    if any(sub in low for sub in subs)), None)
+        if hit is not None:
+            split[hit] += us / 1e3
+    return split
+
+
+def profile_ms(torch, fn, parts=None, ranges=None):
     """One call of ``fn`` under torch.profiler: summed device time of all
     kernels, launches, and the top kernels by device time (None when the
     profiler records no device activity).  With ``parts`` (name -> kernel
     name substrings), also the device ms of each part: a kernel counts
-    for the first part one of whose substrings its name contains."""
+    for the first part one of whose substrings its name contains.  With
+    ``ranges`` (label -> (owner, attribute) of a function the run calls),
+    each such function runs under ``record_function(label)``, and the
+    kernels launched inside it count for its label (``parts_ms[label]``)
+    and for no part; the labels' own device annotations are not kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    ranges = ranges or {}
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    kernels = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-               if e.device_type == DeviceType.CUDA]
+    with contextlib.ExitStack() as stack:
+        for label, (owner, attr) in ranges.items():
+            stack.enter_context(labelled(torch, owner, attr, label))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    events = prof.events()
+    kernels = [(e.name, e.time_range.elapsed_us()) for e in events
+               if e.device_type == DeviceType.CUDA and e.name not in ranges]
     by_name = {}
     for name, us in kernels:
         by_name[name] = by_name.get(name, 0.0) + us
@@ -1585,14 +1674,19 @@ def profile_ms(torch, fn, parts=None):
                launches=len(kernels) if kernels else None,
                top_kernels_ms=[[n[:80], us / 1e3] for n, us in top])
     if parts is not None:
-        split = dict.fromkeys(parts, 0.0)
-        for name, us in by_name.items():
-            low = name.lower()
-            hit = next((p for p, subs in parts.items()
-                        if any(sub in low for sub in subs)), None)
-            if hit is not None:
-                split[hit] += us / 1e3
+        split = by_part(by_name.items(), parts)
+        inside = {label: [k for e in events
+                          if e.device_type == DeviceType.CPU
+                          and e.name == label for k in range_kernels(e)]
+                  for label in ranges}
+        for label, ks in inside.items():
+            for part, ms in by_part(ks, parts).items():
+                split[part] -= ms
+            split[label] = sum(us for _, us in ks) / 1e3
         out["parts_ms"] = split if kernels else None
+        if ranges:
+            out["range_launches"] = {label: len(ks)
+                                     for label, ks in inside.items()}
     return out
 
 
@@ -1897,17 +1991,23 @@ ZAMBA_ATTN = (2, 32, 32, 8192, 8192, 112, None, 0.0, True)
 
 def time_flash_sdpa(torch, fops, fref, smi, arch, case, cut):
     """K4 (bf16) at an attention shape where SDPA computes the same
-    function (is_causal, no soft-cap, no window, G = 1): the kernel over
-    20 calls at ``case``; SDPA over 20 as the library yardstick; the plain
-    version and the kernel at ``cut`` (``case``, or its first batch rows
-    and heads where the plain version's scores would not fit)."""
+    function (is_causal, no soft-cap, no window; ``enable_gqa`` where
+    query heads share kv heads): the kernel over 20 calls at ``case``;
+    SDPA over 20 as the library yardstick; the plain version and the
+    kernel at ``cut`` (``case``, or its first batch rows and heads where
+    the plain version's scores would not fit)."""
     q, k, v = flash_inputs(torch, case, torch.bfloat16, seed=710)
     k_ms = events_ms(torch, lambda: fops.flash_mha(q, k, v), 20)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_err = (sdpa(qt, kt, vt, is_causal=True).transpose(1, 2).float()
+    gqa = dict(enable_gqa=True) if case[1] != case[2] else {}
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, **gqa)
+
+    lib_err = (sdpa().transpose(1, 2).float()
                - fops.flash_mha(q, k, v).float()).abs().max().item()
-    lib_ms = events_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True), 20)
+    lib_ms = events_ms(torch, sdpa, 20)
     qc, kc, vc = (x[:cut[0], :, :cut[1]] for x in (q, k, v))
     cut_ms = events_ms(torch, lambda: fops.flash_mha(qc, kc, vc), 5)
     plain_cut_ms = events_ms(torch, lambda: fref.flash_mha_ref(qc, kc, vc), 2)
@@ -1915,7 +2015,8 @@ def time_flash_sdpa(torch, fops, fref, smi, arch, case, cut):
     issued = flash_issued_flops(case, FLASH_BM, FLASH_BN,
                                 flash_product_dims(case[5]))
     rec = dict(ms=k_ms, library_ms=lib_ms,
-               library="torch scaled_dot_product_attention (is_causal)",
+               library="torch scaled_dot_product_attention (is_causal"
+                       + (", enable_gqa)" if gqa else ")"),
                library_max_abs_err_vs_kernel=lib_err, bound_ms=b_ms,
                bound_by=b_by, flops=flops, tflop_per_s=flops / k_ms / 1e9,
                share_of_bound=b_ms / k_ms, vs_library=k_ms / lib_ms,
@@ -2098,18 +2199,21 @@ ZAMBA_PARTS = {"K5": ("ssd_chunk_wgmma", "ssd_chunk_kernel"),
                "conv": ("conv", "cudnn")}
 
 
-def time_serve(torch, model, cfg, params, tokens, smi, tag, parts):
+def time_serve(torch, model, cfg, params, tokens, smi, tag, parts,
+               inputs=None, ranges=None):
     """Prefill ms (2 calls) and decode ms per step (16 steps), CUDA events
     after the main path's warm run; one prefill and one decode step under
     the profiler, with the device busy share and the device time of the
-    ``parts`` (name -> kernel-name substrings, first match wins) and of
-    the rest.  Prints ``profile`` lines ``{tag}_prefill`` and
+    ``parts`` (name -> kernel-name substrings, first match wins), of the
+    ``ranges`` (``profile_ms``) and of the rest.  ``inputs`` go to the
+    prefills.  Prints ``profile`` lines ``{tag}_prefill`` and
     ``{tag}_decode_step`` and the ``{tag}_time`` line."""
     cache = model.init_cache(cfg, LM_B, LM_L + LM_NEW)
     holder = {}
 
     def run_prefill():
-        holder["logits"], _ = model.prefill(params, cfg, cache, tokens)
+        holder["logits"], _ = model.prefill(params, cfg, cache, tokens,
+                                            **(inputs or {}))
 
     prefill_ms = events_ms(torch, run_prefill, 2)
 
@@ -2120,10 +2224,10 @@ def time_serve(torch, model, cfg, params, tokens, smi, tag, parts):
     decode_ms = events_ms(torch, run_decode, 1) / LM_NEW
     tok = torch.argmax(holder["logits"], -1)[:, None]
     pos = torch.full((LM_B,), LM_L, device="cuda")
-    pre = profile_ms(torch, run_prefill, parts=parts)
+    pre = profile_ms(torch, run_prefill, parts=parts, ranges=ranges)
     dec = profile_ms(torch, lambda: model.serve_step(params, cfg, cache,
                                                      tok, pos),
-                     parts=parts)
+                     parts=parts, ranges=ranges)
     for name, prof, wall in (("prefill", pre, prefill_ms),
                              ("decode_step", dec, decode_ms)):
         busy = None if prof["device_ms"] is None else prof["device_ms"] / wall
@@ -3765,7 +3869,7 @@ def tree_bytes(tree):
                else v.numel() * v.element_size() for v in tree.values())
 
 
-def moe_config(get_config, arch, dtype):
+def full_config(get_config, arch, dtype):
     """``arch`` at its published widths and depth in ``dtype`` with
     attn_backend="flash", nothing cut."""
     return get_config(arch).replace(dtype=dtype, attn_backend="flash")
@@ -3987,19 +4091,19 @@ def moe_parity_small(torch, model, get_config, reduced, smi):
     require(max(worst.values()) < 1e-3, f"MoE decode parity {worst}")
 
 
-def moe_serve_cli(serve, smi):
-    """``launch.serve``'s CLI on the card for the reduced MoE models
-    (its default): every request finishes and prints its tokens (the
-    CLI's own output is kept off this script's standard output)."""
+def serve_cli(serve, smi, archs, phase):
+    """``launch.serve``'s CLI on the card for the reduced ``archs`` (its
+    default): every request finishes and prints its tokens (the CLI's own
+    output is kept off this script's standard output)."""
     stats = {}
-    for arch in MOE_ARCHS[:2]:
+    for arch in archs:
         out = io.StringIO()
         with contextlib.redirect_stdout(out):
             stats[arch] = serve.main(["--arch", arch, "--requests", "3",
                                       "--slots", "2", "--max-new", "4"])
         require(all(f"req{i}: " in out.getvalue() for i in range(3)),
                 f"{arch}: the serve CLI printed {out.getvalue()!r}")
-    emit(dict(phase="moe_serve_cli", card=smi, stats=stats))
+    emit(dict(phase=phase, card=smi, stats=stats))
 
 
 def moe_paths(torch, model, moe, serve, get_config, reduced, counts, smi):
@@ -4010,7 +4114,7 @@ def moe_paths(torch, model, moe, serve, get_config, reduced, counts, smi):
     parity and the serve CLI.  Returns the two main paths' launches."""
     t0 = time.perf_counter()
     launches = {}
-    cfg = moe_config(get_config, "olmoe-1b-7b", "bfloat16")
+    cfg = full_config(get_config, "olmoe-1b-7b", "bfloat16")
     params = lm_weights(torch, model, cfg, seed=11)
     tokens = lm_tokens(torch, cfg.vocab, seed=12)
     launches[cfg.name], logits, cache = lm_main_path(
@@ -4033,7 +4137,7 @@ def moe_paths(torch, model, moe, serve, get_config, reduced, counts, smi):
     del p32
     torch.cuda.empty_cache()
 
-    cfg = moe_config(get_config, "moonshot-v1-16b-a3b", "bfloat16")
+    cfg = full_config(get_config, "moonshot-v1-16b-a3b", "bfloat16")
     torch.cuda.reset_peak_memory_stats()
     params = lm_weights(torch, model, cfg, seed=13)
     tokens = lm_tokens(torch, cfg.vocab, seed=14)
@@ -4051,8 +4155,170 @@ def moe_paths(torch, model, moe, serve, get_config, reduced, counts, smi):
     del params
     torch.cuda.empty_cache()
     moe_parity_small(torch, model, get_config, reduced, smi)
-    moe_serve_cli(serve, smi)
+    serve_cli(serve, smi, MOE_ARCHS[:2], "moe_serve_cli")
     emit(dict(phase="moe_paths_done", card=smi,
+              seconds=time.perf_counter() - t0))
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 3k: encoder-decoder and modality-frontend serving,
+# seamless-m4t-large-v2 and internvl2-2b, K4 at head dim 64 and at head
+# dim 128 with grouped queries
+# ---------------------------------------------------------------------------
+
+#: K4's checks at the two prefills (phase 2), whole: seamless-m4t-large-
+#: v2's decoder self-attention (B 2, 16 heads of 64, global) through the
+#: kernel's head-dim-64 build, and internvl2-2b's (16 query over 8 kv
+#: heads of 128: G = 2) through its head-dim-128 build
+ENCDEC_ATTN_CHECK = [(2, 16, 16, 8192, 8192, 64, None, 0.0, True),
+                     (2, 16, 8, 8192, 8192, 128, None, 0.0, True)]
+SEAMLESS_ATTN, INTERNVL_ATTN = ENCDEC_ATTN_CHECK
+ENCDEC_ARCHS = ("seamless-m4t-large-v2", "internvl2-2b")
+#: the profiles' parts by kernel name; the encoder's attention and the
+#: decoder's cross-attention (plain torch, K/V projections included)
+#: count apart as ranges (``encdec_paths``)
+ENCDEC_PARTS = {"K4": ("flash_fwd",),
+                "cublas": ("nvjet", "gemm", "cutlass", "sm90_xmma")}
+
+
+def encdec_inputs(torch, cfg, batch, seed):
+    """The stub frontends' outputs, N(0, 1) in cfg.dtype drawn from
+    ``seed``: an enc-dec model's ``enc_embeds`` [batch, enc_len, d] (audio
+    frames) and a frontend model's ``embeds`` [batch, frontend_len, d]
+    (image patches, in place of the first frontend_len tokens)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dt = getattr(torch, cfg.dtype)
+    shapes = {}
+    if cfg.enc_dec:
+        shapes["enc_embeds"] = (batch, cfg.enc_len, cfg.d_model)
+    if cfg.frontend != "none":
+        shapes["embeds"] = (batch, cfg.frontend_len, cfg.d_model)
+    return {k: torch.randn(*shape, generator=gen, device="cuda").to(dt)
+            for k, shape in shapes.items()}
+
+
+def encdec_repeat(torch, model, cfg, params, tokens, inputs, first):
+    """A second prefill of the main path's inputs into a new cache: the
+    logits and every cache leaf over the prompt's slots, the encoder
+    output included, bit-equal to the main path's prefill (``first``:
+    its logits and cache)."""
+    cache = model.init_cache(cfg, LM_B, LM_L + LM_NEW)
+    logits, cache = model.prefill(params, cfg, cache, tokens, **inputs)
+    torch.cuda.synchronize()
+    first_logits, first_cache = first
+    require(torch.equal(logits, first_logits),
+            f"{cfg.name}: a second prefill's logits differ in bits")
+    require(all(torch.equal(a[name][:, :, :LM_L], b[name][:, :, :LM_L])
+                for a, b in zip(cache["stack"].values(),
+                                first_cache["stack"].values())
+                for name in a) and not cache["tail"]
+            and cache.keys() == first_cache.keys()
+            and ("enc_out" not in cache
+                 or torch.equal(cache["enc_out"], first_cache["enc_out"])),
+            f"{cfg.name}: a second prefill's cache differs in bits")
+
+
+def encdec_flash_vs_xla(torch, model, cfg, params, tokens, inputs, smi):
+    """In float32 (B 1, the bf16 weights and inputs upcast): the flash
+    prefill against the xla branch's, each layer's attention sub-block on
+    the same input (``both_backends``: self-attention, and for an enc-dec
+    model the cross-attention, which runs the plain attention in both),
+    the logits and every cache leaf (the encoder output included) within
+    LM_TOL_F32."""
+    d = prefill_drift(torch, model, cfg, params, tokens, LM_L + LM_NEW,
+                      inputs)
+    d.pop("runs")
+    emit(dict(phase="encdec_flash_vs_xla", card=smi, arch=cfg.name,
+              dtype=cfg.dtype, batch=1, prompt=LM_L, tol=LM_TOL_F32, **d))
+    require(max(d["layers"]) <= LM_TOL_F32 and d["logits"] <= LM_TOL_F32
+            and d["cache"] <= LM_TOL_F32,
+            f"{cfg.name} flash vs xla (float32): attention "
+            f"{max(d['layers'])}, logits {d['logits']}, caches {d['cache']} "
+            f"> {LM_TOL_F32}")
+    torch.cuda.empty_cache()
+
+
+def encdec_parity_small(torch, model, get_config, reduced, smi):
+    """On the card at a small size: reduced seamless-m4t-large-v2 and
+    internvl2-2b (float32, flash backend) with their stub inputs: prefill
+    of 128 tokens then 16 decode steps against the full forward over all
+    144, within 1e-3 (tests/test_decode_parity.py)."""
+    worst = {}
+    for i, arch in enumerate(ENCDEC_ARCHS):
+        cfg = reduced(get_config(arch)).replace(attn_backend="flash")
+        params = lm_weights(torch, model, cfg, seed=40 + i)
+        inputs = encdec_inputs(torch, cfg, 2, seed=42 + i)
+        gen = torch.Generator(device="cuda").manual_seed(44 + i)
+        toks = torch.randint(0, cfg.vocab, (2, 144), generator=gen,
+                             device="cuda")
+        h, _ = model.forward_hidden(params, cfg, toks, **inputs)
+        full = model.lm_logits(h, params, cfg)
+        cache = model.init_cache(cfg, 2, 144)
+        logits, cache = model.prefill(params, cfg, cache, toks[:, :128],
+                                      **inputs)
+        errs = [(logits - full[:, 127]).abs().max().item()]
+        for t in range(128, 144):
+            logits, cache = model.serve_step(
+                params, cfg, cache, toks[:, t:t + 1],
+                torch.full((2,), t, device="cuda"))
+            errs.append((logits - full[:, t]).abs().max().item())
+        worst[arch] = max(errs)
+    emit(dict(phase="encdec_parity_small", card=smi, max_abs_err=worst,
+              tol=1e-3))
+    require(max(worst.values()) < 1e-3, f"enc-dec decode parity {worst}")
+
+
+def encdec_paths(torch, model, serve, get_config, reduced, counts, smi):
+    """Phase 3k, with its numbers.  For seamless-m4t-large-v2, then
+    internvl2-2b (each one's weights freed before the next), at its
+    published widths and depth in bfloat16 with attn_backend="flash" and
+    its stub inputs from a seed: the main path (every count at 0 just
+    before: K4 once per decoder layer in the prefill, never in decode), a
+    repeated prefill, prefill and decode ms with a profile by part (K4,
+    cuBLAS, the encoder's attention, the cross-attention, the rest) and
+    the encoder's ms; then in float32 ``encdec_flash_vs_xla``.  Then the
+    small decode parity and the serve CLI.  Returns the main paths'
+    launches."""
+    t0 = time.perf_counter()
+    launches = {}
+    ranges = {"encoder_attention": (model, "attention"),
+              "cross_attention": (model, "_cross_attn")}
+    for i, arch in enumerate(ENCDEC_ARCHS):
+        tag = arch.split("-")[0]
+        cfg = full_config(get_config, arch, "bfloat16")
+        params = lm_weights(torch, model, cfg, seed=15 + 3 * i)
+        tokens = lm_tokens(torch, cfg.vocab, seed=16 + 3 * i)
+        inputs = encdec_inputs(torch, cfg, LM_B, seed=17 + 3 * i)
+        launches[arch], logits, cache = lm_main_path(
+            torch, model, cfg, params, tokens, counts, cfg.n_layers,
+            f"{tag}_main_path", inputs=inputs, card=smi,
+            encoder_layers=cfg.n_enc_layers if cfg.enc_dec else 0,
+            inputs_shape={k: list(v.shape) for k, v in inputs.items()})
+        encdec_repeat(torch, model, cfg, params, tokens, inputs,
+                      (logits, cache))
+        del logits, cache
+        emit(dict(phase=f"{tag}_repeat", card=smi, arch=cfg.name,
+                  bit_equal=True))
+        time_serve(torch, model, cfg, params, tokens, smi, tag, ENCDEC_PARTS,
+                   inputs=inputs, ranges=ranges)
+        if cfg.enc_dec:
+            emit(dict(phase="encode_time", card=smi, arch=cfg.name,
+                      frames=list(inputs["enc_embeds"].shape),
+                      encode_ms=events_ms(torch, lambda: model.encode(
+                          params, cfg, inputs["enc_embeds"]), 5)))
+        c32 = cfg.replace(dtype="float32")
+        p32 = tree_map(lambda k, t: t.float(), params)
+        del params
+        torch.cuda.empty_cache()
+        encdec_flash_vs_xla(torch, model, c32, p32, tokens[:1],
+                            {k: v[:1].float() for k, v in inputs.items()},
+                            smi)
+        del p32
+        torch.cuda.empty_cache()
+    encdec_parity_small(torch, model, get_config, reduced, smi)
+    serve_cli(serve, smi, ENCDEC_ARCHS, "encdec_serve_cli")
+    emit(dict(phase="encdec_paths_done", card=smi,
               seconds=time.perf_counter() - t0))
     return launches
 
@@ -4316,12 +4582,20 @@ def main():
     # numbers with it)
     moe_launches = moe_paths(torch, model, moe, serve, get_config, reduced,
                              counts, smi)
+    # phase 3k: encoder-decoder and frontend serving, every count at 0
+    # just before each main path: seamless-m4t-large-v2 (K4 at head dim
+    # 64) and internvl2-2b (head dim 128, two query heads per kv head)
+    encdec_launches = encdec_paths(torch, model, serve, get_config, reduced,
+                                   counts, smi)
 
     ssd_times = time_ssd(torch, sops, sref, get_config, smi)
     time_flash_sdpa(torch, fops, fref, smi, "zamba2-7b", ZAMBA_ATTN,
                     ZAMBA_ATTN_CHECK[0])
     moe_flash = time_flash_sdpa(torch, fops, fref, smi, "olmoe-1b-7b",
                                 OLMOE_ATTN, OLMOE_ATTN)
+    encdec_flash = {arch: time_flash_sdpa(torch, fops, fref, smi, arch, case,
+                                          case)
+                    for arch, case in zip(ENCDEC_ARCHS, ENCDEC_ATTN_CHECK)}
     flash_times = time_flash(torch, fops, fref, smi)
     torch.cuda.empty_cache()
     print(smi, flush=True)
@@ -4373,7 +4647,7 @@ def main():
         source="src/repro_torch/kernels/flash_attention/csrc/"
                "flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:90",
-        launches=lm_launches["K4"], max_abs_err=flash_err[256],
+        launches=lm_launches["K4"], max_abs_err=flash_err["gemma"],
         ms=mean("ms"), plain_ms=mean("plain_ms"), bound_ms=mean("bound_ms"),
         bound_by=both[0]["bound_by"], library_ms=mean("library_ms")))
     # K4 at head dim 128: per launch at olmoe-1b-7b's attention, which is
@@ -4385,10 +4659,28 @@ def main():
                "flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:90",
         launches=sum(n["K4"] for n in moe_launches.values()),
-        max_abs_err=flash_err[128], ms=moe_flash["ms"],
+        max_abs_err=flash_err["olmoe"], ms=moe_flash["ms"],
         plain_ms=moe_flash["plain_ms_at_cut"],
         bound_ms=moe_flash["bound_ms"], bound_by=moe_flash["bound_by"],
         library_ms=moe_flash["library_ms"]))
+    # K4 at head dim 64 (seamless-m4t-large-v2's decoder self-attention:
+    # B 2, 16 heads, L = S = 8192, global) and at head dim 128 with two
+    # query heads per kv head (internvl2-2b's: 16 over 8), per launch; the
+    # launches are each model's prefill's; SDPA (is_causal, enable_gqa)
+    # computes the same function there
+    for arch, name, key in (
+            ("seamless-m4t-large-v2", "head dim 64", "seamless"),
+            ("internvl2-2b", "head dim 128, two query heads per kv head",
+             "internvl")):
+        t = encdec_flash[arch]
+        kernels.append(dict(
+            name=f"flash_attention (K4), {name}", route="cuda",
+            source="src/repro_torch/kernels/flash_attention/csrc/"
+                   "flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention/kernel.py:90",
+            launches=encdec_launches[arch]["K4"], max_abs_err=flash_err[key],
+            ms=t["ms"], plain_ms=t["plain_ms_at_cut"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"], library_ms=t["library_ms"]))
     # K5: per launch at zamba2-7b's shape (the main path's 68 launches, all
     # on the tensor-core kernel)
     zt = ssd_times["zamba2-7b"]

@@ -21,7 +21,10 @@ dimensions batch (``split`` of ``[m, 2]`` keys gives ``[m, num, 2]``, the
 counterpart of ``jax.vmap(jax.random.split)``).
 
 ``split``, ``fold_in``, ``uniform`` and ``randint`` are bit-exact against
-jax 0.9.0.  ``normal`` evaluates the same Giles polynomial as XLA's
+jax 0.9.0; ``gumbel`` and ``categorical`` (the serving loop's sampled
+draw) evaluate jax's formulas on those uniforms through torch's ``log``
+and ``log1p``, so the Gumbel noise agrees within an ulp and the sampled
+indices are the reference's unless two classes tie within it.  ``normal`` evaluates the same Giles polynomial as XLA's
 ``erf_inv`` but through torch's ``log1p``/``sqrt``, so it agrees within a
 tolerance, not bitwise.  ``gamma``, ``loggamma`` and ``dirichlet`` run
 jax's Marsaglia–Tsang rejection sampler with its key splits; they agree
@@ -284,3 +287,27 @@ def dirichlet(key, alpha, shape=None):
     logs = loggamma(key, alpha, shape + tuple(alpha.shape[-1:]))
     un = torch.exp(logs - torch.amax(logs, dim=-1, keepdim=True))
     return un / torch.sum(un, dim=-1, keepdim=True)
+
+
+_F32_TINY = torch.finfo(torch.float32).tiny
+
+
+def gumbel(key, shape=()):
+    """``jax.random.gumbel(key, shape)`` in float32 (``jax/_src/random.py``'s
+    ``_gumbel``) in the mode jax's default resolves to, "low" (the
+    ``jax_high_dynamic_range_gumbel`` flag defaults to False):
+    -log(-log(u)) of one uniform on [tiny, 1)."""
+    return -torch.log(-torch.log(uniform(key, shape, _F32_TINY, 1.0)))
+
+
+def categorical(key, logits, axis=-1):
+    """``jax.random.categorical(key, logits, axis)`` on float32 logits
+    (with replacement, jax's default mode): the Gumbel-max trick, argmax
+    over ``axis`` of logits + gumbel(key, logits.shape), ties to the
+    first index as ``jnp.argmax``.  Returns int64 indices of shape
+    logits.shape without ``axis``."""
+    if logits.dtype != torch.float32:
+        raise TypeError(f"categorical draws on float32 logits (the "
+                        f"reference's uniform bits depend on the dtype); "
+                        f"got {logits.dtype}")
+    return torch.argmax(gumbel(key, logits.shape) + logits, dim=axis)

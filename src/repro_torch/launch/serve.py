@@ -1,13 +1,15 @@
 """Batched serving loop: continuous-batching style scheduler over the
-model substrate (per-request positions, greedy decode); a port of
-``repro/launch/serve.py`` with the same flags plus ``--device``.
+model substrate (per-request positions, greedy or sampled decode); a
+port of ``repro/launch/serve.py`` with the same flags plus ``--device``.
 
     python -m repro_torch.launch.serve [--arch tiny] [--device cpu]
 
 Runs on the card unless ``--device cpu`` is given; without a card it
 raises.  Prompts are prefilled token by token through ``serve_step``, as
 in the reference; ``models.model.prefill`` (the flash-attention path) is
-the entry point for whole prompts.
+the entry point for whole prompts.  An encoder-decoder model decodes
+against ``init_cache``'s zero encoder output, as the reference's server
+does (it takes no encoder input).
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core import prng
 from repro_torch.device import resolve_device
 from repro_torch.models import init_cache, init_params, reduced, serve_step
 
@@ -74,12 +77,11 @@ class Server:
         req.out = np.array([int(torch.argmax(logits[slot]))], np.int64)
         return logits
 
-    def run(self, requests: List[Request], greedy=True, seed=0):
+    def run(self, requests: List[Request], greedy=True):
         """Serve every request; returns (finished requests, stats).
-        ``greedy=False`` samples from softmax(logits) with a
-        ``torch.Generator`` seeded by ``seed``: its bits differ from the
-        reference's ``jax.random.categorical`` draws."""
-        gen = torch.Generator(device=self.device).manual_seed(seed)
+        ``greedy=False`` samples decode step n's tokens as the reference
+        does, ``categorical(PRNGKey(n), logits)`` on the port's threefry
+        (``core.prng``): the same draws from the same logits."""
         queue = list(requests)
         done, t0, steps = [], time.time(), 0
         while queue or any(a is not None for a in self.active):
@@ -100,12 +102,9 @@ class Server:
                     tok_b[slot, 0] = req.prompt[-1]
             logits = self._step(tok_b, self.pos.copy())
             steps += 1
-            if greedy:
-                nxt = torch.argmax(logits, -1)
-            else:
-                nxt = torch.multinomial(torch.softmax(logits, -1), 1,
-                                        generator=gen)[:, 0]
-            nxt = nxt.cpu().numpy()
+            nxt = (torch.argmax(logits, -1) if greedy else
+                   prng.categorical(prng.PRNGKey(steps, self.device),
+                                    logits)).cpu().numpy()
             for slot, req in enumerate(self.active):
                 if req is None:
                     continue

@@ -152,19 +152,30 @@ def attention_decode(q, k_cache, v_cache, q_pos, cache_pos, *, window=None,
 # attention block application
 # ---------------------------------------------------------------------------
 
-def attn_qkvo(x, bp, cfg, positions, *, decode_cache=None,
-              prefill_cache=None, window=None):
-    """Compute one causal attention sub-block given params dict ``bp``.
+def attn_qkvo(x, bp, cfg, positions, *, kv_override=None,
+              decode_cache=None, prefill_cache=None, window=None,
+              causal=True):
+    """Compute one attention sub-block given params dict ``bp``.
 
+    kv_override: (k, v, k_pos) for cross-attention: q is projected and
+    roped, k and v are taken as given (unroped), and the plain
+    bidirectional attention runs whatever the backend, as in the
+    reference.
     decode_cache: dict(k, v, pos, slot) for single-token decode.
     prefill_cache: dict(k, v, pos) — full-sequence forward that also writes
     the (last `alloc`) K/V entries into the cache.
+    causal: the self-attention's mask (the encoder's is bidirectional).
     Returns the block's output.  Unlike the reference, which returns new
     cache arrays beside it, the caches are updated IN PLACE.
     """
     B, L, _ = x.shape
     q = (x @ bp["wq"]).reshape(B, L, cfg.n_heads, cfg.head_dim)
     q = apply_rope(q, positions, cfg.rope_theta)
+    if kv_override is not None:
+        k, v, k_pos = kv_override
+        out = attention(q, k, v, positions, k_pos, window=None, causal=False,
+                        attn_softcap=cfg.attn_softcap, q_chunk=cfg.attn_chunk)
+        return out.reshape(B, L, cfg.q_dim) @ bp["wo"]
     k = (x @ bp["wk"]).reshape(B, L, cfg.n_kv_heads, cfg.head_dim)
     v = (x @ bp["wv"]).reshape(B, L, cfg.n_kv_heads, cfg.head_dim)
     k = apply_rope(k, positions, cfg.rope_theta)
@@ -185,11 +196,11 @@ def attn_qkvo(x, bp, cfg, positions, *, decode_cache=None,
                      and prefill_cache is not None
                      and L % 128 == 0 and cfg.head_dim % 8 == 0)
         if use_flash:
-            out = flash_mha(q, k, v, window=window,
+            out = flash_mha(q, k, v, causal=causal, window=window,
                             softcap=cfg.attn_softcap)
         else:
             out = attention(q, k, v, positions, positions, window=window,
-                            attn_softcap=cfg.attn_softcap,
+                            causal=causal, attn_softcap=cfg.attn_softcap,
                             q_chunk=cfg.attn_chunk)
         if prefill_cache is not None:
             alloc = prefill_cache["k"].shape[1]

@@ -1,6 +1,7 @@
 """Unified model, dense attention, MoE and Mamba2 / shared-attention
-blocks: parameter init, the unit loop, logits, caches, prefill and
-decode; a port of ``repro/models/model.py``.
+blocks, the encoder-decoder and the modality frontends: parameter init,
+the unit loop, logits, caches, prefill and decode; a port of
+``repro/models/model.py``.
 
 The layer stack is grouped into repeating *units* (cfg.pattern).  Weights
 and caches of the full units are stacked on a leading ``[n_units]`` axis,
@@ -13,11 +14,22 @@ reads the one attention block ``params["shared"]``, each with its own
 cache.
 
 An MoE block is an attention block whose gated MLP is ``moe.moe_ffn``;
-the stack sums its router losses as the reference does.  Encoder-decoder
-models, modality frontends and LoRA raise NotImplementedError naming the
-ROADMAP item that ports them.  Caches are updated in place (the
-reference returns new ones): ``prefill`` and ``serve_step`` write into
-the cache they are given and return it.
+the stack sums its router losses as the reference does.
+
+An encoder-decoder model (``cfg.enc_dec``) runs ``encode`` over the
+frame embeddings ``enc_embeds`` (a stubbed frontend's output): a stack of
+``n_enc_layers`` bidirectional attention blocks under ``params["enc"]``.
+Each decoder block then adds a cross-attention sub-block (``ln_x``,
+``wq_x``..``wo_x``) whose keys and values it projects from the encoder's
+output, unroped, through the plain attention.  The cache holds that
+output (``cache["enc_out"]``, written by ``prefill``), and ``serve_step``
+projects its keys and values again in every layer at every step, as the
+reference does.  A modality frontend's stub embeddings (``embeds``
+[B, F, d]) replace the first F token embeddings; positions are
+unchanged.  LoRA raises NotImplementedError naming the ROADMAP item that
+ports it.  Caches are updated in place (the reference returns new ones):
+``prefill`` and ``serve_step`` write into the cache they are given and
+return it.
 """
 from __future__ import annotations
 
@@ -29,13 +41,11 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import ssm
 from repro_torch.models.config import BlockCfg, ModelConfig
-from repro_torch.models.layers import attn_qkvo, rms_norm, softcap, swiglu
+from repro_torch.models.layers import (apply_rope, attention, attn_qkvo,
+                                       rms_norm, softcap, swiglu)
 from repro_torch.models.moe import moe_ffn
 
 _TODO = {
-    "enc_dec": "encoder-decoder models are ROADMAP queue 1 item 16",
-    "frontend": "modality frontends (stub embeddings) are ROADMAP queue 1 "
-                "item 16",
     "lora": "fl_mode='lora' belongs to LM training, ROADMAP queue 1 item 3",
 }
 
@@ -47,11 +57,7 @@ def _dt(cfg):
 
 
 def check_supported(cfg: ModelConfig):
-    """Raise NotImplementedError for what this slice does not run."""
-    if cfg.enc_dec:
-        raise NotImplementedError(f"{cfg.name}: {_TODO['enc_dec']}")
-    if cfg.frontend != "none":
-        raise NotImplementedError(f"{cfg.name}: {_TODO['frontend']}")
+    """Raise NotImplementedError for what the port does not run."""
     if cfg.fl_mode == "lora":
         raise NotImplementedError(f"{cfg.name}: {_TODO['lora']}")
 
@@ -60,19 +66,25 @@ def check_supported(cfg: ModelConfig):
 # initialization
 # ===========================================================================
 
-def _attn_block_shapes(cfg: ModelConfig):
+def _attn_block_shapes(cfg: ModelConfig, cross=False):
     """name -> shape of one attention block's leaves (``ln*`` are float32
-    zeros, the rest dense weights in cfg.dtype)."""
+    zeros, the rest dense weights in cfg.dtype); with ``cross`` (an
+    encoder-decoder's decoder block) also the cross-attention's ``ln_x``,
+    ``wq_x``, ``wk_x``, ``wv_x`` and ``wo_x``
+    (``repro/models/model.py:56-63``)."""
     d, qd, kd, ff = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff
     shapes = {"ln1": (d,), "wq": (d, qd), "wk": (d, kd), "wv": (d, kd),
               "wo": (qd, d), "ln2": (d,)}
     if ff:
         shapes["wi"] = (d, 2 * ff)
         shapes["wd"] = (ff, d)
+    if cross:
+        shapes.update(ln_x=(d,), wq_x=(d, qd), wk_x=(d, kd), wv_x=(d, kd),
+                      wo_x=(qd, d))
     return shapes
 
 
-def _moe_block_shapes(cfg: ModelConfig):
+def _moe_block_shapes(cfg: ModelConfig, cross=False):
     """name -> (shape, dtype) of one MoE block's leaves
     (``repro/models/model.py:67-81``): the attention block's without its
     dense MLP, the float32 router [d, E], the experts' stacked SwiGLU
@@ -80,7 +92,7 @@ def _moe_block_shapes(cfg: ModelConfig):
     experts their one SwiGLU of width n_shared * eff."""
     dt, f32 = _dt(cfg), torch.float32
     out = {name: (shape, f32 if name.startswith("ln") else dt)
-           for name, shape in _attn_block_shapes(cfg).items()
+           for name, shape in _attn_block_shapes(cfg, cross).items()
            if name not in ("wi", "wd")}
     d, eff, E = cfg.d_model, cfg.expert_ff, cfg.n_experts
     out["router"] = ((d, E), f32)
@@ -102,9 +114,9 @@ def _dense_init(gen, shape, dtype, scale=None, lead=()):
     return (x * s).to(dtype)
 
 
-def init_attn_block(gen, cfg: ModelConfig, lead=()):
+def init_attn_block(gen, cfg: ModelConfig, lead=(), cross=False):
     out = {}
-    for name, shape in _attn_block_shapes(cfg).items():
+    for name, shape in _attn_block_shapes(cfg, cross).items():
         if name.startswith("ln"):
             out[name] = torch.zeros(tuple(lead) + shape, dtype=torch.float32,
                                     device=gen.device)
@@ -113,7 +125,7 @@ def init_attn_block(gen, cfg: ModelConfig, lead=()):
     return out
 
 
-def init_moe_block(gen, cfg: ModelConfig, lead=()):
+def init_moe_block(gen, cfg: ModelConfig, lead=(), cross=False):
     """Norms zero; the router and the shared experts dense (fan_in^-0.5);
     the experts' ``wi_e`` at d^-0.5 and ``wd_e`` at eff^-0.5, as the
     reference scales them.  The expert leaves are drawn one stacked unit
@@ -121,7 +133,7 @@ def init_moe_block(gen, cfg: ModelConfig, lead=()):
     70.9 GB for moonshot-v1-16b-a3b's ``wi_e``."""
     scales = {"wi_e": cfg.d_model ** -0.5, "wd_e": cfg.expert_ff ** -0.5}
     out = {}
-    for name, (shape, dtype) in _moe_block_shapes(cfg).items():
+    for name, (shape, dtype) in _moe_block_shapes(cfg, cross).items():
         if name.startswith("ln"):
             out[name] = torch.zeros(tuple(lead) + shape, dtype=dtype,
                                     device=gen.device)
@@ -178,11 +190,11 @@ def init_mamba_block(gen, cfg: ModelConfig, lead=()):
     }
 
 
-def _init_block(gen, blk: BlockCfg, cfg: ModelConfig, lead=()):
+def _init_block(gen, blk: BlockCfg, cfg: ModelConfig, lead=(), cross=False):
     if blk.kind == "attn":
-        return init_attn_block(gen, cfg, lead)
+        return init_attn_block(gen, cfg, lead, cross)
     if blk.kind == "moe":
-        return init_moe_block(gen, cfg, lead)
+        return init_moe_block(gen, cfg, lead, cross)
     if blk.kind == "mamba":
         return init_mamba_block(gen, cfg, lead)
     return {}  # shared_attn: weights live in params["shared"]
@@ -195,18 +207,28 @@ def _has_shared(cfg):
 def init_params(gen: torch.Generator, cfg: ModelConfig):
     """Random parameters drawn from ``gen`` on its device, in the
     reference's tree layout (``stack/pos{j}`` leaves stacked on a leading
-    ``[n_units]`` axis, ``tail/blk{i}``).  The bits differ from the
-    reference's ``jax.random`` draws; tests carry JAX weights across."""
+    ``[n_units]`` axis, ``tail/blk{i}``; with ``cfg.enc_dec`` the decoder
+    blocks carry the cross-attention leaves and ``enc`` holds the
+    encoder: ``n_enc_layers`` attention blocks stacked under
+    ``stack/pos0``, an empty ``tail`` and its ``ln_f``).  The bits differ
+    from the reference's ``jax.random`` draws; tests carry JAX weights
+    across."""
     check_supported(cfg)
     dt = _dt(cfg)
+    cross = cfg.enc_dec
+
+    def zeros_d():
+        return torch.zeros((cfg.d_model,), dtype=torch.float32,
+                           device=gen.device)
+
     params = {
         "embed": _dense_init(gen, (cfg.vocab, cfg.d_model), dt, scale=0.02),
-        "ln_f": torch.zeros((cfg.d_model,), dtype=torch.float32,
-                            device=gen.device),
-        "stack": {f"pos{j}": (_init_block(gen, blk, cfg, (cfg.n_units,))
+        "ln_f": zeros_d(),
+        "stack": {f"pos{j}": (_init_block(gen, blk, cfg, (cfg.n_units,),
+                                          cross)
                               if cfg.n_units else {})
                   for j, blk in enumerate(cfg.pattern)},
-        "tail": {f"blk{i}": _init_block(gen, cfg.pattern[i], cfg)
+        "tail": {f"blk{i}": _init_block(gen, cfg.pattern[i], cfg, (), cross)
                  for i in range(cfg.n_tail)},
     }
     if _has_shared(cfg):
@@ -214,25 +236,38 @@ def init_params(gen: torch.Generator, cfg: ModelConfig):
     if not cfg.tie_embeddings:
         params["unembed"] = _dense_init(gen, (cfg.d_model, cfg.vocab), dt,
                                         scale=0.02)
+    if cfg.enc_dec:
+        params["enc"] = {
+            "stack": {"pos0": (init_attn_block(gen, cfg, (cfg.n_enc_layers,))
+                               if cfg.n_enc_layers else {})},
+            "tail": {}, "ln_f": zeros_d()}
     return params
 
 
 def count_params(cfg: ModelConfig, trainable_only: bool = False) -> int:
     """Analytic parameter count (matches init_params).  Every parameter is
-    trainable in this slice (LoRA raises), so ``trainable_only`` changes
+    trainable in the port (LoRA raises), so ``trainable_only`` changes
     nothing."""
     check_supported(cfg)
-    attn = sum(math.prod(s) for s in _attn_block_shapes(cfg).values())
-    per_kind = {"attn": attn, "shared_attn": 0}
-    for kind, shapes in (("moe", _moe_block_shapes),
-                         ("mamba", _mamba_block_shapes)):
-        per_kind[kind] = sum(math.prod(s) for s, _ in shapes(cfg).values())
+    cross = cfg.enc_dec
+
+    def attn_count(with_cross):
+        return sum(math.prod(s) for s in
+                   _attn_block_shapes(cfg, with_cross).values())
+
+    per_kind = {"attn": attn_count(cross), "shared_attn": 0,
+                "moe": sum(math.prod(s) for s, _ in
+                           _moe_block_shapes(cfg, cross).values()),
+                "mamba": sum(math.prod(s) for s, _ in
+                             _mamba_block_shapes(cfg).values())}
     n = cfg.vocab * cfg.d_model + cfg.d_model
     n += sum(per_kind[b.kind] for b in cfg.layer_blocks())
     if _has_shared(cfg):
-        n += attn
+        n += attn_count(False)
     if not cfg.tie_embeddings:
         n += cfg.d_model * cfg.vocab
+    if cfg.enc_dec:
+        n += cfg.n_enc_layers * attn_count(False) + cfg.d_model
     return n
 
 
@@ -244,13 +279,63 @@ def _unit_slice(tree, u):
     return {k: v[u] for k, v in tree.items()}
 
 
+def encode(params, cfg: ModelConfig, enc_embeds):
+    """Encoder pass (enc-dec models). enc_embeds: [B, Le, d] -> [B, Le, d].
+
+    Each of the ``n_enc_layers`` blocks: rms_norm, q/k/v projections both
+    roped at positions 0..Le-1, bidirectional plain attention
+    (``causal=False``, q-chunked by cfg.attn_chunk), ``wo``, then the
+    SwiGLU MLP; then the encoder's ``ln_f``.  As in the reference, the
+    frame embeddings enter uncast and the plain attention runs whatever
+    the backend."""
+    B, Le, _ = enc_embeds.shape
+    pos = torch.arange(Le, device=enc_embeds.device).expand(B, Le)
+    enc = params["enc"]
+    h = enc_embeds
+    for u in range(cfg.n_enc_layers):
+        bp = _unit_slice(enc["stack"]["pos0"], u)
+        x = rms_norm(h, bp["ln1"], cfg.norm_eps)
+        q = (x @ bp["wq"]).reshape(B, Le, cfg.n_heads, cfg.head_dim)
+        k = (x @ bp["wk"]).reshape(B, Le, cfg.n_kv_heads, cfg.head_dim)
+        v = (x @ bp["wv"]).reshape(B, Le, cfg.n_kv_heads, cfg.head_dim)
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
+        o = attention(q, k, v, pos, pos, causal=False,
+                      attn_softcap=cfg.attn_softcap, q_chunk=cfg.attn_chunk)
+        h = h + o.reshape(B, Le, cfg.q_dim) @ bp["wo"]
+        h = h + swiglu(rms_norm(h, bp["ln2"], cfg.norm_eps), bp["wi"],
+                       bp["wd"])
+    return rms_norm(h, enc["ln_f"], cfg.norm_eps)
+
+
+def _enc_kv(enc_out):
+    """The cross-attention's source: the encoder output and its key
+    positions [B, Le]."""
+    B, Le, _ = enc_out.shape
+    return enc_out, torch.arange(Le, device=enc_out.device).expand(B, Le)
+
+
+def _cross_attn(x, wp, cfg, positions, enc_kv):
+    """Cross-attention of x on the encoder output: K and V projected from
+    it in this block (unroped), q roped at the decoder positions
+    (``attn_qkvo(kv_override=)``)."""
+    enc_out, k_pos = enc_kv
+    B, Le, _ = enc_out.shape
+    k = (enc_out @ wp["wk"]).reshape(B, Le, cfg.n_kv_heads, cfg.head_dim)
+    v = (enc_out @ wp["wv"]).reshape(B, Le, cfg.n_kv_heads, cfg.head_dim)
+    return attn_qkvo(x, wp, cfg, positions, kv_override=(k, v, k_pos))
+
+
 def apply_block(blk: BlockCfg, bp, h, cfg, positions, *, shared=None,
-                cache=None, mode="train"):
+                enc_kv=None, cache=None, mode="train"):
     """One block, residual: ``mamba`` runs the Mamba2 mixer; ``attn`` and
     ``shared_attn`` (weights ``shared``) run attention then the gated MLP,
-    ``moe`` attention then ``moe_ffn``.  Returns (h, aux): aux the MoE
-    block's router loss, None for the other kinds.  The cache
-    (prefill/decode modes) is written in place."""
+    ``moe`` attention then ``moe_ffn``.  With ``enc_kv`` (enc-dec models)
+    a block that carries cross weights adds, between the two, the
+    cross-attention sub-block on the encoder output (``ln_x``, then
+    ``_cross_attn``).  Returns (h, aux): aux the MoE block's router loss,
+    None for the other kinds.  The cache (prefill/decode modes) is
+    written in place."""
     if blk.kind == "mamba":
         return h + ssm.mamba_block(
             rms_norm(h, bp["ln1"], cfg.norm_eps), bp, cfg,
@@ -268,6 +353,11 @@ def apply_block(blk: BlockCfg, bp, h, cfg, positions, *, shared=None,
         pre = cache
     h = h + attn_qkvo(x, bp, cfg, positions, decode_cache=dec,
                       prefill_cache=pre, window=blk.window)
+    if enc_kv is not None and "wq_x" in bp:
+        xp = {"wq": bp["wq_x"], "wk": bp["wk_x"], "wv": bp["wv_x"],
+              "wo": bp["wo_x"]}
+        h = h + _cross_attn(rms_norm(h, bp["ln_x"], cfg.norm_eps), xp, cfg,
+                            positions, enc_kv)
     x = rms_norm(h, bp["ln2"], cfg.norm_eps)
     if blk.kind == "moe":
         y, aux = moe_ffn(x, bp, cfg)
@@ -275,8 +365,8 @@ def apply_block(blk: BlockCfg, bp, h, cfg, positions, *, shared=None,
     return h + swiglu(x, bp["wi"], bp["wd"]), None
 
 
-def _run_stack(h, params, cfg: ModelConfig, positions, *, caches=None,
-               mode="train"):
+def _run_stack(h, params, cfg: ModelConfig, positions, *, enc_kv=None,
+               caches=None, mode="train"):
     """The unit loop, then the tail.  Returns (h, aux): aux the summed
     router loss of the MoE blocks (a float32 scalar, 0 without them); the
     caches are written in place."""
@@ -291,25 +381,36 @@ def _run_stack(h, params, cfg: ModelConfig, positions, *, caches=None,
                for i in range(cfg.n_tail)]
     for blk, bp, c in blocks:
         h, aux = apply_block(blk, bp, h, cfg, positions, shared=shared,
-                             cache=c, mode=mode)
+                             enc_kv=enc_kv, cache=c, mode=mode)
         if aux is not None:
             total = total + aux
     return h, total
 
 
-def _embed(params, cfg, tokens):
+def _embed(params, cfg, tokens, embeds=None):
+    """Token embeddings in cfg.dtype; a frontend's stub ``embeds`` [B, F,
+    d] take the place of the first F."""
     check_supported(cfg)
-    return params["embed"][tokens].to(_dt(cfg))
+    h = params["embed"][tokens].to(_dt(cfg))
+    if embeds is not None:
+        F = embeds.shape[1]
+        h = torch.cat([embeds.to(h.dtype), h[:, F:]], dim=1)
+    return h
 
 
-def forward_hidden(params, cfg: ModelConfig, tokens, *, positions=None):
-    """Training/prefill forward. tokens: [B, L]. Returns (h, aux); aux is the
-    summed router loss of the MoE blocks, 0 without them."""
+def forward_hidden(params, cfg: ModelConfig, tokens, *, embeds=None,
+                   enc_embeds=None, positions=None):
+    """Training/prefill forward. tokens: [B, L]; ``embeds`` a frontend's
+    stub embeddings [B, F, d], ``enc_embeds`` an enc-dec model's encoder
+    input [B, Le, d]. Returns (h, aux); aux is the summed router loss of
+    the MoE blocks, 0 without them."""
     B, L = tokens.shape
-    h = _embed(params, cfg, tokens)
+    h = _embed(params, cfg, tokens, embeds)
     if positions is None:
         positions = torch.arange(L, device=h.device).expand(B, L)
-    h, aux = _run_stack(h, params, cfg, positions)
+    enc_kv = _enc_kv(encode(params, cfg, enc_embeds)) if cfg.enc_dec \
+        else None
+    h, aux = _run_stack(h, params, cfg, positions, enc_kv=enc_kv)
     return rms_norm(h, params["ln_f"], cfg.norm_eps), aux
 
 
@@ -348,7 +449,9 @@ def init_cache(cfg: ModelConfig, batch, seq_len, dtype=None, *,
     [batch, alloc] = -1, where alloc is seq_len for global blocks and
     min(window, seq_len) for windowed ones (rolling); per Mamba2 block the
     conv window [batch, W-1, conv_dim] and the SSM state [batch, H, P, N],
-    both in ``dtype``; full units stacked on [n_units]."""
+    both in ``dtype``; full units stacked on [n_units].  An enc-dec
+    model's cache also holds the encoder output ``enc_out`` [batch,
+    enc_len, d] in ``dtype``, zeros until ``prefill`` writes it."""
     check_supported(cfg)
     dev = resolve_device(device)
     dtype = dtype or _dt(cfg)
@@ -358,35 +461,56 @@ def init_cache(cfg: ModelConfig, batch, seq_len, dtype=None, *,
         return {k: v.expand((cfg.n_units,) + v.shape).clone()
                 for k, v in one.items()}
 
-    return {"stack": {f"pos{j}": stacked(blk)
-                      for j, blk in enumerate(cfg.pattern)},
-            "tail": {f"blk{i}": init_block_cache(cfg.pattern[i], cfg, batch,
-                                                 seq_len, dtype, dev)
-                     for i in range(cfg.n_tail)}}
+    cache = {"stack": {f"pos{j}": stacked(blk)
+                       for j, blk in enumerate(cfg.pattern)},
+             "tail": {f"blk{i}": init_block_cache(cfg.pattern[i], cfg,
+                                                  batch, seq_len, dtype, dev)
+                      for i in range(cfg.n_tail)}}
+    if cfg.enc_dec:
+        cache["enc_out"] = torch.zeros((batch, cfg.enc_len, cfg.d_model),
+                                       dtype=dtype, device=dev)
+    return cache
 
 
 def serve_step(params, cfg: ModelConfig, cache, tokens, pos):
     """One decode step. tokens: [B,1] int; pos: [B] int (absolute index of
     the new token). Returns (logits [B,V], cache), the cache written in
-    place."""
+    place.  An enc-dec model's cross-attention reads ``cache["enc_out"]``
+    and projects its keys and values again in every layer (the
+    reference's arithmetic)."""
     h = _embed(params, cfg, tokens)
-    h, _ = _run_stack(h, params, cfg, pos[:, None], caches=cache,
-                      mode="decode")
+    enc_kv = _enc_kv(cache["enc_out"]) if cfg.enc_dec else None
+    h, _ = _run_stack(h, params, cfg, pos[:, None], enc_kv=enc_kv,
+                      caches=cache, mode="decode")
     h = rms_norm(h, params["ln_f"], cfg.norm_eps)
     return lm_logits(h[:, 0], params, cfg), cache
 
 
-def prefill(params, cfg: ModelConfig, cache, tokens, *, start_pos=0):
+def prefill(params, cfg: ModelConfig, cache, tokens, *, embeds=None,
+            enc_embeds=None, start_pos=0):
     """Full-sequence forward that also populates the decode cache (in
-    place). tokens: [B, Lp]. Returns (last-position logits [B, V], cache).
-    With ``cfg.attn_backend == "flash"`` and Lp % 128 == 0 the attention
-    runs through the flash kernel; Mamba2 blocks run their SSD scan
-    through the SSD chunk kernel."""
+    place). tokens: [B, Lp]; ``embeds`` and ``enc_embeds`` as in
+    ``forward_hidden``. Returns (last-position logits [B, V], cache).
+    With ``cfg.attn_backend == "flash"`` and Lp % 128 == 0 the decoder's
+    self-attention runs through the flash kernel (the encoder and the
+    cross-attention run the plain attention, as in the reference); Mamba2
+    blocks run their SSD scan through the SSD chunk kernel.  An enc-dec
+    model encodes once: the output, cast to the cache's dtype, is written
+    into ``cache["enc_out"]``, and the cross-attention reads it uncast."""
     B, L = tokens.shape
-    h = _embed(params, cfg, tokens)
+    h = _embed(params, cfg, tokens, embeds)
     positions = torch.arange(start_pos, start_pos + L,
                              device=h.device).expand(B, L)
-    h, _ = _run_stack(h, params, cfg, positions, caches=cache,
+    enc_kv = None
+    if cfg.enc_dec:
+        enc_out = encode(params, cfg, enc_embeds)
+        if enc_out.shape != cache["enc_out"].shape:
+            raise ValueError(f"enc_embeds give an encoder output of shape "
+                             f"{tuple(enc_out.shape)}; the cache holds "
+                             f"{tuple(cache['enc_out'].shape)}")
+        cache["enc_out"].copy_(enc_out)
+        enc_kv = _enc_kv(enc_out)
+    h, _ = _run_stack(h, params, cfg, positions, enc_kv=enc_kv, caches=cache,
                       mode="prefill")
     h = rms_norm(h, params["ln_f"], cfg.norm_eps)
     return lm_logits(h[:, -1], params, cfg), cache

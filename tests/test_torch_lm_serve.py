@@ -9,8 +9,12 @@ against the JAX package on the CPU, with weights made by the reference's
     (tests/test_decode_parity.py's dense_windowed family), the rolling
     cache's wraparound, and slot isolation (tests/test_launchers.py);
   * the bf16 checkpoint conversion bit for bit, the parameter tree and
-    count (the MoE and Mamba2 models too), the serve CLI on the CPU (the
-    reduced Mamba2 models too; the MoE models' in tests/test_torch_moe.py).
+    count (the MoE, Mamba2, encoder-decoder and frontend models too), the
+    serve CLI on the CPU (the reduced Mamba2 models too; the MoE models'
+    in tests/test_torch_moe.py, the enc-dec and frontend models' in
+    tests/test_torch_encdec.py);
+  * the sampled ``Server.run`` against the reference ``Server`` on the
+    same weights: the same tokens.
 
 Logits are compared, never greedy tokens: near ties flip."""
 import pytest
@@ -307,7 +311,7 @@ def test_bf16_tree_converts_bit_for_bit():
 
 @pytest.mark.parametrize("arch", DENSE_ARCHS + [
     "zamba2-7b", "mamba2-130m", "olmoe-1b-7b", "moonshot-v1-16b-a3b",
-    "mixtral-8x22b"])
+    "mixtral-8x22b", "seamless-m4t-large-v2", "internvl2-2b"])
 def test_param_tree_and_count_match(arch):
     """Trees and counts in fl_mode "full" (mixtral-8x22b's LoRA mode
     belongs to LM training; the other configs are "full" already)."""
@@ -325,24 +329,13 @@ def test_param_tree_and_count_match(arch):
         jax_get_config(arch).replace(fl_mode="full").param_count()
 
 
-def _unported(kind):
-    """A reduced config whose one feature this slice does not run: the
-    registry's own where the port carries one (the LoRA mode of
-    gemma3-27b and mixtral-8x22b), else tiny with it set."""
-    if kind in ("gemma3-27b", "mixtral-8x22b"):
-        return reduced(get_config(kind))
-    tiny = reduced(get_config("tiny"))
-    return {
-        "enc_dec": tiny.replace(enc_dec=True, n_enc_layers=2, enc_len=16),
-        "frontend": tiny.replace(frontend="vision", frontend_len=8),
-    }[kind]
-
-
-@pytest.mark.parametrize("arch", ["gemma3-27b", "mixtral-8x22b", "enc_dec",
-                                  "frontend"])
+@pytest.mark.parametrize("arch", ["gemma3-27b", "mixtral-8x22b"])
 def test_unported_architectures_raise(arch):
+    """The one feature the port does not run: the LoRA mode of the
+    registry's gemma3-27b and mixtral-8x22b."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.init_params(torch.Generator().manual_seed(0), _unported(arch))
+        tm.init_params(torch.Generator().manual_seed(0),
+                       reduced(get_config(arch)))
 
 
 def test_serve_cli_on_cpu(capsys):
@@ -370,9 +363,44 @@ def test_server_finishes_requests_with_sampling():
     rng = np.random.default_rng(1)
     reqs = [serve.Request(i, rng.integers(0, cfg.vocab, 5), 3)
             for i in range(3)]
-    done, _ = srv.run(reqs, greedy=False, seed=3)
+    done, _ = srv.run(reqs, greedy=False)
     assert sorted(r.rid for r in done) == [0, 1, 2]
     assert all(len(r.out) == 3 and (r.out < cfg.vocab).all() for r in done)
+
+
+@pytest.mark.parametrize("arch", ["tiny", "seamless-m4t-large-v2",
+                                  "internvl2-2b"])
+def test_sampled_server_matches_reference(arch):
+    """``Server.run(greedy=False)`` against the reference ``Server`` with
+    its weights carried across: the same requests give the same tokens
+    (decode step n draws categorical(PRNGKey(n), logits) on both)."""
+    from repro.launch import serve as jserve
+
+    cfg = reduced(get_config(arch))
+    jsrv = jserve.Server(_jcfg(cfg), batch_slots=2, max_seq=32, seed=4)
+    # the reference hands jnp.asarray(self.pos), which on the CPU may
+    # alias the numpy buffer, to an asynchronously dispatched step and
+    # then increments self.pos: unless the step is waited for, it may
+    # read the next position (seen here in a process's first run)
+    step = jsrv._step
+    jsrv._step = lambda *a: jax.block_until_ready(step(*a))
+    srv = serve.Server(cfg, batch_slots=2, max_seq=32, device="cpu")
+    srv.params = params_from_numpy(jsrv.params, "cpu")
+    rng = np.random.default_rng(8)
+    spec = [(rng.integers(0, cfg.vocab, int(rng.integers(4, 9))), 6)
+            for _ in range(3)]
+    want, _ = jsrv.run([jserve.Request(i, p, n)
+                        for i, (p, n) in enumerate(spec)], greedy=False)
+    got, _ = srv.run([serve.Request(i, p, n)
+                      for i, (p, n) in enumerate(spec)], greedy=False)
+    want = {r.rid: r.out.tolist() for r in want}
+    assert {r.rid: r.out.tolist() for r in got} == want
+    # the draws are samples, not the greedy tokens
+    srv = serve.Server(cfg, batch_slots=2, max_seq=32, device="cpu")
+    srv.params = params_from_numpy(jsrv.params, "cpu")
+    greedy, _ = srv.run([serve.Request(i, p, n)
+                         for i, (p, n) in enumerate(spec)])
+    assert {r.rid: r.out.tolist() for r in greedy} != want
 
 
 def test_serve_without_card_raises():

@@ -1,6 +1,7 @@
 """The port's counter-based PRNG (repro_torch/core/prng.py) against
 jax.random under jax's defaults (threefry2x32, partitionable): keys,
-splits, fold_in, uniform and randint bit for bit; normal within 1e-6."""
+splits, fold_in, uniform and randint bit for bit; normal within 1e-6;
+the serving loop's ``categorical`` draw: indices bit-equal."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -83,3 +84,26 @@ def test_normal_within_tolerance(seed):
     want = np.asarray(jax.random.normal(jk, (4096,)))
     got = prng.normal(pk, (4096,)).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape", [(7,), (3, 50), (2, 4, 33), (5, 512)])
+def test_categorical_indices_bit_exact(shape):
+    """jax.random.categorical(key, logits) on float32 logits under jax's
+    defaults (its Gumbel mode resolves to "low"), 64 keys a shape (the
+    serving loop's PRNGKey(step) among them), logits spread over several
+    units as a model's are: indices bit-equal, the Gumbel noise within an
+    ulp or two (XLA's log against torch's)."""
+    assert not jax.config.jax_high_dynamic_range_gumbel
+    rng = np.random.default_rng(17 + len(shape))
+    for seed in list(range(48)) + [2 ** 31 - 1, -7] + \
+            [int(s) for s in rng.integers(-2 ** 31, 2 ** 31, 14)]:
+        logits = (rng.standard_normal(shape) * 3).astype(np.float32)
+        jk, pk = _pair(seed)
+        want = np.asarray(jax.random.categorical(jk, jnp.asarray(logits)))
+        got = prng.categorical(pk, torch.from_numpy(logits))
+        assert got.shape == want.shape
+        np.testing.assert_array_equal(got.numpy(), want,
+                                      err_msg=f"{shape} {seed}")
+        np.testing.assert_allclose(prng.gumbel(pk, shape).numpy(),
+                                   np.asarray(jax.random.gumbel(jk, shape)),
+                                   rtol=1e-6, atol=1e-6)
