@@ -265,6 +265,32 @@ printed as JSON lines:
         (the encoder output included) within 1e-3.  Small: the reduced
         models prefill then decode against the full forward within
         1e-3; ``launch.serve``'s CLI finishes its requests on both.
+     l. Full-parameter federated LM training, run after phase 3k, with
+        its own numbers.  ``train --preset lm`` (fl-lm-tiny on the
+        synthetic token streams, FedAWE, m 6, s 2, batch 8, 8 rounds in
+        chunks of 4) on the flat state with the kernel: K1 8 times and
+        nothing else; with ``--midround-drop 0.3``: K2 8 times; each
+        against the same seed on tree state with the kernel and on the
+        flat state without it, per-round metrics and the final eval
+        loss within 1e-4.  mamba2-130m at its published widths and
+        depth (24 layers, d_model 768, vocab 50 280; 1.29e8 parameters)
+        in bfloat16 with remat, random weights from a seed, trained with
+        full parameters by FedAWE on the flat [8, N] float32 state with
+        K1, built from the engine as tests/test_archs.py builds its
+        round (``lm_loss`` over ``merge_trainable``; m 8 at p 0.8, s 2,
+        eta_l 0.01), batches of 2 sequences of 1 024 synthetic tokens
+        per client and step (uniform over the vocabulary, drawn with
+        numpy from a seed): round 1 alone, after which every trainable
+        leaf of the global has moved (a weight cut off from the loss,
+        such as one behind a detached SSD scan, would not); then 4 rounds
+        in one chunk between CUDA events, K1 4 times and K5 never
+        (training runs the plain SSD scan), every loss finite, peak
+        allocated memory; one profiled round (busy share, launches,
+        parts).  K1 alone at [8, N] float32 against its plain version
+        (1e-5), timed beside it and its bound.  Every fl_mode="full"
+        architecture of the registry at ``reduced()``: one FedAWE round
+        on the card (K1 once) against the same round on the CPU port,
+        loss and global within 1e-4.
   4. numbers  — K1-K3: the Triton yardstick's global loads by width in
      its SASS at rows 8 bytes off 16 and at aligned rows; the CUDA kernel
      and the Triton yardstick in turns (K2's yardstick with its own weight
@@ -313,8 +339,9 @@ printed as JSON lines:
      per kv head) with SDPA (the same function there; ``enable_gqa`` for
      the last) as the yardstick.  Each line carries the card's name and
      power limit.
-  5. the ``{"kernels": [...]}`` line; the last line is
-     ``{"ok": true, "device": {...}}``.
+  5. the ``{"kernels": [...]}`` line (K1 also at the LM training
+     stack's [8, N], with the full-width run's launches); the last line
+     is ``{"ok": true, "device": {...}}``.
 
 No phase catches its own failure: any exception ends the run with a
 non-zero exit code and no result line.
@@ -4323,6 +4350,316 @@ def encdec_paths(torch, model, serve, get_config, reduced, counts, smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 3l: full-parameter federated LM training, K1 on the LM's stack
+# ---------------------------------------------------------------------------
+
+#: ``train --preset lm`` (fl-lm-tiny on the synthetic token streams)
+LM_TRAIN_FLAGS = ["--preset", "lm", "--strategy", "fedawe", "--chunk-rounds",
+                  "4", "--rounds", "8", "--m", "6", "--s", "2", "--batch",
+                  "8", "--device", "cuda"]
+#: the full-width run: clients, local steps (mamba2-130m's local_steps),
+#: sequences per client per step and their length, rounds in the chunk
+LM_FULL_ARCH = "mamba2-130m"
+LM_FULL_M, LM_FULL_S, LM_FULL_B, LM_FULL_L, LM_FULL_K = 8, 2, 2, 1024, 4
+#: sequences each client owns in the full-width run's store
+LM_FULL_PER_CLIENT = 8
+#: one FedAWE round of the reduced architectures (tests/test_archs.py's)
+LM_SMALL_M, LM_SMALL_S, LM_SMALL_B, LM_SMALL_L = 4, 2, 2, 16
+#: kernel-name substrings of the full-width training round's parts
+LM_TRAIN_PARTS = {"K1": ("echo_aggregate",),
+                  "fp32_gemm": ("f32f32", "sgemm"),
+                  "cublas": ("nvjet", "gemm", "cutlass", "sm90_xmma",
+                             "gemv"),
+                  "conv": ("conv", "cudnn"),
+                  "cumsum": ("cumsum", "scan"),
+                  "copy": ("copy",),
+                  "reduce": ("reduce",),
+                  "elementwise": ("elementwise",)}
+
+
+def lm_history_close(a, b, tol=1e-4):
+    """Largest difference between two runs' per-round metrics (the same
+    keys, the same number of rounds required)."""
+    require(len(a) == len(b) and all(sorted(x) == sorted(y)
+                                      for x, y in zip(a, b)),
+            "histories differ in length or keys")
+    return max(abs(x[k] - y[k]) for x, y in zip(a, b) for k in x)
+
+
+def lm_train_cli_path(torch, train, counts, smi):
+    """``train --preset lm`` on the card: FedAWE on the flat state with
+    the kernel (K1 once a round), and under ``--midround-drop 0.3`` (K2
+    once a round); each against the same seed on tree state with the
+    kernel and on the flat state without it: per-round metrics and the
+    final eval loss within 1e-4."""
+    parser = train.build_parser()
+    for tag, extra, key in (("fault_free", [], "K1"),
+                            ("midround", ["--midround-drop", "0.3"], "K2")):
+        runs = {}
+        for route, flags in (
+                ("flat_kernel", ["--flat-state", "--use-kernel"]),
+                ("tree_kernel", ["--use-kernel"]),
+                ("flat_plain", ["--flat-state"])):
+            counts.reset()
+            state, hist, final = train.run(
+                parser.parse_args(LM_TRAIN_FLAGS + extra + flags))
+            torch.cuda.synchronize()
+            runs[route] = (hist, final, counts.read())
+        hist, final, launches = runs["flat_kernel"]
+        rounds = len(hist)
+        want = dict(K1=0, K2=0, K3=0, K4=0, K5=0)
+        want[key] = rounds
+        require(launches == want, f"lm {tag} launches {launches}")
+        require(runs["tree_kernel"][2] == want,
+                f"lm {tag} tree launches {runs['tree_kernel'][2]}")
+        require(runs["flat_plain"][2] == dict(want, **{key: 0}),
+                f"lm {tag} plain launches {runs['flat_plain'][2]}")
+        require(all(math.isfinite(h["loss"]) for h in hist),
+                f"lm {tag} losses {hist}")
+        diffs = {}
+        for route in ("tree_kernel", "flat_plain"):
+            diffs[route] = max(
+                lm_history_close(hist, runs[route][0]),
+                abs(final["eval_loss"] - runs[route][1]["eval_loss"]))
+            require(diffs[route] <= 1e-4,
+                    f"lm {tag}: {route} differs by {diffs[route]}")
+        emit(dict(phase="lm_train_cli", card=smi, run=tag, rounds=rounds,
+                  launches=launches, first_loss=hist[0]["loss"],
+                  last_loss=hist[-1]["loss"], eval_loss=final["eval_loss"],
+                  max_diff=diffs, tol=1e-4))
+
+
+def lm_full_setup(torch, np, model, engine, federated, availability, prng,
+                  cfg, seed):
+    """The full-width FedAWE run of ``cfg`` built from the engine, as
+    tests/test_archs.py's round is: ``lm_loss`` over
+    ``merge_trainable`` (``model.lm_loss_fn``), FedAWE with the kernel on
+    the flat state, m clients at p = 0.8, s local steps at eta_l 0.01
+    without schedule or clip; the weights from ``init_params`` under
+    ``seed``; a device store of synthetic tokens (uniform over the
+    vocabulary, drawn with numpy from ``seed``), ``LM_FULL_PER_CLIENT``
+    sequences of L + 1 tokens per client, batches of B sequences per
+    client per step from the uniform sampler."""
+    m, s, b, L = LM_FULL_M, LM_FULL_S, LM_FULL_B, LM_FULL_L
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    trainable, frozen = model.split_trainable(model.init_params(gen, cfg),
+                                              cfg)
+    fl = engine.FLConfig(m=m, s=s, eta_l=0.01, eta_g=1.0, strategy="fedawe",
+                         lr_schedule=False, grad_clip=0.0, flat_state=True,
+                         use_kernel=True)
+    state = engine.init_fl_state(prng.PRNGKey(seed, "cuda"), fl, trainable)
+    g0 = state.global_tr.clone()
+    del trainable
+    round_fn = engine.make_round_fn(
+        fl, model.lm_loss_fn(cfg), frozen,
+        availability.AvailabilityCfg(kind="stationary"),
+        torch.full((m,), 0.8, device="cuda"))
+    toks = np.random.default_rng(seed).integers(
+        0, cfg.vocab, (m * LM_FULL_PER_CLIENT, L + 1)).astype(np.int32)
+    store = federated.device_store(
+        dict(tokens=toks[:, :-1], labels=toks[:, 1:]), None, "cuda",
+        padded=federated.contiguous_client_index(m, LM_FULL_PER_CLIENT))
+    init, sample = federated.make_device_sampler(
+        m, s, b, min_count=LM_FULL_PER_CLIENT)
+    key = prng.PRNGKey(seed + 1, "cuda")
+    return dict(state=state, g0=g0, round_fn=round_fn, store=store,
+                ss=init(store, key), sample=sample, key=key, fl=fl)
+
+
+def lm_full_width_path(torch, np, model, engine, federated, availability,
+                       prng, ops, ref, get_config, counts, smi):
+    """mamba2-130m at its published widths and depth (24 layers, d_model
+    768, vocab 50 280; 1.29e8 parameters) in bfloat16 with remat, trained
+    with full parameters by FedAWE on the flat [8, N] float32 state with
+    K1: round 1 alone (after it every trainable leaf of the global has
+    moved, so no weight lost its gradient), then the main path, 4 rounds
+    in one chunk between CUDA events with every count at 0 just before it
+    (K1 4 times, K5 never: training runs the plain SSD scan), its peak
+    memory, then one profiled round (busy share, launches, parts).
+    Every loss finite.  Then K1 alone at the stack's [8, N] float32 shape:
+    against its plain version (1e-5) and timed beside it and its bound.
+    Returns the kernels-line record of K1 at [8, N]."""
+    cfg = get_config(LM_FULL_ARCH)
+    t0 = time.perf_counter()
+    r = lm_full_setup(torch, np, model, engine, federated, availability,
+                      prng, cfg, seed=40)
+    n = r["state"].spec.size
+    require(n == model.count_params(cfg, trainable_only=True),
+            f"stack width {n}")
+    perf_drops = []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        counts.reset()
+        one = engine.make_chunk_fn(None, r["round_fn"], r["sample"], 1)
+        state, ss, met1 = one(r["state"], r["ss"], r["store"], r["key"])
+        torch.cuda.synchronize()
+        first = counts.read()
+        require(first["K5"] == 0 and first["K1"] == 1,
+                f"round 1 launches {first}")
+        spec, g0, g1 = state.spec, r.pop("g0"), state.global_tr
+        still = ["/".join(p) for p, o, k in zip(spec.paths, spec.offsets,
+                                                spec.sizes)
+                 if torch.equal(g0[o:o + k], g1[o:o + k])]
+        require(not still, f"leaves that did not move in round 1: {still}")
+        del g0, g1
+        chunk = engine.make_chunk_fn(None, r["round_fn"], r["sample"],
+                                     LM_FULL_K)
+        torch.cuda.reset_peak_memory_stats()
+        counts.reset()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, ss, met = chunk(state, ss, r["store"], r["key"])
+        end.record()
+        end.synchronize()
+        launches = counts.read()
+        round_ms = start.elapsed_time(end) / LM_FULL_K
+        peak = torch.cuda.max_memory_allocated()
+        require(launches == dict(K1=LM_FULL_K, K2=0, K3=0, K4=0, K5=0),
+                f"full-width launches {launches}")
+        losses = [met1["loss"].item()] + met["loss"].tolist()
+        require(all(math.isfinite(v) for v in losses), f"losses {losses}")
+        require(bool(torch.isfinite(state.global_tr).all()),
+                "global not finite")
+        box = {}
+
+        def profiled():
+            box["out"] = one(state, ss, r["store"], r["key"])
+
+        prof = profile_ms(torch, profiled, parts=LM_TRAIN_PARTS)
+        if prof["device_ms"]:
+            prof["parts_ms"]["rest"] = (prof["device_ms"]
+                                        - sum(prof["parts_ms"].values()))
+        losses.append(box["out"][2]["loss"].item())
+        perf_drops = sorted({str(w.message)[:120] for w in caught
+                             if "performance drop" in str(w.message)})
+    emit(dict(phase="lm_full_width", card=smi, arch=cfg.name,
+              dtype=cfg.dtype, remat=cfg.remat,
+              remat_policy=cfg.remat_policy, params=n, m=LM_FULL_M,
+              s=LM_FULL_S, batch=LM_FULL_B, seq=LM_FULL_L,
+              rounds=LM_FULL_K, launches=launches, round_ms=round_ms,
+              peak_allocated_gb=peak / 1e9,
+              state_gb=(r["fl"].m + 2) * n * 4 / 1e9, losses=losses,
+              n_active=met["n_active"].tolist(),
+              profiled_round=dict(
+                  prof, busy_share=(prof["device_ms"] / round_ms
+                                    if prof["device_ms"] else None)),
+              vmap_fallbacks=perf_drops))
+    del state, ss, r, box, chunk, one
+    torch.cuda.empty_cache()
+    rec = lm_k1_at_stack(torch, ops, ref, n, smi)
+    rec["launches"] = launches["K1"]
+    emit(dict(phase="lm_full_width_done", card=smi,
+              seconds=time.perf_counter() - t0))
+    return rec
+
+
+def lm_k1_at_stack(torch, ops, ref, n, smi):
+    """K1 alone at the LM stack's shape, [LM_FULL_M, n] float32 (x, y,
+    g, mask and echo drawn from a seed): against its plain version on the
+    same inputs (1e-5), and its time, the plain version's and the bound
+    (each input read once, the output written once)."""
+    a = make_inputs(torch, LM_FULL_M, n, torch.float32, seed=41)
+    got = call_kernel(ops, "K1", a)
+    want = call_plain(ref, "K1", a)
+    err = (got - want).abs().max().item()
+    del got, want
+    require(err <= 1e-5, f"K1 at [{LM_FULL_M}, {n}]: {err}")
+    ms = [events_ms(torch, lambda: call_kernel(ops, "K1", a), 5)]
+    plain_ms = events_ms(torch, lambda: call_plain(ref, "K1", a), 3)
+    ms.append(events_ms(torch, lambda: call_kernel(ops, "K1", a), 5))
+    b_ms, b_by, nbytes = bound(LM_FULL_M, n, 4, True)
+    rec = dict(ms=sum(ms) / 2, turns_ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+               bound_by=b_by, max_abs_err=err)
+    emit(dict(phase="kernel_time", card=smi, kernel="K1", m=LM_FULL_M, n=n,
+              bytes=nbytes, share=b_ms / rec["ms"],
+              achieved_gb_per_s=nbytes / rec["ms"] / 1e6, **rec))
+    del a
+    torch.cuda.empty_cache()
+    return rec
+
+
+def lm_small_round(torch, np, model, engine, availability, prng, cfg,
+                   device, seed):
+    """One FedAWE round of ``cfg`` (m 4, s 2, B 2, L 16, flat state with
+    the kernel route) on ``device`` from the same weights and batch:
+    returns (loss, global [N] on the CPU)."""
+    m, s = LM_SMALL_M, LM_SMALL_S
+    gen = torch.Generator().manual_seed(seed)
+    params = model.split_trainable(model.init_params(gen, cfg), cfg)[0]
+    params = tree_map(lambda k, t: t.to(device), params)
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab, (LM_SMALL_B, LM_SMALL_L))
+    b = dict(tokens=toks, labels=toks,
+             mask=np.ones((LM_SMALL_B, LM_SMALL_L), np.float32))
+    if cfg.frontend != "none":
+        b["embeds"] = rng.normal(size=(LM_SMALL_B, cfg.frontend_len,
+                                       cfg.d_model)).astype(np.float32)
+        b["mask"][:, :cfg.frontend_len] = 0.0
+    if cfg.enc_dec:
+        b["enc_embeds"] = rng.normal(size=(LM_SMALL_B, cfg.enc_len,
+                                           cfg.d_model)).astype(np.float32)
+    batches = {k: torch.from_numpy(np.broadcast_to(
+        v[None, None], (m, s) + v.shape).copy()).to(device)
+        for k, v in b.items()}
+    fl = engine.FLConfig(m=m, s=s, eta_l=0.01, eta_g=1.0, strategy="fedawe",
+                         lr_schedule=False, grad_clip=0.0, flat_state=True,
+                         use_kernel=True)
+    state = engine.init_fl_state(prng.PRNGKey(seed, device), fl, params)
+    round_fn = engine.make_round_fn(
+        fl, model.lm_loss_fn(cfg), {},
+        availability.AvailabilityCfg(kind="stationary"),
+        torch.full((m,), 0.8, device=device))
+    state, met = round_fn(state, batches)
+    return met["loss"].item(), state.global_tr.cpu()
+
+
+def lm_small_paths(torch, np, model, engine, availability, prng, get_config,
+                   reduced, counts, smi):
+    """Every fl_mode="full" architecture of the registry at ``reduced()``
+    (float32): one FedAWE round on the card (K1 once) and the same round
+    on the CPU port, loss and global within 1e-4."""
+    from repro_torch.configs import _MODULES
+
+    worst = {}
+    for i, arch in enumerate(_MODULES):
+        cfg = reduced(get_config(arch))
+        if cfg.fl_mode != "full":
+            continue
+        counts.reset()
+        loss_c, g_c = lm_small_round(torch, np, model, engine, availability,
+                                     prng, cfg, "cuda", seed=50 + i)
+        launches = counts.read()
+        loss_h, g_h = lm_small_round(torch, np, model, engine, availability,
+                                     prng, cfg, "cpu", seed=50 + i)
+        require(launches == dict(K1=1, K2=0, K3=0, K4=0, K5=0),
+                f"{arch} round launches {launches}")
+        worst[arch] = dict(loss=abs(loss_c - loss_h),
+                           global_=(g_c - g_h).abs().max().item())
+        require(math.isfinite(loss_c) and worst[arch]["loss"] <= 1e-4
+                and worst[arch]["global_"] <= 1e-4,
+                f"{arch}: card round against the CPU's {worst[arch]}")
+    emit(dict(phase="lm_train_small", card=smi, max_abs_err=worst,
+              tol=1e-4))
+
+
+def lm_train_paths(torch, np, model, engine, federated, availability, prng,
+                   ops, ref, train, get_config, reduced, counts, smi):
+    """Phase 3l: full-parameter federated LM training.  Returns the
+    kernels-line record of K1 at the LM stack."""
+    t0 = time.perf_counter()
+    lm_train_cli_path(torch, train, counts, smi)
+    rec = lm_full_width_path(torch, np, model, engine, federated,
+                             availability, prng, ops, ref, get_config,
+                             counts, smi)
+    lm_small_paths(torch, np, model, engine, availability, prng, get_config,
+                   reduced, counts, smi)
+    emit(dict(phase="lm_train_paths_done", card=smi,
+              seconds=time.perf_counter() - t0))
+    return rec
+
+
 class Counts:
     """Every kernel wrapper's launch count, set to 0 and read together."""
 
@@ -4587,6 +4924,12 @@ def main():
     # 64) and internvl2-2b (head dim 128, two query heads per kv head)
     encdec_launches = encdec_paths(torch, model, serve, get_config, reduced,
                                    counts, smi)
+    # phase 3l: full-parameter federated LM training, every count at 0 just
+    # before each main path: train --preset lm (K1, K2), mamba2-130m at
+    # full width and depth (K1 at [8, N]), the reduced architectures
+    lm_k1 = lm_train_paths(
+        torch, np, model, engine, federated, availability, prng, ops, ref,
+        train, get_config, reduced, counts, smi)
 
     ssd_times = time_ssd(torch, sops, sref, get_config, smi)
     time_flash_sdpa(torch, fops, fref, smi, "zamba2-7b", ZAMBA_ATTN,
@@ -4635,6 +4978,16 @@ def main():
             max_abs_err=tree_errs[v], ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=None))
+    # K1 on the LM training stack: mamba2-130m's [8, 1.29e8] float32 flat
+    # state, one launch a round of the full-width run
+    kernels.append(dict(
+        name=names["K1"] + ", LM stack [8, N]", route="cuda",
+        source="src/repro_torch/kernels/echo_aggregate/csrc/"
+               "echo_aggregate.cu",
+        replaces=replaces["K1"], launches=lm_k1["launches"],
+        max_abs_err=lm_k1["max_abs_err"], ms=lm_k1["ms"],
+        plain_ms=lm_k1["plain_ms"], bound_ms=lm_k1["bound_ms"],
+        bound_by=lm_k1["bound_by"], library_ms=None))
     # K4: per launch, the mean of the prefill's two shapes (13 windowed and
     # 13 global launches)
     both = list(flash_times.values())

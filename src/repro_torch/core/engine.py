@@ -62,6 +62,7 @@ does.  Read the state a round returns, never the one passed in.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, NamedTuple
 
 import torch
@@ -243,11 +244,21 @@ def local_sgd(trainable, frozen, batches, rng, *, s, eta_l, loss_fn,
     each loss depends only on its own client's row, so the gradient of the
     sum is every client's own gradient.  Each step splits every client's
     key as the reference's scan does (the image loss ignores the subkey;
-    keeping the split count keeps key-consuming losses aligned)."""
+    keeping the split count keeps key-consuming losses aligned).
+
+    A loss marked ``maps_clients`` (``models.model.lm_loss_fn``) maps its
+    own client axes: it is called once on the client-stacked tree with
+    ``lead=`` the number of client axes, so that it can place its remat
+    checkpoints around the vmapped pieces (a checkpoint inside the vmap
+    cannot be replayed by the backward taken here, outside it)."""
     lead = rng.dim() - 1
-    per_client = loss_fn
-    for _ in range(lead):
-        per_client = torch.func.vmap(per_client, in_dims=(0, None, 0, 0))
+    if getattr(loss_fn, "maps_clients", False):
+        per_client = functools.partial(loss_fn, lead=lead)
+    else:
+        per_client = loss_fn
+        for _ in range(lead):
+            per_client = torch.func.vmap(per_client,
+                                         in_dims=(0, None, 0, 0))
     paths = [p for p, _ in tree_paths(trainable)]
     x, key, losses = trainable, rng, []
     for i in range(s):

@@ -33,10 +33,10 @@ CLI::
         --seeds 4 --packed
 
 It runs on the card (``--device cuda``, the default) unless ``--device
-cpu`` is passed, and raises when the card is missing.  The reference's
-``--seed-mesh`` and ``--compile-cache`` (a TPU mesh, jax's compilation
-cache) are not defined here, and ``--preset lm`` is refused until LM
-training is ported.
+cpu`` is passed, and raises when the card is missing.  ``--preset lm``
+runs each cell on the launcher's LM task (``train.build_lm_task``).  The
+reference's ``--seed-mesh`` and ``--compile-cache`` (a TPU mesh, jax's
+compilation cache) are not defined here.
 """
 from __future__ import annotations
 
@@ -62,10 +62,6 @@ from repro_torch.data import (SAMPLING_MODES, init_seed_sampler_states,
                               make_device_sampler, pad_store, seed_data_keys)
 from repro_torch.device import resolve_device
 from repro_torch.launch import analysis, train
-
-_LM_PRESET = ("--preset lm needs LM training, which is not ported yet "
-              "(ROADMAP item 3)")
-
 
 # ---------------------------------------------------------------------------
 # scenario registry
@@ -476,14 +472,13 @@ def _cell_task(sc: Scenario, *, m, s, batch, n_samples, preset, seed,
     drawn from ``PRNGKey(seed + 2)`` and a delay trace from
     ``PRNGKey(seed + 3)``, blackout clusters come from the task's ν, as
     the reference builds them; ``pad_m > m`` widens the client axis
-    (``_pad_m_config``) before the round function closes over base_p."""
-    if preset != "image":
-        raise NotImplementedError(_LM_PRESET)
+    (``_pad_m_config``) before the round function closes over base_p.
+    ``preset`` names the task (``train.TASKS``: "image" or "lm")."""
     args = argparse.Namespace(seed=seed, n_samples=n_samples, m=m,
                               alpha=sc.alpha, batch=batch)
     rng = prng.PRNGKey(seed, device)
     params, loss_fn, ds, base_p, eval_fn, init_fn = \
-        train.build_image_task(args, rng, device)
+        train.TASKS[preset](args, rng, device)
     nu = torch.from_numpy(ds.nu).to(device)
     if sc.nu_corr:
         base_p = faults.adversarial_probs_from_nu(nu)
@@ -781,8 +776,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--n-samples", type=int, default=4000)
     ap.add_argument("--preset", default="image", choices=["image", "lm"],
-                    help="task preset; 'lm' is refused until LM training "
-                         "is ported")
+                    help="task preset: the CNN on synthetic images, or "
+                         "the fl-lm-tiny transformer on synthetic tokens")
     ap.add_argument("--seed", type=int, default=0,
                     help="base seed; replicate j uses fold_in(seed, j)")
     ap.add_argument("--eval-every", type=int, default=0)
@@ -822,8 +817,6 @@ def main(argv=None):
         for g, names in sorted(GRIDS.items()):
             print(f"grid {g}: {len(names)} cells")
         return []
-    if args.preset != "image":
-        raise SystemExit(_LM_PRESET)
 
     patterns = list(args.scenario or [])
     if args.grid:

@@ -1,18 +1,24 @@
-"""FedAWE training launcher (simulation tier, image preset):
+"""FedAWE training launcher (simulation tier):
 
-    python -m repro_torch.launch.train --strategy fedawe --dynamics sine \
-        [--flat-state] --chunk-rounds 16 --use-kernel --rounds 300 \
+    python -m repro_torch.launch.train [--preset lm] --strategy fedawe \
+        --dynamics sine [--flat-state] --chunk-rounds 16 --use-kernel \
+        --rounds 300 \
         [--midround-drop 0.3 --sanitize --stale-max 4 --stale-kind geom] \
         [--sampling epoch] [--ckpt PATH --ckpt-every N] \
         [--resume PATH --ckpt-every N] [--scenario NAME] \
         [--seeds S [--replicate full]] \
         [--sparse-cohort C_MAX [--resident-dtype bfloat16]]
 
-The port of ``python -m repro.launch.train --preset image``, for all ten
-strategies of the reference's registry (FedAWE, FedAWE-M and the eight
-baselines), on tree state (the reference's default) or, with
-``--flat-state``, on the flat ``[m, N]`` substrate.  It runs on the card (``--device cuda``, the default) unless
-``--device cpu`` is passed, and raises when the card is missing.  Flags
+The port of ``python -m repro.launch.train`` on its simulation tier, for
+all ten strategies of the reference's registry (FedAWE, FedAWE-M and the
+eight baselines), on tree state (the reference's default) or, with
+``--flat-state``, on the flat ``[m, N]`` substrate.  ``--preset image``
+(the default) trains the Table-6 CNN on synthetic images; ``--preset lm``
+trains the reference's ``fl-lm-tiny`` transformer (2 layers, d_model 64,
+float32) with full parameters on Markov-chain token streams, split over
+the clients by a pseudo-label (``build_lm_task``).  It runs on the card
+(``--device cuda``, the default) unless ``--device cpu`` is passed, and
+raises when the card is missing.  Flags
 keep the reference's names and defaults; flags of paths not ported yet
 are not defined, so argparse refuses them.  Checkpoints are written in
 the reference's format (``checkpointing/io.py``), so either launcher
@@ -44,9 +50,10 @@ from repro_torch.core import (REGISTRY, AvailabilityCfg, FaultCfg, FLConfig,
 from repro_torch.core.availability import base_probs_from_data
 from repro_torch.data import (SAMPLING_MODES, FederatedDataset,
                               dirichlet_partition, make_device_sampler,
-                              make_image_classification)
+                              make_image_classification, make_lm_tokens)
 from repro_torch.device import resolve_device
-from repro_torch.models import cnn
+from repro_torch.models import cnn, model
+from repro_torch.models.config import BlockCfg, ModelConfig
 
 
 def build_image_task(args, rng, device):
@@ -82,6 +89,55 @@ def build_image_task(args, rng, device):
     return params, loss_fn, ds, base_p, eval_fn, init_fn
 
 
+def build_lm_task(args, rng, device):
+    """The reference's synthetic LM task (``train.py:69-109``): 4 096
+    Markov-chain sequences of 33 tokens over a vocabulary of 97
+    (``make_lm_tokens``), tokens the first 32 and labels the next, split
+    Dirichlet-wise over the clients by the pseudo-label ``int(mean
+    token) % 10``; the model ``fl-lm-tiny`` (2 attention layers,
+    d_model 64, 4 heads over 2 kv heads of 16, d_ff 128, float32, no
+    remat) with full parameters, initialized from ``PRNGKey(seed)``
+    draw for draw as the reference (``model.init_params_from_key``).
+    The loss is ``lm_loss`` with every label counted; ``eval_fn`` the
+    global model's loss on 256 sequences.  Returns what
+    ``build_image_task`` returns."""
+    lm = make_lm_tokens(seed=args.seed, n_seq=4096, seq_len=32, vocab=97)
+    cfg = ModelConfig("fl-lm-tiny", 2, 64, 4, 2, 16, 128, lm.vocab,
+                      pattern=(BlockCfg("attn"),), dtype="float32",
+                      remat=False)
+    labels = lm.tokens[:, 1:]
+    tokens = lm.tokens[:, :-1]
+    nprng = np.random.default_rng(args.seed)
+    pseudo = tokens.mean(axis=1).astype(np.int64) % 10
+    idx, nu = dirichlet_partition(nprng, pseudo, args.m, alpha=args.alpha,
+                                  min_per_client=args.batch)
+    ds = FederatedDataset(dict(tokens=tokens, labels=labels), idx,
+                          seed=args.seed)
+    ds.nu = nu.astype(np.float32)
+    base_p = base_probs_from_data(rng, torch.from_numpy(ds.nu).to(device))
+
+    def init_fn(key):
+        return model.split_trainable(model.init_params_from_key(key, cfg),
+                                     cfg)[0]
+
+    params = init_fn(prng.PRNGKey(args.seed, device))
+    loss_fn = model.lm_loss_fn(cfg)
+    eval_batch = {k: torch.from_numpy(v).to(device)
+                  for k, v in ds.eval_batch(256, seed=1).items()}
+    eval_batch["mask"] = torch.ones_like(eval_batch["labels"],
+                                         dtype=torch.float32)
+
+    def eval_fn(state):
+        return {"eval_loss": float(model.lm_loss(global_trainables(state),
+                                                 cfg, eval_batch))}
+
+    return params, loss_fn, ds, base_p, eval_fn, init_fn
+
+
+#: the builder of each --preset's task
+TASKS = {"image": build_image_task, "lm": build_lm_task}
+
+
 #: the flags a --scenario cell supplies: explicit flag (even at its
 #: default value) > scenario cell > this default.  Their argparse defaults
 #: are None, so "passed the default" and "not passed" differ.
@@ -92,6 +148,10 @@ _SCENARIO_FLAG_DEFAULTS = dict(strategy="fedawe", dynamics="stationary",
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
+    ap.add_argument("--preset", default="image", choices=sorted(TASKS),
+                    help="task: 'image' (the Table-6 CNN on synthetic "
+                         "images) or 'lm' (the fl-lm-tiny transformer on "
+                         "synthetic token streams)")
     ap.add_argument("--strategy", default=None,
                     help="aggregation strategy (default: fedawe): "
                          + ", ".join(REGISTRY))
@@ -281,7 +341,7 @@ def setup(args, device):
     ``fault`` and ``stale`` carries."""
     scenario = resolve_flags(args)
     rng = prng.PRNGKey(args.seed, device)
-    params, loss_fn, ds, base_p, eval_fn, init_fn = build_image_task(
+    params, loss_fn, ds, base_p, eval_fn, init_fn = TASKS[args.preset](
         args, rng, device)
     fl = FLConfig(m=args.m, s=args.s, eta_l=args.eta_l, eta_g=args.eta_g,
                   strategy=args.strategy, use_kernel=args.use_kernel,

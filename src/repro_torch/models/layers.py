@@ -101,14 +101,39 @@ def _gqa_out(p, v):
     return o.reshape(B, L, K * G, D)
 
 
+class _Recompute(torch.autograd.Function):
+    """``body(*args)`` whose backward recomputes it from ``args`` (a
+    checkpoint that saves only its inputs).  It is an autograd Function
+    with a generated vmap rule, so it also holds inside ``torch.func.vmap``
+    (the LM loss's client map) with the gradient taken outside, where
+    ``torch.utils.checkpoint`` cannot replay."""
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(body, *args):
+        return body(*args)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.body = inputs[0]
+        ctx.save_for_backward(*inputs[1:])
+
+    @staticmethod
+    def backward(ctx, grad):
+        _, pullback = torch.func.vjp(ctx.body, *ctx.saved_tensors)
+        return (None,) + tuple(pullback(grad))
+
+
 def attention(q, k, v, q_pos, k_pos, *, window=None, causal=True,
               attn_softcap=0.0, q_chunk=0):
     """Grouped-query scaled dot-product attention.
 
     q: [B, L, H, D]; k, v: [B, S, K, D]. Returns [B, L, H, D].
-    q_chunk > 0 evaluates the queries in chunks of q_chunk (a plain loop;
-    no checkpointing, which only training needs): peak memory drops from
-    O(L*S) to O(q_chunk*S) per (kv-)head without changing the math.
+    q_chunk > 0 evaluates the queries in chunks of q_chunk: peak memory
+    drops from O(L*S) to O(q_chunk*S) per (kv-)head without changing the
+    math.  Each chunk is checkpointed (``_Recompute``), as in the
+    reference: a backward recomputes the chunk's score block instead of
+    keeping every chunk's.
     """
     B, L, H, D = q.shape
     K = k.shape[2]
@@ -116,7 +141,7 @@ def attention(q, k, v, q_pos, k_pos, *, window=None, causal=True,
     qg = q.reshape(B, L, K, G, D)
     scale = D ** -0.5
 
-    def block(q_blk, qp_blk):
+    def block(q_blk, qp_blk, k, v):
         s = _gqa_scores(q_blk, k, scale, attn_softcap)  # [B,K,G,l,S]
         m = causal_window_mask(qp_blk, k_pos, window=window, causal=causal)
         m = m[:, None, None]  # [B,1,1,l,S]
@@ -124,9 +149,13 @@ def attention(q, k, v, q_pos, k_pos, *, window=None, causal=True,
         return _gqa_out(p, v)
 
     if q_chunk and L > q_chunk and L % q_chunk == 0:
-        return torch.cat([block(qg[:, i:i + q_chunk], q_pos[:, i:i + q_chunk])
-                          for i in range(0, L, q_chunk)], dim=1)
-    return block(qg, q_pos)
+        def chunk(i):
+            qp = q_pos[:, i:i + q_chunk]
+            return _Recompute.apply(lambda qb, kk, vv: block(qb, qp, kk, vv),
+                                    qg[:, i:i + q_chunk], k, v)
+
+        return torch.cat([chunk(i) for i in range(0, L, q_chunk)], dim=1)
+    return block(qg, q_pos, k, v)
 
 
 def attention_decode(q, k_cache, v_cache, q_pos, cache_pos, *, window=None,

@@ -26,18 +26,41 @@ output (``cache["enc_out"]``, written by ``prefill``), and ``serve_step``
 projects its keys and values again in every layer at every step, as the
 reference does.  A modality frontend's stub embeddings (``embeds``
 [B, F, d]) replace the first F token embeddings; positions are
-unchanged.  LoRA raises NotImplementedError naming the ROADMAP item that
-ports it.  Caches are updated in place (the reference returns new ones):
+unchanged.  Caches are updated in place (the reference returns new ones):
 ``prefill`` and ``serve_step`` write into the cache they are given and
 return it.
+
+Training (``fl_mode="full"``): ``lm_loss`` is the reference's masked
+token cross-entropy, and ``split_trainable`` / ``merge_trainable`` its
+FL integration point (every parameter trainable, nothing frozen).
+``lm_loss(..., lead=k)`` takes trees and batches with k leading client
+axes and maps itself over them (``torch.func.vmap``), piece by piece:
+the embedding, each pattern unit of the stack, each tail block, the
+final norm and each loss chunk.  That is where remat goes: with
+``cfg.remat`` and a gradient being recorded, each unit (and each encoder
+layer) runs under a non-reentrant ``torch.utils.checkpoint`` placed
+around its vmapped call, as the reference checkpoints each step of its
+unit scan (``remat_policy`` "full" saves nothing inside a unit, "dots"
+saves the matrix products' outputs through a selective-checkpoint
+policy).  A checkpoint inside ``torch.func.vmap`` cannot be replayed by a
+backward taken outside it, so the engine's local SGD hands a loss that
+maps its own clients (``maps_clients``) the client-stacked tree as it is.
+Remat changes memory, not values: the recomputation runs the same
+operations on the same inputs.  LoRA raises NotImplementedError naming
+the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
+import functools
 import itertools
 import math
 
 import torch
+import torch.utils._pytree as pytree
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
+from repro_torch.core import prng
 from repro_torch.device import resolve_device
 from repro_torch.models import ssm
 from repro_torch.models.config import BlockCfg, ModelConfig
@@ -46,7 +69,8 @@ from repro_torch.models.layers import (apply_rope, attention, attn_qkvo,
 from repro_torch.models.moe import moe_ffn
 
 _TODO = {
-    "lora": "fl_mode='lora' belongs to LM training, ROADMAP queue 1 item 3",
+    "lora": "fl_mode='lora' (LoRA adapters over a frozen base, the "
+            "frozen-argument round) is not ported: ROADMAP queue 1 item 3",
 }
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -160,34 +184,37 @@ def _mamba_block_shapes(cfg: ModelConfig):
             "out_proj": ((di, d), _dt(cfg))}
 
 
-def init_mamba_block(gen, cfg: ModelConfig, lead=()):
-    """A_log = log(linspace(1, 16, H)), D = 1, dt_bias = -4.6 (softplus
-    about 0.01), conv weights N(0, 1) * 0.3 and zero biases in float32,
-    the projections dense in cfg.dtype, norms zero."""
-    dev = gen.device
+def _mamba_fixed(cfg: ModelConfig, lead, device):
+    """A Mamba2 block's leaves that no draw touches: A_log = log(linspace(1,
+    16, H)), D = 1, dt_bias = -4.6 (softplus about 0.01), zero norms and
+    conv bias, all float32."""
     H = cfg.ssm_heads
 
     def full(v, n):
         return torch.full(tuple(lead) + (n,), v, dtype=torch.float32,
-                          device=dev)
+                          device=device)
 
-    shapes = _mamba_block_shapes(cfg)
     a_log = torch.log(torch.linspace(1.0, 16.0, H, dtype=torch.float32,
-                                     device=dev))
-    return {
-        "ln1": full(0.0, cfg.d_model),
-        "in_proj": _dense_init(gen, shapes["in_proj"][0], _dt(cfg),
-                               lead=lead),
-        "conv_w": _dense_init(gen, shapes["conv_w"][0], torch.float32,
-                              scale=0.3, lead=lead),
-        "conv_b": full(0.0, cfg.ssm_conv_dim),
-        "A_log": a_log.expand(tuple(lead) + (H,)).clone(),
-        "D": full(1.0, H),
-        "dt_bias": full(-4.6, H),
-        "ln_out": full(0.0, cfg.ssm_inner),
-        "out_proj": _dense_init(gen, shapes["out_proj"][0], _dt(cfg),
-                                lead=lead),
-    }
+                                     device=device))
+    return {"ln1": full(0.0, cfg.d_model),
+            "conv_b": full(0.0, cfg.ssm_conv_dim),
+            "A_log": a_log.expand(tuple(lead) + (H,)).clone(),
+            "D": full(1.0, H), "dt_bias": full(-4.6, H),
+            "ln_out": full(0.0, cfg.ssm_inner)}
+
+
+def init_mamba_block(gen, cfg: ModelConfig, lead=()):
+    """The fixed leaves (``_mamba_fixed``), conv weights N(0, 1) * 0.3 in
+    float32 and the projections dense in cfg.dtype."""
+    shapes = _mamba_block_shapes(cfg)
+    p = _mamba_fixed(cfg, lead, gen.device)
+    p["in_proj"] = _dense_init(gen, shapes["in_proj"][0], _dt(cfg),
+                               lead=lead)
+    p["conv_w"] = _dense_init(gen, shapes["conv_w"][0], torch.float32,
+                              scale=0.3, lead=lead)
+    p["out_proj"] = _dense_init(gen, shapes["out_proj"][0], _dt(cfg),
+                                lead=lead)
+    return p
 
 
 def _init_block(gen, blk: BlockCfg, cfg: ModelConfig, lead=(), cross=False):
@@ -244,10 +271,140 @@ def init_params(gen: torch.Generator, cfg: ModelConfig):
     return params
 
 
+# ---------------------------------------------------------------------------
+# the reference's own draws, from a PRNG key
+# ---------------------------------------------------------------------------
+
+def _key_dense(key, shape, dtype, scale=None):
+    s = scale if scale is not None else shape[0] ** -0.5
+    return (prng.normal(key, shape) * s).to(dtype)
+
+
+def _key_zeros(key, shape):
+    return torch.zeros(shape, dtype=torch.float32, device=key.device)
+
+
+def _key_attn_block(key, cfg, cross=False):
+    ks = prng.split(key, 16)
+    dt = _dt(cfg)
+    at = {"wq": 1, "wk": 2, "wv": 3, "wo": 4, "wi": 6, "wd": 7, "wq_x": 9,
+          "wk_x": 10, "wv_x": 11, "wo_x": 12}
+    return {name: (_key_zeros(key, shape) if name.startswith("ln")
+                   else _key_dense(ks[at[name]], shape, dt))
+            for name, shape in _attn_block_shapes(cfg, cross).items()}
+
+
+def _key_moe_block(key, cfg, cross=False):
+    ks = prng.split(key, 6)
+    p = _key_attn_block(ks[0], cfg, cross)
+    p.pop("wi", None), p.pop("wd", None)
+    shapes = _moe_block_shapes(cfg, cross)
+    scales = {"wi_e": cfg.d_model ** -0.5, "wd_e": cfg.expert_ff ** -0.5}
+    for i, name in enumerate(("router", "wi_e", "wd_e", "wi_s", "wd_s"), 1):
+        if name in shapes:
+            shape, dtype = shapes[name]
+            p[name] = _key_dense(ks[i], shape, dtype, scales.get(name))
+    return p
+
+
+def _key_mamba_block(key, cfg):
+    ks = prng.split(key, 8)
+    shapes = _mamba_block_shapes(cfg)
+    p = _mamba_fixed(cfg, (), key.device)
+    p["in_proj"] = _key_dense(ks[1], *shapes["in_proj"])
+    p["conv_w"] = _key_dense(ks[2], *shapes["conv_w"], scale=0.3)
+    p["out_proj"] = _key_dense(ks[4], *shapes["out_proj"])
+    return p
+
+
+def _key_block(key, blk, cfg, cross):
+    if blk.kind == "attn":
+        return _key_attn_block(key, cfg, cross)
+    if blk.kind == "moe":
+        return _key_moe_block(key, cfg, cross)
+    if blk.kind == "mamba":
+        return _key_mamba_block(key, cfg)
+    return {}
+
+
+def _key_stack(key, cfg, pattern, n_units, n_tail, cross):
+    """The reference's ``_init_stack``: one key per (position, unit) in
+    that order, then one per tail block; units stacked on a leading
+    axis."""
+    keys = prng.split(key, (n_units + 1) * len(pattern) + 1)
+    it = iter(range(keys.shape[0]))
+    stack = {}
+    for j, blk in enumerate(pattern):
+        units = [_key_block(keys[next(it)], blk, cfg, cross)
+                 for _ in range(n_units)]
+        stack[f"pos{j}"] = ({k: torch.stack([u[k] for u in units])
+                             for k in units[0]} if n_units else {})
+    tail = {f"blk{i}": _key_block(keys[next(it)], pattern[i], cfg, cross)
+            for i in range(n_tail)}
+    return stack, tail
+
+
+def init_params_from_key(key, cfg: ModelConfig):
+    """The reference's ``init_params(key, cfg)`` draw for draw: the same
+    key splits and the same normals through the port's threefry
+    (``prng.normal`` agrees with ``jax.random.normal`` within float32
+    rounding), on the key's device.  What ``--preset lm`` initializes
+    from, so its runs follow the reference's; ``init_params`` (a
+    ``torch.Generator``) is the fast draw for full-width models."""
+    check_supported(cfg)
+    dt = _dt(cfg)
+    k_emb, k_stack, k_enc, k_shared, k_head, _ = prng.split(key, 6)
+    params = {"embed": _key_dense(k_emb, (cfg.vocab, cfg.d_model), dt, 0.02),
+              "ln_f": _key_zeros(key, (cfg.d_model,))}
+    params["stack"], params["tail"] = _key_stack(
+        k_stack, cfg, cfg.pattern, cfg.n_units, cfg.n_tail, cfg.enc_dec)
+    if _has_shared(cfg):
+        params["shared"] = _key_attn_block(k_shared, cfg)
+    if not cfg.tie_embeddings:
+        params["unembed"] = _key_dense(k_head, (cfg.d_model, cfg.vocab), dt,
+                                       0.02)
+    if cfg.enc_dec:
+        e_stack, e_tail = _key_stack(k_enc, cfg, (BlockCfg("attn"),),
+                                     cfg.n_enc_layers, 0, False)
+        params["enc"] = {"stack": e_stack, "tail": e_tail,
+                         "ln_f": _key_zeros(key, (cfg.d_model,))}
+    return params
+
+
+# ---------------------------------------------------------------------------
+# trainable / frozen split (the FL integration point)
+# ---------------------------------------------------------------------------
+
+def _prune_empty(tree):
+    """The tree without its empty subtrees."""
+    if not isinstance(tree, dict):
+        return tree
+    out = {k: _prune_empty(v) for k, v in tree.items()}
+    return {k: v for k, v in out.items() if not (isinstance(v, dict)
+                                                 and not v)}
+
+
+def split_trainable(params, cfg: ModelConfig):
+    """``(trainable, frozen)``: in full mode every parameter trains and
+    nothing is frozen; LoRA raises.  The trainable tree is ``params``
+    without its empty subtrees (a ``shared_attn`` position's, an empty
+    ``tail``): the engine rebuilds trees from leaf paths, which carry no
+    empty node, and the model reads a missing subtree as empty."""
+    check_supported(cfg)
+    return _prune_empty(params), {}
+
+
+def merge_trainable(trainable, frozen, cfg: ModelConfig):
+    """The inverse of ``split_trainable``: in full mode the trainable tree
+    is the whole model."""
+    check_supported(cfg)
+    return trainable
+
+
 def count_params(cfg: ModelConfig, trainable_only: bool = False) -> int:
-    """Analytic parameter count (matches init_params).  Every parameter is
-    trainable in the port (LoRA raises), so ``trainable_only`` changes
-    nothing."""
+    """Analytic parameter count (matches init_params).  In full mode every
+    parameter is trainable (LoRA raises), so ``trainable_only`` counts the
+    same."""
     check_supported(cfg)
     cross = cfg.enc_dec
 
@@ -275,25 +432,91 @@ def count_params(cfg: ModelConfig, trainable_only: bool = False) -> int:
 # forward
 # ===========================================================================
 
-def _unit_slice(tree, u):
-    return {k: v[u] for k, v in tree.items()}
+def _unit_slice(tree, u, lead=0):
+    """Unit ``u`` of a stacked block tree whose unit axis follows ``lead``
+    client axes."""
+    return {k: v.select(lead, u) for k, v in tree.items()}
 
 
-def encode(params, cfg: ModelConfig, enc_embeds):
-    """Encoder pass (enc-dec models). enc_embeds: [B, Le, d] -> [B, Le, d].
+# ---------------------------------------------------------------------------
+# client axes and remat (training)
+# ---------------------------------------------------------------------------
+
+def _cmap(body, lead, *args):
+    """``body(*args)`` over ``lead`` leading client axes of every tensor in
+    ``args`` (nested ``torch.func.vmap``); None arguments pass through
+    unmapped, and lead = 0 calls ``body`` as it is."""
+    if not lead:
+        return body(*args)
+    at = [i for i, a in enumerate(args) if a is not None]
+
+    def inner(*xs):
+        full = list(args)
+        for i, x in zip(at, xs):
+            full[i] = x
+        return body(*full)
+
+    mapped = inner
+    for _ in range(lead):
+        mapped = torch.func.vmap(mapped)
+    return mapped(*(args[i] for i in at))
+
+
+#: the matrix products whose outputs the "dots" policy keeps (under the
+#: client vmap a per-client product arrives as ``bmm``)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _records_grad(*args):
+    """Whether autograd records through a tensor of ``args`` (trees)."""
+    return torch.is_grad_enabled() and any(
+        torch.is_tensor(t) and t.requires_grad
+        for t in pytree.tree_leaves(args))
+
+
+def _unit_call(cfg, policy, body, lead, *args):
+    """One unit of a training stack, ``_cmap(body, lead, *args)``.  When
+    ``cfg.remat`` is on and a gradient is being recorded through ``args``
+    (the reference's ``jax.checkpoint`` on each scan step), it runs under
+    a non-reentrant checkpoint placed around the vmap, and the backward
+    recomputes it from ``args``: ``policy`` "full" saves nothing inside
+    it, "dots" the outputs of the matrix products (the reference's
+    ``dots_with_no_batch_dims_saveable``)."""
+    if not (cfg.remat and _records_grad(*args)):
+        return _cmap(body, lead, *args)
+    if policy not in ("full", "dots"):
+        raise ValueError(f"remat_policy {policy!r}: 'full' or 'dots'")
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+    return checkpoint(functools.partial(_cmap, body, lead), *args,
+                      use_reentrant=False, **kw)
+
+
+def encode(params, cfg: ModelConfig, enc_embeds, *, lead=0):
+    """Encoder pass (enc-dec models). enc_embeds: [B, Le, d] -> [B, Le, d]
+    (with ``lead`` leading client axes on the parameters and the input).
 
     Each of the ``n_enc_layers`` blocks: rms_norm, q/k/v projections both
     roped at positions 0..Le-1, bidirectional plain attention
     (``causal=False``, q-chunked by cfg.attn_chunk), ``wo``, then the
     SwiGLU MLP; then the encoder's ``ln_f``.  As in the reference, the
     frame embeddings enter uncast and the plain attention runs whatever
-    the backend."""
-    B, Le, _ = enc_embeds.shape
+    the backend; under ``cfg.remat`` each block is checkpointed while a
+    gradient is recorded (policy "full" whatever ``remat_policy`` says,
+    as the reference's encoder scan)."""
+    B, Le = enc_embeds.shape[lead:lead + 2]
     pos = torch.arange(Le, device=enc_embeds.device).expand(B, Le)
     enc = params["enc"]
-    h = enc_embeds
-    for u in range(cfg.n_enc_layers):
-        bp = _unit_slice(enc["stack"]["pos0"], u)
+
+    def block(h, bp):
         x = rms_norm(h, bp["ln1"], cfg.norm_eps)
         q = (x @ bp["wq"]).reshape(B, Le, cfg.n_heads, cfg.head_dim)
         k = (x @ bp["wk"]).reshape(B, Le, cfg.n_kv_heads, cfg.head_dim)
@@ -303,9 +526,15 @@ def encode(params, cfg: ModelConfig, enc_embeds):
         o = attention(q, k, v, pos, pos, causal=False,
                       attn_softcap=cfg.attn_softcap, q_chunk=cfg.attn_chunk)
         h = h + o.reshape(B, Le, cfg.q_dim) @ bp["wo"]
-        h = h + swiglu(rms_norm(h, bp["ln2"], cfg.norm_eps), bp["wi"],
-                       bp["wd"])
-    return rms_norm(h, enc["ln_f"], cfg.norm_eps)
+        return h + swiglu(rms_norm(h, bp["ln2"], cfg.norm_eps), bp["wi"],
+                          bp["wd"])
+
+    h = enc_embeds
+    for u in range(cfg.n_enc_layers):
+        h = _unit_call(cfg, "full", block, lead, h,
+                       _unit_slice(enc["stack"]["pos0"], u, lead))
+    return _cmap(lambda x, g: rms_norm(x, g, cfg.norm_eps), lead, h,
+                 enc["ln_f"])
 
 
 def _enc_kv(enc_out):
@@ -338,7 +567,7 @@ def apply_block(blk: BlockCfg, bp, h, cfg, positions, *, shared=None,
     written in place."""
     if blk.kind == "mamba":
         return h + ssm.mamba_block(
-            rms_norm(h, bp["ln1"], cfg.norm_eps), bp, cfg,
+            rms_norm(h, bp["ln1"], cfg.norm_eps), bp, cfg, mode=mode,
             decode_cache=cache if mode == "decode" else None,
             prefill_cache=cache if mode == "prefill" else None), None
     if blk.kind == "shared_attn":
@@ -366,24 +595,58 @@ def apply_block(blk: BlockCfg, bp, h, cfg, positions, *, shared=None,
 
 
 def _run_stack(h, params, cfg: ModelConfig, positions, *, enc_kv=None,
-               caches=None, mode="train"):
-    """The unit loop, then the tail.  Returns (h, aux): aux the summed
-    router loss of the MoE blocks (a float32 scalar, 0 without them); the
-    caches are written in place."""
+               caches, mode):
+    """The serving unit loop (``mode`` "prefill" or "decode"), then the
+    tail, writing the caches in place.  Returns h."""
     shared = params.get("shared")
-    total = torch.zeros((), dtype=torch.float32, device=h.device)
-    blocks = [(blk, _unit_slice(params["stack"][f"pos{j}"], u),
-               _unit_slice(caches["stack"][f"pos{j}"], u) if caches else None)
+    stack, tail = params.get("stack", {}), params.get("tail", {})
+    blocks = [(blk, _unit_slice(stack.get(f"pos{j}", {}), u),
+               _unit_slice(caches["stack"][f"pos{j}"], u))
               for u in range(cfg.n_units)
               for j, blk in enumerate(cfg.pattern)]
-    blocks += [(cfg.pattern[i], params["tail"][f"blk{i}"],
-                caches["tail"][f"blk{i}"] if caches else None)
-               for i in range(cfg.n_tail)]
+    blocks += [(cfg.pattern[i], tail.get(f"blk{i}", {}),
+                caches["tail"][f"blk{i}"]) for i in range(cfg.n_tail)]
     for blk, bp, c in blocks:
-        h, aux = apply_block(blk, bp, h, cfg, positions, shared=shared,
-                             enc_kv=enc_kv, cache=c, mode=mode)
-        if aux is not None:
-            total = total + aux
+        h, _ = apply_block(blk, bp, h, cfg, positions, shared=shared,
+                           enc_kv=enc_kv, cache=c, mode=mode)
+    return h
+
+
+def _train_stack(h, params, cfg: ModelConfig, positions, enc_out, lead):
+    """The training forward's stack (``mode="train"``): each unit of the
+    pattern is one client-mapped call (``_unit_call``: checkpointed under
+    ``cfg.remat`` with ``cfg.remat_policy``), the tail blocks follow
+    unchecked, as in the reference.  Returns (h, aux): aux the summed
+    router loss of the MoE blocks, float32 with the ``lead`` client axes
+    (0 without MoE blocks)."""
+
+    def blocks(kinds):
+        def run(h, bps, shared, enc_out):
+            enc_kv = None if enc_out is None else _enc_kv(enc_out)
+            aux = torch.zeros((), dtype=torch.float32, device=h.device)
+            for blk, bp in zip(kinds, bps):
+                h, a = apply_block(blk, bp, h, cfg, positions, shared=shared,
+                                   enc_kv=enc_kv, mode="train")
+                if a is not None:
+                    aux = aux + a
+            return h, aux
+        return run
+
+    shared = params.get("shared")
+    stack, tail = params.get("stack", {}), params.get("tail", {})
+    total = torch.zeros(h.shape[:lead], dtype=torch.float32,
+                        device=h.device)
+    unit = blocks(cfg.pattern)
+    for u in range(cfg.n_units):
+        bps = [_unit_slice(stack.get(f"pos{j}", {}), u, lead)
+               for j in range(len(cfg.pattern))]
+        h, aux = _unit_call(cfg, cfg.remat_policy, unit, lead, h, bps,
+                            shared, enc_out)
+        total = total + aux
+    for i in range(cfg.n_tail):
+        h, aux = _cmap(blocks(cfg.pattern[i:i + 1]), lead, h,
+                       [tail.get(f"blk{i}", {})], shared, enc_out)
+        total = total + aux
     return h, total
 
 
@@ -399,19 +662,24 @@ def _embed(params, cfg, tokens, embeds=None):
 
 
 def forward_hidden(params, cfg: ModelConfig, tokens, *, embeds=None,
-                   enc_embeds=None, positions=None):
-    """Training/prefill forward. tokens: [B, L]; ``embeds`` a frontend's
-    stub embeddings [B, F, d], ``enc_embeds`` an enc-dec model's encoder
-    input [B, Le, d]. Returns (h, aux); aux is the summed router loss of
-    the MoE blocks, 0 without them."""
-    B, L = tokens.shape
-    h = _embed(params, cfg, tokens, embeds)
+                   enc_embeds=None, positions=None, lead=0):
+    """Training forward. tokens: [B, L]; ``embeds`` a frontend's stub
+    embeddings [B, F, d], ``enc_embeds`` an enc-dec model's encoder input
+    [B, Le, d]; with ``lead`` > 0 the parameters and inputs carry that
+    many leading client axes (``positions`` [B, L] do not).  Returns (h,
+    aux); aux is the summed router loss of the MoE blocks, 0 without
+    them.  Mamba2 blocks run the plain SSD scan (``mode="train"``)."""
+    check_supported(cfg)
+    B, L = tokens.shape[lead:]
+    h = _cmap(lambda e, t, x: _embed({"embed": e}, cfg, t, x), lead,
+              params["embed"], tokens, embeds)
     if positions is None:
         positions = torch.arange(L, device=h.device).expand(B, L)
-    enc_kv = _enc_kv(encode(params, cfg, enc_embeds)) if cfg.enc_dec \
-        else None
-    h, aux = _run_stack(h, params, cfg, positions, enc_kv=enc_kv)
-    return rms_norm(h, params["ln_f"], cfg.norm_eps), aux
+    enc_out = (encode(params, cfg, enc_embeds, lead=lead) if cfg.enc_dec
+               else None)
+    h, aux = _train_stack(h, params, cfg, positions, enc_out, lead)
+    return _cmap(lambda x, g: rms_norm(x, g, cfg.norm_eps), lead, h,
+                 params["ln_f"]), aux
 
 
 def _head_weight(params, cfg):
@@ -423,6 +691,66 @@ def _head_weight(params, cfg):
 def lm_logits(h, params, cfg: ModelConfig):
     logits = h @ _head_weight(params, cfg)
     return softcap(logits.float(), cfg.logit_softcap)
+
+
+# ===========================================================================
+# loss
+# ===========================================================================
+
+def lm_loss(params, cfg: ModelConfig, batch, *, lead=0):
+    """Mean masked token cross-entropy (+ ``router_aux_coef`` times the
+    router loss for MoE models): the reference's ``lm_loss``.
+
+    batch: tokens [B, L], labels [B, L], mask [B, L] (+ ``embeds`` /
+    ``enc_embeds``, passed to ``forward_hidden``).  Logits are soft-capped
+    in float32; with ``cfg.loss_chunk`` dividing L (and below it) the
+    cross-entropy sums over chunks of that many positions, in order; the
+    sum is divided by max(sum(mask), 1).  With ``lead`` > 0 every tensor
+    of ``params`` and ``batch`` carries that many leading client axes and
+    the result is one loss per client."""
+    h, aux = forward_hidden(params, cfg, batch["tokens"],
+                            embeds=batch.get("embeds"),
+                            enc_embeds=batch.get("enc_embeds"), lead=lead)
+    labels, mask = batch["labels"], batch["mask"].float()
+    head = params["embed"] if cfg.tie_embeddings else params["unembed"]
+
+    def ce(h_c, w, labels_c, mask_c):
+        W = w.T if cfg.tie_embeddings else w
+        logits = softcap((h_c @ W).float(), cfg.logit_softcap)
+        logz = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, labels_c[..., None].long())[..., 0]
+        return torch.sum((logz - ll) * mask_c)
+
+    L, ck = h.shape[-2], cfg.loss_chunk
+    if ck and L > ck and L % ck == 0:
+        total = torch.zeros(h.shape[:lead], dtype=torch.float32,
+                            device=h.device)
+        for i in range(0, L, ck):
+            total = total + _cmap(ce, lead, h[..., i:i + ck, :], head,
+                                  labels[..., i:i + ck], mask[..., i:i + ck])
+    else:
+        total = _cmap(ce, lead, h, head, labels, mask)
+    loss = total / torch.clamp(mask.sum(dim=(-2, -1)), min=1.0)
+    if cfg.is_moe:
+        loss = loss + cfg.router_aux_coef * aux
+    return loss
+
+
+def lm_loss_fn(cfg: ModelConfig):
+    """The engine's ``loss_fn(trainable, frozen, batch, key)`` over
+    ``lm_loss`` of ``merge_trainable(trainable, frozen)``; the key is
+    unused, and a batch without ``mask`` counts every label (the
+    reference launcher's LM task).  It maps its own client axes
+    (``maps_clients``): local SGD hands it the client-stacked tree and
+    ``lead``, so its remat checkpoints sit outside the client vmap."""
+    def loss_fn(tr, fz, batch, key, *, lead=0):
+        if "mask" not in batch:
+            batch = dict(batch, mask=torch.ones_like(batch["labels"],
+                                                     dtype=torch.float32))
+        return lm_loss(merge_trainable(tr, fz, cfg), cfg, batch, lead=lead)
+
+    loss_fn.maps_clients = True
+    return loss_fn
 
 
 # ===========================================================================
@@ -480,8 +808,8 @@ def serve_step(params, cfg: ModelConfig, cache, tokens, pos):
     reference's arithmetic)."""
     h = _embed(params, cfg, tokens)
     enc_kv = _enc_kv(cache["enc_out"]) if cfg.enc_dec else None
-    h, _ = _run_stack(h, params, cfg, pos[:, None], enc_kv=enc_kv,
-                      caches=cache, mode="decode")
+    h = _run_stack(h, params, cfg, pos[:, None], enc_kv=enc_kv,
+                   caches=cache, mode="decode")
     h = rms_norm(h, params["ln_f"], cfg.norm_eps)
     return lm_logits(h[:, 0], params, cfg), cache
 
@@ -510,7 +838,7 @@ def prefill(params, cfg: ModelConfig, cache, tokens, *, embeds=None,
                              f"{tuple(cache['enc_out'].shape)}")
         cache["enc_out"].copy_(enc_out)
         enc_kv = _enc_kv(enc_out)
-    h, _ = _run_stack(h, params, cfg, positions, enc_kv=enc_kv, caches=cache,
-                      mode="prefill")
+    h = _run_stack(h, params, cfg, positions, enc_kv=enc_kv, caches=cache,
+                   mode="prefill")
     h = rms_norm(h, params["ln_f"], cfg.norm_eps)
     return lm_logits(h[:, -1], params, cfg), cache

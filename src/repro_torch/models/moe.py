@@ -21,7 +21,11 @@ a zero row when it was dropped.  The k weighted contributions of a token
 are then laid out as ``[T, k, d]`` and summed over k.  There is no
 scatter-add, so no atomics, and two prefills give the same bits.  The
 reference's ``.at[st].add`` sums the same k terms in its sorted order, so
-the two differ by the rounding of a k-term sum.
+the two differ by the rounding of a k-term sum.  Nothing is written in
+place or through ``out=``, so the layer also runs under the client
+``torch.func.vmap`` of local SGD, and the router's loss carries its
+gradient through the mean router probabilities, as the reference's does
+(the top-1 fractions, counts, carry none).
 
 The reference's ``_constrain_expert_buffer`` (an environment switch that
 pins the buffer's sharding over a device mesh) is not ported: it does
@@ -45,12 +49,10 @@ def _route(x, router_w, top_k):
     topw = topw / topw.sum(-1, keepdim=True)
     me = probs.mean(1)  # mean router prob per expert
     # fraction of tokens whose top-1 is e: counts of 0/1 terms, exact in
-    # float32 whatever the order of the adds
-    first = (topi[..., 0] + E * torch.arange(B, device=x.device)[:, None])
-    fe = torch.zeros(B * E, dtype=torch.float32, device=x.device) \
-        .scatter_add_(0, first.reshape(-1),
-                      torch.ones(B * L, dtype=torch.float32,
-                                 device=x.device)).view(B, E) / L
+    # float32 whatever the order of the adds (and without a gradient, as
+    # the reference's one-hot has none)
+    top1 = topi[..., 0, None] == torch.arange(E, device=x.device)
+    fe = top1.float().sum(1) / L
     return topw, topi, E * (me * fe).sum(-1)
 
 
@@ -86,9 +88,10 @@ def dispatch(topi, n_experts, cap):
     count = torch.searchsorted(sgroup, groups, right=True) - starts
     rank = torch.arange(n, device=dev) - starts[sgroup]
     dest_sorted = torch.where(rank < cap, sgroup * cap + rank, G * cap)
-    dest = torch.empty_like(dest_sorted).scatter_(0, order, dest_sorted)
+    # order is a permutation: the scatter overwrites every element
+    dest = dest_sorted.scatter(0, order, dest_sorted)
     r = torch.arange(cap, device=dev)
-    pos = (starts[:, None] + r).clamp_(max=n - 1)
+    pos = (starts[:, None] + r).clamp(max=n - 1)
     src = torch.where(r < count[:, None], order[pos] // k, B * L)
     return src.reshape(-1), dest, dest < G * cap
 
@@ -107,10 +110,9 @@ def moe_ffn(x, bp, cfg):
     xt = x.reshape(B * L, d)
     eb = torch.cat([xt, xt.new_zeros(1, d)]).index_select(0, src)
     g, u = torch.bmm(eb.view(E, B * cap, d), bp["wi_e"]).chunk(2, dim=-1)
-    out = x.new_empty(E * B * cap + 1, d)
-    out[-1] = 0
-    torch.bmm(F.silu(g) * u, bp["wd_e"],
-              out=out[:E * B * cap].view(E, B * cap, d))
+    # the expert outputs and a zero row for the dropped slots
+    out = F.pad(torch.bmm(F.silu(g) * u, bp["wd_e"]).view(E * B * cap, d),
+                (0, 0, 0, 1))
     w = topw.reshape(-1).to(x.dtype) * keep
     y = (out.index_select(0, dest) * w[:, None]).view(B * L, k, d).sum(1)
     if cfg.n_shared_experts and "wi_s" in bp:

@@ -7,15 +7,21 @@ reference's jnp function and, with the naive sequential recurrence
 ``ssd_recurrence_ref``, the correctness oracle; ``ssd_decode_step`` serves
 O(1)-per-token decode.
 
-Where the reference's ``mamba_block`` calls the jnp ``ssd_chunked``
-(``ssm.py:200``), the port calls ``kernels/ssd_chunk/ops.ssd_chunked``:
-the port of the JAX package's own drop-in equivalent
-``ssd_chunked_pallas`` (``kernels/ssd_chunk/ops.py:16``), which carries
-the SSD chunk kernel (K5).  In float32 the two differ only in summation
-order; in bfloat16 the drop-in rounds the diagonal-block output to the
-input dtype before adding the inter-chunk part, as the reference's
-drop-in does.  Caches are written in place (the reference returns new
-ones).
+``mamba_block`` takes its route from the mode the model's ``apply_block``
+carries.  In training (``mode="train"``) it runs the SSD scan through
+``ssd_chunked``, the plain port of the reference's jnp function, which is
+what the reference's ``mamba_block`` trains through (``ssm.py:200``):
+differentiable, and written without ``out=`` or in-place writes so that
+it also runs under the client ``torch.func.vmap`` of local SGD.  K5 has
+no backward (nor has the reference's Pallas kernel), so training never
+reaches it.  In prefill the port calls
+``kernels/ssd_chunk/ops.ssd_chunked``: the port of the JAX package's own
+drop-in equivalent ``ssd_chunked_pallas`` (``kernels/ssd_chunk/ops.py:16``),
+which carries the SSD chunk kernel (K5).  In float32 the two differ only
+in summation order; in bfloat16 the drop-in rounds the diagonal-block
+output to the input dtype before adding the inter-chunk part, as the
+reference's drop-in does.  Caches are written in place (the reference
+returns new ones).
 """
 from __future__ import annotations
 
@@ -108,15 +114,19 @@ def ssd_decode_step(state, xdt, dA, B_, C_):
 # causal depthwise conv
 # ---------------------------------------------------------------------------
 
-def conv1d_causal(x, w, b):
+def conv1d_causal(x, w, b, *, train=False):
     """x: [B, L, C]; w: [C, W]; depthwise causal conv in float32 (the
     reference's ``conv_general_dilated`` with ``feature_group_count=C``:
-    a cross-correlation over the left-padded sequence)."""
+    a cross-correlation over the left-padded sequence).  The result is a
+    contiguous [B, L, C]: the SSD kernel reads the channels split from it
+    (x, B, C) with unit stride.  ``train`` returns the same values without
+    ``out=`` (autograd and ``torch.func.vmap`` take none), in the conv's
+    layout: the plain scan needs no unit stride."""
     W = w.shape[-1]
     xp = F.pad(x.to(torch.float32).transpose(1, 2), (W - 1, 0))  # [B, C, L+W-1]
     out = F.conv1d(xp, w.to(torch.float32)[:, None, :], groups=w.shape[0])
-    # back to a contiguous [B, L, C]: the SSD kernel reads the channels
-    # split from it (x, B, C) with unit stride
+    if train:
+        return (out.transpose(1, 2) + b.to(torch.float32)).to(x.dtype)
     y = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     torch.add(out.transpose(1, 2), b.to(torch.float32), out=y)
     return y.to(x.dtype)
@@ -161,13 +171,27 @@ def softplus(x):
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def mamba_block(x, bp, cfg, *, decode_cache=None, prefill_cache=None):
+def mamba_block(x, bp, cfg, *, mode=None, decode_cache=None,
+                prefill_cache=None):
     """Mamba2 block. x: [B, L, d]. Returns y [B, L, d].
 
-    decode_cache: dict(conv, state) for single-token decode, updated in
-    place; prefill_cache: dict(conv, state) that the full-sequence pass
-    fills in place (the last W-1 raw conv inputs and the final SSM state,
-    in the cache's dtype)."""
+    ``mode`` "train": the full-sequence pass through the plain,
+    differentiable ``ssd_chunked`` (vmap-safe; no kernel).  "prefill":
+    the full-sequence pass through ``ssd_ops.ssd_chunked`` (K5 on the
+    card), filling ``prefill_cache`` when one is given: dict(conv, state)
+    written in place with the last W-1 raw conv inputs and the final SSM
+    state, in the cache's dtype.  "decode": one token against
+    ``decode_cache`` (dict(conv, state)), updated in place.  Left None,
+    the mode is the cache's ("decode" or "prefill"), else "train"."""
+    if mode is None:
+        mode = ("decode" if decode_cache is not None else
+                "prefill" if prefill_cache is not None else "train")
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"mode {mode!r}: 'train', 'prefill' or 'decode'")
+    if (mode == "decode") != (decode_cache is not None) \
+            or (prefill_cache is not None and mode != "prefill"):
+        raise ValueError(f"mode {mode!r} does not take the caches given")
+    train = mode == "train"
     B, L, d = x.shape
     di, G, N, H, P = (cfg.ssm_inner, cfg.ssm_groups, cfg.ssm_state,
                       cfg.ssm_heads, cfg.ssm_head_dim)
@@ -176,7 +200,7 @@ def mamba_block(x, bp, cfg, *, decode_cache=None, prefill_cache=None):
 
     xBC_raw = xBC
     if decode_cache is None:
-        xBC = conv1d_causal(xBC, bp["conv_w"], bp["conv_b"])
+        xBC = conv1d_causal(xBC, bp["conv_w"], bp["conv_b"], train=train)
     else:
         if L != 1:
             raise ValueError(f"decode takes one token per row; got L={L}")
@@ -196,16 +220,21 @@ def mamba_block(x, bp, cfg, *, decode_cache=None, prefill_cache=None):
                   + bp["dt_bias"].to(torch.float32))  # [B,L,H]
     A = -torch.exp(bp["A_log"].to(torch.float32))  # [H]
     dA = dt * A
-    # written contiguous: an elementwise product may take its layout from
-    # the broadcast operand, and the SSD kernel reads p with unit stride
-    xdt = torch.empty(xs.shape, dtype=xs.dtype, device=xs.device)
-    torch.mul(xs, dt[..., None].to(xs.dtype), out=xdt)
+    if train:
+        xdt = xs * dt[..., None].to(xs.dtype)
+    else:
+        # written contiguous: an elementwise product may take its layout
+        # from the broadcast operand, and the SSD kernel reads p with unit
+        # stride
+        xdt = torch.empty(xs.shape, dtype=xs.dtype, device=xs.device)
+        torch.mul(xs, dt[..., None].to(xs.dtype), out=xdt)
 
     if decode_cache is None:
         chunk = min(cfg.ssm_chunk, L)
         if L % chunk:
             chunk = 1  # fallback for odd tiny lengths
-        y, final = ssd_ops.ssd_chunked(xdt, dA, Bv, Cv, chunk)
+        scan = ssd_chunked if train else ssd_ops.ssd_chunked
+        y, final = scan(xdt, dA, Bv, Cv, chunk)
         if prefill_cache is not None:
             W = cfg.ssm_conv
             tail = xBC_raw[:, max(0, L - (W - 1)):]

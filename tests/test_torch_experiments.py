@@ -96,11 +96,9 @@ def test_cli_list_equals_the_reference(capsys):
 
 
 def test_cli_refuses_what_is_not_ported():
-    """``--preset lm`` is refused with its ROADMAP item; the reference's
-    mesh and compile-cache flags do not exist here."""
-    with pytest.raises(SystemExit, match="ROADMAP item 3"):
-        px.main(["--scenario", "fedawe/sine", "--preset", "lm",
-                 "--device", "cpu"])
+    """The reference's mesh and compile-cache flags do not exist here
+    (``--preset lm`` is ported: tests/test_torch_lm_train.py holds its
+    cell against the reference's)."""
     for flag in (["--seed-mesh"], ["--compile-cache", "auto"]):
         with pytest.raises(SystemExit):
             px.main(["--scenario", "fedawe/sine"] + flag)

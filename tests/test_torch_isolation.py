@@ -47,7 +47,11 @@ def test_every_module_imports_without_jax_or_repro():
                  "repro_torch.kernels.ssd_chunk.ops",
                  "repro_torch.kernels.ssd_chunk.ref",
                  "repro_torch.configs.zamba2_7b",
-                 "repro_torch.core.faults", "repro_torch.core.staleness"):
+                 "repro_torch.core.faults", "repro_torch.core.staleness",
+                 "repro_torch.core.engine", "repro_torch.models.moe",
+                 "repro_torch.launch.experiments", "repro_torch.optim",
+                 "repro_torch.optim.optimizers",
+                 "repro_torch.optim.schedules"):
         assert name in mods, name
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

@@ -211,9 +211,10 @@ def test_tiled_scan_on_ssd_witness(layout):
 # ---------------------------------------------------------------------------
 
 def _mamba_views(arch, L=256):
-    """The operands ``mamba_block`` hands the scan at ``arch``'s SSM widths
-    (d_model cut to 64: it shapes only the projections) in bf16, captured
-    and regrouped as ``ops.ssd_chunked`` regroups them."""
+    """The operands ``mamba_block`` hands the scan in prefill (the route
+    that reaches the kernel) at ``arch``'s SSM widths (d_model cut to 64:
+    it shapes only the projections) in bf16, captured and regrouped as
+    ``ops.ssd_chunked`` regroups them."""
     cfg = get_config(arch).replace(d_model=64, dtype="bfloat16")
     di, H, N = cfg.ssm_inner, cfg.ssm_heads, cfg.ssm_state
     gn = cfg.ssm_groups * N
@@ -238,7 +239,8 @@ def _mamba_views(arch, L=256):
     orig = ssm.ssd_ops
     ssm.ssd_ops = types.SimpleNamespace(ssd_chunked=spy)
     try:
-        ssm.mamba_block(rand(1, L, 64, scale=1.0), bp, cfg)
+        ssm.mamba_block(rand(1, L, 64, scale=1.0), bp, cfg,
+                        mode="prefill")
     finally:
         ssm.ssd_ops = orig
     return cfg, seen[0]

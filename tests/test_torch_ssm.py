@@ -13,10 +13,11 @@ made by the reference's ``init_params``, carried across by
   * prefill-then-decode against the full forward for the mamba and
     hybrid_shared families of tests/test_decode_parity.py: 1e-3.
 
-The port's mamba_block runs the SSD scan through
+In prefill the port's mamba_block runs the SSD scan through
 ``kernels/ssd_chunk/ops.ssd_chunked`` (the port of the reference's
 drop-in ``ssd_chunked_pallas``), the reference's through its jnp
-``ssd_chunked``: in float32 they differ only in summation order."""
+``ssd_chunked``: in float32 they differ only in summation order.  In
+training (``mode="train"``) both run the plain scan."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -269,9 +270,10 @@ def test_mamba_block_matches_reference(mamba_params, mode, L):
 
 def test_mamba_block_hands_the_kernel_unit_last_strides(mamba_params,
                                                         monkeypatch):
-    """The operands mamba_block passes to the SSD scan have the unit last
-    stride the CUDA kernel requires (x dt, B and C; B and C may be
-    stride-0 expansions over the heads)."""
+    """The operands mamba_block passes to the SSD scan in prefill (the
+    route that reaches the kernel) have the unit last stride the CUDA
+    kernel requires (x dt, B and C; B and C may be stride-0 expansions
+    over the heads)."""
     import types
 
     cfg, _, bp_t = mamba_params
@@ -289,7 +291,7 @@ def test_mamba_block_hands_the_kernel_unit_last_strides(mamba_params,
     for dtype in (torch.float32, torch.bfloat16):
         bp = {k: (v.to(dtype) if k in ("in_proj", "out_proj") else v)
               for k, v in bp_t.items()}
-        ssm.mamba_block(x.to(dtype), bp, cfg)
+        ssm.mamba_block(x.to(dtype), bp, cfg, mode="prefill")
     assert seen == [[1, 1, 1], [1, 1, 1]]
 
 
