@@ -57,7 +57,10 @@ printed as JSON lines:
      mixtral-8x22b's on one batch row (H 48, K 8, window 4096); the
      enc-dec and frontend decoders' self-attention in full:
      seamless-m4t-large-v2's (B 2, H 16, K 16, L = S = 8192, head dim
-     64, global) and internvl2-2b's (H 16 over K 8, head dim 128).  In
+     64, global) and internvl2-2b's (H 16 over K 8, head dim 128);
+     gemma3-27b's (B 2, H 32 over K 16, L = S = 8192, head dim 128)
+     windowed (1 024) and global, its plain version a batch row at a time
+     (``plain_flash``: 17 GB of float32 scores whole).  In
      bfloat16, up to
      1 024 queries, the same bounds also against ``flash_mha_tiled_ref``,
      the kernel's own tile-by-tile algorithm in plain torch.  Then K5
@@ -288,9 +291,36 @@ printed as JSON lines:
         allocated memory; one profiled round (busy share, launches,
         parts).  K1 alone at [8, N] float32 against its plain version
         (1e-5), timed beside it and its bound.  Every fl_mode="full"
-        architecture of the registry at ``reduced()``: one FedAWE round
-        on the card (K1 once) against the same round on the CPU port,
-        loss and global within 1e-4.
+        architecture of the registry at ``reduced()``, in its own
+        ``fl_mode`` (gemma3-27b and mixtral-8x22b train their adapters
+        over a frozen base): one FedAWE round on the card (K1 once)
+        against the same round on the CPU port, loss and global within
+        1e-4.
+     m. LoRA at full width, run after phase 3l, with its own numbers.
+        gemma3-27b at its published widths and depth (62 layers, d_model
+        5 376, 32 query over 16 kv heads of 128, 1 024-token windows on
+        52 layers, vocab 262 144 tied, logit soft-cap 30; 27.04 B
+        parameters, 33.5 M of them rank-16 adapters) in bfloat16 with
+        ``attn_backend="flash"``: one base from a seed (``init_params``),
+        the adapters' ``b_*`` drawn from a second seed at 0.02.  Serving:
+        the LM path's prefill and 16 greedy steps, K4 62 times in the
+        prefill (52 windowed) and never in decode, every logit finite;
+        the last-token logits against the same prefill with the adapters
+        zeroed, which must differ (the adapters apply); each layer's
+        flash attention against the xla branch's on the same input in
+        bfloat16 within 5e-2; prefill ms, decode ms per step and a
+        profile by part.  Training on the same weights: FedAWE over the
+        frozen base, the adapters on the flat [4, N] float32 state with
+        K1, through ``make_round_fn_with_frozen`` and ``make_chunk_fn(...,
+        with_frozen=True)`` (m 4 at p 0.8, s 2, one sequence of 1 024
+        synthetic tokens per client and step; 2 048 ran out of memory):
+        round 1 alone, after which every adapter leaf of the global has
+        moved and every base leaf's float64 sum is bit-equal, no base
+        leaf requiring a gradient; then
+        2 rounds in one chunk between CUDA events, K1 twice and K2-K5
+        never, every loss finite, peak allocated memory; one profiled
+        round.  The weights freed, K1 alone at [4, N] float32 against its
+        plain version (1e-5), timed beside it and its bound.
   4. numbers  — K1-K3: the Triton yardstick's global loads by width in
      its SASS at rows 8 bytes off 16 and at aligned rows; the CUDA kernel
      and the Triton yardstick in turns (K2's yardstick with its own weight
@@ -337,11 +367,16 @@ printed as JSON lines:
      olmoe-1b-7b's attention (head dim 128), at seamless-m4t-large-v2's
      (head dim 64) and at internvl2-2b's (head dim 128, two query heads
      per kv head) with SDPA (the same function there; ``enable_gqa`` for
-     the last) as the yardstick.  Each line carries the card's name and
-     power limit.
+     the last) as the yardstick.  K4 at gemma3-27b's two shapes: the
+     kernel, the plain version, and the library call computing the same
+     function: SDPA (``is_causal``, ``enable_gqa``) at the global shape,
+     compiled flex_attention with the sliding-window mask at the windowed
+     one.  Each line carries the card's name and power limit.
   5. the ``{"kernels": [...]}`` line (K1 also at the LM training
-     stack's [8, N], with the full-width run's launches); the last line
-     is ``{"ok": true, "device": {...}}``.
+     stack's [8, N] and the LoRA stack's [4, N], with the full-width
+     runs' launches; K4 also at gemma3-27b's windowed and global shapes,
+     with the LoRA prefill's launches of each); the last line is
+     ``{"ok": true, "device": {...}}``.
 
 No phase catches its own failure: any exception ends the run with a
 non-zero exit code and no result line.
@@ -1111,6 +1146,22 @@ def row_rel_err(out, plain):
 #: the tiled plain version loops over tiles in Python; past this many
 #: queries (the full-length gemma2-2b and zamba2-7b cases) it is not run
 TILED_MAX_L = 1024
+#: past this many bytes of float32 scores the plain version runs one batch
+#: row at a time (gemma3-27b's 32 heads at B 2, L = S = 8192: 17.2 GB)
+PLAIN_SCORE_BYTES = 2 ** 33
+
+
+def plain_flash(fref, q, k, v, case):
+    """The plain version at ``case``: whole, or one batch row at a time
+    (concatenated) where its scores would pass PLAIN_SCORE_BYTES."""
+    B, H, _, L, S = case[:5]
+    if 4 * B * H * L * S <= PLAIN_SCORE_BYTES:
+        return fref.flash_mha_ref(q, k, v, **flash_kw(case))
+    import torch
+
+    return torch.cat([fref.flash_mha_ref(q[b:b + 1], k[b:b + 1], v[b:b + 1],
+                                         **flash_kw(case))
+                      for b in range(B)])
 
 
 def check_flash(torch, fops, fref):
@@ -1122,20 +1173,23 @@ def check_flash(torch, fops, fref):
     Returns the largest error of each main path's cases in bfloat16: at
     the gemma2-2b shapes (head dim 256, key "gemma"), at olmoe-1b-7b's
     (head dim 128, "olmoe"), at seamless-m4t-large-v2's (head dim 64,
-    "seamless") and at internvl2-2b's (head dim 128 with G = 2,
-    "internvl")."""
-    worst = dict(gemma=0.0, olmoe=0.0, seamless=0.0, internvl=0.0)
+    "seamless"), at internvl2-2b's (head dim 128 with G = 2, "internvl")
+    and at gemma3-27b's windowed and global ones (head dim 128 with G = 2,
+    "gemma3_windowed", "gemma3_global")."""
+    worst = dict(gemma=0.0, olmoe=0.0, seamless=0.0, internvl=0.0,
+                 gemma3_windowed=0.0, gemma3_global=0.0)
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).replace("torch.", "")
         for i, case in enumerate(FLASH_CASES + HEAD256_CASES + GEMMA_ATTN
                                  + ZAMBA_ATTN_CHECK + FLASH_RAGGED_CASES
-                                 + MOE_ATTN_CHECK + ENCDEC_ATTN_CHECK):
+                                 + MOE_ATTN_CHECK + ENCDEC_ATTN_CHECK
+                                 + GEMMA3_ATTN):
             q, k, v = flash_inputs(torch, case, dtype, seed=300 + i)
             before = fops.flash_mha.launches
             out = fops.flash_mha(q, k, v, **flash_kw(case))
             torch.cuda.synchronize()
             launched = fops.flash_mha.launches - before
-            plain = fref.flash_mha_ref(q, k, v, **flash_kw(case))
+            plain = plain_flash(fref, q, k, v, case)
             torch.cuda.synchronize()
             err = (out.float() - plain.float()).abs().max().item()
             row_err = row_rel_err(out, plain)
@@ -1172,7 +1226,9 @@ def check_flash(torch, fops, fref):
                 worst["gemma"] = max(worst["gemma"], err)
             for key, main in (("olmoe", OLMOE_ATTN),
                               ("seamless", SEAMLESS_ATTN),
-                              ("internvl", INTERNVL_ATTN)):
+                              ("internvl", INTERNVL_ATTN),
+                              ("gemma3_windowed", GEMMA3_ATTN[0]),
+                              ("gemma3_global", GEMMA3_ATTN[1])):
                 if dtype == torch.bfloat16 and case == main:
                     worst[key] = err
             del q, k, v, out, plain
@@ -1235,7 +1291,8 @@ def flash_issued_flops(case, BM, BN, DP):
 
 def flex_call(torch, q, k, v, window, softcap):
     """The yardstick: one compiled torch flex_attention call computing the
-    same function (soft-cap score_mod, causal + window block mask, GQA)
+    same function (a soft-cap score_mod where ``softcap`` is set, causal
+    + window block mask, GQA)
     on the [B, H, L, D] layout.  Timed here only; the port never calls
     it.  Compiled anew for each window (the compile cache would otherwise
     keep the first mask function)."""
@@ -1244,7 +1301,7 @@ def flex_call(torch, q, k, v, window, softcap):
 
     torch.compiler.reset()
 
-    def score_mod(score, b, h, qi, ki):
+    def capped(score, b, h, qi, ki):
         return torch.tanh(score / softcap) * softcap
 
     def mask_mod(b, h, qi, ki):
@@ -1256,6 +1313,7 @@ def flex_call(torch, q, k, v, window, softcap):
     L = q.shape[2]
     mask = create_block_mask(mask_mod, None, None, L, L, device="cuda")
     fn = torch.compile(flex_attention)
+    score_mod = capped if softcap else None
     return lambda: fn(q, k, v, score_mod=score_mod, block_mask=mask,
                       enable_gqa=True)
 
@@ -4555,24 +4613,24 @@ def lm_full_width_path(torch, np, model, engine, federated, availability,
     return rec
 
 
-def lm_k1_at_stack(torch, ops, ref, n, smi):
-    """K1 alone at the LM stack's shape, [LM_FULL_M, n] float32 (x, y,
-    g, mask and echo drawn from a seed): against its plain version on the
-    same inputs (1e-5), and its time, the plain version's and the bound
-    (each input read once, the output written once)."""
-    a = make_inputs(torch, LM_FULL_M, n, torch.float32, seed=41)
+def lm_k1_at_stack(torch, ops, ref, n, smi, m=LM_FULL_M):
+    """K1 alone at an LM stack's shape, [m, n] float32 (x, y, g, mask and
+    echo drawn from a seed): against its plain version on the same inputs
+    (1e-5), and its time, the plain version's and the bound (each input
+    read once, the output written once)."""
+    a = make_inputs(torch, m, n, torch.float32, seed=41)
     got = call_kernel(ops, "K1", a)
     want = call_plain(ref, "K1", a)
     err = (got - want).abs().max().item()
     del got, want
-    require(err <= 1e-5, f"K1 at [{LM_FULL_M}, {n}]: {err}")
+    require(err <= 1e-5, f"K1 at [{m}, {n}]: {err}")
     ms = [events_ms(torch, lambda: call_kernel(ops, "K1", a), 5)]
     plain_ms = events_ms(torch, lambda: call_plain(ref, "K1", a), 3)
     ms.append(events_ms(torch, lambda: call_kernel(ops, "K1", a), 5))
-    b_ms, b_by, nbytes = bound(LM_FULL_M, n, 4, True)
+    b_ms, b_by, nbytes = bound(m, n, 4, True)
     rec = dict(ms=sum(ms) / 2, turns_ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                bound_by=b_by, max_abs_err=err)
-    emit(dict(phase="kernel_time", card=smi, kernel="K1", m=LM_FULL_M, n=n,
+    emit(dict(phase="kernel_time", card=smi, kernel="K1", m=m, n=n,
               bytes=nbytes, share=b_ms / rec["ms"],
               achieved_gb_per_s=nbytes / rec["ms"] / 1e6, **rec))
     del a
@@ -4583,12 +4641,14 @@ def lm_k1_at_stack(torch, ops, ref, n, smi):
 def lm_small_round(torch, np, model, engine, availability, prng, cfg,
                    device, seed):
     """One FedAWE round of ``cfg`` (m 4, s 2, B 2, L 16, flat state with
-    the kernel route) on ``device`` from the same weights and batch:
-    returns (loss, global [N] on the CPU)."""
+    the kernel route) on ``device`` from the same weights and batch (a
+    LoRA config's frozen base closed over the round): returns (loss,
+    global [N] on the CPU)."""
     m, s = LM_SMALL_M, LM_SMALL_S
     gen = torch.Generator().manual_seed(seed)
-    params = model.split_trainable(model.init_params(gen, cfg), cfg)[0]
-    params = tree_map(lambda k, t: t.to(device), params)
+    params, frozen = (tree_map(lambda k, t: t.to(device), tree)
+                      for tree in model.split_trainable(
+                          model.init_params(gen, cfg), cfg))
     rng = np.random.default_rng(seed)
     toks = rng.integers(0, cfg.vocab, (LM_SMALL_B, LM_SMALL_L))
     b = dict(tokens=toks, labels=toks,
@@ -4608,7 +4668,7 @@ def lm_small_round(torch, np, model, engine, availability, prng, cfg,
                          use_kernel=True)
     state = engine.init_fl_state(prng.PRNGKey(seed, device), fl, params)
     round_fn = engine.make_round_fn(
-        fl, model.lm_loss_fn(cfg), {},
+        fl, model.lm_loss_fn(cfg), frozen,
         availability.AvailabilityCfg(kind="stationary"),
         torch.full((m,), 0.8, device=device))
     state, met = round_fn(state, batches)
@@ -4617,16 +4677,15 @@ def lm_small_round(torch, np, model, engine, availability, prng, cfg,
 
 def lm_small_paths(torch, np, model, engine, availability, prng, get_config,
                    reduced, counts, smi):
-    """Every fl_mode="full" architecture of the registry at ``reduced()``
-    (float32): one FedAWE round on the card (K1 once) and the same round
-    on the CPU port, loss and global within 1e-4."""
+    """Every architecture of the registry at ``reduced()`` (float32), in
+    its own ``fl_mode`` (gemma3-27b and mixtral-8x22b train their
+    adapters over a frozen base): one FedAWE round on the card (K1 once)
+    and the same round on the CPU port, loss and global within 1e-4."""
     from repro_torch.configs import _MODULES
 
     worst = {}
     for i, arch in enumerate(_MODULES):
         cfg = reduced(get_config(arch))
-        if cfg.fl_mode != "full":
-            continue
         counts.reset()
         loss_c, g_c = lm_small_round(torch, np, model, engine, availability,
                                      prng, cfg, "cuda", seed=50 + i)
@@ -4635,7 +4694,8 @@ def lm_small_paths(torch, np, model, engine, availability, prng, get_config,
                                      prng, cfg, "cpu", seed=50 + i)
         require(launches == dict(K1=1, K2=0, K3=0, K4=0, K5=0),
                 f"{arch} round launches {launches}")
-        worst[arch] = dict(loss=abs(loss_c - loss_h),
+        worst[arch] = dict(mode=cfg.fl_mode, n=g_c.numel(),
+                           loss=abs(loss_c - loss_h),
                            global_=(g_c - g_h).abs().max().item())
         require(math.isfinite(loss_c) and worst[arch]["loss"] <= 1e-4
                 and worst[arch]["global_"] <= 1e-4,
@@ -4658,6 +4718,320 @@ def lm_train_paths(torch, np, model, engine, federated, availability, prng,
     emit(dict(phase="lm_train_paths_done", card=smi,
               seconds=time.perf_counter() - t0))
     return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 3m: LoRA at full width, gemma3-27b: serving with its adapters (K4
+# at head dim 128 with G = 2, windowed and global) and training them over
+# the frozen base (K1 on the [4, N] LoRA stack)
+# ---------------------------------------------------------------------------
+
+LORA_ARCH = "gemma3-27b"
+#: gemma3-27b's attention at the serving prefill (B 2, 32 query over 16
+#: kv heads of 128, L = S = 8192, no soft-cap): windowed (1 024) and
+#: global; its 62 layers: 52 windowed, 10 global
+LORA_WINDOW, LORA_LAYERS, LORA_WINDOWED = 1024, 62, 52
+GEMMA3_ATTN = [(2, 32, 16, 8192, 8192, 128, LORA_WINDOW, 0.0, True),
+               (2, 32, 16, 8192, 8192, 128, None, 0.0, True)]
+#: the adapters' b_* (zero at init, where they change nothing) drawn from
+#: a second seed at this scale; the last-token logits must then move by
+#: more than LORA_MOVES from the same prefill with the adapters zeroed
+LORA_B_SCALE, LORA_MOVES = 0.02, 1e-2
+#: the training run: clients, local steps (the config's local_steps),
+#: sequences per client and step, their length, rounds in the timed
+#: chunk, sequences each client owns in the store.  The sequence is cut
+#: from 2 048 tokens: there the first round ran out of the card's 80 GB
+#: (79.0 GB allocated, 54.0 of them the base); at 1 024 its peak is 75.7
+LORA_M, LORA_S, LORA_B, LORA_L, LORA_K = 4, 2, 1, 1024, 2
+LORA_PER_CLIENT = 4
+#: kernel-name substrings of the serving profile's parts
+LORA_SERVE_PARTS = {"K4": ("flash_fwd",),
+                    "cublas": ("nvjet", "gemm", "cutlass", "sm90_xmma")}
+
+
+def flat_leaves(tree, prefix=()):
+    """(path, leaf) of a nested dict's tensors, in sorted key order."""
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from flat_leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+@contextlib.contextmanager
+def windows_seen(layers, record):
+    """Inside the block every flash-kernel call of the model's attention
+    (``layers.flash_mha``) appends its ``window`` to ``record``."""
+    orig = layers.flash_mha
+
+    def seen(*a, **kw):
+        record.append(kw.get("window"))
+        return orig(*a, **kw)
+
+    layers.flash_mha = seen
+    try:
+        yield
+    finally:
+        layers.flash_mha = orig
+
+
+def draw_adapters(torch, lora, seed):
+    """Every ``b_*`` leaf of the adapter tree drawn in place on the card:
+    N(0, LORA_B_SCALE^2) from ``seed``."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for path, t in flat_leaves(lora):
+        if path[-1].startswith("b_"):
+            t.normal_(0.0, LORA_B_SCALE, generator=gen)
+
+
+def leaf_sums(tree, step=1 << 26):
+    """path -> float64 sum of each leaf, summed ``step`` elements at a
+    time (no float64 copy of a whole 5.6 GB leaf)."""
+    out = {}
+    for path, t in flat_leaves(tree):
+        flat = t.reshape(-1)
+        out[path] = sum(flat[i:i + step].double().sum()
+                        for i in range(0, flat.numel(), step)).item()
+    return out
+
+
+def lora_serving(torch, model, layers, cfg, params, counts, smi):
+    """gemma3-27b's serving path with its adapters: the main path (every
+    count at 0 just before: K4 62 times in the prefill, 52 of them
+    windowed, never in decode), the last-token logits against the same
+    prefill with the adapters zeroed (they must differ by more than
+    LORA_MOVES), each layer's flash attention against the xla branch's on
+    the same input (bfloat16, LM_TOL_BF16_LAYER), then prefill and decode
+    ms with a profile by part.  Returns (launches, windows seen)."""
+    tokens = lm_tokens(torch, cfg.vocab, seed=62)
+    windows = []
+    with windows_seen(layers, windows):
+        launches, logits, cache = lm_main_path(
+            torch, model, cfg, params, tokens, counts, LORA_LAYERS,
+            "gemma3_main_path", card=smi,
+            adapters=model.count_params(cfg, trainable_only=True))
+    require(windows.count(LORA_WINDOW) == LORA_WINDOWED
+            and windows.count(None) == LORA_LAYERS - LORA_WINDOWED,
+            f"K4 windows {windows}")
+    del cache
+    zero = dict(params, lora=tree_map(lambda k, t: torch.zeros_like(t),
+                                      params["lora"]))
+    cache = model.init_cache(cfg, LM_B, LM_L + LM_NEW)
+    base_logits, cache = model.prefill(zero, cfg, cache, tokens)
+    moved = (logits.float() - base_logits.float()).abs().max().item()
+    del zero, cache, base_logits
+    require(moved > LORA_MOVES, f"the adapters moved the logits by {moved}")
+    torch.cuda.empty_cache()
+    bf = prefill_drift(torch, model, cfg, params, tokens, LM_L + LM_NEW)
+    del bf["runs"]
+    torch.cuda.empty_cache()
+    emit(dict(phase="gemma3_flash_vs_xla_bf16", card=smi, dtype=cfg.dtype,
+              batch=LM_B, prompt=LM_L, adapters_moved_logits=moved,
+              tol_layer=LM_TOL_BF16_LAYER, **bf))
+    require(max(bf["layers"]) <= LM_TOL_BF16_LAYER,
+            f"gemma3 flash vs xla per layer (bf16): {bf['layers']}")
+    time_serve(torch, model, cfg, params, tokens, smi, "gemma3",
+               LORA_SERVE_PARTS)
+    return launches, windows
+
+
+def lora_training(torch, np, model, engine, federated, availability, prng,
+                  cfg, params, counts, smi):
+    """gemma3-27b's adapters trained by FedAWE over its frozen base, on
+    the flat [LORA_M, N] float32 state with K1, built from the engine with
+    the base a runtime argument (``make_round_fn_with_frozen``,
+    ``make_chunk_fn(..., with_frozen=True)``): m 4 at p 0.8, s 2, eta_l
+    0.01, one sequence of LORA_L synthetic tokens (numpy, uniform over the
+    vocabulary) per client and step.  Round 1 alone: every adapter leaf
+    of the global moves, and each base leaf's float64 sum is bit-equal
+    after it, no base leaf requiring a gradient.  Then LORA_K rounds in
+    one chunk between CUDA events with every count at 0 just before (K1
+    once a round, K2-K5 never), its peak allocated memory, one profiled
+    round; every loss finite.  Returns (N, the chunk's launches)."""
+    m, s, b, L = LORA_M, LORA_S, LORA_B, LORA_L
+    trainable, frozen = model.split_trainable(params, cfg)
+    n = model.count_params(cfg, trainable_only=True)
+    fl = engine.FLConfig(m=m, s=s, eta_l=0.01, eta_g=1.0, strategy="fedawe",
+                         lr_schedule=False, grad_clip=0.0, flat_state=True,
+                         use_kernel=True)
+    state = engine.init_fl_state(prng.PRNGKey(63, "cuda"), fl, trainable)
+    require(state.spec.size == n, f"LoRA stack width {state.spec.size}")
+    del trainable
+    round_fn = engine.make_round_fn_with_frozen(
+        fl, model.lm_loss_fn(cfg),
+        availability.AvailabilityCfg(kind="stationary"),
+        torch.full((m,), 0.8, device="cuda"))
+    toks = np.random.default_rng(64).integers(
+        0, cfg.vocab, (m * LORA_PER_CLIENT, L + 1)).astype(np.int32)
+    store = federated.device_store(
+        dict(tokens=toks[:, :-1], labels=toks[:, 1:]), None, "cuda",
+        padded=federated.contiguous_client_index(m, LORA_PER_CLIENT))
+    init, sample = federated.make_device_sampler(m, s, b,
+                                                 min_count=LORA_PER_CLIENT)
+    key = prng.PRNGKey(65, "cuda")
+    ss = init(store, key)
+    sums = leaf_sums(frozen)
+    g0 = state.global_tr.clone()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        one = engine.make_chunk_fn(None, round_fn, sample, 1,
+                                   with_frozen=True)
+        torch.cuda.reset_peak_memory_stats()
+        counts.reset()
+        state, ss, met1 = one(state, frozen, ss, store, key)
+        torch.cuda.synchronize()
+        first = counts.read()
+        peak1 = torch.cuda.max_memory_allocated()
+        require(first == dict(K1=1, K2=0, K3=0, K4=0, K5=0),
+                f"LoRA round 1 launches {first}")
+        spec, g1 = state.spec, state.global_tr
+        still = ["/".join(p) for p, o, k in zip(spec.paths, spec.offsets,
+                                                spec.sizes)
+                 if torch.equal(g0[o:o + k], g1[o:o + k])]
+        require(not still, f"adapters that did not move in round 1: {still}")
+        del g0, g1
+        after = leaf_sums(frozen)
+        changed = [p for p in sums if after[p] != sums[p]]
+        require(not changed, f"base leaves changed by round 1: {changed}")
+        grads = [p for p, t in flat_leaves(frozen) if t.requires_grad]
+        require(not grads, f"base leaves requiring a gradient: {grads}")
+        chunk = engine.make_chunk_fn(None, round_fn, sample, LORA_K,
+                                     with_frozen=True)
+        torch.cuda.reset_peak_memory_stats()
+        counts.reset()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, ss, met = chunk(state, frozen, ss, store, key)
+        end.record()
+        end.synchronize()
+        launches = counts.read()
+        round_ms = start.elapsed_time(end) / LORA_K
+        peak = torch.cuda.max_memory_allocated()
+        require(launches == dict(K1=LORA_K, K2=0, K3=0, K4=0, K5=0),
+                f"LoRA chunk launches {launches}")
+        losses = [met1["loss"].item()] + met["loss"].tolist()
+        require(all(math.isfinite(v) for v in losses), f"losses {losses}")
+        require(bool(torch.isfinite(state.global_tr).all()),
+                "LoRA global not finite")
+        box = {}
+
+        def profiled():
+            box["out"] = one(state, frozen, ss, store, key)
+
+        prof = profile_ms(torch, profiled, parts=LM_TRAIN_PARTS)
+        if prof["device_ms"]:
+            prof["parts_ms"]["rest"] = (prof["device_ms"]
+                                        - sum(prof["parts_ms"].values()))
+        losses.append(box["out"][2]["loss"].item())
+        require(math.isfinite(losses[-1]), f"profiled loss {losses[-1]}")
+        perf_drops = sorted({str(w.message)[:120] for w in caught
+                             if "performance drop" in str(w.message)})
+    emit(dict(phase="gemma3_lora_train", card=smi, arch=cfg.name,
+              dtype=cfg.dtype, remat=cfg.remat,
+              remat_policy=cfg.remat_policy, adapters=n,
+              base_gb=tree_bytes(frozen) / 1e9, m=m, s=s, batch=b, seq=L,
+              rounds=LORA_K, launches=launches, round_ms=round_ms,
+              peak_allocated_gb=peak / 1e9,
+              round1_peak_allocated_gb=peak1 / 1e9,
+              state_gb=(m + 2) * n * 4 / 1e9, losses=losses,
+              n_active=[met1["n_active"].item()] + met["n_active"].tolist(),
+              base_leaves_unchanged=len(sums),
+              profiled_round=dict(
+                  prof, busy_share=(prof["device_ms"] / round_ms
+                                    if prof["device_ms"] else None)),
+              vmap_fallbacks=perf_drops))
+    del state, ss, box, chunk, one, store
+    return n, launches
+
+
+def lora_paths(torch, np, model, layers, engine, federated, availability,
+               prng, ops, ref, get_config, counts, smi):
+    """Phase 3m: gemma3-27b at its published widths and depth (62 layers,
+    d_model 5 376, 32 query over 16 kv heads of 128, 1 024-token windows
+    on 52 layers, vocab 262 144 tied, logit soft-cap 30; 27.04 B
+    parameters, 33.5 M of them rank-16 adapters) in bfloat16 with
+    attn_backend="flash": one base from a seed with ``init_params``, the
+    adapters' ``b_*`` from a second; ``lora_serving``, then
+    ``lora_training`` on the same weights; the weights freed, K1 alone at
+    the [LORA_M, N] float32 stack against its plain version (1e-5), timed
+    beside it and its bound.  Returns the serving path's K4 launches and
+    windows, and the kernels-line record of K1 at the LoRA stack."""
+    t0 = time.perf_counter()
+    cfg = full_config(get_config, LORA_ARCH, "bfloat16")
+    require(cfg.fl_mode == "lora", f"{cfg.name} fl_mode {cfg.fl_mode}")
+    params = lm_weights(torch, model, cfg, seed=60)
+    draw_adapters(torch, params["lora"], seed=61)
+    torch.cuda.synchronize()
+    emit(dict(phase="gemma3_weights", card=smi, params=model.count_params(cfg),
+              adapters=model.count_params(cfg, trainable_only=True),
+              weights_gb=tree_bytes(params) / 1e9,
+              allocated_gb=torch.cuda.memory_allocated() / 1e9,
+              seconds=time.perf_counter() - t0))
+    serve_launches, windows = lora_serving(torch, model, layers, cfg, params,
+                                           counts, smi)
+    n, train_launches = lora_training(torch, np, model, engine, federated,
+                                      availability, prng, cfg, params,
+                                      counts, smi)
+    del params
+    torch.cuda.empty_cache()
+    rec = lm_k1_at_stack(torch, ops, ref, n, smi, m=LORA_M)
+    rec["launches"] = train_launches["K1"]
+    emit(dict(phase="lora_paths_done", card=smi,
+              seconds=time.perf_counter() - t0))
+    return dict(k4=serve_launches["K4"], windows=windows, k1=rec)
+
+
+def time_flash_gemma3(torch, fops, fref, smi):
+    """K4 (bf16) at gemma3-27b's two attention shapes: the kernel over 20
+    calls, the plain version (a batch row at a time, ``plain_flash``)
+    over 2, and the library call over 20: SDPA (``is_causal``,
+    ``enable_gqa``: the same function) at the global shape, compiled
+    flex_attention with the causal sliding-window block mask at the
+    windowed one, with its error against the plain version; the bound in
+    tensor-core flops and the flops the kernel's tiles issue."""
+    out = {}
+    for case in GEMMA3_ATTN:
+        tag = "windowed" if case[6] else "global"
+        q, k, v = flash_inputs(torch, case, torch.bfloat16, seed=720)
+        kw = flash_kw(case)
+        k_ms = events_ms(torch, lambda: fops.flash_mha(q, k, v, **kw), 20)
+        plain = plain_flash(fref, q, k, v, case)
+        p_ms = events_ms(torch, lambda: plain_flash(fref, q, k, v, case), 2)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        t0 = time.perf_counter()
+        if case[6]:
+            lib = flex_call(torch, qt, kt, vt, case[6], case[7])
+            name = "torch flex_attention (compiled, sliding-window mask)"
+        else:
+            def lib():
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)
+            name = "torch scaled_dot_product_attention (is_causal, enable_gqa)"
+        lib_err = (lib().transpose(1, 2).float()
+                   - plain.float()).abs().max().item()
+        first_s = time.perf_counter() - t0
+        l_ms = events_ms(torch, lib, 20)
+        del plain
+        b_ms, b_by, flops = flash_bound(case, 2, BF16_FLOP_PER_S)
+        issued = flash_issued_flops(case, FLASH_BM, FLASH_BN,
+                                    flash_product_dims(case[5]))
+        out[tag] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                        library=name, library_max_abs_err=lib_err,
+                        library_first_call_s=first_s, bound_ms=b_ms,
+                        bound_by=b_by, flops=flops,
+                        tflop_per_s=flops / k_ms / 1e9,
+                        share_of_bound=b_ms / k_ms, vs_library=k_ms / l_ms,
+                        issued_flops=issued,
+                        issued_tflop_per_s=issued / k_ms / 1e9)
+        emit(dict(phase="kernel_time", card=smi, kernel="K4",
+                  arch=LORA_ARCH, shape=case[:6], window=case[6],
+                  dtype="bfloat16", **out[tag]))
+        del q, k, v, qt, kt, vt, lib
+        torch.cuda.empty_cache()
+    torch.compiler.reset()
+    return out
 
 
 class Counts:
@@ -4711,7 +5085,7 @@ def main():
     from repro_torch.kernels.ssd_chunk import ref as sref
     from repro_torch.launch import experiments, serve, train
     from repro_torch.checkpointing import convert, io
-    from repro_torch.models import cnn, model, moe, reduced, ssm
+    from repro_torch.models import cnn, layers, model, moe, reduced, ssm
 
     counts = Counts(ops, fops, sops)
     # K1-K3's kernel, K4's and K5's two are built by four nvcc processes,
@@ -4930,6 +5304,12 @@ def main():
     lm_k1 = lm_train_paths(
         torch, np, model, engine, federated, availability, prng, ops, ref,
         train, get_config, reduced, counts, smi)
+    # phase 3m: LoRA at full width, every count at 0 just before each main
+    # path: gemma3-27b serving with its adapters (K4 62 times a prefill)
+    # and training them over its frozen base (K1 on the [4, N] stack),
+    # one base for both, freed before the numbers below
+    lora = lora_paths(torch, np, model, layers, engine, federated,
+                      availability, prng, ops, ref, get_config, counts, smi)
 
     ssd_times = time_ssd(torch, sops, sref, get_config, smi)
     time_flash_sdpa(torch, fops, fref, smi, "zamba2-7b", ZAMBA_ATTN,
@@ -4939,6 +5319,7 @@ def main():
     encdec_flash = {arch: time_flash_sdpa(torch, fops, fref, smi, arch, case,
                                           case)
                     for arch, case in zip(ENCDEC_ARCHS, ENCDEC_ATTN_CHECK)}
+    gemma3_flash = time_flash_gemma3(torch, fops, fref, smi)
     flash_times = time_flash(torch, fops, fref, smi)
     torch.cuda.empty_cache()
     print(smi, flush=True)
@@ -4988,6 +5369,33 @@ def main():
         max_abs_err=lm_k1["max_abs_err"], ms=lm_k1["ms"],
         plain_ms=lm_k1["plain_ms"], bound_ms=lm_k1["bound_ms"],
         bound_by=lm_k1["bound_by"], library_ms=None))
+    # K1 on the LoRA stack: gemma3-27b's [4, 3.35e7] float32 flat state of
+    # adapters, one launch a round of the full-width LoRA run
+    kernels.append(dict(
+        name=names["K1"] + ", LoRA stack [4, N]", route="cuda",
+        source="src/repro_torch/kernels/echo_aggregate/csrc/"
+               "echo_aggregate.cu",
+        replaces=replaces["K1"], launches=lora["k1"]["launches"],
+        max_abs_err=lora["k1"]["max_abs_err"], ms=lora["k1"]["ms"],
+        plain_ms=lora["k1"]["plain_ms"], bound_ms=lora["k1"]["bound_ms"],
+        bound_by=lora["k1"]["bound_by"], library_ms=None))
+    # K4 at gemma3-27b's attention (B 2, 32 query over 16 kv heads of 128,
+    # L = S = 8192), per launch: windowed (1 024; compiled flex_attention
+    # with the sliding-window mask computes the same function) and global
+    # (SDPA, is_causal and enable_gqa), their launches the LoRA prefill's
+    for tag, window in (("windowed", LORA_WINDOW), ("global", None)):
+        t = gemma3_flash[tag]
+        kernels.append(dict(
+            name=f"flash_attention (K4), gemma3-27b {tag}", route="cuda",
+            source="src/repro_torch/kernels/flash_attention/csrc/"
+                   "flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention/kernel.py:90",
+            launches=lora["windows"].count(window),
+            max_abs_err=flash_err[f"gemma3_{tag}"], ms=t["ms"],
+            plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"], library_ms=t["library_ms"]))
+    require(sum(k["launches"] for k in kernels[-2:]) == lora["k4"],
+            f"gemma3 K4 launches {lora['k4']}")
     # K4: per launch, the mean of the prefill's two shapes (13 windowed and
     # 13 global launches)
     both = list(flash_times.values())

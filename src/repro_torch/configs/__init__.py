@@ -5,8 +5,8 @@ attention models (gemma2-2b, internlm2-20b, llama3-8b, tiny), the
 encoder-decoder seamless-m4t-large-v2 (audio frames from a stub
 frontend) and internvl2-2b (vision patch embeddings from a stub
 frontend), the MoE models olmoe-1b-7b and moonshot-v1-16b-a3b,
-gemma3-27b and mixtral-8x22b (their ``fl_mode="lora"`` raises until LM
-training is ported), and the Mamba2 models mamba2-130m (pure SSM) and
+gemma3-27b and mixtral-8x22b (``fl_mode="lora"``: adapters over a frozen
+base), and the Mamba2 models mamba2-130m (pure SSM) and
 zamba2-7b (Mamba2 with a weight-shared attention block)."""
 from __future__ import annotations
 

@@ -21,6 +21,7 @@ from repro_torch.core.engine import (  # noqa: F401
     make_chunk_fn,
     make_grid_chunk_fn,
     make_round_fn,
+    make_round_fn_with_frozen,
     make_seeds_chunk_fn,
     run_rounds,
     seed_vmap,

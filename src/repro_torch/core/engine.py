@@ -280,8 +280,33 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, frozen: Any,
                   avail_cfg: AvailabilityCfg, base_p, fault_cfg=None,
                   staleness_cfg=None):
     """Build the round function ``(state, batches[m, s, ...]) -> (state,
-    metrics)``; metrics are 0-d device tensors, read by nobody inside the
-    round.
+    metrics)`` with the frozen parameters ``frozen`` closed over: the
+    round of ``make_round_fn_with_frozen`` (which documents the round),
+    as the reference builds it.  ``round_fn.seeds(states, batches)`` is
+    its seed-batched form."""
+    inner = make_round_fn_with_frozen(cfg, loss_fn, avail_cfg, base_p,
+                                      fault_cfg=fault_cfg,
+                                      staleness_cfg=staleness_cfg)
+
+    def round_fn(state: FLState, batches):
+        return inner(state, frozen, batches)
+
+    def seeds_round_fn(states: FLState, batches):
+        return inner.seeds(states, frozen, batches)
+
+    round_fn.seeds = seeds_round_fn
+    return round_fn
+
+
+def make_round_fn_with_frozen(cfg: FLConfig, loss_fn: Callable,
+                              avail_cfg: AvailabilityCfg, base_p,
+                              fault_cfg=None, staleness_cfg=None):
+    """Build the round function ``(state, frozen, batches[m, s, ...]) ->
+    (state, metrics)``, the frozen parameters a runtime argument (a LoRA
+    run's base); metrics are 0-d device tensors, read by nobody inside
+    the round.  ``frozen`` reaches only local SGD, where every client's
+    loss reads the one tree unmapped: it never gains a client or seed
+    axis, never requires a gradient and is never written.
 
     ``fault_cfg`` (a ``faults.FaultCfg``) splits the availability mask in
     two: ``mask`` (who runs local SGD; trace replay and blackouts apply
@@ -383,7 +408,7 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, frozen: Any,
         return tree_map(lambda g: g.unsqueeze(lead).expand(
             g.shape[:lead] + (n,) + g.shape[lead:]), state.global_tr)
 
-    def local_update(state, start, batches, rngs):
+    def local_update(state, frozen, start, batches, rngs):
         spec = state.spec
         kw = dict(s=cfg.s, eta_l=eta_at(state.t), loss_fn=loss_fn,
                   grad_clip=cfg.grad_clip)
@@ -538,7 +563,7 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, frozen: Any,
                       rng=pre["rng"])
         return fields, writes, metrics
 
-    def cohort_part(state, batches, pre, vm):
+    def cohort_part(state, frozen, batches, pre, vm):
         """The cohort's part of a round between ``before`` and the
         aggregation: its batches and rows gathered at O(c), local SGD over
         c clients, then ``after_cohort`` and the in-place writes — or,
@@ -556,7 +581,7 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, frozen: Any,
             start_c = old_c.float()
         else:
             start_c = start_of(state, c_max)
-        x_end_c, losses_c = local_update(state, start_c, b_c,
+        x_end_c, losses_c = local_update(state, frozen, start_c, b_c,
                                          pre["loc_rngs"])
         if staleness_cfg is not None:
             # the ring is O(m·N) a round regardless: the cohort's results
@@ -591,36 +616,40 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, frozen: Any,
         metrics["n_deferred"] = pre["n_deferred"]
         return new_state, metrics
 
-    def compose_round(state, batches, vm):
+    def compose_round(state, frozen, batches, vm):
         pre = vm(before)(state)
         if c_max:
-            return cohort_part(state, batches, pre, vm)
+            return cohort_part(state, frozen, batches, pre, vm)
         start = start_of(state, cfg.m)
-        x_end, losses = local_update(state, start, batches,
+        x_end, losses = local_update(state, frozen, start, batches,
                                      pre["loc_rngs"])
         return vm(after)(state, pre, start, x_end, losses)
 
-    def round_fn(state: FLState, batches):
-        return compose_round(state, batches, lambda part: part)
+    def round_fn(state: FLState, frozen, batches):
+        return compose_round(state, frozen, batches, lambda part: part)
 
-    def seeds_round_fn(states: FLState, batches):
+    def seeds_round_fn(states: FLState, frozen, batches):
         """The round of S independent seeds: ``states`` with ``[S, ...]``
         leaves (``stack_seeds``), batches ``[S, m, s, ...]`` (or the
         cohort sampler's ``[S, m, s*b]`` columns beside the shared
-        store); returns the new states and metrics ``[S]`` per key."""
-        return compose_round(states, batches, seed_vmap)
+        store), ``frozen`` shared by the seeds; returns the new states and
+        metrics ``[S]`` per key."""
+        return compose_round(states, frozen, batches, seed_vmap)
 
     round_fn.seeds = seeds_round_fn
     return round_fn
 
 
-def make_chunk_fn(cfg, round_fn, sample_fn, chunk_rounds):
+def make_chunk_fn(cfg, round_fn, sample_fn, chunk_rounds, *,
+                  with_frozen=False):
     """Chunked round executor: K = ``chunk_rounds`` rounds per call.
 
     Returned callable: ``chunk(state, sampler_state, store, data_key) ->
-    (state, sampler_state, metrics)``.  Per round, batches come from the
-    stateful sampler ``sample_fn(store, sampler_state, fold_in(data_key,
-    state.t))`` — keyed by the global round counter on the device, so a
+    (state, sampler_state, metrics)``, or with ``with_frozen`` (a round of
+    ``make_round_fn_with_frozen``) ``chunk(state, frozen, sampler_state,
+    store, data_key)``, the reference's signatures.  Per round, batches
+    come from the stateful sampler ``sample_fn(store, sampler_state,
+    fold_in(data_key, state.t))`` — keyed by the global round counter on the device, so a
     host loop driven through the same sampler and keys sees identical
     data.  Metrics come back stacked ``[K]`` per key, still on the device.
     ``cfg`` is kept for signature symmetry with the reference."""
@@ -629,16 +658,25 @@ def make_chunk_fn(cfg, round_fn, sample_fn, chunk_rounds):
     if K < 1:
         raise ValueError(f"chunk_rounds must be >= 1; got {chunk_rounds}")
 
-    def chunk(state, sampler_state, store, data_key):
+    advance = (round_fn if with_frozen
+               else (lambda st, _, b: round_fn(st, b)))
+
+    def k_rounds(state, frozen, sampler_state, store, data_key):
         per_round = []
         for _ in range(K):
             batches, sampler_state = sample_fn(
                 store, sampler_state, prng.fold_in(data_key, state.t))
-            state, metrics = round_fn(state, batches)
+            state, metrics = advance(state, frozen, batches)
             per_round.append(metrics)
         stacked = {k: torch.stack([r[k] for r in per_round])
                    for k in per_round[0]}
         return state, sampler_state, stacked
+
+    if with_frozen:
+        return k_rounds
+
+    def chunk(state, sampler_state, store, data_key):
+        return k_rounds(state, None, sampler_state, store, data_key)
 
     return chunk
 
@@ -711,7 +749,8 @@ def index_seed(tree, j):
                            tree)
 
 
-def make_seeds_chunk_fn(cfg, round_fn, sample_fn, chunk_rounds, n_seeds):
+def make_seeds_chunk_fn(cfg, round_fn, sample_fn, chunk_rounds, n_seeds, *,
+                        with_frozen=False):
     """S-batched chunk executor: one call advances ``n_seeds`` independent
     seed replicates by ``chunk_rounds`` rounds each.
 
@@ -719,6 +758,14 @@ def make_seeds_chunk_fn(cfg, round_fn, sample_fn, chunk_rounds, n_seeds):
 
         chunk(states, sampler_states, store, data_keys)
             -> (states, sampler_states, metrics)     # metrics [S, K] per key
+
+    or with ``with_frozen`` (a round of ``make_round_fn_with_frozen``)::
+
+        chunk(states, frozen, sampler_states, store, data_keys)
+
+    where ``frozen`` is shared by every seed: it stays outside
+    ``seed_vmap`` (closed over, never an argument of a vmapped part) and
+    reaches only local SGD, unmapped.
 
     ``states`` and ``sampler_states`` carry ``[S, ...]`` leaves
     (``stack_seeds``), ``data_keys`` is ``[S, 2]``; the ``store`` is
@@ -742,7 +789,9 @@ def make_seeds_chunk_fn(cfg, round_fn, sample_fn, chunk_rounds, n_seeds):
     seeds_round = getattr(round_fn, "seeds", None)
     if seeds_round is None:
         raise ValueError("round_fn has no seed-batched form: build it with "
-                         "make_round_fn")
+                         "make_round_fn or make_round_fn_with_frozen")
+    advance = (seeds_round if with_frozen
+               else (lambda st, _, b: seeds_round(st, b)))
 
     def draw(store, ss, key, t):
         batches, ss = sample_fn(store, ss, prng.fold_in(key, t))
@@ -750,7 +799,7 @@ def make_seeds_chunk_fn(cfg, round_fn, sample_fn, chunk_rounds, n_seeds):
         # seeds share it, so it stays out of the vmap
         return {k: v for k, v in batches.items() if k != "store"}, ss
 
-    def chunk(states, sampler_states, store, data_keys):
+    def k_rounds(states, frozen, sampler_states, store, data_keys):
         if states.t.shape != (S,):
             raise ValueError(f"states carry {tuple(states.t.shape)} seeds; "
                              f"the executor was built for {S}")
@@ -761,11 +810,17 @@ def make_seeds_chunk_fn(cfg, round_fn, sample_fn, chunk_rounds, n_seeds):
                                              states.t)
             if "cols" in batches:
                 batches["store"] = store
-            states, metrics = seeds_round(states, batches)
+            states, metrics = advance(states, frozen, batches)
             per_round.append(metrics)
         stacked = {k: torch.stack([r[k] for r in per_round], dim=1)
                    for k in per_round[0]}
         return states, sampler_states, stacked
+
+    if with_frozen:
+        return k_rounds
+
+    def chunk(states, sampler_states, store, data_keys):
+        return k_rounds(states, None, sampler_states, store, data_keys)
 
     return chunk
 

@@ -181,11 +181,15 @@ def attention_decode(q, k_cache, v_cache, q_pos, cache_pos, *, window=None,
 # attention block application
 # ---------------------------------------------------------------------------
 
-def attn_qkvo(x, bp, cfg, positions, *, kv_override=None,
+def attn_qkvo(x, bp, cfg, positions, *, lora=None, kv_override=None,
               decode_cache=None, prefill_cache=None, window=None,
               causal=True):
     """Compute one attention sub-block given params dict ``bp``.
 
+    lora: the block's adapters (``a_n`` [in, r], ``b_n`` [r, out] for n in
+    q, k, v, o) or None: each projection adds ``rank**-0.5 * (in @ a_n) @
+    b_n``, cast to the projection's dtype (q, k and v on x, o on the
+    attention output), as ``repro/models/layers.py:183-188, 243-244``.
     kv_override: (k, v, k_pos) for cross-attention: q is projected and
     roped, k and v are taken as given (unroped), and the plain
     bidirectional attention runs whatever the backend, as in the
@@ -198,15 +202,23 @@ def attn_qkvo(x, bp, cfg, positions, *, kv_override=None,
     cache arrays beside it, the caches are updated IN PLACE.
     """
     B, L, _ = x.shape
-    q = (x @ bp["wq"]).reshape(B, L, cfg.n_heads, cfg.head_dim)
+
+    def proj(inp, name):
+        y = inp @ bp[f"w{name}"]
+        if lora is not None:
+            r = (inp @ lora[f"a_{name}"]) @ lora[f"b_{name}"]
+            y = y + (cfg.lora_rank ** -0.5) * r.to(y.dtype)
+        return y
+
+    q = proj(x, "q").reshape(B, L, cfg.n_heads, cfg.head_dim)
     q = apply_rope(q, positions, cfg.rope_theta)
     if kv_override is not None:
         k, v, k_pos = kv_override
         out = attention(q, k, v, positions, k_pos, window=None, causal=False,
                         attn_softcap=cfg.attn_softcap, q_chunk=cfg.attn_chunk)
-        return out.reshape(B, L, cfg.q_dim) @ bp["wo"]
-    k = (x @ bp["wk"]).reshape(B, L, cfg.n_kv_heads, cfg.head_dim)
-    v = (x @ bp["wv"]).reshape(B, L, cfg.n_kv_heads, cfg.head_dim)
+        return proj(out.reshape(B, L, cfg.q_dim), "o")
+    k = proj(x, "k").reshape(B, L, cfg.n_kv_heads, cfg.head_dim)
+    v = proj(x, "v").reshape(B, L, cfg.n_kv_heads, cfg.head_dim)
     k = apply_rope(k, positions, cfg.rope_theta)
     if decode_cache is not None:
         if L != 1:
@@ -239,4 +251,4 @@ def attn_qkvo(x, bp, cfg, positions, *, kv_override=None,
             for name, val in (("k", k), ("v", v), ("pos", positions)):
                 dst = prefill_cache[name]
                 dst[bidx, slots] = val[:, L - take:].to(dst.dtype)
-    return out.reshape(B, L, cfg.q_dim) @ bp["wo"]
+    return proj(out.reshape(B, L, cfg.q_dim), "o")

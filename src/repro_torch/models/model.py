@@ -30,11 +30,19 @@ unchanged.  Caches are updated in place (the reference returns new ones):
 ``prefill`` and ``serve_step`` write into the cache they are given and
 return it.
 
-Training (``fl_mode="full"``): ``lm_loss`` is the reference's masked
-token cross-entropy, and ``split_trainable`` / ``merge_trainable`` its
-FL integration point (every parameter trainable, nothing frozen).
-``lm_loss(..., lead=k)`` takes trees and batches with k leading client
-axes and maps itself over them (``torch.func.vmap``), piece by piece:
+Training: ``lm_loss`` is the reference's masked token cross-entropy, and
+``split_trainable`` / ``merge_trainable`` its FL integration point.  In
+``fl_mode="full"`` every parameter trains and nothing is frozen; in
+``fl_mode="lora"`` the trainable tree is ``params["lora"]``, rank-r
+adapters ``a_{q,k,v,o}`` / ``b_{q,k,v,o}`` for every attention block
+(``{}`` at Mamba2 positions; ``b_*`` start at zero), and the rest of the
+tree is the frozen base.  The adapters apply in every forward (training,
+prefill, decode): ``attn_qkvo`` adds ``rank**-0.5 * (x @ a) @ b`` to q,
+k, v and the output projection.  ``lm_loss(..., lead=k)`` takes batches
+and the trainable leaves with k leading client axes (under LoRA the
+frozen base carries none and enters every client map unmapped, so one
+copy serves all clients) and maps itself over them
+(``torch.func.vmap``), piece by piece:
 the embedding, each pattern unit of the stack, each tail block, the
 final norm and each loss chunk.  That is where remat goes: with
 ``cfg.remat`` and a gradient being recorded, each unit (and each encoder
@@ -46,8 +54,7 @@ policy).  A checkpoint inside ``torch.func.vmap`` cannot be replayed by a
 backward taken outside it, so the engine's local SGD hands a loss that
 maps its own clients (``maps_clients``) the client-stacked tree as it is.
 Remat changes memory, not values: the recomputation runs the same
-operations on the same inputs.  LoRA raises NotImplementedError naming
-the ROADMAP item that ports it.
+operations on the same inputs.
 """
 from __future__ import annotations
 
@@ -68,22 +75,11 @@ from repro_torch.models.layers import (apply_rope, attention, attn_qkvo,
                                        rms_norm, softcap, swiglu)
 from repro_torch.models.moe import moe_ffn
 
-_TODO = {
-    "lora": "fl_mode='lora' (LoRA adapters over a frozen base, the "
-            "frozen-argument round) is not ported: ROADMAP queue 1 item 3",
-}
-
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def _dt(cfg):
     return DTYPES[cfg.dtype]
-
-
-def check_supported(cfg: ModelConfig):
-    """Raise NotImplementedError for what the port does not run."""
-    if cfg.fl_mode == "lora":
-        raise NotImplementedError(f"{cfg.name}: {_TODO['lora']}")
 
 
 # ===========================================================================
@@ -237,10 +233,10 @@ def init_params(gen: torch.Generator, cfg: ModelConfig):
     ``[n_units]`` axis, ``tail/blk{i}``; with ``cfg.enc_dec`` the decoder
     blocks carry the cross-attention leaves and ``enc`` holds the
     encoder: ``n_enc_layers`` attention blocks stacked under
-    ``stack/pos0``, an empty ``tail`` and its ``ln_f``).  The bits differ
-    from the reference's ``jax.random`` draws; tests carry JAX weights
-    across."""
-    check_supported(cfg)
+    ``stack/pos0``, an empty ``tail`` and its ``ln_f``; with
+    ``fl_mode="lora"`` the adapters under ``lora``, ``init_lora``).  The
+    bits differ from the reference's ``jax.random`` draws; tests carry
+    JAX weights across."""
     dt = _dt(cfg)
     cross = cfg.enc_dec
 
@@ -268,7 +264,48 @@ def init_params(gen: torch.Generator, cfg: ModelConfig):
             "stack": {"pos0": (init_attn_block(gen, cfg, (cfg.n_enc_layers,))
                                if cfg.n_enc_layers else {})},
             "tail": {}, "ln_f": zeros_d()}
+    if cfg.fl_mode == "lora":
+        params["lora"] = init_lora(gen, cfg)
     return params
+
+
+def _lora_shapes(cfg: ModelConfig):
+    """name -> shape of one attention block's adapters, in the reference's
+    order (``repro/models/model.py:160-168``): ``a_n`` [in, r] and
+    ``b_n`` [r, out] for n in q, k, v, o (o's input is the attention
+    output, q_dim wide)."""
+    r, d, qd, kd = cfg.lora_rank, cfg.d_model, cfg.q_dim, cfg.kv_dim
+    out = {}
+    for name, odim in (("q", qd), ("k", kd), ("v", kd), ("o", d)):
+        out[f"a_{name}"] = (qd if name == "o" else d, r)
+        out[f"b_{name}"] = (r, odim)
+    return out
+
+
+def _init_lora_block(gen, cfg: ModelConfig, lead=()):
+    """One attention block's adapters: ``a_*`` dense (fan_in^-0.5),
+    ``b_*`` zero, all in cfg.dtype."""
+    return {name: (_dense_init(gen, shape, _dt(cfg), lead=lead)
+                   if name.startswith("a_")
+                   else torch.zeros(tuple(lead) + shape, dtype=_dt(cfg),
+                                    device=gen.device))
+            for name, shape in _lora_shapes(cfg).items()}
+
+
+def init_lora(gen, cfg: ModelConfig):
+    """The adapters' tree, ``{"stack": {pos{j}}, "tail": {blk{i}}}``: every
+    attention-like position (``attn``, ``moe``, ``shared_attn``) stacked on
+    ``[n_units]``, ``{}`` at Mamba2 positions (the reference's
+    ``init_lora``)."""
+    def block(blk, lead):
+        if blk.kind == "mamba" or (lead and not cfg.n_units):
+            return {}
+        return _init_lora_block(gen, cfg, lead)
+
+    return {"stack": {f"pos{j}": block(blk, (cfg.n_units,))
+                      for j, blk in enumerate(cfg.pattern)},
+            "tail": {f"blk{i}": block(cfg.pattern[i], ())
+                     for i in range(cfg.n_tail)}}
 
 
 # ---------------------------------------------------------------------------
@@ -344,6 +381,34 @@ def _key_stack(key, cfg, pattern, n_units, n_tail, cross):
     return stack, tail
 
 
+def _key_lora(key, cfg):
+    """The reference's ``init_lora``: one key per (attention-like
+    position, unit), then one per attention-like tail block (Mamba2
+    positions take none), each split 4 ways for q, k, v, o."""
+    keys = prng.split(key, cfg.n_units * len(cfg.pattern) + cfg.n_tail + 1)
+    it = iter(range(keys.shape[0]))
+    shapes = _lora_shapes(cfg)
+
+    def block(k):
+        ks = prng.split(k, 4)
+        return {name: (_key_dense(ks[i // 2], shape, _dt(cfg))
+                       if name.startswith("a_")
+                       else torch.zeros(shape, dtype=_dt(cfg),
+                                        device=key.device))
+                for i, (name, shape) in enumerate(shapes.items())}
+
+    stack = {}
+    for j, blk in enumerate(cfg.pattern):
+        units = ([] if blk.kind == "mamba"
+                 else [block(keys[next(it)]) for _ in range(cfg.n_units)])
+        stack[f"pos{j}"] = ({k: torch.stack([u[k] for u in units])
+                             for k in units[0]} if units else {})
+    tail = {f"blk{i}": ({} if cfg.pattern[i].kind == "mamba"
+                        else block(keys[next(it)]))
+            for i in range(cfg.n_tail)}
+    return {"stack": stack, "tail": tail}
+
+
 def init_params_from_key(key, cfg: ModelConfig):
     """The reference's ``init_params(key, cfg)`` draw for draw: the same
     key splits and the same normals through the port's threefry
@@ -351,9 +416,8 @@ def init_params_from_key(key, cfg: ModelConfig):
     rounding), on the key's device.  What ``--preset lm`` initializes
     from, so its runs follow the reference's; ``init_params`` (a
     ``torch.Generator``) is the fast draw for full-width models."""
-    check_supported(cfg)
     dt = _dt(cfg)
-    k_emb, k_stack, k_enc, k_shared, k_head, _ = prng.split(key, 6)
+    k_emb, k_stack, k_enc, k_shared, k_head, k_lora = prng.split(key, 6)
     params = {"embed": _key_dense(k_emb, (cfg.vocab, cfg.d_model), dt, 0.02),
               "ln_f": _key_zeros(key, (cfg.d_model,))}
     params["stack"], params["tail"] = _key_stack(
@@ -368,6 +432,8 @@ def init_params_from_key(key, cfg: ModelConfig):
                                      cfg.n_enc_layers, 0, False)
         params["enc"] = {"stack": e_stack, "tail": e_tail,
                          "ln_f": _key_zeros(key, (cfg.d_model,))}
+    if cfg.fl_mode == "lora":
+        params["lora"] = _key_lora(k_lora, cfg)
     return params
 
 
@@ -386,26 +452,35 @@ def _prune_empty(tree):
 
 def split_trainable(params, cfg: ModelConfig):
     """``(trainable, frozen)``: in full mode every parameter trains and
-    nothing is frozen; LoRA raises.  The trainable tree is ``params``
-    without its empty subtrees (a ``shared_attn`` position's, an empty
-    ``tail``): the engine rebuilds trees from leaf paths, which carry no
-    empty node, and the model reads a missing subtree as empty."""
-    check_supported(cfg)
+    nothing is frozen; in LoRA mode the adapters ``params["lora"]`` train
+    and the rest is the frozen base.  The trainable tree drops its empty
+    subtrees (a ``shared_attn`` position's weights, an empty ``tail``, a
+    Mamba2 position's adapters): the engine rebuilds trees from leaf
+    paths, which carry no empty node, and the model reads a missing
+    subtree as empty."""
+    if cfg.fl_mode == "lora":
+        return (_prune_empty(params["lora"]),
+                {k: v for k, v in params.items() if k != "lora"})
     return _prune_empty(params), {}
 
 
 def merge_trainable(trainable, frozen, cfg: ModelConfig):
-    """The inverse of ``split_trainable``: in full mode the trainable tree
-    is the whole model."""
-    check_supported(cfg)
+    """The inverse of ``split_trainable``."""
+    if cfg.fl_mode == "lora":
+        return {**frozen, "lora": trainable}
     return trainable
 
 
 def count_params(cfg: ModelConfig, trainable_only: bool = False) -> int:
-    """Analytic parameter count (matches init_params).  In full mode every
-    parameter is trainable (LoRA raises), so ``trainable_only`` counts the
-    same."""
-    check_supported(cfg)
+    """Analytic parameter count (matches init_params, the adapters
+    included); ``trainable_only`` counts what ``split_trainable`` trains:
+    everything in full mode, the adapters in LoRA mode."""
+    n_lora = 0
+    if cfg.fl_mode == "lora":
+        n_lora = (sum(b.kind != "mamba" for b in cfg.layer_blocks())
+                  * sum(math.prod(s) for s in _lora_shapes(cfg).values()))
+        if trainable_only:
+            return n_lora
     cross = cfg.enc_dec
 
     def attn_count(with_cross):
@@ -425,7 +500,7 @@ def count_params(cfg: ModelConfig, trainable_only: bool = False) -> int:
         n += cfg.d_model * cfg.vocab
     if cfg.enc_dec:
         n += cfg.n_enc_layers * attn_count(False) + cfg.d_model
-    return n
+    return n + n_lora
 
 
 # ===========================================================================
@@ -442,13 +517,14 @@ def _unit_slice(tree, u, lead=0):
 # client axes and remat (training)
 # ---------------------------------------------------------------------------
 
-def _cmap(body, lead, *args):
+def _cmap(body, lead, *args, fixed=()):
     """``body(*args)`` over ``lead`` leading client axes of every tensor in
-    ``args`` (nested ``torch.func.vmap``); None arguments pass through
+    ``args`` (nested ``torch.func.vmap``); None arguments, and those at the
+    indices in ``fixed`` (the frozen base under LoRA), pass through
     unmapped, and lead = 0 calls ``body`` as it is."""
     if not lead:
         return body(*args)
-    at = [i for i, a in enumerate(args) if a is not None]
+    at = [i for i, a in enumerate(args) if a is not None and i not in fixed]
 
     def inner(*xs):
         full = list(args)
@@ -480,8 +556,15 @@ def _records_grad(*args):
         for t in pytree.tree_leaves(args))
 
 
-def _unit_call(cfg, policy, body, lead, *args):
-    """One unit of a training stack, ``_cmap(body, lead, *args)``.  When
+def _frozen_base(cfg, *idx):
+    """``idx`` (argument indices holding the base's weights) when the base
+    is frozen (LoRA) and enters the client maps unmapped, else ()."""
+    return idx if cfg.fl_mode == "lora" else ()
+
+
+def _unit_call(cfg, policy, body, lead, *args, fixed=()):
+    """One unit of a training stack, ``_cmap(body, lead, *args,
+    fixed=fixed)``.  When
     ``cfg.remat`` is on and a gradient is being recorded through ``args``
     (the reference's ``jax.checkpoint`` on each scan step), it runs under
     a non-reentrant checkpoint placed around the vmap, and the backward
@@ -489,15 +572,15 @@ def _unit_call(cfg, policy, body, lead, *args):
     it, "dots" the outputs of the matrix products (the reference's
     ``dots_with_no_batch_dims_saveable``)."""
     if not (cfg.remat and _records_grad(*args)):
-        return _cmap(body, lead, *args)
+        return _cmap(body, lead, *args, fixed=fixed)
     if policy not in ("full", "dots"):
         raise ValueError(f"remat_policy {policy!r}: 'full' or 'dots'")
     kw = {}
     if policy == "dots":
         kw["context_fn"] = functools.partial(
             create_selective_checkpoint_contexts, _save_dots)
-    return checkpoint(functools.partial(_cmap, body, lead), *args,
-                      use_reentrant=False, **kw)
+    return checkpoint(functools.partial(_cmap, body, lead, fixed=fixed),
+                      *args, use_reentrant=False, **kw)
 
 
 def encode(params, cfg: ModelConfig, enc_embeds, *, lead=0):
@@ -507,7 +590,9 @@ def encode(params, cfg: ModelConfig, enc_embeds, *, lead=0):
     Each of the ``n_enc_layers`` blocks: rms_norm, q/k/v projections both
     roped at positions 0..Le-1, bidirectional plain attention
     (``causal=False``, q-chunked by cfg.attn_chunk), ``wo``, then the
-    SwiGLU MLP; then the encoder's ``ln_f``.  As in the reference, the
+    SwiGLU MLP; then the encoder's ``ln_f``.  The encoder takes no
+    adapters, and under LoRA its weights carry no client axes.  As in the
+    reference, the
     frame embeddings enter uncast and the plain attention runs whatever
     the backend; under ``cfg.remat`` each block is checkpointed while a
     gradient is recorded (policy "full" whatever ``remat_policy`` says,
@@ -529,12 +614,13 @@ def encode(params, cfg: ModelConfig, enc_embeds, *, lead=0):
         return h + swiglu(rms_norm(h, bp["ln2"], cfg.norm_eps), bp["wi"],
                           bp["wd"])
 
-    h = enc_embeds
+    h, fixed = enc_embeds, _frozen_base(cfg, 1)
     for u in range(cfg.n_enc_layers):
         h = _unit_call(cfg, "full", block, lead, h,
-                       _unit_slice(enc["stack"]["pos0"], u, lead))
+                       _unit_slice(enc["stack"]["pos0"], u,
+                                   0 if fixed else lead), fixed=fixed)
     return _cmap(lambda x, g: rms_norm(x, g, cfg.norm_eps), lead, h,
-                 enc["ln_f"])
+                 enc["ln_f"], fixed=fixed)
 
 
 def _enc_kv(enc_out):
@@ -556,10 +642,11 @@ def _cross_attn(x, wp, cfg, positions, enc_kv):
 
 
 def apply_block(blk: BlockCfg, bp, h, cfg, positions, *, shared=None,
-                enc_kv=None, cache=None, mode="train"):
+                lora=None, enc_kv=None, cache=None, mode="train"):
     """One block, residual: ``mamba`` runs the Mamba2 mixer; ``attn`` and
     ``shared_attn`` (weights ``shared``) run attention then the gated MLP,
-    ``moe`` attention then ``moe_ffn``.  With ``enc_kv`` (enc-dec models)
+    ``moe`` attention then ``moe_ffn``; ``lora`` (the block's adapters, or
+    None) goes to the self-attention.  With ``enc_kv`` (enc-dec models)
     a block that carries cross weights adds, between the two, the
     cross-attention sub-block on the encoder output (``ln_x``, then
     ``_cross_attn``).  Returns (h, aux): aux the MoE block's router loss,
@@ -580,7 +667,7 @@ def apply_block(blk: BlockCfg, bp, h, cfg, positions, *, shared=None,
                    slot=positions[:, 0] % alloc)
     elif cache is not None and mode == "prefill":
         pre = cache
-    h = h + attn_qkvo(x, bp, cfg, positions, decode_cache=dec,
+    h = h + attn_qkvo(x, bp, cfg, positions, lora=lora, decode_cache=dec,
                       prefill_cache=pre, window=blk.window)
     if enc_kv is not None and "wq_x" in bp:
         xp = {"wq": bp["wq_x"], "wk": bp["wk_x"], "wv": bp["wv_x"],
@@ -594,22 +681,42 @@ def apply_block(blk: BlockCfg, bp, h, cfg, positions, *, shared=None,
     return h + swiglu(x, bp["wi"], bp["wd"]), None
 
 
+def _block_lora(tree, key, u=None, lead=0):
+    """The adapters of block ``key`` (``pos{j}``, sliced at unit ``u``
+    behind ``lead`` client axes, or ``blk{i}``) in an adapter subtree, or
+    None where it has none (no adapters, a Mamba2 position)."""
+    sub = (tree or {}).get(key)
+    if not sub:
+        return None
+    return sub if u is None else _unit_slice(sub, u, lead)
+
+
 def _run_stack(h, params, cfg: ModelConfig, positions, *, enc_kv=None,
                caches, mode):
     """The serving unit loop (``mode`` "prefill" or "decode"), then the
-    tail, writing the caches in place.  Returns h."""
+    tail, writing the caches in place; each block reads its adapters
+    from ``params["lora"]`` when it has them.  Returns h."""
     shared = params.get("shared")
     stack, tail = params.get("stack", {}), params.get("tail", {})
+    lora = params.get("lora") or {}
     blocks = [(blk, _unit_slice(stack.get(f"pos{j}", {}), u),
+               _block_lora(lora.get("stack"), f"pos{j}", u),
                _unit_slice(caches["stack"][f"pos{j}"], u))
               for u in range(cfg.n_units)
               for j, blk in enumerate(cfg.pattern)]
     blocks += [(cfg.pattern[i], tail.get(f"blk{i}", {}),
+                _block_lora(lora.get("tail"), f"blk{i}"),
                 caches["tail"][f"blk{i}"]) for i in range(cfg.n_tail)]
-    for blk, bp, c in blocks:
+    for blk, bp, lp, c in blocks:
         h, _ = apply_block(blk, bp, h, cfg, positions, shared=shared,
-                           enc_kv=enc_kv, cache=c, mode=mode)
+                           lora=lp, enc_kv=enc_kv, cache=c, mode=mode)
     return h
+
+
+def _present(blocks):
+    """The entries of ``blocks`` that are not None (a client map takes no
+    None inside an argument)."""
+    return {k: v for k, v in blocks.items() if v is not None}
 
 
 def _train_stack(h, params, cfg: ModelConfig, positions, enc_out, lead):
@@ -618,15 +725,18 @@ def _train_stack(h, params, cfg: ModelConfig, positions, enc_out, lead):
     ``cfg.remat`` with ``cfg.remat_policy``), the tail blocks follow
     unchecked, as in the reference.  Returns (h, aux): aux the summed
     router loss of the MoE blocks, float32 with the ``lead`` client axes
-    (0 without MoE blocks)."""
+    (0 without MoE blocks).  Each block's adapters (``params["lora"]``)
+    are sliced per unit beside its weights and mapped over the clients;
+    under LoRA the base's weights enter every map unmapped."""
 
     def blocks(kinds):
-        def run(h, bps, shared, enc_out):
+        def run(h, bps, lps, shared, enc_out):
             enc_kv = None if enc_out is None else _enc_kv(enc_out)
             aux = torch.zeros((), dtype=torch.float32, device=h.device)
-            for blk, bp in zip(kinds, bps):
+            for i, (blk, bp) in enumerate(zip(kinds, bps)):
                 h, a = apply_block(blk, bp, h, cfg, positions, shared=shared,
-                                   enc_kv=enc_kv, mode="train")
+                                   lora=lps.get(i), enc_kv=enc_kv,
+                                   mode="train")
                 if a is not None:
                     aux = aux + a
             return h, aux
@@ -634,18 +744,26 @@ def _train_stack(h, params, cfg: ModelConfig, positions, enc_out, lead):
 
     shared = params.get("shared")
     stack, tail = params.get("stack", {}), params.get("tail", {})
+    lora = params.get("lora") or {}
+    fixed = _frozen_base(cfg, 1, 3)
+    base_lead = 0 if fixed else lead
     total = torch.zeros(h.shape[:lead], dtype=torch.float32,
                         device=h.device)
     unit = blocks(cfg.pattern)
     for u in range(cfg.n_units):
-        bps = [_unit_slice(stack.get(f"pos{j}", {}), u, lead)
+        bps = [_unit_slice(stack.get(f"pos{j}", {}), u, base_lead)
                for j in range(len(cfg.pattern))]
-        h, aux = _unit_call(cfg, cfg.remat_policy, unit, lead, h, bps,
-                            shared, enc_out)
+        lps = _present({j: _block_lora(lora.get("stack"), f"pos{j}", u, lead)
+                        for j in range(len(cfg.pattern))})
+        h, aux = _unit_call(cfg, cfg.remat_policy, unit, lead, h, bps, lps,
+                            shared, enc_out, fixed=fixed)
         total = total + aux
     for i in range(cfg.n_tail):
         h, aux = _cmap(blocks(cfg.pattern[i:i + 1]), lead, h,
-                       [tail.get(f"blk{i}", {})], shared, enc_out)
+                       [tail.get(f"blk{i}", {})],
+                       _present({0: _block_lora(lora.get("tail"),
+                                                f"blk{i}")}),
+                       shared, enc_out, fixed=fixed)
         total = total + aux
     return h, total
 
@@ -653,7 +771,6 @@ def _train_stack(h, params, cfg: ModelConfig, positions, enc_out, lead):
 def _embed(params, cfg, tokens, embeds=None):
     """Token embeddings in cfg.dtype; a frontend's stub ``embeds`` [B, F,
     d] take the place of the first F."""
-    check_supported(cfg)
     h = params["embed"][tokens].to(_dt(cfg))
     if embeds is not None:
         F = embeds.shape[1]
@@ -665,21 +782,22 @@ def forward_hidden(params, cfg: ModelConfig, tokens, *, embeds=None,
                    enc_embeds=None, positions=None, lead=0):
     """Training forward. tokens: [B, L]; ``embeds`` a frontend's stub
     embeddings [B, F, d], ``enc_embeds`` an enc-dec model's encoder input
-    [B, Le, d]; with ``lead`` > 0 the parameters and inputs carry that
-    many leading client axes (``positions`` [B, L] do not).  Returns (h,
+    [B, Le, d]; with ``lead`` > 0 the trainable parameters and the inputs
+    carry that many leading client axes (``positions`` [B, L] do not, nor
+    does the frozen base under LoRA).  Returns (h,
     aux); aux is the summed router loss of the MoE blocks, 0 without
     them.  Mamba2 blocks run the plain SSD scan (``mode="train"``)."""
-    check_supported(cfg)
     B, L = tokens.shape[lead:]
+    fixed = _frozen_base(cfg, 0)
     h = _cmap(lambda e, t, x: _embed({"embed": e}, cfg, t, x), lead,
-              params["embed"], tokens, embeds)
+              params["embed"], tokens, embeds, fixed=fixed)
     if positions is None:
         positions = torch.arange(L, device=h.device).expand(B, L)
     enc_out = (encode(params, cfg, enc_embeds, lead=lead) if cfg.enc_dec
                else None)
     h, aux = _train_stack(h, params, cfg, positions, enc_out, lead)
-    return _cmap(lambda x, g: rms_norm(x, g, cfg.norm_eps), lead, h,
-                 params["ln_f"]), aux
+    return _cmap(lambda g, x: rms_norm(x, g, cfg.norm_eps), lead,
+                 params["ln_f"], h, fixed=fixed), aux
 
 
 def _head_weight(params, cfg):
@@ -706,8 +824,9 @@ def lm_loss(params, cfg: ModelConfig, batch, *, lead=0):
     in float32; with ``cfg.loss_chunk`` dividing L (and below it) the
     cross-entropy sums over chunks of that many positions, in order; the
     sum is divided by max(sum(mask), 1).  With ``lead`` > 0 every tensor
-    of ``params`` and ``batch`` carries that many leading client axes and
-    the result is one loss per client."""
+    of ``batch`` and of the trainable part of ``params`` (all of it in full
+    mode, ``params["lora"]`` in LoRA mode) carries that many leading client
+    axes, and the result is one loss per client."""
     h, aux = forward_hidden(params, cfg, batch["tokens"],
                             embeds=batch.get("embeds"),
                             enc_embeds=batch.get("enc_embeds"), lead=lead)
@@ -722,14 +841,16 @@ def lm_loss(params, cfg: ModelConfig, batch, *, lead=0):
         return torch.sum((logz - ll) * mask_c)
 
     L, ck = h.shape[-2], cfg.loss_chunk
+    fixed = _frozen_base(cfg, 1)
     if ck and L > ck and L % ck == 0:
         total = torch.zeros(h.shape[:lead], dtype=torch.float32,
                             device=h.device)
         for i in range(0, L, ck):
             total = total + _cmap(ce, lead, h[..., i:i + ck, :], head,
-                                  labels[..., i:i + ck], mask[..., i:i + ck])
+                                  labels[..., i:i + ck], mask[..., i:i + ck],
+                                  fixed=fixed)
     else:
-        total = _cmap(ce, lead, h, head, labels, mask)
+        total = _cmap(ce, lead, h, head, labels, mask, fixed=fixed)
     loss = total / torch.clamp(mask.sum(dim=(-2, -1)), min=1.0)
     if cfg.is_moe:
         loss = loss + cfg.router_aux_coef * aux
@@ -780,7 +901,6 @@ def init_cache(cfg: ModelConfig, batch, seq_len, dtype=None, *,
     both in ``dtype``; full units stacked on [n_units].  An enc-dec
     model's cache also holds the encoder output ``enc_out`` [batch,
     enc_len, d] in ``dtype``, zeros until ``prefill`` writes it."""
-    check_supported(cfg)
     dev = resolve_device(device)
     dtype = dtype or _dt(cfg)
 

@@ -309,13 +309,15 @@ def test_bf16_tree_converts_bit_for_bit():
             np.testing.assert_array_equal(t.numpy(), a, err_msg=key)
 
 
-@pytest.mark.parametrize("arch", DENSE_ARCHS + [
+@pytest.mark.parametrize("arch,mode", [(a, "full") for a in DENSE_ARCHS + [
     "zamba2-7b", "mamba2-130m", "olmoe-1b-7b", "moonshot-v1-16b-a3b",
-    "mixtral-8x22b", "seamless-m4t-large-v2", "internvl2-2b"])
-def test_param_tree_and_count_match(arch):
-    """Trees and counts in fl_mode "full" (mixtral-8x22b's LoRA mode
-    belongs to LM training; the other configs are "full" already)."""
-    cfg = reduced(get_config(arch)).replace(fl_mode="full")
+    "mixtral-8x22b", "seamless-m4t-large-v2", "internvl2-2b"]]
+    + [("gemma3-27b", "lora"), ("mixtral-8x22b", "lora")])
+def test_param_tree_and_count_match(arch, mode):
+    """Trees and counts in ``fl_mode`` ``mode``: every config in "full"
+    (mixtral-8x22b's replaced), and gemma3-27b and mixtral-8x22b in their
+    own "lora" (the adapters under ``lora`` beside the base)."""
+    cfg = reduced(get_config(arch)).replace(fl_mode=mode)
     gen = torch.Generator().manual_seed(0)
     tp = tm.init_params(gen, cfg)
     shapes = jax.eval_shape(lambda: jm.init_params(jax.random.PRNGKey(0),
@@ -324,18 +326,10 @@ def test_param_tree_and_count_match(arch):
     got = {k: (tuple(v.shape), str(v.dtype).replace("torch.", ""))
            for k, v in _leaves(tp)}
     assert got == want
-    full = get_config(arch).replace(fl_mode="full")
+    assert ("lora" in tp) == (mode == "lora")
+    full = get_config(arch).replace(fl_mode=mode)
     assert full.param_count() == \
-        jax_get_config(arch).replace(fl_mode="full").param_count()
-
-
-@pytest.mark.parametrize("arch", ["gemma3-27b", "mixtral-8x22b"])
-def test_unported_architectures_raise(arch):
-    """The one feature the port does not run: the LoRA mode of the
-    registry's gemma3-27b and mixtral-8x22b."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.init_params(torch.Generator().manual_seed(0),
-                       reduced(get_config(arch)))
+        jax_get_config(arch).replace(fl_mode=mode).param_count()
 
 
 def test_serve_cli_on_cpu(capsys):

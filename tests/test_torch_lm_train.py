@@ -20,9 +20,10 @@ Then: the chunked cross-entropy against the unchunked one (1e-6); remat
 "full" and "dots" against no remat, with no client axis and through the
 client vmap (1e-6, and fewer bytes saved for the backward); the
 attention's checkpointed query chunks; a Mamba2 model's training never
-calling the SSD chunk kernel's wrapper (its prefill does); the LoRA
-configs still refused; the port's key-driven init against the
-reference's draws; the trainable count; ``train --preset lm`` and one
+calling the SSD chunk kernel's wrapper (its prefill does); the port's
+key-driven init against the reference's draws and the trainable count,
+the LoRA configs' (adapters and base) too (their training is
+tests/test_torch_lora.py's); ``train --preset lm`` (seven runs) and one
 ``--preset lm`` grid cell against the reference launchers (1e-4); the
 optimizers and schedules against ``repro.optim`` (1e-6).
 
@@ -354,29 +355,20 @@ def test_mamba_training_never_calls_the_ssd_kernel(arch, ref, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# what stays refused, the init and the counts
+# the init and the counts
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", LORA)
-def test_lora_configs_still_raise(arch):
-    cfg = reduced(get_config(arch))
-    with pytest.raises(NotImplementedError, match="item 3"):
-        tm.split_trainable({}, cfg)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        tm.lm_loss({}, cfg, {"tokens": torch.zeros((1, 4), dtype=torch.long)})
-    with pytest.raises(NotImplementedError, match="item 3"):
-        tm.init_params_from_key(prng.PRNGKey(0, "cpu"), cfg)
-
-
 @pytest.mark.parametrize("arch", ["tiny", "olmoe-1b-7b", "zamba2-7b",
-                                  "seamless-m4t-large-v2", "mamba2-130m"])
+                                  "seamless-m4t-large-v2", "mamba2-130m"]
+                         + LORA)
 def test_init_from_key_follows_the_reference_draws(arch):
     """``init_params_from_key`` against the reference's ``init_params``
-    under the same key: the same tree and every leaf within float32
-    rounding (1e-6 of its scale)."""
+    under the same key: the same tree (a LoRA config's adapters and
+    frozen base both) and every leaf within float32 rounding (1e-6 of its
+    scale)."""
     cfg = reduced(get_config(arch))
-    got = tm.split_trainable(
-        tm.init_params_from_key(prng.PRNGKey(3, "cpu"), cfg), cfg)[0]
+    got = tm.merge_trainable(*tm.split_trainable(
+        tm.init_params_from_key(prng.PRNGKey(3, "cpu"), cfg), cfg), cfg)
     want = jm.init_params(jax.random.PRNGKey(3), jreduced(jget_config(arch)))
     got = dict(tree_paths(got))
     want = {tuple(str(k.key) for k in p): np.asarray(v) for p, v in
@@ -390,12 +382,17 @@ def test_init_from_key_follows_the_reference_draws(arch):
                                    err_msg=str(path))
 
 
-@pytest.mark.parametrize("arch", FULL)
+@pytest.mark.parametrize("arch", FULL + LORA)
 def test_trainable_count_matches_reference(arch):
+    """Full mode trains every parameter; LoRA mode its adapters, a small
+    share of the whole."""
     cfg = get_config(arch)
-    assert tm.count_params(cfg, trainable_only=True) \
-        == tm.count_params(cfg) \
-        == jm.count_params(jget_config(arch), trainable_only=True)
+    got = tm.count_params(cfg, trainable_only=True)
+    assert got == jm.count_params(jget_config(arch), trainable_only=True)
+    if arch in LORA:
+        assert 0 < got < tm.count_params(cfg) // 100
+    else:
+        assert got == tm.count_params(cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -412,7 +409,20 @@ CLI_CASES = {
                               "--chunk-rounds", "2", "--stale-max", "2",
                               "--stale-kind", "geom", "--stale-gamma",
                               "0.7"],
+    "sparse_cohort": ["--strategy", "fedawe", "--sparse-cohort", "4"],
+    "epoch_sampling": ["--strategy", "fedawe", "--sampling", "epoch"],
+    "seeds": ["--strategy", "fedawe", "--seeds", "2"],
+    "mifa_flat": ["--strategy", "mifa", "--flat-state"],
 }
+
+
+def _cli_record(path):
+    """A launcher's ``--out`` JSON: (its per-seed histories, its final
+    eval loss; under ``--seeds`` the mean over the seeds)."""
+    rec = json.loads(path.read_text())
+    final = rec["final"]["eval_loss"]
+    return (rec.get("history_per_seed") or [rec["history"]],
+            final["mean"] if isinstance(final, dict) else final)
 
 
 @pytest.mark.parametrize("case", list(CLI_CASES))
@@ -420,18 +430,19 @@ def test_train_cli_lm_preset_matches_reference(case, tmp_path):
     argv = (["--preset", "lm", "--dynamics", "stationary", "--rounds", "4",
              "--m", "6", "--s", "2", "--batch", "8", "--eval-every", "2"]
             + CLI_CASES[case])
-    out = tmp_path / "ref.json"
-    rtrain.main(argv + ["--out", str(out)])
-    want = json.loads(out.read_text())
-    final = ptrain.main(argv + ["--device", "cpu", "--out",
-                                str(tmp_path / "port.json")])
-    got = json.loads((tmp_path / "port.json").read_text())["history"]
-    assert len(got) == len(want["history"]) == 4
-    for g, w in zip(got, want["history"]):
-        assert sorted(g) == sorted(w)
-        for key in w:
-            assert abs(g[key] - w[key]) <= 1e-4, (key, g, w)
-    assert abs(final["eval_loss"] - want["final"]["eval_loss"]) <= 1e-4
+    rtrain.main(argv + ["--out", str(tmp_path / "ref.json")])
+    ptrain.main(argv + ["--device", "cpu", "--out",
+                        str(tmp_path / "port.json")])
+    want, want_final = _cli_record(tmp_path / "ref.json")
+    got, got_final = _cli_record(tmp_path / "port.json")
+    assert len(got) == len(want) == (2 if case == "seeds" else 1)
+    for gs, ws in zip(got, want):
+        assert len(gs) == len(ws) == 4
+        for g, w in zip(gs, ws):
+            assert sorted(g) == sorted(w)
+            for key in w:
+                assert abs(g[key] - w[key]) <= 1e-4, (key, g, w)
+    assert abs(got_final - want_final) <= 1e-4
 
 
 def test_grid_lm_cell_matches_reference():

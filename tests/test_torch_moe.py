@@ -301,12 +301,6 @@ def test_registry_lists_the_reference_archs_it_runs():
         assert get_config(arch).source == want.source
 
 
-def test_mixtral_lora_still_raises():
-    with pytest.raises(NotImplementedError, match="item 3"):
-        tm.init_params(torch.Generator().manual_seed(0),
-                       reduced(get_config("mixtral-8x22b")))
-
-
 def test_bf16_moe_tree_converts_bit_for_bit():
     """params_from_numpy is generic: the MoE block's router (float32),
     wi_e, wd_e, wi_s and wd_s arrive stacked on [n_units], bit for bit."""
