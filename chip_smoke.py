@@ -140,9 +140,9 @@ printed as JSON lines:
         (``FaultCfg(trace=True, sanitize=True)``), 4 chunked rounds with
         the kernel: n_rejected == 1 every round and the global finite;
         without sanitization (the negative control) the global is not.
-     f. The ten strategies — ``train.run`` with the FL flags, 32 rounds
+     f. The ten strategies — ``train.run`` with the FL flags, 16 rounds
         and ``--use-kernel`` for each of fedawe, fedawe_m, the three
-        FedAvg variants, fedau, f3ast, mifa, fedvarp and fedar: K1 32
+        FedAvg variants, fedau, f3ast, mifa, fedvarp and fedar: K1 16
         times for fedawe and fedawe_m and no launch for the eight
         baselines, every loss finite, the same ``n_active`` history for
         all ten, no client stack for a stateless strategy, the [100,
@@ -152,20 +152,20 @@ printed as JSON lines:
         pending.  ``--sampling epoch`` for fedawe and mifa, chunked and
         in the host loop: equal ``n_active`` histories, τ, key and
         sampler carry bit-equal, globals within 1e-4.  fedvarp under
-        epoch sampling, 64 rounds through ``--resume P --ckpt-every 32``,
-        straight and stopped at 32 then restarted: the restored
+        epoch sampling, 32 rounds through ``--resume P --ckpt-every 16``,
+        straight and stopped at 16 then restarted: the restored
         artifacts' τ, key and carry bit-equal, globals within 1e-4.
      g. The seed-batched executor and the grid, at the FL path's size
         (m = 100, s = 5, batch 32, 20 000 samples, the full-width CNN):
-        ``experiments.run_scenario("fedawe/sine")`` with 4 seeds, 32
-        rounds, K = 16 and the kernel: K1 32 times (once a round for all
+        ``experiments.run_scenario("fedawe/sine")`` with 4 seeds, 16
+        rounds, K = 16 and the kernel: K1 16 times (once a round for all
         four seeds), every loss finite, no ``torch.func.vmap`` slow-path
         warning; the same seeds through the executor against four
         single-seed runs driven by fold_in(rng, j) / fold_in(data_key,
         j): n_active histories, τ, key and sampler carry bit-equal,
         globals within 1e-4, then one seed chunk under
         ``set_sync_debug_mode("error")``.  ``fedawe/stale_d2+midround``
-        with 4 seeds through ``run_multi_seed``: K2 32 times, and seed by
+        with 4 seeds through ``run_multi_seed``: K2 16 times, and seed by
         seed sum(n_active) == sum(n_stale) + pending.  The packed
         speedup-sine grid (7 cells, 4 seeds, 16 rounds): K1 16 times in
         each of the fedawe and fedawe_m cells and never in the five
@@ -190,7 +190,7 @@ printed as JSON lines:
         kernel, fault-free and under the fault and stale flags: counts,
         τ and keys bit-equal, launches equal, globals within 1e-4;
         bfloat16 residency within 2e-2 of float32.  ``train --seeds 4
-        --sparse-cohort 32``: K1 32 times (once a round for all seeds, on
+        --sparse-cohort 32``: K1 16 times (once a round for all seeds, on
         [4, 32, 27 370]), every loss finite; each seed through the
         executor bit-equal to its single-seed cohort run (n_active,
         n_deferred, τ, key, carry), globals within 1e-4.
@@ -321,6 +321,24 @@ printed as JSON lines:
         never, every loss finite, peak allocated memory; one profiled
         round.  The weights freed, K1 alone at [4, N] float32 against its
         plain version (1e-5), timed beside it and its bound.
+     n. The example scripts, the seed mesh and the kernel-library cache,
+        run after phase 3m.  The four scripts of ``examples/torch`` at
+        short lengths through their ``main`` (quickstart's FedAWE bias
+        below FedAvg's, federated_lm's loss falling, federated_image's
+        finals and files, serve_demo's requests), none launching a
+        kernel.  The grid's seed mesh: fedawe/sine with K1, 4 seeds over
+        ``make_seed_mesh(4, devices=[cuda:0, cuda:0])`` (two shards of
+        two seeds) through ``run_multi_seed``, K1 twice a round where the
+        unsplit 4-seed chunk, run just before, launches it once; counts,
+        τ, keys and markov bit-equal to it, losses and states within
+        1e-6.  The kernel-library cache: ``train --use-kernel
+        --compile-cache build/compile_cache_smoke`` in its own process,
+        the cold run (the directory emptied) started in phase 1 beside
+        the builds and read after phase 2 (nvcc ran: misses >= 1, no
+        hit), the warm run here (hits >= 1, no miss, the same final
+        eval), each with its seconds.  Beside every prefill and LM round
+        the script times (phases 3j-3m and 4), a ``model_flops_share`` line:
+        ``analysis.model_flops`` over the time times the bf16 peak.
   4. numbers  — K1-K3: the Triton yardstick's global loads by width in
      its SASS at rows 8 bytes off 16 and at aligned rows; the CUDA kernel
      and the Triton yardstick in turns (K2's yardstick with its own weight
@@ -388,6 +406,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -396,9 +415,13 @@ import types
 import warnings
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(REPO, "src"))
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): HBM3's
+# rate and the bf16 tensor-core peak are the port's (launch/mesh.py)
+from repro_torch.launch.mesh import HBM_BW as HBM_BYTES_PER_S  # noqa: E402
+from repro_torch.launch.mesh import (  # noqa: E402
+    PEAK_FLOPS_BF16 as BF16_FLOP_PER_S)
 
-#: H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
-HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 ETA_G = 1.7
 MAIN_FLAGS = ["--strategy", "fedawe", "--dynamics", "sine", "--flat-state",
@@ -1091,7 +1114,6 @@ FLASH_TOL = {"float32": 1e-4, "bfloat16": 3e-2}  # tests/test_kernels.py
 #: 2.5 ulps of the row's largest element, while a key tile missed or
 #: added in such a row moves it by several per cent
 FLASH_ROW_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
-BF16_FLOP_PER_S = 989e12
 LM_B, LM_L, LM_NEW, LM_LAYERS = 2, 8192, 16, 26
 #: flash vs xla prefill at full width: float32 end to end, 26 layers of
 #: reordered sums (the reference's own test allows 2e-4 at 4 layers);
@@ -1812,9 +1834,25 @@ def time_lm(torch, model, cfg, params, tokens, smi):
         rec["flash_share_of_prefill"] = flash[0] / prefill_ms
     emit(dict(phase="lm_time", card=smi, arch=cfg.name, dtype=cfg.dtype,
               batch=LM_B, prompt=LM_L, **rec))
+    model_flops_share(cfg, tokens.numel(), "prefill", prefill_ms, smi,
+                      "lm_prefill")
     del cache, holder
     torch.cuda.empty_cache()
     return rec
+
+
+def model_flops_share(cfg, n_tokens, kind, ms, smi, path):
+    """Prints ``analysis.model_flops`` (6·N·D for a training round, 2·N·D
+    for a prefill, N the active parameters) of a run an earlier phase
+    timed, over what the card's bf16 peak does in its ``ms``."""
+    from repro_torch.launch import analysis
+
+    flops = analysis.model_flops(cfg, n_tokens, kind)
+    emit(dict(phase="model_flops_share", card=smi, path=path, arch=cfg.name,
+              kind=kind, tokens=n_tokens,
+              active_params=analysis.active_param_count(cfg),
+              model_flops=flops, ms=ms,
+              share=flops / (ms * 1e-3 * BF16_FLOP_PER_S)))
 
 
 def ssd_chunk_bound(cfg, batch, seq, esize):
@@ -2330,6 +2368,8 @@ def time_serve(torch, model, cfg, params, tokens, smi, tag, parts,
                                if pre["parts_ms"] else None))
     emit(dict(phase=f"{tag}_time", card=smi, arch=cfg.name,
               dtype=cfg.dtype, batch=LM_B, prompt=LM_L, **rec))
+    model_flops_share(cfg, tokens.numel(), "prefill", prefill_ms, smi,
+                      f"{tag}_prefill")
     del cache, holder
     torch.cuda.empty_cache()
     return rec
@@ -2511,7 +2551,9 @@ STRATEGIES = ("fedawe", "fedawe_m", "fedavg_active", "fedavg_all",
               "fedavg_known_p", "fedau", "f3ast", "mifa", "fedvarp", "fedar")
 #: FedAU's interval state and the three [m, N] memories, held under faults
 FAULT_STRATEGIES = ("fedau", "mifa", "fedvarp", "fedar")
-STRAT_ROUNDS = 32
+#: rounds of each strategy's run, one chunk of 16 (32 before phase 3n, cut
+#: so that the whole script stays near 1 000 s)
+STRAT_ROUNDS = 16
 
 
 def with_flags(flags, **kv):
@@ -2747,7 +2789,9 @@ def time_strategies(torch, train, engine, federated, smi):
 #: the FL path's task (m, s, batch, samples) and the Table-6 CNN
 SEED_TASK = dict(m=M_MAIN, s=5, batch=32, n_samples=20000)
 N_SEEDS = 4
-SEED_ROUNDS = 32
+#: rounds of each seed path, one chunk of 16 (32 before phase 3n, cut so
+#: that the whole script stays near 1 000 s)
+SEED_ROUNDS = 16
 #: K1 with a seed axis, (S, m, N): the main path's stacks for 4 seeds, and
 #: a shape of 2 slices and rows off 16 bytes
 SEED_CASES = [(N_SEEDS, M_MAIN, N_MAIN), (3, 1024, 4099)]
@@ -4604,6 +4648,8 @@ def lm_full_width_path(torch, np, model, engine, federated, availability,
                   prof, busy_share=(prof["device_ms"] / round_ms
                                     if prof["device_ms"] else None)),
               vmap_fallbacks=perf_drops))
+    model_flops_share(cfg, LM_FULL_M * LM_FULL_S * LM_FULL_B * LM_FULL_L,
+                      "train", round_ms, smi, "lm_full_width_round")
     del state, ss, r, box, chunk, one
     torch.cuda.empty_cache()
     rec = lm_k1_at_stack(torch, ops, ref, n, smi)
@@ -4942,6 +4988,8 @@ def lora_training(torch, np, model, engine, federated, availability, prng,
                   prof, busy_share=(prof["device_ms"] / round_ms
                                     if prof["device_ms"] else None)),
               vmap_fallbacks=perf_drops))
+    model_flops_share(cfg, m * s * b * L, "train", round_ms, smi,
+                      "gemma3_lora_round")
     del state, ss, box, chunk, one, store
     return n, launches
 
@@ -5034,6 +5082,199 @@ def time_flash_gemma3(torch, fops, fref, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 3n: the examples, the seed mesh and the kernel-library cache
+# ---------------------------------------------------------------------------
+
+#: the port's example scripts and the arguments of their short runs here
+EXAMPLES = {"quickstart": ["--rounds", "200"],
+            "federated_lm": ["--rounds", "12"],
+            "federated_image": ["--rounds", "8", "--out-dir",
+                                os.path.join(REPO, "build", "examples")],
+            "serve_demo": []}
+#: the grid's seed mesh: N_SEEDS seeds of fedawe/sine at SEED_TASK in two
+#: shards on the one card, MESH_ROUNDS rounds K = MESH_K at a time (a T %
+#: K tail of 4), against the unsplit chunk: counts, τ, keys, t and markov
+#: bit-equal, states and losses within MESH_TOL (tests/test_torch_mesh.py)
+MESH_ROUNDS, MESH_K, MESH_TOL = 20, 8, 1e-6
+#: the compile-cache runs: train on the main path's flags with the kernel
+#: for 16 rounds, its libraries built (cold) or loaded (warm) in CACHE_DIR
+CACHE_DIR = os.path.join(REPO, "build", "compile_cache_smoke")
+CACHE_FLAGS = with_flags(MAIN_FLAGS, rounds=16) + [
+    "--use-kernel", "--compile-cache", CACHE_DIR]
+CACHE_RUN = ("import json, sys, time\n"
+             "t0 = time.perf_counter()\n"
+             "from repro_torch.launch import compilecache, train\n"
+             "final = train.main(sys.argv[1:])\n"
+             "print(json.dumps(dict(seconds=time.perf_counter() - t0,\n"
+             "                      final=final,\n"
+             "                      **compilecache.counters())))\n")
+
+
+def start_cache_run():
+    """One ``train ... --compile-cache CACHE_DIR`` in its own process:
+    ``(process, start time)``; ``cache_run`` reads it."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    proc = subprocess.Popen([sys.executable, "-c", CACHE_RUN, *CACHE_FLAGS],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env=env, cwd=REPO)
+    return proc, time.perf_counter()
+
+
+def cache_run(run):
+    """The result of ``start_cache_run``'s process: its seconds (wall,
+    and inside Python from before the port's import), its hits and misses
+    (``compilecache.counters``) and final eval; it must print the cache's
+    path and exit 0."""
+    proc, t0 = run
+    out, err = proc.communicate(timeout=600)
+    wall = time.perf_counter() - t0
+    require(proc.returncode == 0,
+            f"compile-cache run failed ({proc.returncode}):\n{err[-4000:]}")
+    require(f"compilation cache: {CACHE_DIR}\n" in out,
+            f"compile-cache run printed no cache path:\n{out[-2000:]}")
+    rec = json.loads(out.strip().splitlines()[-1])
+    return dict(wall_s=wall, **rec)
+
+
+def example_module(name):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", os.path.join(REPO, "examples", "torch",
+                                        f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def examples_path(torch, counts, smi):
+    """The four example scripts of ``examples/torch`` on the card at short
+    lengths, each through its ``main``: quickstart (FedAWE's bias below
+    FedAvg's, its closing assertion), federated_lm (the loss falls, its
+    closing assertion), federated_image (both runs' final eval finite,
+    metrics and checkpoints written), serve_demo (every request served).
+    None of them asks for a kernel, and none is launched."""
+    shutil.rmtree(EXAMPLES["federated_image"][-1], ignore_errors=True)
+    rec = {}
+    for name, args in EXAMPLES.items():
+        counts.reset()
+        t0 = time.perf_counter()
+        out = example_module(name).main(args + ["--device", "cuda"])
+        torch.cuda.synchronize()
+        rec[name] = dict(seconds=time.perf_counter() - t0,
+                         launches=counts.read())
+        if name == "quickstart":
+            rec[name].update(fedavg=out[0], fedawe=out[1])
+            require(abs(out[1] - 50) < abs(out[0] - 50),
+                    f"quickstart: FedAWE's bias not below FedAvg's {out}")
+        elif name == "federated_lm":
+            losses = [h["loss"] for h in out]
+            rec[name]["losses"] = losses
+            require(losses[-1] < losses[0], f"federated_lm losses {losses}")
+        elif name == "federated_image":
+            rec[name]["eval_acc"] = out
+            require(all(math.isfinite(v) for v in out.values()),
+                    f"federated_image finals {out}")
+            for strategy in out:
+                stem = os.path.join(EXAMPLES[name][-1],
+                                    f"example_image_{strategy}")
+                require(os.path.exists(stem + ".json")
+                        and os.path.exists(stem + "_ckpt.npz"),
+                        f"federated_image wrote no {stem}")
+        else:
+            rec[name]["tok_per_s"] = out["tok_per_s"]
+        require(rec[name]["launches"] == dict(K1=0, K2=0, K3=0, K4=0, K5=0),
+                f"{name} launched {rec[name]['launches']}")
+    emit(dict(phase="examples", card=smi, **rec))
+
+
+def seed_mesh_path(torch, experiments, mesh, prng, counts, smi):
+    """The grid's seed mesh on the card: fedawe/sine with the kernel,
+    N_SEEDS seeds over ``make_seed_mesh(N_SEEDS, devices=[cuda:0,
+    cuda:0])`` (two shards of two seeds, each its own seed chunk), through
+    ``run_multi_seed`` as ``run_scenario`` drives it, every count at 0
+    just before: K1 twice a round (once per shard), where the unsplit
+    4-seed chunk, run the same way just before, launches it once.  Against
+    that chunk: every history's counts, τ, keys, t and markov bit-equal,
+    losses and states within MESH_TOL, final evals within 2 of 1 024."""
+    dev = torch.device("cuda", 0)
+    m = mesh.make_seed_mesh(N_SEEDS, devices=[dev, dev])
+    require(mesh.mesh_axis_sizes(m) == {"seed": 2, "pod": 1, "data": 1},
+            f"seed mesh {m}")
+    runs = {}
+    for tag, where in (("unsplit", None), ("mesh", m)):
+        fl, rf, params, ds, eval_fn, _, _, _ = seed_cell(
+            torch, experiments, "fedawe/sine")
+        torch.cuda.synchronize()
+        counts.reset()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.filterwarnings("error", message=".*performance drop")
+            states, hists, finals = experiments.run_multi_seed(
+                fl, rf, params, ds, sampling="uniform",
+                batch=SEED_TASK["batch"], seeds=N_SEEDS, rounds=MESH_ROUNDS,
+                chunk_rounds=MESH_K, rng=prng.PRNGKey(0, dev),
+                data_key=prng.PRNGKey(1, dev), eval_fn=eval_fn, mesh=where)
+        torch.cuda.synchronize()
+        runs[tag] = dict(states=states, hists=hists, finals=finals,
+                         launches=counts.read(),
+                         wall_s=time.perf_counter() - t0)
+    a, b = runs["mesh"], runs["unsplit"]
+    require(b["launches"] == dict(K1=MESH_ROUNDS, K2=0, K3=0, K4=0, K5=0),
+            f"unsplit seed chunk launches {b['launches']}")
+    require(a["launches"] == dict(K1=2 * MESH_ROUNDS, K2=0, K3=0, K4=0,
+                                  K5=0),
+            f"seed mesh launches {a['launches']}")
+    loss_diff = 0.0
+    for ha, hb in zip(a["hists"], b["hists"]):
+        require(len(ha) == len(hb) == MESH_ROUNDS, "mesh history lengths")
+        for ra, rb in zip(ha, hb):
+            require(set(ra) == set(rb), f"metric keys {set(ra)}")
+            require(all(ra[k] == rb[k] for k in ("n_active", "mean_echo",
+                                                 "t")),
+                    f"mesh counts differ: {ra} {rb}")
+            require(math.isfinite(ra["loss"]), f"mesh loss {ra['loss']}")
+            loss_diff = max(loss_diff, abs(ra["loss"] - rb["loss"]))
+    sa, sb = a["states"], b["states"]
+    for name in ("tau", "rng", "t", "markov"):
+        require(torch.equal(getattr(sa, name), getattr(sb, name)),
+                f"mesh {name} differs from the unsplit chunk")
+    state_diff = max((getattr(sa, k) - getattr(sb, k)).abs().max().item()
+                     for k in ("global_tr", "clients_tr"))
+    eval_diff = max(abs(fa["eval_acc"] - fb["eval_acc"])
+                    for fa, fb in zip(a["finals"], b["finals"]))
+    require(loss_diff <= MESH_TOL and state_diff <= MESH_TOL,
+            f"mesh vs unsplit: losses {loss_diff}, states {state_diff}")
+    require(eval_diff <= 2 / 1024, f"mesh vs unsplit evals {eval_diff}")
+    emit(dict(phase="seed_mesh_path", card=smi, scenario="fedawe/sine",
+              seeds=N_SEEDS, mesh=mesh.mesh_axis_sizes(m),
+              devices=[str(d) for d in m.devices], rounds=MESH_ROUNDS,
+              chunk_rounds=MESH_K, launches=a["launches"],
+              unsplit_launches=b["launches"], wall_s=a["wall_s"],
+              unsplit_wall_s=b["wall_s"], max_loss_diff=loss_diff,
+              max_state_diff=state_diff, max_eval_diff=eval_diff,
+              tol=MESH_TOL))
+    return a["launches"]
+
+
+def compile_cache_path(cold, smi):
+    """The kernel-library cache: the cold ``train --use-kernel
+    --compile-cache CACHE_DIR`` started beside phase 1's builds (CACHE_DIR
+    emptied first) ran nvcc (misses >= 1, no hit); a warm run of the same
+    command now loads the library it left (hits >= 1, no miss); both give
+    the same final eval."""
+    warm = cache_run(start_cache_run())
+    require(cold["misses"] >= 1 and cold["hits"] == 0,
+            f"cold compile-cache run {cold}")
+    require(warm["hits"] >= 1 and warm["misses"] == 0,
+            f"warm compile-cache run {warm}")
+    require(warm["final"] == cold["final"],
+            f"cold and warm finals {cold['final']} {warm['final']}")
+    emit(dict(phase="compile_cache", card=smi, cache_dir=CACHE_DIR,
+              libraries=sorted(os.listdir(CACHE_DIR)), cold=cold, warm=warm))
+
+
 class Counts:
     """Every kernel wrapper's launch count, set to 0 and read together."""
 
@@ -5070,7 +5311,6 @@ def main():
         print("chip_smoke: no CUDA device is visible; this script runs the "
               "port on one card", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.join(REPO, "src"))
     from repro_torch.configs import get_config
     from repro_torch.core import (FlatSpec, availability, engine, faults,
                                   prng, staleness, strategies)
@@ -5083,7 +5323,7 @@ def main():
     from repro_torch.kernels.ssd_chunk import kernel as skernel
     from repro_torch.kernels.ssd_chunk import ops as sops
     from repro_torch.kernels.ssd_chunk import ref as sref
-    from repro_torch.launch import experiments, serve, train
+    from repro_torch.launch import experiments, mesh, serve, train
     from repro_torch.checkpointing import convert, io
     from repro_torch.models import cnn, layers, model, moe, reduced, ssm
 
@@ -5095,6 +5335,10 @@ def main():
               "K4": build_pool.submit(fkernel.build),
               "K5": build_pool.submit(skernel.LIBRARY.build),
               "K5 wgmma": build_pool.submit(skernel.WGMMA_LIBRARY.build)}
+    # the cold compile-cache run (phase 3n) builds its own K1-K3 library
+    # beside them, in its own process, while nothing is timed
+    shutil.rmtree(CACHE_DIR, ignore_errors=True)
+    cold_cache = start_cache_run()
 
     # phase 1: device
     smi = nvidia_smi()
@@ -5145,6 +5389,7 @@ def main():
     flash_err = check_flash(torch, fops, fref)
     ssd_err = check_ssd(torch, sops, sref)
     emit(dict(phase="kernel_checks_done", seconds=time.perf_counter() - t0))
+    cold_cache = cache_run(cold_cache)
 
     # phase 3: the FL training path, every count at 0 just before it
     parser = train.build_parser()
@@ -5310,6 +5555,16 @@ def main():
     # one base for both, freed before the numbers below
     lora = lora_paths(torch, np, model, layers, engine, federated,
                       availability, prng, ops, ref, get_config, counts, smi)
+    # phase 3n: every count at 0 just before each path: the four example
+    # scripts, the grid's seed mesh (K1 twice a round, once per shard)
+    # against the unsplit chunk, and the kernel-library cache warm
+    t0 = time.perf_counter()
+    examples_path(torch, counts, smi)
+    mesh_launches = seed_mesh_path(torch, experiments, mesh, prng, counts,
+                                   smi)
+    compile_cache_path(cold_cache, smi)
+    emit(dict(phase="mesh_examples_done", seconds=time.perf_counter() - t0,
+              seed_mesh_launches=mesh_launches))
 
     ssd_times = time_ssd(torch, sops, sref, get_config, smi)
     time_flash_sdpa(torch, fops, fref, smi, "zamba2-7b", ZAMBA_ATTN,

@@ -12,7 +12,9 @@ ctypes.  The hash covers the source and the flags, so an edited source
 is rebuilt; ptxas's report (registers, shared memory, spills per
 instantiation) is kept beside the library in a ``.log`` file.  ``nvcc``
 is taken from ``$CUDA_HOME/bin`` (default ``/usr/local/cuda``) or the
-``PATH``.
+``PATH``.  ``launch/compilecache.enable`` points the build directory
+elsewhere (``set_build_dir``); ``COUNTS`` counts the libraries found
+built (``hits``) and the nvcc runs (``misses``).
 """
 from __future__ import annotations
 
@@ -28,12 +30,28 @@ REPO = pathlib.Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: libraries found already built (``hits``) and nvcc runs (``misses``)
+#: in this process
+COUNTS = {"hits": 0, "misses": 0}
+
+
+def set_build_dir(path) -> pathlib.Path:
+    """Build and look up every library under ``path`` from now on (a
+    library already loaded in this process stays loaded)."""
+    global BUILD_DIR
+    BUILD_DIR = pathlib.Path(path)
+    return BUILD_DIR
+
+
+def nvcc_path():
+    """nvcc's path, or None when there is none."""
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = os.path.join(home, "bin", "nvcc")
+    return cand if os.path.exists(cand) else shutil.which("nvcc")
 
 
 def _nvcc():
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = os.path.join(home, "bin", "nvcc")
-    found = cand if os.path.exists(cand) else shutil.which("nvcc")
+    found = nvcc_path()
     if found is None:
         raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, "
                            "/usr/local/cuda/bin and the PATH); the CUDA "
@@ -63,8 +81,10 @@ class CudaLibrary:
         lib = self.path()
         with self._lock:
             if lib.exists():
+                COUNTS["hits"] += 1
                 return lib
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            COUNTS["misses"] += 1
+            lib.parent.mkdir(parents=True, exist_ok=True)
             tmp = lib.with_suffix(f".{os.getpid()}.tmp")
             cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
             proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,

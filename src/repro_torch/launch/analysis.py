@@ -1,14 +1,56 @@
-"""Seed aggregation for the multi-seed experiment grid: per-seed metric
-histories to mean±std curves, per-seed finals to one table cell, and the
-paper-style results table (ports of the reference's
-``repro/launch/analysis.py`` seed functions, numpy only)."""
+"""Seed aggregation for the multi-seed experiment grid (per-seed metric
+histories to mean±std curves, per-seed finals to one table cell, the
+paper-style results table) and the model-flops helpers (the roofline
+terms, active parameters, 6·N·D / 2·N·D): ports of the reference's
+``repro/launch/analysis.py`` functions of those names.  Its HLO parsers
+read XLA's artifacts and have no counterpart here."""
 from __future__ import annotations
 
 import json
 import os
-from typing import List
+from typing import Dict, List
 
 import numpy as np
+
+from repro_torch.launch.mesh import HBM_BW, ICI_BW, PEAK_FLOPS_BF16
+
+
+def roofline_terms(flops_per_dev: float, bytes_per_dev: float,
+                   coll_bytes_per_dev: float) -> Dict[str, float]:
+    """Seconds of compute, memory and collectives per device at the H100
+    SXM's constants (``launch/mesh.py``), the dominant term, and the
+    compute term's share of the largest."""
+    compute_s = flops_per_dev / PEAK_FLOPS_BF16
+    memory_s = bytes_per_dev / HBM_BW
+    collective_s = coll_bytes_per_dev / ICI_BW
+    terms = dict(compute_s=compute_s, memory_s=memory_s,
+                 collective_s=collective_s)
+    dom = max(terms, key=terms.get)
+    terms["dominant"] = dom
+    total = max(compute_s, memory_s, collective_s)
+    terms["bound_fraction"] = compute_s / total if total else 0.0
+    return terms
+
+
+def active_param_count(cfg) -> int:
+    """Parameters touched per token: total minus the skipped expert FFNs
+    (MODEL_FLOPS uses 6·N_active·D for MoE)."""
+    from repro_torch.models.model import count_params
+
+    total = count_params(cfg)
+    if not cfg.is_moe:
+        return total
+    n_moe = sum(1 for b in cfg.layer_blocks() if b.kind == "moe")
+    per_expert = 3 * cfg.d_model * cfg.expert_ff  # wi(2x) + wd
+    inactive = n_moe * per_expert * (cfg.n_experts - cfg.top_k)
+    return total - inactive
+
+
+def model_flops(cfg, n_tokens: int, kind: str) -> float:
+    """6·N·D (train) / 2·N·D (inference) with N = active params."""
+    n = active_param_count(cfg)
+    mult = 6.0 if kind == "train" else 2.0
+    return mult * n * n_tokens
 
 
 def aggregate_seed_histories(histories: List[List[dict]]) -> dict:

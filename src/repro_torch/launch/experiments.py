@@ -21,6 +21,14 @@ of it in one command:
   * a **packed grid** (``--packed``): cells group by shape, near-miss
     sampler caps are padded (``pack_cells``), and each group's seed chunks
     run in one call (``core.engine.make_grid_chunk_fn``);
+  * a **seed mesh** (``--seed-mesh``, ``launch/mesh.make_seed_mesh``): the
+    seed axis splits into the mesh's seed-axis size of contiguous shards,
+    each moved once to the first device of its sub-mesh
+    (``place_seed_batch``) and advanced there by its own seed chunk; the
+    metrics join back in seed order.  A placement changes no number: each
+    seed evolves as in the unsplit chunk.  Clients are not split over
+    devices (that placement comes with ``sharding/``), and the mesh takes
+    the flat substrate only, as the reference's;
   * a **results table** (``launch/analysis.py``): per-seed histories to
     mean±std curves and a paper-style table under ``--out-dir``.
 
@@ -32,11 +40,15 @@ CLI::
     python -m repro_torch.launch.experiments --grid speedup-sine \\
         --seeds 4 --packed
 
+    python -m repro_torch.launch.experiments --scenario fedawe/sine \\
+        --seeds 4 --seed-mesh --compile-cache auto
+
 It runs on the card (``--device cuda``, the default) unless ``--device
 cpu`` is passed, and raises when the card is missing.  ``--preset lm``
-runs each cell on the launcher's LM task (``train.build_lm_task``).  The
-reference's ``--seed-mesh`` and ``--compile-cache`` (a TPU mesh, jax's
-compilation cache) are not defined here.
+runs each cell on the launcher's LM task (``train.build_lm_task``).
+``--seed-mesh`` sizes the mesh over every visible card (over the CPU with
+``--device cpu``); ``--compile-cache`` keeps the kernel libraries nvcc
+builds in a keyed directory (``launch/compilecache``).
 """
 from __future__ import annotations
 
@@ -62,6 +74,7 @@ from repro_torch.data import (SAMPLING_MODES, init_seed_sampler_states,
                               make_device_sampler, pad_store, seed_data_keys)
 from repro_torch.device import resolve_device
 from repro_torch.launch import analysis, train
+from repro_torch.launch.mesh import mesh_axis_sizes
 
 # ---------------------------------------------------------------------------
 # scenario registry
@@ -328,6 +341,123 @@ def build_seed_batch(cfg: FLConfig, template, base_rng, data_key,
     return states, sampler_states, data_keys
 
 
+class SeedShards(tuple):
+    """A carry of a seed-mesh run: element ``i`` is shard ``i``'s ``[S_i,
+    ...]`` tree on its device, the shards in seed order."""
+
+
+def seed_shards(mesh, n_seeds):
+    """``[(device, rows)]``: the seed axis of an ``n_seeds`` carry split
+    into ``mesh``'s seed-axis size of contiguous row slices, shard ``i`` on
+    the first device of its sub-mesh.  A mesh without a 'seed' axis keeps
+    every seed in one shard on its first device."""
+    n = mesh_axis_sizes(mesh).get("seed", 1)
+    if n_seeds % n:
+        raise ValueError(f"{n_seeds} seeds do not split into {n} shards")
+    per, sub = n_seeds // n, len(mesh.devices) // n
+    return [(mesh.devices[i * sub], slice(i * per, (i + 1) * per))
+            for i in range(n)]
+
+
+def _on(tree, dev, rows=None):
+    """``tree``'s tensors (their ``rows`` of the seed axis, copied) on
+    ``dev``; without ``rows`` a tensor already there is not copied."""
+    def move(v):
+        if not torch.is_tensor(v):
+            return v
+        if rows is None:
+            return v.to(dev)
+        return v[rows].to(dev, copy=True)
+
+    return pytree.tree_map(move, tree)
+
+
+def join_seed_shards(tree):
+    """A ``SeedShards`` carry joined into one ``[S, ...]`` tree on its
+    first shard's device, in seed order; any other tree as it is."""
+    if not isinstance(tree, SeedShards):
+        return tree
+    flat = [pytree.tree_flatten(t) for t in tree]
+    out = [torch.cat([v.to(col[0].device) for v in col])
+           if torch.is_tensor(col[0]) else col[0]
+           for col in zip(*(f[0] for f in flat))]
+    return pytree.tree_unflatten(out, flat[0][1])
+
+
+def _join_metrics(per_shard, dev):
+    return {k: torch.cat([m[k].to(dev) for m in per_shard])
+            for k in per_shard[0]}
+
+
+def _round_fns(round_fn, shards):
+    """The round function of each distinct shard device.  A round closes
+    over tensors of one device (its ``base_p``); a grid cell's round
+    carries ``round_fn.on(device)``, which builds it for another device.
+    A round without ``on`` runs on every shard as it is."""
+    on = getattr(round_fn, "on", None)
+    return {dev: round_fn if on is None else on(dev)
+            for dev in dict.fromkeys(d for d, _ in shards)}
+
+
+def _check_flat(fl):
+    if not fl.flat_state:
+        raise ValueError("the seed mesh needs the flat [m, N] substrate "
+                         "(flat_state), as the reference's")
+
+
+def build_seed_executor(fl: FLConfig, round_fn, sample_fn, n_seeds, *,
+                        mesh=None):
+    """``make_chunk(k)``: a seed-batched chunk executor of ``k`` rounds, for
+    the full-K chunks and the ``T % K`` tail alike (so the tail keeps the
+    placement).  Without ``mesh``, ``make_seeds_chunk_fn``.  With one, each
+    of ``seed_shards(mesh, n_seeds)`` runs ``make_seeds_chunk_fn`` for its
+    seeds on its device: a call takes and returns ``SeedShards`` carries
+    (``place_seed_batch`` makes the first), launches the shards one after
+    another from the host (the seed chunk makes no host sync, so on
+    distinct cards their work may overlap; not measured), and joins their
+    ``[S_i, k]`` metrics in seed order on the first shard's device; each
+    shard device runs ``_round_fns``' round.
+    ``make_chunk.shards`` is the placement (None without a mesh)."""
+    if mesh is None:
+        def make_chunk(k):
+            return make_seeds_chunk_fn(fl, round_fn, sample_fn, k, n_seeds)
+        make_chunk.shards = None
+        return make_chunk
+    _check_flat(fl)
+    shards = seed_shards(mesh, n_seeds)
+    fns = _round_fns(round_fn, shards)
+
+    def make_chunk(k):
+        bodies = [make_seeds_chunk_fn(fl, fns[dev], sample_fn, k,
+                                      rows.stop - rows.start)
+                  for dev, rows in shards]
+
+        def chunk(states, sampler_states, stores, data_keys):
+            outs = [body(*args) for body, args in zip(
+                bodies, zip(states, sampler_states, stores, data_keys))]
+            return (SeedShards(o[0] for o in outs),
+                    SeedShards(o[1] for o in outs),
+                    _join_metrics([o[2] for o in outs], shards[0][0]))
+        return chunk
+
+    make_chunk.shards = shards
+    return make_chunk
+
+
+def place_seed_batch(shards, states, sampler_states, store, data_keys):
+    """Move a freshly built seed batch onto the mesh once, before the first
+    call: shard ``i`` gets a copy of its rows of the states, sampler
+    carries and data keys, and the shared store, on its device
+    (``SeedShards`` each).  A copy changes no value.  No-op when
+    ``shards`` is None (an executor without a mesh)."""
+    if shards is None:
+        return states, sampler_states, store, data_keys
+    return (SeedShards(_on(states, d, r) for d, r in shards),
+            SeedShards(_on(sampler_states, d, r) for d, r in shards),
+            SeedShards(_on(store, d) for d, _ in shards),
+            SeedShards(_on(data_keys, d, r) for d, r in shards))
+
+
 def _resolve_chunk_rounds(chunk_rounds, rounds):
     """Validated chunk length, clamped to the run length.  Zero or
     negative values raise: the multi-seed and packed runners are always
@@ -361,8 +491,9 @@ def run_seed_rounds(states, chunk_fn, T, K, *, sampler_states, store,
     j)`` at the first chunk boundary at or past each ``eval_every``
     multiple; ``ckpt_fn(states, done, sampler_states)`` likewise per
     ``ckpt_every``.  A ``T % K`` tail needs ``make_tail_fn(k)``, demanded
-    before the first call.  Returns ``(states, histories)``, one history
-    per seed."""
+    before the first call.  Seed-mesh carries (``SeedShards``) are joined
+    for ``eval_fn``, ``ckpt_fn`` and the result.  Returns ``(states,
+    histories)``, one history per seed."""
     if T % K and make_tail_fn is None:
         # fail before the first call rather than after T - T % K rounds
         raise ValueError(
@@ -385,29 +516,34 @@ def run_seed_rounds(states, chunk_fn, T, K, *, sampler_states, store,
                              n_seeds)
         done += k
         if eval_fn is not None and _crossed(done, k, eval_every):
+            joined = join_seed_shards(states)
             for j in range(n_seeds):
-                histories[j][-1].update(eval_fn(index_seed(states, j)))
+                histories[j][-1].update(eval_fn(index_seed(joined, j)))
         if ckpt_fn is not None and _crossed(done, k, ckpt_every):
-            ckpt_fn(states, done, sampler_states)
+            ckpt_fn(join_seed_shards(states), done,
+                    join_seed_shards(sampler_states))
         if _crossed(done, k, log_every):
             mean_loss = sum(h[-1].get("loss", float("nan"))
                             for h in histories) / n_seeds
             print(f"[round {done:5d}] seeds={n_seeds} "
                   f"mean_loss={mean_loss:.4f}")
-    return states, histories
+    return join_seed_shards(states), histories
 
 
 def run_multi_seed(fl: FLConfig, round_fn, template, ds, *, sampling,
                    batch, seeds, rounds, chunk_rounds, rng, data_key,
-                   eval_fn=None, eval_every=0, log_every=0,
+                   eval_fn=None, eval_every=0, log_every=0, mesh=None,
                    template_fn=None, fault=None, stale=None):
     """The multi-seed runner of ``run_scenario`` and ``train --seeds``:
     the device store (on ``rng``'s device), the stateful sampler, the
     stacked per-seed carry and the seed-batched executor, end to end.
     ``chunk_rounds`` must be >= 1 and is clamped to ``rounds``; a ``T %
-    K`` tail executor is built as needed.  Returns ``(states, histories,
-    finals)``: the seed-stacked final ``FLState``, one history per seed
-    and, with ``eval_fn``, one final eval per seed."""
+    K`` tail executor is built as needed.  ``mesh`` (``launch/mesh.
+    make_seed_mesh``) splits the seeds over its devices
+    (``build_seed_executor``) and places the carries before the first
+    call.  Returns ``(states, histories, finals)``: the seed-stacked
+    final ``FLState``, one history per seed and, with ``eval_fn``, one
+    final eval per seed."""
     K = _resolve_chunk_rounds(chunk_rounds, rounds)
     store = ds.device_store(rng.device)
     init_fn, sample_fn = make_device_sampler(
@@ -417,14 +553,14 @@ def run_multi_seed(fl: FLConfig, round_fn, template, ds, *, sampling,
     states, sampler_states, data_keys = build_seed_batch(
         fl, template, rng, data_key, init_fn, store, seeds,
         template_fn=template_fn, fault=fault, stale=stale)
-
-    def seeds_chunk(k):
-        return make_seeds_chunk_fn(fl, round_fn, sample_fn, k, seeds)
-
+    make_chunk = build_seed_executor(fl, round_fn, sample_fn, seeds,
+                                     mesh=mesh)
+    states, sampler_states, store, data_keys = place_seed_batch(
+        make_chunk.shards, states, sampler_states, store, data_keys)
     states, histories = run_seed_rounds(
-        states, seeds_chunk(K), rounds, K, sampler_states=sampler_states,
+        states, make_chunk(K), rounds, K, sampler_states=sampler_states,
         store=store, data_keys=data_keys, n_seeds=seeds,
-        make_tail_fn=seeds_chunk, eval_fn=eval_fn, eval_every=eval_every,
+        make_tail_fn=make_chunk, eval_fn=eval_fn, eval_every=eval_every,
         log_every=log_every)
     finals = ([eval_fn(index_seed(states, j)) for j in range(seeds)]
               if eval_fn is not None else [])
@@ -473,7 +609,9 @@ def _cell_task(sc: Scenario, *, m, s, batch, n_samples, preset, seed,
     ``PRNGKey(seed + 3)``, blackout clusters come from the task's ν, as
     the reference builds them; ``pad_m > m`` widens the client axis
     (``_pad_m_config``) before the round function closes over base_p.
-    ``preset`` names the task (``train.TASKS``: "image" or "lm")."""
+    ``preset`` names the task (``train.TASKS``: "image" or "lm").
+    ``round_fn.on(dev)`` builds the same round over ``base_p`` on another
+    device (a seed-mesh shard's)."""
     args = argparse.Namespace(seed=seed, n_samples=n_samples, m=m,
                               alpha=sc.alpha, batch=batch)
     rng = prng.PRNGKey(seed, device)
@@ -516,8 +654,14 @@ def _cell_task(sc: Scenario, *, m, s, batch, n_samples, preset, seed,
         fl, base_p = _pad_m_config(sc, fl, base_p, pad_m,
                                    has_fault=fault_state is not None,
                                    has_stale=stale_state is not None)
-    rf = make_round_fn(fl, loss_fn, {}, sc.availability(), base_p,
-                       fault_cfg=fc, staleness_cfg=stcfg)
+
+    def round_on(dev):
+        return make_round_fn(fl, loss_fn, {}, sc.availability(),
+                             base_p.to(dev), fault_cfg=fc,
+                             staleness_cfg=stcfg)
+
+    rf = round_on(device)
+    rf.on = round_on
     return fl, rf, params, ds, eval_fn, init_fn, fault_state, stale_state
 
 
@@ -536,13 +680,14 @@ def _cell_record(sc: Scenario, *, seeds, rounds, chunk_rounds, finals,
 def run_scenario(sc: Scenario, *, seeds=4, rounds=24, chunk_rounds=8,
                  m=16, s=3, batch=8, n_samples=4000, preset="image",
                  seed=0, eval_every=0, use_kernel=False, log_every=0,
-                 replicate="shared", device="cuda"):
+                 mesh=None, replicate="shared", device="cuda"):
     """Run one grid cell: S seeds of ``rounds`` rounds, K rounds per call
     of the seed-batched executor, on ``device`` (the card unless "cpu";
-    raises when the card is missing).  ``replicate='full'`` re-initializes
-    the model per seed.  Returns the cell record: per-seed final evals,
-    their mean±std (``final``), mean±std curves (``curves``) and the
-    per-seed ``histories``."""
+    raises when the card is missing).  ``mesh`` splits the seeds over its
+    devices (``build_seed_executor``); ``replicate='full'``
+    re-initializes the model per seed.  Returns the cell record: per-seed
+    final evals, their mean±std (``final``), mean±std curves (``curves``)
+    and the per-seed ``histories``."""
     K = _resolve_chunk_rounds(chunk_rounds, rounds)   # before the task
     dev = resolve_device(device)
     fl, rf, params, ds, eval_fn, init_fn, fault_state, stale_state = \
@@ -553,7 +698,7 @@ def run_scenario(sc: Scenario, *, seeds=4, rounds=24, chunk_rounds=8,
         fl, rf, params, ds, sampling=sc.sampling, batch=batch, seeds=seeds,
         rounds=rounds, chunk_rounds=K, rng=prng.PRNGKey(seed, dev),
         data_key=prng.PRNGKey(seed + 1, dev), eval_fn=eval_fn,
-        eval_every=eval_every, log_every=log_every,
+        eval_every=eval_every, log_every=log_every, mesh=mesh,
         template_fn=init_fn if replicate == "full" else None,
         fault=fault_state, stale=stale_state)
     return _cell_record(sc, seeds=seeds, rounds=rounds, chunk_rounds=K,
@@ -653,12 +798,37 @@ def pack_cells(cells, *, pad=False):
     return list(groups.values())
 
 
-def run_packed_group(cells, *, eval_every=0, log_every=0):
+def _mesh_grid_chunk(cells, k, shards):
+    """The packed call of ``cells`` under the seed mesh: shard ``i`` runs
+    ``make_grid_chunk_fn`` over every cell's rows on its device; the
+    carries are C-tuples of ``SeedShards``, and each cell's metrics join
+    in seed order on the first shard's device."""
+    fns = [_round_fns(c["round_fn"], shards) for c in cells]
+    bodies = [make_grid_chunk_fn([(f[dev], c["sample_fn"])
+                                  for f, c in zip(fns, cells)],
+                                 k, rows.stop - rows.start)
+              for dev, rows in shards]
+
+    def packed(states_t, sampler_t, stores_t, keys_t):
+        outs = [body(*(tuple(c[i] for c in x)
+                       for x in (states_t, sampler_t, stores_t, keys_t)))
+                for i, body in enumerate(bodies)]
+        cs = range(len(cells))
+        return (tuple(SeedShards(o[0][c] for o in outs) for c in cs),
+                tuple(SeedShards(o[1][c] for o in outs) for c in cs),
+                tuple(_join_metrics([o[2][c] for o in outs], shards[0][0])
+                      for c in cs))
+    return packed
+
+
+def run_packed_group(cells, *, mesh=None, eval_every=0, log_every=0):
     """Drive one packed group: ceil(T/K) calls, each advancing every
     cell x seed x round of the group.  Per-cell results equal the
-    unpacked ``run_seed_rounds`` drive.  Returns ``(states_t,
-    histories_t)``: per-cell seed-stacked states and per-cell, per-seed
-    histories."""
+    unpacked ``run_seed_rounds`` drive.  ``mesh`` splits every cell's
+    seeds as ``build_seed_executor`` does, the carries placed before the
+    first call (``place_seed_batch``) and the tail kept on the mesh.
+    Returns ``(states_t, histories_t)``: per-cell seed-stacked states and
+    per-cell, per-seed histories."""
     if not cells:
         raise ValueError("run_packed_group needs at least one cell")
     seeds, K, T = cells[0]["seeds"], cells[0]["K"], cells[0]["rounds"]
@@ -671,7 +841,21 @@ def run_packed_group(cells, *, eval_every=0, log_every=0):
     sampler_t = tuple(c["sampler_states"] for c in cells)
     stores_t = tuple(c["store"] for c in cells)
     keys_t = tuple(c["data_keys"] for c in cells)
-    packed, tail_fn = make_grid_chunk_fn(pairs, K, seeds), None
+    if mesh is None:
+        def make_packed(k):
+            return make_grid_chunk_fn(pairs, k, seeds)
+    else:
+        for c in cells:
+            _check_flat(c["fl"])
+        shards = seed_shards(mesh, seeds)
+        placed = [place_seed_batch(shards, *carry) for carry in zip(
+            states_t, sampler_t, stores_t, keys_t)]
+        states_t, sampler_t, stores_t, keys_t = (
+            tuple(p[i] for p in placed) for i in range(4))
+
+        def make_packed(k):
+            return _mesh_grid_chunk(cells, k, shards)
+    packed, tail_fn = make_packed(K), None
     histories = [[[] for _ in range(seeds)] for _ in cells]
     done = 0
     while done < T:
@@ -679,7 +863,7 @@ def run_packed_group(cells, *, eval_every=0, log_every=0):
         if k == K:
             f = packed
         else:
-            tail_fn = tail_fn or make_grid_chunk_fn(pairs, k, seeds)
+            tail_fn = tail_fn or make_packed(k)
             f = tail_fn
         states_t, sampler_t, metrics_t = f(states_t, sampler_t, stores_t,
                                            keys_t)
@@ -691,22 +875,24 @@ def run_packed_group(cells, *, eval_every=0, log_every=0):
             for ci, c in enumerate(cells):
                 if c["eval_fn"] is None:
                     continue
+                joined = join_seed_shards(states_t[ci])
                 for j in range(seeds):
                     histories[ci][j][-1].update(
-                        c["eval_fn"](index_seed(states_t[ci], j)))
+                        c["eval_fn"](index_seed(joined, j)))
         if _crossed(done, k, log_every):
             print(f"[round {done:5d}] packed group: {len(cells)} cells "
                   f"x {seeds} seeds", flush=True)
-    return states_t, histories
+    return tuple(join_seed_shards(st) for st in states_t), histories
 
 
 def run_packed_grid(names, *, seeds=4, rounds=24, chunk_rounds=8, m=16,
                     s=3, batch=8, n_samples=4000, preset="image", seed=0,
                     eval_every=0, use_kernel=False, log_every=0,
-                    replicate="shared", pad=True, device="cuda"):
+                    replicate="shared", mesh=None, pad=True, device="cuda"):
     """The packed grid runner behind ``--packed``: build every named cell,
-    group them (``pack_cells``), advance each group, and return the
-    per-cell records in input order (as ``run_scenario`` shapes them)."""
+    group them (``pack_cells``), advance each group (over ``mesh``'s seed
+    shards with one), and return the per-cell records in input order (as
+    ``run_scenario`` shapes them)."""
     cells = [build_cell(get_scenario(n), seeds=seeds, rounds=rounds,
                         chunk_rounds=chunk_rounds, m=m, s=s, batch=batch,
                         n_samples=n_samples, preset=preset, seed=seed,
@@ -719,7 +905,8 @@ def run_packed_grid(names, *, seeds=4, rounds=24, chunk_rounds=8, m=16,
           + (f" ({padded} cap-padded)" if padded else ""), flush=True)
     recs = {}
     for group in groups:
-        states_t, hists = run_packed_group(group, eval_every=eval_every,
+        states_t, hists = run_packed_group(group, mesh=mesh,
+                                           eval_every=eval_every,
                                            log_every=log_every)
         for c, st, hs in zip(group, states_t, hists):
             finals = ([c["eval_fn"](index_seed(st, j))
@@ -791,12 +978,24 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--no-pad-buckets", action="store_true",
                     help="with --packed: no cap padding or group merging; "
                          "pack strictly shape-identical cells only")
+    ap.add_argument("--compile-cache", default="", metavar="DIR",
+                    help="build and load the CUDA kernel libraries in DIR "
+                         "('auto' resolves to ~/.cache/repro-torch/<torch+"
+                         "cuda+card+nvcc tag>, see launch/compilecache); "
+                         "warm re-runs then skip nvcc")
     ap.add_argument("--replicate", default="shared",
                     choices=["shared", "full"],
                     help="seed-replication mode: 'shared' starts every "
                          "replicate from one model init, 'full' "
                          "re-initializes the model per seed from "
                          "fold_in(model_rng, j)")
+    ap.add_argument("--seed-mesh", action="store_true",
+                    help="build a ('seed','pod','data') mesh "
+                         "(launch/mesh.make_seed_mesh, auto-sized from "
+                         "--seeds and the visible cards, or the CPU with "
+                         "--device cpu) and split each cell's seeds into "
+                         "its seed-axis size of shards, each run on its "
+                         "own device; composes with --packed")
     ap.add_argument("--out-dir", default="results",
                     help="per-cell JSON + the results table land here")
     ap.add_argument("--no-save", action="store_true")
@@ -825,12 +1024,24 @@ def main(argv=None):
         raise SystemExit("nothing to run: pass --scenario and/or --grid "
                          "(or --list)")
     names = match_scenarios(patterns)
+
+    mesh = None
+    if args.seed_mesh:
+        from repro_torch.launch.mesh import make_seed_mesh
+        dev = resolve_device(args.device)
+        mesh = make_seed_mesh(args.seeds, devices=(
+            None if dev.type == "cuda" else [dev]))
+        print(f"seed mesh: {mesh_axis_sizes(mesh)}", flush=True)
+    if args.compile_cache:
+        from repro_torch.launch import compilecache
+        print(f"compilation cache: {compilecache.enable(args.compile_cache)}",
+              flush=True)
     common = dict(seeds=args.seeds, rounds=args.rounds,
                   chunk_rounds=args.chunk_rounds, m=args.m, s=args.s,
                   batch=args.batch, n_samples=args.n_samples,
                   preset=args.preset, seed=args.seed,
                   eval_every=args.eval_every, use_kernel=args.use_kernel,
-                  log_every=max(1, args.rounds // 4),
+                  log_every=max(1, args.rounds // 4), mesh=mesh,
                   replicate=args.replicate, device=args.device)
     if args.packed:
         recs = run_packed_grid(names, pad=not args.no_pad_buckets, **common)

@@ -7,7 +7,8 @@
         [--sampling epoch] [--ckpt PATH --ckpt-every N] \
         [--resume PATH --ckpt-every N] [--scenario NAME] \
         [--seeds S [--replicate full]] \
-        [--sparse-cohort C_MAX [--resident-dtype bfloat16]]
+        [--sparse-cohort C_MAX [--resident-dtype bfloat16]] \
+        [--compile-cache DIR|auto]
 
 The port of ``python -m repro.launch.train`` on its simulation tier, for
 all ten strategies of the reference's registry (FedAWE, FedAWE-M and the
@@ -28,6 +29,8 @@ the cell over the default); ``--seeds S > 1`` runs S seeds together
 through the seed-batched executor (``experiments.run_multi_seed``).
 ``--sparse-cohort C_MAX`` runs O(cohort) rounds over a resident ``[m,
 N]`` stack (core/cohort.py), stored in ``--resident-dtype``.
+``--compile-cache`` builds and loads the CUDA kernel libraries in a keyed
+directory (``launch/compilecache``), so a warm run skips nvcc.
 """
 from __future__ import annotations
 
@@ -187,6 +190,11 @@ def build_parser() -> argparse.ArgumentParser:
                          "fetch per chunk, eval at chunk boundaries "
                          "(0 = host loop single-seed, K=8 with --seeds "
                          "> 1)")
+    ap.add_argument("--compile-cache", default="", metavar="DIR",
+                    help="build and load the CUDA kernel libraries in DIR "
+                         "('auto' resolves to ~/.cache/repro-torch/<torch+"
+                         "cuda+card+nvcc tag>, see launch/compilecache); "
+                         "warm re-runs skip nvcc")
     ap.add_argument("--sparse-cohort", type=int, default=0,
                     metavar="C_MAX",
                     help="O(cohort) rounds (core/cohort.py): gather the "
@@ -483,6 +491,10 @@ def _run_multi_seed(args, parts):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    if args.compile_cache:
+        from repro_torch.launch import compilecache
+        print(f"compilation cache: {compilecache.enable(args.compile_cache)}",
+              flush=True)
     _, hist, final = run(args)
     if args.seeds > 1:
         from repro_torch.launch import analysis

@@ -338,3 +338,64 @@ def test_cli_bf16_cohort_resumes_bit_equal(tmp_path):
     for k in ("mem", "mem_sum"):
         assert torch.equal(a.extra[k], b.extra[k]), k
     assert_carry_equal(ssa, ssb)
+
+
+def test_cli_lm_resume_bit_equal_and_matches_reference(tmp_path):
+    """``train --preset lm --chunk-rounds 2`` stopped at round 4 of 8 by
+    ``--resume P --ckpt-every 2`` (the launchers' resumable artifact: a
+    ``--ckpt`` artifact holds no sampler carry) and resumed in a new
+    process, as a resume is: its metrics and final eval equal the
+    uninterrupted 8-round run's bit for bit, and the reference launcher's
+    resumed run within 1e-4 (n_active and mean_echo equal).  The port's
+    processes run torch on one thread: on several, the CPU's reductions
+    split by thread scheduling, and two runs of the same uninterrupted
+    command differed in the last bit of a round's loss."""
+    import os
+    import subprocess
+    import sys
+
+    from repro.launch import train as ref_train
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    flags = ["--preset", "lm", "--strategy", "fedawe", "--chunk-rounds", "2",
+             "--m", "6", "--s", "2", "--batch", "8", "--ckpt-every", "2"]
+    env = dict(os.environ, PYTHONPATH=os.path.join(repo, "src"),
+               OMP_NUM_THREADS="1")
+
+    def port(rounds, art, out=None):
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", *flags,
+               "--rounds", str(rounds), "--resume", art, "--device", "cpu"]
+        if out:
+            cmd += ["--out", out]
+        r = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                           cwd=repo, timeout=600)
+        assert r.returncode == 0, r.stdout + r.stderr
+        return r.stdout
+
+    art, full = str(tmp_path / "run"), str(tmp_path / "full")
+    port(4, art)
+    assert json.load(open(art + ".json"))["meta"] == {"t": 4}
+    assert "resumed" in port(8, art, str(tmp_path / "resumed.json"))
+    port(8, full, str(tmp_path / "full.json"))
+    got = json.load(open(tmp_path / "resumed.json"))
+    want = json.load(open(tmp_path / "full.json"))
+    assert len(got["history"]) == 4
+    assert got["history"] == [dict(w, t=w["t"] - 4)
+                              for w in want["history"][4:]]
+    assert got["final"] == want["final"]
+
+    ref_art = str(tmp_path / "ref")
+    ref_train.main(flags + ["--rounds", "4", "--resume", ref_art])
+    ref_train.main(flags + ["--rounds", "8", "--resume", ref_art, "--out",
+                            str(tmp_path / "ref.json")])
+    ref = json.load(open(tmp_path / "ref.json"))
+    assert len(ref["history"]) == 4
+    for g, w in zip(got["history"], ref["history"]):
+        assert set(g) == set(w)
+        for k in ("n_active", "mean_echo", "t"):
+            assert g[k] == w[k], k
+        np.testing.assert_allclose(g["loss"], w["loss"], rtol=1e-4,
+                                   atol=1e-4)
+    np.testing.assert_allclose(got["final"]["eval_loss"],
+                               ref["final"]["eval_loss"], rtol=1e-4,
+                               atol=1e-4)

@@ -96,12 +96,20 @@ def test_cli_list_equals_the_reference(capsys):
 
 
 def test_cli_refuses_what_is_not_ported():
-    """The reference's mesh and compile-cache flags do not exist here
-    (``--preset lm`` is ported: tests/test_torch_lm_train.py holds its
-    cell against the reference's)."""
-    for flag in (["--seed-mesh"], ["--compile-cache", "auto"]):
-        with pytest.raises(SystemExit):
-            px.main(["--scenario", "fedawe/sine"] + flag)
+    """Every flag of the reference's grid is defined here (the mesh and
+    compile-cache flags too: tests/test_torch_mesh.py and
+    tests/test_torch_compilecache.py run them); a flag of neither is
+    refused, and ``--seed-mesh`` without a card raises rather than
+    falling back to the CPU."""
+    def flags(parser):
+        return {o for a in parser._actions for o in a.option_strings}
+
+    assert flags(rx.build_parser()) <= flags(px.build_parser())
+    with pytest.raises(SystemExit):
+        px.main(["--scenario", "fedawe/sine", "--no-such-flag"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            px.main(["--scenario", "fedawe/sine", "--seed-mesh"])
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
-"""The port stands alone: importing every repro_torch module pulls in
-neither jax nor the JAX package, no source line of the port (or of
-chip_smoke.py) imports them, and chip_smoke.py refuses to run — printing
-no result — without a card or outside the repo."""
+"""The port stands alone: importing every repro_torch module (and every
+example script of ``examples/torch/``) pulls in neither jax nor the JAX
+package, no source line of the port, of its examples or of chip_smoke.py
+imports them, and chip_smoke.py refuses to run — printing no result —
+without a card or outside the repo."""
 import os
 import re
 import shutil
@@ -16,6 +17,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(REPO, "src")
 PORT = os.path.join(SRC, "repro_torch")
 SMOKE = os.path.join(REPO, "chip_smoke.py")
+EXAMPLES = os.path.join(REPO, "examples", "torch")
 
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b|from\s+repro\b"
@@ -51,7 +53,9 @@ def test_every_module_imports_without_jax_or_repro():
                  "repro_torch.core.engine", "repro_torch.models.moe",
                  "repro_torch.launch.experiments", "repro_torch.optim",
                  "repro_torch.optim.optimizers",
-                 "repro_torch.optim.schedules"):
+                 "repro_torch.optim.schedules", "repro_torch.core.mixing",
+                 "repro_torch.launch.mesh", "repro_torch.launch.compilecache",
+                 "repro_torch.launch.roofline"):
         assert name in mods, name
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -67,8 +71,31 @@ def test_every_module_imports_without_jax_or_repro():
     assert r.stdout.startswith("ok")
 
 
+def _examples():
+    names = sorted(n for n in os.listdir(EXAMPLES) if n.endswith(".py"))
+    assert names == ["federated_image.py", "federated_lm.py",
+                     "quickstart.py", "serve_demo.py"], names
+    return [os.path.join(EXAMPLES, n) for n in names]
+
+
+def test_examples_import_without_jax_or_repro():
+    code = ("import importlib.util, sys\n"
+            f"for i, p in enumerate({_examples()!r}):\n"
+            "    spec = importlib.util.spec_from_file_location(f'ex{i}', p)\n"
+            "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+            "bad = sorted(k for k in sys.modules\n"
+            "             if k.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=SRC)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, env=env, cwd=REPO, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert r.stdout.startswith("ok")
+
+
 def test_no_source_line_imports_jax_or_repro():
-    files = [SMOKE]
+    files = [SMOKE] + _examples()
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     for path in files:
