@@ -76,7 +76,17 @@ printed as JSON lines:
      1e-5, the decay within 1e-6 relative; each line names the route
      ``ops.wgmma_route`` chose, and the bfloat16 cases are held to the
      same bounds against ``ssd_chunk_tiled_ref``, the tensor-core
-     kernel's arithmetic in plain torch.
+     kernel's arithmetic in plain torch.  Then K1 / K2's partial form
+     and its finalize (``PARTIAL_CASES``: ECHO_CASES' shapes cut into two
+     and three row blocks, one block empty, one with an all-zero mask;
+     [4, 100, 27 370] on the seed axis; the LM stack [8, 128 983 488] in
+     two blocks of 4): the blocks' [N + 1] partials (the column sums,
+     then the weight sum) summed and finalized within 1e-5 of the fused
+     K1 on the whole stack, in float32 and bfloat16 alike, each partial
+     within 1e-5 of its largest value of its plain version (sums that
+     cancel; the absolute error beside it) and the finalize bit-equal to
+     its plain version; one counted launch per non-empty block and per
+     finalize.
   3. main paths, each with every launch count set to 0 just before it
      and read just after:
      a. FL training — ``repro_torch.launch.train`` in-process with
@@ -339,6 +349,23 @@ printed as JSON lines:
         eval), each with its seconds.  Beside every prefill and LM round
         the script times (phases 3j-3m and 4), a ``model_flops_share`` line:
         ``analysis.model_flops`` over the time times the bf16 peak.
+     o. The placed FL path, run after phase 3n: fedawe/sine and
+        fedawe/stale_d2+midround at the FL path's size (m 100, s 5, batch
+        32, the full-width CNN), 2 seeds, 16 rounds in chunks of 8, with
+        the kernel, through ``run_multi_seed`` as ``run_scenario`` drives
+        it: unplaced in this process (the fused K1 / K2 once a round for
+        both seeds), then over four ranks spawned on card 0 (gloo through
+        a ``FileStore``: NCCL refuses two ranks on one card), a (2, 1, 2)
+        ('seed', 'pod', 'data') mesh, each rank building and holding 50
+        clients of one seed only (its client stack [1, 50, N], its store
+        rows; each run's peak of allocated card memory beside the
+        unplaced run's); each rank's counts from 0 just before each run:
+        K1's (K2's under the fault cell) partial form and the finalize
+        once a round, the fused kernel never; the histories' counts, and
+        the final states gathered whole after the run, τ, keys, t, markov
+        and ring ages bit-equal to the unplaced run's, losses, globals
+        and client stacks within 1e-5, evals within 2 of 1 024; the wall
+        time of the placed and the unplaced run in turns.
   4. numbers  — K1-K3: the Triton yardstick's global loads by width in
      its SASS at rows 8 bytes off 16 and at aligned rows; the CUDA kernel
      and the Triton yardstick in turns (K2's yardstick with its own weight
@@ -352,8 +379,9 @@ printed as JSON lines:
      sum over the same bytes); ms per round of
      the chunked FL path with and without the kernel (CUDA events, in
      turns), the round's pieces timed alone, a profiler breakdown of one
-     chunk; ms per round and a profiler breakdown of the fault and stale
-     path (with K2 and with the two matvecs, in turns), one of its chunks
+     chunk (every profiled chunk 4 rounds: ``PROFILE_ROUNDS``); ms per
+     round and a profiler breakdown of the fault and stale path (with K2
+     and with the two matvecs, in turns), one of its chunks
      under ``torch.cuda.set_sync_debug_mode("error")`` (no host read
      inside a round), and the device ms of one ``step_buffer`` over its
      [4, 100, 27 370] ring.  ms per round of each of the ten strategies
@@ -389,8 +417,12 @@ printed as JSON lines:
      kernel, the plain version, and the library call computing the same
      function: SDPA (``is_causal``, ``enable_gqa``) at the global shape,
      compiled flex_attention with the sliding-window mask at the windowed
-     one.  Each line carries the card's name and power limit.
-  5. the ``{"kernels": [...]}`` line (K1 also at the LM training
+     one.  K1 / K2's partial form at a placed rank's rows ([50, 27 370])
+     and at the LM stack's block ([4, 128 983 488]), and the finalize at
+     N: kernel and plain version in turns, in CUDA graphs, beside the
+     bound.  Each line carries the card's name and power limit.
+  5. the ``{"kernels": [...]}`` line (K1 / K2's partial form and the
+     finalize with phase 3o's launches; K1 also at the LM training
      stack's [8, N] and the LoRA stack's [4, N], with the full-width
      runs' launches; K4 also at gemma3-27b's windowed and global shapes,
      with the LoRA prefill's launches of each); the last line is
@@ -927,7 +959,7 @@ def chunk_setup(torch, train, engine, federated, flags):
     state, ss, _ = chunk(state, ss, store, key)
     torch.cuda.synchronize()
     return dict(state=state, ss=ss, chunk=chunk, store=store, key=key,
-                sample=sample, args=args)
+                sample=sample, args=args, round_fn=parts["round_fn"])
 
 
 def chunks_ms(torch, r, n_chunks):
@@ -1022,27 +1054,39 @@ def round_parts_ms(torch, prng, engine, strategies, cnn, timing, reps=16):
                 aggregate_ms=events_ms(torch, aggregate, reps))
 
 
+#: rounds of a profiled chunk of a ``chunk_setup`` path: the profiler's
+#: event list grows with the launches (profiling whole 16-round chunks
+#: took about 200 s of a 992 s run, and a run on a slower host 1 168 s of
+#: the 1 200 allowed)
+PROFILE_ROUNDS = 4
+
+
 def profile_chunk(torch, timing, round_ms):
     """One chunk under torch.profiler: summed device time of all kernels
     per round, its share of the unprofiled ``round_ms`` (the device busy
     share; the profiler slows the host, so its own wall time is reported
     apart), launches per round and the top kernels by device time and by
-    launches.
+    launches.  A ``chunk_setup`` path's chunk is cut to PROFILE_ROUNDS.
     Device fields are None when the profiler records no device
     activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.core import engine
+
     state, ss = timing["state"], timing["ss"]
+    chunk, rounds = timing["chunk"], timing["args"].chunk_rounds
+    if "round_fn" in timing and rounds > PROFILE_ROUNDS:
+        rounds = PROFILE_ROUNDS
+        chunk = engine.make_chunk_fn(None, timing["round_fn"],
+                                     timing["sample"], rounds)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        state, ss, _ = timing["chunk"](state, ss, timing["store"],
-                                       timing["key"])
+        state, ss, _ = chunk(state, ss, timing["store"], timing["key"])
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    rounds = timing["args"].chunk_rounds
     kernels = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
                if e.device_type == DeviceType.CUDA]
     dev_us = sum(us for _, us in kernels)
@@ -5085,6 +5129,440 @@ def time_flash_gemma3(torch, fops, fref, smi):
 # ---------------------------------------------------------------------------
 # phase 3n: the examples, the seed mesh and the kernel-library cache
 # ---------------------------------------------------------------------------
+# K1 / K2's partial form (phase 2, phase 4) and the placed FL path (3o)
+# ---------------------------------------------------------------------------
+
+#: the LM training stack of phase 3l: mamba2-130m's flat trainables
+LM_STACK_N = 128983488
+#: K1 / K2's partial form against the fused K1 and its plain version, in
+#: float32 and bfloat16 alike
+PARTIAL_TOL = 1e-5
+#: K1 / K2's partial form, (variant, m, N, dtype name, row-block bounds,
+#: block whose mask is all zero or None, seeds): ECHO_CASES' shapes cut
+#: into two and three row blocks (one block empty, one with an all-zero
+#: mask), the main path's stacks on the seed axis, and the LM stack in two
+#: blocks of 4 (8.3 GB of float32)
+PARTIAL_CASES = [
+    ("K1", M_MAIN, N_MAIN, "float32", (0, 50, 100), None, 0),
+    ("K2", M_MAIN, N_MAIN, "float32", (0, 0, 40, 100), 1, 0),
+    ("K1", M_MAIN, N_MAIN, "bfloat16", (0, 33, 66, 100), 0, 0),
+    ("K2", M_MAIN, N_MAIN, "bfloat16", (0, 50, 50, 100), None, 0),
+    ("K1", 37, 3 * 256 + 5, "float32", (0, 0, 20, 37), 2, 0),
+    ("K2", 64, 4099, "bfloat16", (0, 32, 64), 1, 0),
+    ("K1", 16, 1000, "float32", (0, 8, 16), 0, 0),
+    ("K1", 1, N_MAIN, "float32", (0, 0, 1), None, 0),
+    ("K1", COHORT_C, N_MAIN, "float32", (0, 128, 256), None, 0),
+    ("K1", M_MAIN, N_MAIN, "float32", (0, 50, 100), None, 4),
+    ("K2", M_MAIN, N_MAIN, "bfloat16", (0, 0, 50, 100), 1, 4),
+    ("K1", 8, LM_STACK_N, "float32", (0, 4, 8), None, 0),
+]
+
+
+def partial_launches(ops):
+    return dict(partial=ops.echo_aggregate_partial.launches,
+                partial_upload=ops.echo_aggregate_partial.upload_launches,
+                finalize=ops.echo_aggregate_finalize.launches)
+
+
+def call_partial(fn, a, lo, hi, upload):
+    """``fn`` (the kernel's wrapper or its plain version) on rows
+    ``[lo, hi)`` of ``a``'s stacks (the client axis is the one before
+    the columns)."""
+    rows = slice(lo, hi)
+
+    def cut(t):
+        return None if t is None else t[..., rows].contiguous()
+
+    return fn(a["x"][..., rows, :].contiguous(),
+              a["y"][..., rows, :].contiguous(), cut(a["mask"]),
+              cut(a["echo"]), ETA_G, upload=cut(a["upload"]) if upload
+              else None)
+
+
+def check_partial(torch, ops, ref):
+    """K1 / K2's partial form and its finalize: per case, the partials of
+    the row blocks summed in block order and finalized, against the fused
+    K1 on the whole stack within PARTIAL_TOL in float32 and bfloat16 alike
+    (both forms widen a bfloat16 stack to float32 before any arithmetic),
+    each block's partial against its plain version within PARTIAL_TOL of
+    the partial's largest value (sums of up to m terms that may cancel;
+    the absolute error is reported beside it), and the finalize bit-equal
+    to its plain version; one counted launch of the partial per non-empty
+    block and of the finalize per case, none of the fused kernel.
+    Returns, at the placed path's shapes ([M_MAIN, N] float32), the
+    largest absolute errors against the plain versions per form, and the
+    partials' largest error against their largest value."""
+    errs = {"K1 partial": 0.0, "K2 partial": 0.0, "finalize": 0.0,
+            "K1 partial, of the largest": 0.0,
+            "K2 partial, of the largest": 0.0}
+    for i, (variant, m, n, dname, bounds, zero, S) in enumerate(
+            PARTIAL_CASES):
+        dtype = getattr(torch, dname)
+        up = variant == "K2"
+        a = (seed_inputs(torch, S, m, n, dtype, 300 + i, up) if S
+             else make_inputs(torch, m, n, dtype, seed=300 + i, upload=up))
+        blocks = list(zip(bounds[:-1], bounds[1:]))
+        if zero is not None:
+            a["mask"][..., blocks[zero][0]:blocks[zero][1]] = 0.0
+        fused = call_kernel(ops, variant, a)
+        torch.cuda.synchronize()
+        before = (launch_count(ops, variant), partial_launches(ops))
+        tol = PARTIAL_TOL
+        total = plain_total = None
+        part_err = part_abs = 0.0
+        for lo, hi in blocks:
+            p = call_partial(ops.echo_aggregate_partial, a, lo, hi, up)
+            q = call_partial(ref.echo_aggregate_partial_ref, a, lo, hi, up)
+            # sums of up to m terms that cancel: each seed's partial's
+            # error against its own largest value (at least 1)
+            diff = (p - q).abs().amax(dim=-1)
+            err = (diff / q.abs().amax(dim=-1).clamp(min=1.0)).max().item()
+            require(err <= tol,
+                    f"partial {variant} rows [{lo}, {hi}) of ({m}, {n}, "
+                    f"{dname}, S={S}) against its plain version: {err}")
+            part_err = max(part_err, err)
+            part_abs = max(part_abs, diff.max().item())
+            total = p if total is None else total + p
+            plain_total = q if plain_total is None else plain_total + q
+        out = ops.echo_aggregate_finalize(total, a["g"])
+        plain = ref.echo_aggregate_finalize_ref(total, a["g"])
+        whole = ref.echo_aggregate_finalize_ref(plain_total, a["g"])
+        torch.cuda.synchronize()
+        after = (launch_count(ops, variant), partial_launches(ops))
+        nonempty = sum(hi > lo for lo, hi in blocks)
+        key = "partial_upload" if up else "partial"
+        counted = {k: after[1][k] - before[1][k] for k in after[1]}
+        fin_err = (out - plain).abs().max().item()
+        fused_err = (out - fused).abs().max().item()
+        expect = dict(partial=0, partial_upload=0, finalize=1)
+        expect[key] = nonempty
+        ok = (after[0] == before[0] and counted == expect
+              and torch.equal(out, plain)
+              and torch.allclose(out, fused, rtol=tol, atol=tol)
+              and torch.allclose(whole, fused, rtol=tol, atol=tol)
+              and bool(torch.isfinite(out).all()))
+        emit(dict(phase="kernel_check", kernel=f"{variant} partial", m=m,
+                  n=n, dtype=dname, seeds=S, blocks=blocks,
+                  zero_mask_block=zero, launches=counted,
+                  partial_vs_plain_abs=part_abs,
+                  partial_vs_plain_of_largest=part_err,
+                  finalize_vs_plain=fin_err, vs_fused=fused_err, tol=tol,
+                  ok=ok))
+        require(ok, f"partial form {variant} at ({m}, {n}, {dname}, "
+                    f"S={S}) disagrees with the fused kernel or its plain "
+                    "version")
+        if (m, n, dname, S) == (M_MAIN, N_MAIN, "float32", 0):
+            for k, e in ((f"{variant} partial", part_abs),
+                         (f"{variant} partial, of the largest", part_err),
+                         ("finalize", fin_err)):
+                errs[k] = max(errs[k], e)
+        del a, fused, total, plain_total, out, plain, whole
+    torch.cuda.empty_cache()
+    return errs
+
+
+def partial_bound(m, n, upload, seeds=1):
+    """Least time in ms of the partial form: x and y read once (float32),
+    the [m] vectors read, the [N + 1] partials written, about 5 float32
+    operations per (client, column) element."""
+    nbytes = seeds * (2 * m * n * 4 + 4 * m * (3 if upload else 2)
+                      + (n + 1) * 4)
+    flops = 5 * seeds * m * n
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations", nbytes)
+
+
+def time_partial(torch, ops, ref, smi):
+    """The partial form at a placed rank's rows of the FL path ([50, N]
+    float32, K1 and K2) and at the LM stack's two blocks ([4, 128 983
+    488]), and the finalize at N: device time per call (``graph_ms``,
+    CUDA graphs of calls over operand sets rotating through more than
+    the 50 MB L2; one set at the LM stack, 2.1 GB a call), the kernel and
+    its plain version in turns, beside the bound."""
+    out = {}
+    cases = [("K1 partial", 50, N_MAIN, False, 8, 64),
+             ("K2 partial", 50, N_MAIN, True, 8, 64),
+             ("K1 partial, LM stack", 4, LM_STACK_N, False, 1, 2)]
+    for name, m, n, up, n_sets, n_calls in cases:
+        sets = [make_inputs(torch, m, n, torch.float32, seed=77 + j,
+                            upload=up) for j in range(n_sets)]
+
+        def kern(i):
+            return call_partial(ops.echo_aggregate_partial,
+                                sets[i % n_sets], 0, m, up)
+
+        def plain(i):
+            return call_partial(ref.echo_aggregate_partial_ref,
+                                sets[i % n_sets], 0, m, up)
+        t = [graph_ms(torch, f, n_calls) for f in (kern, plain, plain, kern)]
+        b_ms, b_by, nbytes = partial_bound(m, n, up)
+        out[name] = dict(ms=(t[0] + t[3]) / 2, turns_ms=[t[0], t[3]],
+                         plain_ms=(t[1] + t[2]) / 2, bound_ms=b_ms,
+                         bound_by=b_by)
+        emit(dict(phase="kernel_time", card=smi, kernel=name, m=m, n=n,
+                  bytes=nbytes, share=b_ms / out[name]["ms"],
+                  **out[name]))
+        del sets
+    parts = [torch.randn(N_MAIN + 1, device="cuda") for _ in range(8)]
+    for q in parts:
+        q[-1] = 3.0
+    g = [torch.randn(N_MAIN, device="cuda") for _ in range(8)]
+    t = [graph_ms(torch, f, 64) for f in (
+        lambda i: ops.echo_aggregate_finalize(parts[i % 8], g[i % 8]),
+        lambda i: ref.echo_aggregate_finalize_ref(parts[i % 8], g[i % 8]),
+        lambda i: ref.echo_aggregate_finalize_ref(parts[i % 8], g[i % 8]),
+        lambda i: ops.echo_aggregate_finalize(parts[i % 8], g[i % 8]))]
+    nbytes = (3 * N_MAIN + 1) * 4   # the partials and g read, out written
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * N_MAIN / FP32_FLOP_PER_S
+    out["finalize"] = dict(ms=(t[0] + t[3]) / 2, turns_ms=[t[0], t[3]],
+                           plain_ms=(t[1] + t[2]) / 2,
+                           bound_ms=1e3 * max(t_bytes, t_ops),
+                           bound_by="bytes" if t_bytes >= t_ops
+                           else "operations")
+    emit(dict(phase="kernel_time", card=smi, kernel="finalize", n=N_MAIN,
+              bytes=nbytes, share=out["finalize"]["bound_ms"]
+              / out["finalize"]["ms"], **out["finalize"]))
+    torch.cuda.empty_cache()
+    return out
+
+
+#: phase 3o: two seeds over a (2, 1, 2) ('seed', 'pod', 'data') mesh of
+#: four ranks on one card, each rank 50 clients of one seed
+PLACED_SEEDS, PLACED_RANKS, PLACED_ROUNDS, PLACED_K = 2, 4, 16, 8
+PLACED_CELLS = (("sine", "fedawe/sine"),
+                ("fault", "fedawe/stale_d2+midround"))
+#: globals, client stacks and losses: the placed sums add the ranks'
+#: partials in another order than one launch over all rows
+PLACED_TOL = 1e-5
+#: the spawned ranks' whole phase, setup included
+PLACED_TIMEOUT_S = 300
+
+
+def placed_run(torch, experiments, prng, mesh_or_none, name):
+    """One cell of phase 3o through ``run_multi_seed`` as ``run_scenario``
+    drives it: unplaced (``mesh_or_none`` None) or as this rank's part of
+    the mesh (its round built for its client block), on the current
+    card."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    sc = experiments.get_scenario(name)
+    pl = (None if mesh_or_none is None else
+          experiments.seed_chunk_placement(mesh_or_none, M_MAIN,
+                                           PLACED_SEEDS))
+    fl, rf, params, ds, eval_fn, _, fault, stale = experiments._cell_task(
+        sc, preset="image", seed=0, use_kernel=True, rounds=PLACED_ROUNDS,
+        device=dev, place=None if pl is None else pl.clients, **SEED_TASK)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message=".*performance drop")
+        states, hists, finals = experiments.run_multi_seed(
+            fl, rf, params, ds, sampling=sc.sampling,
+            batch=SEED_TASK["batch"], seeds=PLACED_SEEDS,
+            rounds=PLACED_ROUNDS, chunk_rounds=PLACED_K,
+            rng=prng.PRNGKey(0, dev), data_key=prng.PRNGKey(1, dev),
+            eval_fn=eval_fn, mesh=pl, fault=fault, stale=stale)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    held = None
+    if pl is not None:
+        # what the rank holds, then the whole state gathered for the gates
+        held = dict(clients_tr=tuple(states.local.clients_tr.shape),
+                    state_bytes=leaf_bytes(torch, states.local))
+        states = experiments.join_seed_shards(states)
+    return dict(states=states, hists=hists, finals=finals, wall_s=wall,
+                peak_bytes=peak, held=held,
+                state_bytes=leaf_bytes(torch, states))
+
+
+def leaf_bytes(torch, tree):
+    """Bytes of the tensor leaves of ``tree``."""
+    import torch.utils._pytree as pytree
+
+    return sum(v.numel() * v.element_size() for v in pytree.tree_leaves(tree)
+               if torch.is_tensor(v))
+
+
+def placed_rank(rank, store_path, out_dir):
+    """One rank of phase 3o, spawned: joins a gloo group through a
+    ``FileStore`` (NCCL refuses two ranks on one card, and the four ranks
+    share card 0), builds the ``(2, 1, 2)`` seed mesh, and runs the two
+    cells (the first twice, for the timing turns), counting every K1
+    form's launches from 0 just before each run.  Writes its counts and
+    times, and rank 0 the gathered results, under ``out_dir``."""
+    import faulthandler
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import prng
+    from repro_torch.kernels.echo_aggregate import ops
+    from repro_torch.launch import experiments, mesh
+
+    faulthandler.enable()      # a crash in native code prints its stack
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store_path,
+                                                         PLACED_RANKS),
+                            rank=rank, world_size=PLACED_RANKS)
+    try:
+        m = mesh.make_seed_mesh(PLACED_SEEDS, device_type="cuda")
+        out = dict(mesh=mesh.mesh_axis_sizes(m), runs={})
+        for tag, name in PLACED_CELLS + (("sine_again", "fedawe/sine"),):
+            ops.echo_aggregate_flat.launches = 0
+            ops.echo_aggregate_flat.upload_launches = 0
+            ops.echo_aggregate_partial.launches = 0
+            ops.echo_aggregate_partial.upload_launches = 0
+            ops.echo_aggregate_finalize.launches = 0
+            r = placed_run(torch, experiments, prng, m, name)
+            r["launches"] = dict(
+                fused=ops.echo_aggregate_flat.launches,
+                fused_upload=ops.echo_aggregate_flat.upload_launches,
+                **partial_launches(ops))
+            if rank != 0:
+                r = {k: r[k] for k in ("launches", "wall_s", "peak_bytes",
+                                       "held")}
+            out["runs"][tag] = r
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(torch, fn, nprocs, args, timeout_s):
+    """``fn(rank, *args)`` in ``nprocs`` spawned processes, joined within
+    ``timeout_s``: a rank that raises, or a hung collective past the
+    limit, kills the others and fails the phase."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(fn, args=args, nprocs=nprocs, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + timeout_s
+    try:
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"ranks still running after "
+                                     f"{timeout_s} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+
+
+def placed_fl_path(torch, experiments, prng, ops, counts, smi):
+    """Phase 3o: fedawe/sine and fedawe/stale_d2+midround at the FL path's
+    size (m 100, s 5, batch 32, the full-width CNN), 2 seeds, 16 rounds
+    in chunks of 8, with the kernel: unplaced in this process (the fused
+    K1 / K2 once a round for both seeds), then over four spawned ranks on
+    card 0 (``placed_rank``), each holding 50 clients of one seed, then
+    unplaced again (the timing turns: unplaced, placed, placed,
+    unplaced).  Gates: each rank's partial form once a round (K2's under
+    the fault cell), the finalize once a round, the fused kernel never;
+    the placed run's histories' counts (n_active, mean_echo and the fault
+    cell's n_dropped, n_rejected, n_stale, mean_staleness), τ, keys, t,
+    markov and ring ages bit-equal to the unplaced run's, losses, globals
+    and client stacks within PLACED_TOL, final evals within 2 of 1 024."""
+    import tempfile
+
+    unplaced = {}
+    for tag, name in PLACED_CELLS:
+        counts.reset()
+        unplaced[tag] = placed_run(torch, experiments, prng, None, name)
+        unplaced[tag]["launches"] = counts.read()
+    require(unplaced["sine"]["launches"]["K1"] == PLACED_ROUNDS
+            and unplaced["fault"]["launches"]["K2"] == PLACED_ROUNDS,
+            f"unplaced launches {[unplaced[t]['launches'] for t in unplaced]}")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        spawn_ranks(torch, placed_rank, PLACED_RANKS,
+                    (os.path.join(tmp, "store"), tmp), PLACED_TIMEOUT_S)
+        spawned_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                            weights_only=False)
+                 for r in range(PLACED_RANKS)]
+    again = placed_run(torch, experiments, prng, None, "fedawe/sine")
+    require(ranks[0]["mesh"] == {"seed": 2, "pod": 1, "data": 2},
+            f"placed mesh {ranks[0]['mesh']}")
+    want = dict(sine=dict(fused=0, fused_upload=0, partial=PLACED_ROUNDS,
+                          partial_upload=0, finalize=PLACED_ROUNDS),
+                fault=dict(fused=0, fused_upload=0, partial=0,
+                           partial_upload=PLACED_ROUNDS,
+                           finalize=PLACED_ROUNDS))
+    want["sine_again"] = want["sine"]
+    held = (PLACED_SEEDS // 2, M_MAIN // 2, N_MAIN)
+    for r, rk in enumerate(ranks):
+        for tag, w in want.items():
+            require(rk["runs"][tag]["launches"] == w,
+                    f"rank {r} {tag} launches {rk['runs'][tag]['launches']}")
+            require(rk["runs"][tag]["held"]["clients_tr"] == held,
+                    f"rank {r} {tag} holds {rk['runs'][tag]['held']}")
+    exact = ("n_active", "mean_echo", "t", "n_dropped", "n_rejected",
+             "n_stale", "mean_staleness")
+    diffs = {}
+    for tag, _ in PLACED_CELLS:
+        a, b = ranks[0]["runs"][tag], unplaced[tag]
+        loss_diff = 0.0
+        for ha, hb in zip(a["hists"], b["hists"]):
+            require(len(ha) == len(hb) == PLACED_ROUNDS, "placed history")
+            for ra, rb in zip(ha, hb):
+                require(set(ra) == set(rb), f"metric keys {set(ra)}")
+                require(all(ra[k] == rb[k] for k in exact if k in ra),
+                        f"placed {tag} counts differ: {ra} {rb}")
+                require(math.isfinite(ra["loss"]), f"loss {ra['loss']}")
+                loss_diff = max(loss_diff, abs(ra["loss"] - rb["loss"]))
+        sa, sb = a["states"], b["states"]
+        for name in ("tau", "rng", "t", "markov"):
+            require(torch.equal(getattr(sa, name).cpu(),
+                                getattr(sb, name).cpu()),
+                    f"placed {tag} {name} differs from the unplaced run")
+        if sb.stale is not None:
+            require(torch.equal(sa.stale["ages"].cpu(),
+                                sb.stale["ages"].cpu()),
+                    f"placed {tag} ring ages differ")
+        state_diff = max((getattr(sa, k).cpu() - getattr(sb, k).cpu())
+                         .abs().max().item()
+                         for k in ("global_tr", "clients_tr"))
+        eval_diff = max(abs(fa["eval_acc"] - fb["eval_acc"])
+                        for fa, fb in zip(a["finals"], b["finals"]))
+        require(loss_diff <= PLACED_TOL and state_diff <= PLACED_TOL,
+                f"placed {tag}: losses {loss_diff}, states {state_diff}")
+        require(eval_diff <= 2 / 1024, f"placed {tag} evals {eval_diff}")
+        diffs[tag] = dict(max_loss_diff=loss_diff,
+                          max_state_diff=state_diff,
+                          max_eval_diff=eval_diff)
+    placed_s = [max(rk["runs"][t]["wall_s"] for rk in ranks)
+                for t in ("sine", "sine_again")]
+    unplaced_s = [unplaced["sine"]["wall_s"], again["wall_s"]]
+    emit(dict(phase="placed_fl_path", card=smi, seeds=PLACED_SEEDS,
+              ranks=PLACED_RANKS, mesh=ranks[0]["mesh"], m=M_MAIN,
+              rows_per_rank=M_MAIN // 2, rounds=PLACED_ROUNDS,
+              chunk_rounds=PLACED_K, backend="gloo",
+              launches_per_rank={t: ranks[0]["runs"][t]["launches"]
+                                 for t in want},
+              unplaced_launches={t: unplaced[t]["launches"]
+                                 for t in unplaced},
+              placed_wall_s_turns=placed_s, unplaced_wall_s_turns=unplaced_s,
+              placed_wall_s=sum(placed_s) / 2,
+              unplaced_wall_s=sum(unplaced_s) / 2,
+              rank_state_bytes={t: [rk["runs"][t]["held"]["state_bytes"]
+                                    for rk in ranks] for t in want},
+              unplaced_state_bytes={t: unplaced[t]["state_bytes"]
+                                    for t in unplaced},
+              rank_peak_bytes={t: [rk["runs"][t]["peak_bytes"]
+                                   for rk in ranks] for t in want},
+              unplaced_peak_bytes={t: unplaced[t]["peak_bytes"]
+                                   for t in unplaced},
+              spawned_s=spawned_s, tol=PLACED_TOL, **diffs))
+    return dict(partial=ranks[0]["runs"]["sine"]["launches"]["partial"],
+                partial_upload=ranks[0]["runs"]["fault"]["launches"]
+                ["partial_upload"],
+                finalize=sum(ranks[0]["runs"][t]["launches"]["finalize"]
+                             for t, _ in PLACED_CELLS))
+
+
+# ---------------------------------------------------------------------------
 
 #: the port's example scripts and the arguments of their short runs here
 EXAMPLES = {"quickstart": ["--rounds", "200"],
@@ -5285,6 +5763,9 @@ class Counts:
         self.ops.echo_aggregate_flat.launches = 0
         self.ops.echo_aggregate_flat.upload_launches = 0
         self.ops.echo_aggregate.launches = 0
+        self.ops.echo_aggregate_partial.launches = 0
+        self.ops.echo_aggregate_partial.upload_launches = 0
+        self.ops.echo_aggregate_finalize.launches = 0
         self.fops.flash_mha.launches = 0
         self.sops.ssd_chunk.launches = 0
         self.sops.ssd_chunk.wgmma_launches = 0
@@ -5358,6 +5839,7 @@ def main():
     check_seed_axis(torch, ops, ref)
     tree_errs = check_tree_route(torch, ops, ref, strategies, cnn, prng,
                                  FlatSpec)
+    partial_errs = check_partial(torch, ops, ref)
     t1 = time.perf_counter()
     for name, build in builds.items():
         lib = build.result()
@@ -5565,6 +6047,13 @@ def main():
     compile_cache_path(cold_cache, smi)
     emit(dict(phase="mesh_examples_done", seconds=time.perf_counter() - t0,
               seed_mesh_launches=mesh_launches))
+    # phase 3o: the placed FL path, every count at 0 just before each run:
+    # two seeds' clients over four ranks on card 0 (the partial form, the
+    # all-reduce and the finalize) against the unplaced 2-seed run
+    t0 = time.perf_counter()
+    placed = placed_fl_path(torch, experiments, prng, ops, counts, smi)
+    partial_times = time_partial(torch, ops, ref, smi)
+    emit(dict(phase="placed_done", seconds=time.perf_counter() - t0))
 
     ssd_times = time_ssd(torch, sops, sref, get_config, smi)
     time_flash_sdpa(torch, fops, fref, smi, "zamba2-7b", ZAMBA_ATTN,
@@ -5614,6 +6103,30 @@ def main():
             max_abs_err=tree_errs[v], ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=None))
+    # K1 / K2's partial form and the finalize: per launch at a placed
+    # rank's rows of the FL path, [50, N] float32; their launches are rank
+    # 0's in phase 3o (the finalize's over both cells)
+    for v, key in (("K1", "partial"), ("K2", "partial_upload")):
+        t = partial_times[f"{v} partial"]
+        kernels.append(dict(
+            name=f"{names[v]}, partial form", route="cuda",
+            source="src/repro_torch/kernels/echo_aggregate/csrc/"
+                   "echo_aggregate.cu",
+            replaces=replaces[v], launches=placed[key],
+            max_abs_err=partial_errs[f"{v} partial"],
+            max_err_of_largest=partial_errs[f"{v} partial, of the largest"],
+            ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"], library_ms=None))
+    t = partial_times["finalize"]
+    kernels.append(dict(
+        name="echo_aggregate_finalize (K1 / K2 partial form's finalize)",
+        route="cuda",
+        source="src/repro_torch/kernels/echo_aggregate/csrc/"
+               "echo_aggregate.cu",
+        replaces=replaces["K1"], launches=placed["finalize"],
+        max_abs_err=partial_errs["finalize"], ms=t["ms"],
+        plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+        bound_by=t["bound_by"], library_ms=None))
     # K1 on the LM training stack: mamba2-130m's [8, 1.29e8] float32 flat
     # state, one launch a round of the full-width run
     kernels.append(dict(

@@ -23,6 +23,7 @@ import struct
 import torch
 
 from repro_torch.core import prng
+from repro_torch.sharding.placement import rows_of
 
 KINDS = ("stationary", "staircase", "sine", "interleaved_sine", "markov")
 
@@ -122,19 +123,24 @@ def probs_at(cfg: AvailabilityCfg, base_p, t):
     return torch.clamp(p, 0.0, 1.0)
 
 
-def sample_active(rng, cfg: AvailabilityCfg, base_p, t, markov_state=None):
-    """Returns (mask [m] float32, new_markov_state)."""
+def sample_active(rng, cfg: AvailabilityCfg, base_p, t, markov_state=None,
+                  place=None):
+    """Returns (mask [m] float32, new_markov_state).  Under a client
+    placement (``sharding.placement``) ``base_p`` is the whole ``[m]``,
+    the draw is made over all m clients and the rank's rows of it are
+    taken: the mask and ``markov_state`` are the rank's rows."""
     if cfg.kind == "markov":
         if markov_state is None:
             raise ValueError("kind='markov' needs the carried markov state")
-        u = prng.uniform(rng, markov_state.shape)
+        u = rows_of(prng.uniform(rng, base_p.shape), place)
         on = markov_state > 0.5
         stay_on = u > cfg.markov_down
-        turn_on = u < markov_turn_on(cfg, base_p)
+        turn_on = u < rows_of(markov_turn_on(cfg, base_p), place)
         new = torch.where(on, stay_on, turn_on).float()
         return new, new
     p = probs_at(cfg, base_p, t)
-    mask = (prng.uniform(rng, p.shape) < p).float()
+    mask = (rows_of(prng.uniform(rng, p.shape), place)
+            < rows_of(p, place)).float()
     return mask, markov_state
 
 

@@ -52,6 +52,14 @@ one through ``launch/experiments.run_seed_rounds``.  Building a state or
 a round applies the port's float32 policy (``device.float32_policy``:
 TF32 off), as the entry points do.
 
+Under a client placement (``place``, ``sharding/placement.py``; one
+process per device under a process group) a rank's state holds its rows
+of every client-stacked leaf, as ``sharding.flat_pspecs`` places them,
+and the round reduces over clients by explicit all-reduces: the
+aggregation's (FedAWE's kernel route: one, of the ``[N + 1]`` partial),
+and one of the round's metric sums stacked (``client_totals``).  The flat
+substrate only, no cohort.  Without one every path is as before.
+
 A cohort round gathers the round's active clients, at most ``c_max``,
 into a float32 ``[c, N]`` working set, runs local SGD and aggregation
 there, and writes the touched rows back into the resident ``[m, N]``
@@ -83,6 +91,7 @@ from repro_torch.core.tree_util import (_bshape, tree_broadcast,
                                         tree_map, tree_paths)
 from repro_torch.data.federated import gather_batches_at
 from repro_torch.device import float32_policy
+from repro_torch.sharding.placement import client_sum, rows_of
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,7 +158,7 @@ class FLState(NamedTuple):
 
 
 def init_fl_state(rng, cfg: FLConfig, trainable_template, *, fault=None,
-                  stale=None) -> FLState:
+                  stale=None, place=None) -> FLState:
     """Fresh state on the device of ``rng``; every field owns its buffer
     (nothing aliases the caller's template).  ``fault`` is the read-only
     carry from ``faults.init_fault_state``, ``stale`` the ring the round
@@ -162,13 +171,26 @@ def init_fl_state(rng, cfg: FLConfig, trainable_template, *, fault=None,
     Under the cohort the client stack is born in the resident dtype, and
     so is a memory strategy's memory (``init_extra_cohort``, with its
     float32 column sum) unless ``stale`` is given: with a ring the round
-    runs in dense lanes, and the memory keeps its dense float32 form."""
+    runs in dense lanes, and the memory keeps its dense float32 form.
+
+    With a client placement ``place`` (the flat substrate) the state is
+    born with the rank's rows only, as ``sharding.flat_pspecs`` places
+    them: the client stack, a memory strategy's memory and the ``[m]``
+    vectors hold ``place.rows`` clients, and ``fault`` and ``stale`` are
+    the rank's carries (``init_fault_state(place=)``,
+    ``init_staleness_state(place=)``)."""
     float32_policy()
     strat = get_strategy(cfg.strategy)
     dev = rng.device
-    tau = torch.full((cfg.m,), -1, dtype=torch.int32, device=dev)
+    m = cfg.m
+    if place is not None:
+        _check_placed(cfg, place)
+        m = place.rows
+        _check_carry_rows(fault, m)
+        _check_carry_rows(stale, m)
+    tau = torch.full((m,), -1, dtype=torch.int32, device=dev)
     t = torch.zeros((), dtype=torch.int32, device=dev)
-    markov = torch.ones((cfg.m,), dtype=torch.float32, device=dev)
+    markov = torch.ones((m,), dtype=torch.float32, device=dev)
     if not cfg.flat_state:
         g = tree_map(lambda x: x.to(dev).clone(), trainable_template)
         return FLState(
@@ -181,16 +203,38 @@ def init_fl_state(rng, cfg: FLConfig, trainable_template, *, fault=None,
     g = spec.flatten(trainable_template).to(dev).clone()
     rdt = resident_dtype(cfg.resident_dtype)
     # stateless strategies never materialize the [m, N] client stack
-    clients = (g.to(rdt)[None].expand(cfg.m, spec.size).contiguous()
+    clients = (g.to(rdt)[None].expand(m, spec.size).contiguous()
                if strat.stateful_clients else None)
     if cfg.sparse_cohort and stale is None \
             and strat.init_extra_cohort is not None:
-        extra = strat.init_extra_cohort(g, cfg.m, rdt)
+        extra = strat.init_extra_cohort(g, m, rdt)
     else:
-        extra = strat.init_extra(g, cfg.m)
+        extra = strat.init_extra(g, m)
     return FLState(global_tr=g, clients_tr=clients, tau=tau, t=t,
                    extra=extra, markov=markov, rng=rng.clone(), spec=spec,
                    fault=fault, stale=stale)
+
+
+def _check_placed(cfg: FLConfig, place):
+    """A client placement needs the flat substrate without the cohort,
+    and the config's m."""
+    if not cfg.flat_state or cfg.sparse_cohort:
+        raise ValueError("a client placement needs the flat [m, N] "
+                         "substrate (flat_state) and no sparse cohort")
+    if place.m != cfg.m:
+        raise ValueError(f"the placement is of {place.m} clients; the "
+                         f"config has {cfg.m}")
+
+
+def _check_carry_rows(carry, rows):
+    """A placed fault or stale carry must hold the rank's ``rows``
+    clients: the client axis of a 3-D leaf is its middle one, else its
+    last (``sharding.flat_pspecs``)."""
+    for k, v in (carry or {}).items():
+        if v.shape[1 if v.dim() == 3 else -1] != rows:
+            raise ValueError(f"carry {k!r} {tuple(v.shape)} does not hold "
+                             f"the rank's {rows} clients: build it with "
+                             "place=")
 
 
 def global_trainables(state: FLState):
@@ -278,7 +322,7 @@ def local_sgd(trainable, frozen, batches, rng, *, s, eta_l, loss_fn,
 
 def make_round_fn(cfg: FLConfig, loss_fn: Callable, frozen: Any,
                   avail_cfg: AvailabilityCfg, base_p, fault_cfg=None,
-                  staleness_cfg=None):
+                  staleness_cfg=None, place=None):
     """Build the round function ``(state, batches[m, s, ...]) -> (state,
     metrics)`` with the frozen parameters ``frozen`` closed over: the
     round of ``make_round_fn_with_frozen`` (which documents the round),
@@ -286,7 +330,8 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, frozen: Any,
     its seed-batched form."""
     inner = make_round_fn_with_frozen(cfg, loss_fn, avail_cfg, base_p,
                                       fault_cfg=fault_cfg,
-                                      staleness_cfg=staleness_cfg)
+                                      staleness_cfg=staleness_cfg,
+                                      place=place)
 
     def round_fn(state: FLState, batches):
         return inner(state, frozen, batches)
@@ -295,12 +340,14 @@ def make_round_fn(cfg: FLConfig, loss_fn: Callable, frozen: Any,
         return inner.seeds(states, frozen, batches)
 
     round_fn.seeds = seeds_round_fn
+    round_fn.place = place
     return round_fn
 
 
 def make_round_fn_with_frozen(cfg: FLConfig, loss_fn: Callable,
                               avail_cfg: AvailabilityCfg, base_p,
-                              fault_cfg=None, staleness_cfg=None):
+                              fault_cfg=None, staleness_cfg=None,
+                              place=None):
     """Build the round function ``(state, frozen, batches[m, s, ...]) ->
     (state, metrics)``, the frozen parameters a runtime argument (a LoRA
     run's base); metrics are 0-d device tensors, read by nobody inside
@@ -331,6 +378,15 @@ def make_round_fn_with_frozen(cfg: FLConfig, loss_fn: Callable,
     state); with one, the cohort's results fill dense lanes of the
     synchronous path, whose ring is O(m·N) anyway.
 
+    ``place`` (a ``sharding.placement.ClientPlacement``) makes it the
+    round of one rank: the state holds the rank's client rows
+    (``init_fl_state(place=)``), ``base_p`` stays whole, every draw over
+    the m clients is made whole from the replicated key and sliced, every
+    sum over clients is all-reduced over the rank's group and the
+    population means divide by the global m, so masks, τ and keys are the
+    unplaced round's bits and the global agrees to float32 rounding.  The
+    flat substrate only, without the cohort.
+
     On tree state (``cfg.flat_state`` False) the round runs local SGD on
     the client-stacked tree, forms ``G = start − x_end`` and sanitizes
     per leaf, and aggregates through the strategy's ``aggregate``;
@@ -345,6 +401,11 @@ def make_round_fn_with_frozen(cfg: FLConfig, loss_fn: Callable,
                          "(flat_state)")
     c_max = min(cfg.sparse_cohort, cfg.m)
     rdt = resident_dtype(cfg.resident_dtype)
+    # the clients this round holds: all m, or the rank's rows
+    m_held = cfg.m
+    if place is not None:
+        _check_placed(cfg, place)
+        m_held = place.rows
 
     # The round is three parts: what comes before local SGD (keys,
     # availability, faults, the ring's drain and delays, the cohort), local
@@ -361,9 +422,9 @@ def make_round_fn_with_frozen(cfg: FLConfig, loss_fn: Callable,
         keys = prng.split(state.rng, n_keys)
         rng, k_av, k_loc = keys[0], keys[1], keys[2]
         mask, markov = sample_active(k_av, avail_cfg, base_p, state.t,
-                                     state.markov)
-        pre = dict(rng=rng, markov=markov,
-                   probs=probs_at(avail_cfg, base_p, state.t))
+                                     state.markov, place=place)
+        pre = dict(rng=rng, markov=markov, probs=rows_of(
+            probs_at(avail_cfg, base_p, state.t), place))
         if fault_cfg is not None:
             pre["k_up"] = keys[3]
             mask = _faults.compute_mask(fault_cfg, state.fault, mask,
@@ -375,8 +436,9 @@ def make_round_fn_with_frozen(cfg: FLConfig, loss_fn: Callable,
                 state.stale, state.t)
             mask = mask * (1.0 - _stale.busy_mask(state.stale))
             pre["delay"] = _stale.draw_delay(staleness_cfg, state.stale,
-                                             keys[-1], state.t, cfg.m)
-        loc_rngs = prng.split(k_loc, cfg.m)
+                                             keys[-1], state.t, cfg.m,
+                                             place=place)
+        loc_rngs = rows_of(prng.split(k_loc, cfg.m), place)
         if c_max:
             # after every availability layer, so no slot goes to a client
             # that could not compute; the actives beyond the cap are
@@ -418,18 +480,31 @@ def make_round_fn_with_frozen(cfg: FLConfig, loss_fn: Callable,
                                      batches, rngs, **kw)
         return spec.flatten_stacked(x_end_tr), losses
 
-    def sync_metrics(state, mask, mask_upload, losses):
-        """The synchronous round's metrics: under faults the delivered
-        clients define them, and a rejected client's loss (possibly
-        non-finite) is excluded by value, not just by weight."""
+    def client_totals(**sums):
+        """The named sums over the held clients, totalled over the ranks:
+        under a placement ONE all-reduce of them stacked (a round's
+        metric sums), without one the sums as they are."""
+        if place is None:
+            return sums
+        tot = client_sum(torch.stack(list(sums.values())), place)
+        return dict(zip(sums, tot.unbind(0)))
+
+    def sync_metrics(state, mask, mask_upload, losses, counts):
+        """The synchronous round's metrics (the fault ``counts`` after
+        them): under faults the delivered clients define them, and a
+        rejected client's loss (possibly non-finite) is excluded by value,
+        not just by weight."""
         safe = losses if fault_cfg is None else torch.where(
             torch.isfinite(losses), losses, 0.0)
         echo = (state.t - state.tau).float()
         mu = mask if mask_upload is None else mask_upload
-        denom = torch.clamp(torch.sum(mu), min=1.0)
-        return dict(loss=torch.sum(safe * mu) / denom,
-                    n_active=torch.sum(mask),
-                    mean_echo=torch.sum(echo * mu) / denom)
+        tot = client_totals(mu=torch.sum(mu), loss=torch.sum(safe * mu),
+                            n_active=torch.sum(mask),
+                            echo=torch.sum(echo * mu), **counts)
+        denom = torch.clamp(tot.pop("mu"), min=1.0)
+        return dict(loss=tot.pop("loss") / denom,
+                    n_active=tot.pop("n_active"),
+                    mean_echo=tot.pop("echo") / denom, **tot)
 
     def after(state, pre, start, x_end, losses):
         """The round after local SGD.  ``start`` and ``x_end`` are
@@ -453,10 +528,11 @@ def make_round_fn_with_frozen(cfg: FLConfig, loss_fn: Callable,
             age_eff = torch.where(arrived > 0, arr_age, 0.0)
         else:
             deliver, G_eff, x_end_eff = mask, G, x_end
-        mask_upload = None
+        mask_upload, counts = None, {}
         if fault_cfg is not None:
             mask_upload, n_dropped, n_rejected = _faults.upload_mask(
-                fault_cfg, pre["k_up"], deliver, G_eff)
+                fault_cfg, pre["k_up"], deliver, G_eff, place=place)
+            counts = dict(n_dropped=n_dropped, n_rejected=n_rejected)
             if fault_cfg.sanitize:
                 # scrub demoted rows by selection: the kernel forms w·x†
                 # and 0 * NaN = NaN, so a rejected row must hold finite
@@ -482,7 +558,7 @@ def make_round_fn_with_frozen(cfg: FLConfig, loss_fn: Callable,
         if cfg.flat_state:
             new_global, new_clients, new_tau, new_extra = \
                 strat.aggregate_flat(global_flat=state.global_tr,
-                                     clients_flat=start, **agg)
+                                     clients_flat=start, place=place, **agg)
         else:
             new_global, new_clients, new_tau, new_extra = strat.aggregate(
                 global_tr=state.global_tr, clients_tr=start, **agg)
@@ -493,19 +569,21 @@ def make_round_fn_with_frozen(cfg: FLConfig, loss_fn: Callable,
             safe = losses if fault_cfg is None else torch.where(
                 torch.isfinite(losses), losses, 0.0)
             echo = (state.t - state.tau).float()
-            den_mu = torch.clamp(torch.sum(mu0), min=1.0)
+            tot = client_totals(
+                mu=torch.sum(mu0), loss=torch.sum(safe * mask),
+                n_active=torch.sum(mask), echo=torch.sum(echo * mu0),
+                n_stale=torch.sum(arrived), age=torch.sum(age_eff * mu0),
+                **counts)
+            den_mu = torch.clamp(tot.pop("mu"), min=1.0)
+            n_active = tot.pop("n_active")
             metrics = dict(
-                loss=torch.sum(safe * mask)
-                / torch.clamp(torch.sum(mask), min=1.0),
-                n_active=torch.sum(mask),
-                mean_echo=torch.sum(echo * mu0) / den_mu,
-                n_stale=torch.sum(arrived),
-                mean_staleness=torch.sum(age_eff * mu0) / den_mu,
-            )
+                loss=tot.pop("loss") / torch.clamp(n_active, min=1.0),
+                n_active=n_active,
+                mean_echo=tot.pop("echo") / den_mu,
+                n_stale=tot.pop("n_stale"),
+                mean_staleness=tot.pop("age") / den_mu, **tot)
         else:
-            metrics = sync_metrics(state, mask, mask_upload, losses)
-        if fault_cfg is not None:
-            metrics.update(n_dropped=n_dropped, n_rejected=n_rejected)
+            metrics = sync_metrics(state, mask, mask_upload, losses, counts)
         new_state = state._replace(
             global_tr=new_global, clients_tr=new_clients, tau=new_tau,
             t=state.t + 1, extra=new_extra, markov=pre["markov"],
@@ -552,11 +630,11 @@ def make_round_fn_with_frozen(cfg: FLConfig, loss_fn: Callable,
         # full-[m] metric inputs (O(m) vectors): the scattered lanes hold
         # exact zeros wherever the mask does
         losses = torch.zeros_like(mask).scatter(-1, idx, losses_c)
+        counts = ({} if fault_cfg is None else
+                  dict(n_dropped=n_dropped, n_rejected=n_rejected))
         metrics = sync_metrics(state, mask,
                                None if mask_upload_c is None else mu_full,
-                               losses)
-        if fault_cfg is not None:
-            metrics.update(n_dropped=n_dropped, n_rejected=n_rejected)
+                               losses, counts)
         fields = dict(global_tr=new_global,
                       tau=torch.where(mu_full > 0, state.t, state.tau),
                       t=state.t + 1, extra=new_extra, markov=pre["markov"],
@@ -620,7 +698,7 @@ def make_round_fn_with_frozen(cfg: FLConfig, loss_fn: Callable,
         pre = vm(before)(state)
         if c_max:
             return cohort_part(state, frozen, batches, pre, vm)
-        start = start_of(state, cfg.m)
+        start = start_of(state, m_held)
         x_end, losses = local_update(state, frozen, start, batches,
                                      pre["loc_rngs"])
         return vm(after)(state, pre, start, x_end, losses)
@@ -637,11 +715,23 @@ def make_round_fn_with_frozen(cfg: FLConfig, loss_fn: Callable,
         return compose_round(states, frozen, batches, seed_vmap)
 
     round_fn.seeds = seeds_round_fn
+    round_fn.place = place
     return round_fn
 
 
+def _check_same_place(round_fn, sample_fn, place):
+    """An executor's round and sampler must be built for one placement:
+    ``place`` where given, else the round's (None without one)."""
+    want = getattr(round_fn, "place", None) if place is None else place
+    for name, fn in (("round", round_fn), ("sampler", sample_fn)):
+        if getattr(fn, "place", None) != want:
+            raise ValueError(f"the {name} function is built for placement "
+                             f"{getattr(fn, 'place', None)}; the executor "
+                             f"for {want}")
+
+
 def make_chunk_fn(cfg, round_fn, sample_fn, chunk_rounds, *,
-                  with_frozen=False):
+                  with_frozen=False, place=None):
     """Chunked round executor: K = ``chunk_rounds`` rounds per call.
 
     Returned callable: ``chunk(state, sampler_state, store, data_key) ->
@@ -652,11 +742,15 @@ def make_chunk_fn(cfg, round_fn, sample_fn, chunk_rounds, *,
     fold_in(data_key, state.t))`` — keyed by the global round counter on the device, so a
     host loop driven through the same sampler and keys sees identical
     data.  Metrics come back stacked ``[K]`` per key, still on the device.
-    ``cfg`` is kept for signature symmetry with the reference."""
+    ``cfg`` is kept for signature symmetry with the reference.  ``place``
+    is the client placement the round and the sampler were built for
+    (checked; None: the round's): the chunk of one rank, its carries the
+    rank's rows and its metrics global."""
     del cfg
     K = int(chunk_rounds)
     if K < 1:
         raise ValueError(f"chunk_rounds must be >= 1; got {chunk_rounds}")
+    _check_same_place(round_fn, sample_fn, place)
 
     advance = (round_fn if with_frozen
                else (lambda st, _, b: round_fn(st, b)))
@@ -750,7 +844,7 @@ def index_seed(tree, j):
 
 
 def make_seeds_chunk_fn(cfg, round_fn, sample_fn, chunk_rounds, n_seeds, *,
-                        with_frozen=False):
+                        with_frozen=False, place=None):
     """S-batched chunk executor: one call advances ``n_seeds`` independent
     seed replicates by ``chunk_rounds`` rounds each.
 
@@ -779,13 +873,16 @@ def make_seeds_chunk_fn(cfg, round_fn, sample_fn, chunk_rounds, n_seeds, *,
     the sampler and the parts of the round around local SGD under
     ``seed_vmap`` and local SGD once over all S·m clients, so a round
     dispatches one seed's operations, each over S seeds' data.  ``cfg``
-    is kept for signature symmetry with the reference."""
+    is kept for signature symmetry with the reference.  ``place``: as
+    ``make_chunk_fn``'s, for the rank's client block of each of its
+    seeds."""
     del cfg
     K, S = int(chunk_rounds), int(n_seeds)
     if K < 1:
         raise ValueError(f"chunk_rounds must be >= 1; got {chunk_rounds}")
     if S < 1:
         raise ValueError(f"n_seeds must be >= 1; got {n_seeds}")
+    _check_same_place(round_fn, sample_fn, place)
     seeds_round = getattr(round_fn, "seeds", None)
     if seeds_round is None:
         raise ValueError("round_fn has no seed-batched form: build it with "
@@ -825,7 +922,7 @@ def make_seeds_chunk_fn(cfg, round_fn, sample_fn, chunk_rounds, n_seeds, *,
     return chunk
 
 
-def make_grid_chunk_fn(cells, chunk_rounds, n_seeds):
+def make_grid_chunk_fn(cells, chunk_rounds, n_seeds, *, place=None):
     """Packed grid executor: one call advances C grid cells x ``n_seeds``
     seeds x ``chunk_rounds`` rounds.  ``cells`` lists ``(round_fn,
     sample_fn)`` pairs; the cells are different computations, so their
@@ -837,10 +934,13 @@ def make_grid_chunk_fn(cells, chunk_rounds, n_seeds):
             -> (states_t, sampler_states_t, metrics_t)
 
     every argument and result a C-tuple over cells, element ``i`` laid
-    out as ``make_seeds_chunk_fn``'s."""
+    out as ``make_seeds_chunk_fn``'s.  ``place``: as
+    ``make_seeds_chunk_fn``'s, one placement for every cell (the cells of
+    a packed group share their m)."""
     if not cells:
         raise ValueError("make_grid_chunk_fn needs at least one cell")
-    bodies = [make_seeds_chunk_fn(None, rf, sf, chunk_rounds, n_seeds)
+    bodies = [make_seeds_chunk_fn(None, rf, sf, chunk_rounds, n_seeds,
+                                  place=place)
               for rf, sf in cells]
 
     def packed(states_t, sampler_states_t, stores_t, data_keys_t):

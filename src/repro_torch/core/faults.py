@@ -36,6 +36,7 @@ import torch
 from repro_torch.core.availability import AvailabilityCfg, availability_trace
 from repro_torch.core import prng
 from repro_torch.core.tree_util import tree_leaves
+from repro_torch.sharding.placement import n_clients, rows_of
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,14 +78,17 @@ class FaultCfg:
         return self.trace or self.blackout_len > 0
 
 
-def init_fault_state(cfg: FaultCfg | None, *, trace=None, clusters=None):
+def init_fault_state(cfg: FaultCfg | None, *, trace=None, clusters=None,
+                     place=None):
     """Build the ``FLState.fault`` dict (or None when the config needs no
     carried arrays).
 
     ``trace``: ``[T, m]`` 0/1 availability replay (required when
     ``cfg.trace``); ``clusters``: ``[m]`` data-cluster labels (required
     when ``cfg.blackout_len > 0``; see ``clusters_from_nu``).  Tensors
-    stay on their device; numpy arrays land on the CPU."""
+    stay on their device; numpy arrays land on the CPU.  Under a client
+    placement ``place`` (both given whole, as drawn) the carry holds the
+    rank's client columns, as ``sharding.flat_pspecs`` places it."""
     if cfg is None or not cfg.needs_state:
         return None
     st = {}
@@ -94,12 +98,13 @@ def init_fault_state(cfg: FaultCfg | None, *, trace=None, clusters=None):
         tr = torch.as_tensor(trace, dtype=torch.float32)
         if tr.dim() != 2:
             raise ValueError(f"trace must be [T, m]; got {tuple(tr.shape)}")
-        st["trace"] = tr
+        st["trace"] = rows_of(tr, place, 1).clone()
     if cfg.blackout_len > 0:
         if clusters is None:
             raise ValueError("blackout_len > 0 needs [m] cluster labels "
                              "(clusters_from_nu)")
-        st["clusters"] = torch.as_tensor(clusters, dtype=torch.int32)
+        st["clusters"] = rows_of(torch.as_tensor(clusters, dtype=torch.int32),
+                                 place).clone()
     return st
 
 
@@ -143,7 +148,8 @@ def update_norms_sq(G):
 
 def _fates(cfg: FaultCfg, survive_u, mask, G):
     """``upload_mask``'s body on given survival uniforms ``survive_u``
-    (None without mid-round dropout)."""
+    (None without mid-round dropout); the counts are over ``mask``'s
+    rows."""
     keep = mask
     dropped = torch.zeros((), dtype=torch.float32, device=mask.device)
     rejected = torch.zeros((), dtype=torch.float32, device=mask.device)
@@ -168,15 +174,20 @@ def _fates(cfg: FaultCfg, survive_u, mask, G):
     return keep, dropped, rejected
 
 
-def upload_mask(cfg: FaultCfg, rng, mask, G):
+def upload_mask(cfg: FaultCfg, rng, mask, G, place=None):
     """Post-compute fate of each active client's update.
 
     Returns ``(mask_upload, n_dropped, n_rejected)``: the survival draw
     marks mid-round dropouts, then sanitization demotes non-finite /
     norm-exploded innovations.  ``mask_upload`` is the effective
     aggregation mask (``<= mask`` elementwise); a client dropped or
-    rejected here behaves exactly as if it had never been sampled."""
-    u = prng.uniform(rng, mask.shape) if cfg.mid_round else None
+    rejected here behaves exactly as if it had never been sampled.  Under
+    a client placement ``mask`` and ``G`` are the rank's rows, the draw
+    is made over all m clients and sliced, and the counts are the rank's
+    (the round sums them over the ranks with its other metrics)."""
+    u = None
+    if cfg.mid_round:
+        u = rows_of(prng.uniform(rng, (n_clients(mask, place),)), place)
     return _fates(cfg, u, mask, G)
 
 

@@ -36,6 +36,7 @@ import dataclasses
 import torch
 
 from repro_torch.core import prng
+from repro_torch.sharding.placement import rows_of
 
 _KINDS = ("det", "geom", "trace")
 
@@ -77,14 +78,22 @@ class StalenessCfg:
 
 
 def init_staleness_state(cfg: StalenessCfg | None, n: int, m: int, *,
-                         dtrace=None, device=None):
+                         dtrace=None, device=None, place=None):
     """Build the ``FLState.stale`` dict (or None when the substrate is
     off) on ``device``: ``buf`` ``[tau_max, m, n]`` pending innovations
     and ``ages`` ``[tau_max, m]``, both zero (float32); ``dtrace``
     (``[T, m]``, required for ``kind="trace"``) is the replayed per-client
-    delay trace (see ``staircase_delay_trace``)."""
+    delay trace (see ``staircase_delay_trace``).  Under a client
+    placement ``place`` the ring and its ages are born with the rank's
+    ``place.rows`` clients and ``dtrace`` (given whole, as drawn) keeps
+    the rank's columns, as ``sharding.flat_pspecs`` places them."""
     if cfg is None or not cfg.needs_state:
         return None
+    if place is not None:
+        if place.m != m:
+            raise ValueError(f"the placement is of {place.m} clients, not "
+                             f"{m}")
+        m = place.rows
     st = {
         "buf": torch.zeros((cfg.tau_max, m, n), dtype=torch.float32,
                            device=device),
@@ -98,7 +107,7 @@ def init_staleness_state(cfg: StalenessCfg | None, n: int, m: int, *,
         tr = torch.as_tensor(dtrace, dtype=torch.float32, device=device)
         if tr.dim() != 2:
             raise ValueError(f"dtrace must be [T, m]; got {tuple(tr.shape)}")
-        st["dtrace"] = tr
+        st["dtrace"] = rows_of(tr, place, 1).clone()
     return st
 
 
@@ -107,19 +116,22 @@ def _slot(table, k):
     return table.index_select(0, k.reshape(1))[0]
 
 
-def draw_delay(cfg: StalenessCfg, stale_state, rng, t, m):
+def draw_delay(cfg: StalenessCfg, stale_state, rng, t, m, place=None):
     """Per-client upload delay for updates computed at round ``t``:
     ``[m]`` int32 in ``[0, tau_max]``.  The engine splits one key for
-    every kind, keeping the other streams aligned across dynamics."""
+    every kind, keeping the other streams aligned across dynamics.  Under
+    a client placement the draw is made over all ``m`` clients and the
+    rank's rows are returned (a trace's rows are the rank's already)."""
     dev = rng.device
     if cfg.kind == "det":
-        d = torch.full((m,), cfg.delay, dtype=torch.int32, device=dev)
+        d = rows_of(torch.full((m,), cfg.delay, dtype=torch.int32,
+                               device=dev), place)
     elif cfg.kind == "geom":
         # failures-before-first-success with P(arrive next round) = p_next:
         # d = 1 + floor(log1p(-u) / log1p(-p_next)), all in float32
-        u = prng.uniform(rng, (m,))
+        u = rows_of(prng.uniform(rng, (m,)), place)
         if cfg.p_next >= 1.0:
-            d = torch.ones((m,), dtype=torch.int32, device=dev)
+            d = torch.ones(u.shape, dtype=torch.int32, device=dev)
         else:
             q = torch.log1p(-torch.full((), cfg.p_next, dtype=torch.float32,
                                         device=dev))

@@ -45,6 +45,14 @@ Scalar strategy state (FedAU's cutoff ``K``, F3AST's ``beta``, FedAWE-M's
 ``beta``) is a 0-d float32 tensor on the state's device, so a round never
 reads it on the host and a checkpoint carries it as a leaf.
 
+Under a client placement (``place``, ``sharding/placement.py``) the flat
+path holds the rank's rows of every ``[m]`` and ``[m, N]`` operand: every
+reduction over clients goes through ``client_sum`` (an all-reduce over the
+rank's group; nothing without a placement), and the population means
+divide by the global m (``n_clients``), not by the rows held.  FedAWE's
+kernel route becomes the kernel's partial form, the all-reduce and the
+finalize.  The tree and cohort paths take no placement.
+
 ``mask_upload`` and ``ages`` keep the reference's signature: under fault
 injection ``mask_upload`` is the delivered-update weight; under the
 semi-async substrate it is the staleness-discounted delivery weight and
@@ -58,6 +66,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from repro_torch.core.cohort import cohort_payload
+from repro_torch.sharding.placement import client_sum, n_clients
 from repro_torch.core.tree_util import (_bshape, tree_broadcast,
                                         tree_leaves, tree_map,
                                         tree_masked_mean, tree_mean,
@@ -84,10 +93,10 @@ class Strategy:
     cohort_memory: tuple = ()
 
 
-def flat_weighted_sum(w, G):
+def flat_weighted_sum(w, G, place=None):
     """The one shared flat reduction: sum_i w_i * G_i over an [m, N] stack,
-    as a single float32 matvec."""
-    return w.float() @ G.float()
+    as a single float32 matvec (summed over ``place``'s ranks)."""
+    return client_sum(w.float() @ G.float(), place)
 
 
 def _scalar(value, template):
@@ -166,7 +175,7 @@ def _fedawe_aggregate(*, global_tr, clients_tr, G, mask, t, tau, probs,
 
 def _fedawe_aggregate_flat(*, global_flat, clients_flat, x_end, G, mask, t,
                            tau, probs, extra, eta_g, use_kernel=False,
-                           mask_upload=None, ages=None):
+                           mask_upload=None, ages=None, place=None):
     """FedAWE (``_fedawe_aggregate``) on the flat stack: with
     ``use_kernel`` one launch of the fused kernel; otherwise two
     matvecs, with no [m, N] temporary."""
@@ -174,14 +183,21 @@ def _fedawe_aggregate_flat(*, global_flat, clients_flat, x_end, G, mask, t,
     echo = (t - tau).float()
     if use_kernel:
         from repro_torch.kernels.echo_aggregate import ops as ea_ops
-        new_global = ea_ops.echo_aggregate_flat(
-            clients_flat, x_end, global_flat, mask, echo, eta_g,
-            upload=mask_upload)
+        if place is None:
+            new_global = ea_ops.echo_aggregate_flat(
+                clients_flat, x_end, global_flat, mask, echo, eta_g,
+                upload=mask_upload)
+        else:
+            parts = ea_ops.echo_aggregate_partial(
+                clients_flat, x_end, mask, echo, eta_g, upload=mask_upload)
+            new_global = ea_ops.echo_aggregate_finalize(
+                client_sum(parts, place), global_flat)
     else:
-        denom = torch.clamp(torch.sum(mu), min=1.0)
-        acc = (flat_weighted_sum(mu, clients_flat)
-               - eta_g * flat_weighted_sum(mu * echo, G)) / denom
-        new_global = torch.where(torch.sum(mu) > 0, acc, global_flat)
+        total = client_sum(torch.sum(mu), place)
+        denom = torch.clamp(total, min=1.0)
+        acc = (flat_weighted_sum(mu, clients_flat, place)
+               - eta_g * flat_weighted_sum(mu * echo, G, place)) / denom
+        new_global = torch.where(total > 0, acc, global_flat)
     new_clients = torch.where(mu[:, None] > 0, new_global[None],
                               clients_flat)
     new_tau = torch.where(mu > 0, t, tau)
@@ -222,12 +238,12 @@ FEDAWE = Strategy("fedawe", True, _no_extra, _fedawe_aggregate,
 # ---------------------------------------------------------------------------
 
 def _mk_weighted_fedavg(weight_fn, name, uses_true_probs=False):
-    def _denom(mu):
+    def _denom(mu, place=None):
         # fedavg_active divides by the round's delivered weight, the other
         # two by the population
         if name == "fedavg_active":
-            return torch.clamp(torch.sum(mu), min=1.0)
-        return mu.shape[0]
+            return torch.clamp(client_sum(torch.sum(mu), place), min=1.0)
+        return n_clients(mu, place)
 
     def agg(*, global_tr, clients_tr, G, mask, t, tau, probs, extra, eta_g,
             use_kernel=False, x_end=None, mask_upload=None, ages=None):
@@ -242,10 +258,12 @@ def _mk_weighted_fedavg(weight_fn, name, uses_true_probs=False):
         return new_global, new_clients, new_tau, extra
 
     def agg_flat(*, global_flat, clients_flat, x_end, G, mask, t, tau, probs,
-                 extra, eta_g, use_kernel=False, mask_upload=None, ages=None):
+                 extra, eta_g, use_kernel=False, mask_upload=None, ages=None,
+                 place=None):
         mu = mask if mask_upload is None else mask_upload
         w = weight_fn(mu, probs) * mu
-        new_global = global_flat - eta_g * flat_weighted_sum(w, G) / _denom(mu)
+        new_global = global_flat - eta_g * flat_weighted_sum(
+            w, G, place) / _denom(mu, place)
         return new_global, None, _stateless_tau(mu, t, tau), extra
 
     def agg_cohort(*, global_flat, cohort_flat, x_end, G, mask, t, tau_c,
@@ -314,10 +332,11 @@ def _fedau_aggregate(*, global_tr, clients_tr, G, mask, t, tau, probs, extra,
 
 def _fedau_aggregate_flat(*, global_flat, clients_flat, x_end, G, mask, t,
                           tau, probs, extra, eta_g, use_kernel=False,
-                          mask_upload=None, ages=None):
+                          mask_upload=None, ages=None, place=None):
     mu = mask if mask_upload is None else mask_upload
     w, new_extra = _fedau_weights(mu, extra)
-    new_global = global_flat - eta_g * flat_weighted_sum(w, G) / mu.shape[0]
+    new_global = global_flat - eta_g * flat_weighted_sum(
+        w, G, place) / n_clients(mu, place)
     return new_global, None, _stateless_tau(mu, t, tau), new_extra
 
 
@@ -363,10 +382,11 @@ def _f3ast_aggregate(*, global_tr, clients_tr, G, mask, t, tau, probs, extra,
 
 def _f3ast_aggregate_flat(*, global_flat, clients_flat, x_end, G, mask, t,
                           tau, probs, extra, eta_g, use_kernel=False,
-                          mask_upload=None, ages=None):
+                          mask_upload=None, ages=None, place=None):
     mu = mask if mask_upload is None else mask_upload
     w, new_extra = _f3ast_weights(mu, extra)
-    new_global = global_flat - eta_g * flat_weighted_sum(w, G) / mu.shape[0]
+    new_global = global_flat - eta_g * flat_weighted_sum(
+        w, G, place) / n_clients(mu, place)
     return new_global, None, _stateless_tau(mu, t, tau), new_extra
 
 
@@ -442,11 +462,11 @@ def _mifa_aggregate(*, global_tr, clients_tr, G, mask, t, tau, probs, extra,
 
 def _mifa_aggregate_flat(*, global_flat, clients_flat, x_end, G, mask, t,
                          tau, probs, extra, eta_g, use_kernel=False,
-                         mask_upload=None, ages=None):
+                         mask_upload=None, ages=None, place=None):
     mu = mask if mask_upload is None else mask_upload
     mem = torch.where(mu[:, None] > 0, G, extra["mem"])
     new_global = global_flat - eta_g * flat_weighted_sum(
-        torch.ones_like(mu), mem) / mu.shape[0]
+        torch.ones_like(mu), mem, place) / n_clients(mu, place)
     return new_global, None, _stateless_tau(mu, t, tau), dict(mem=mem)
 
 
@@ -489,13 +509,15 @@ def _fedvarp_aggregate(*, global_tr, clients_tr, G, mask, t, tau, probs,
 
 def _fedvarp_aggregate_flat(*, global_flat, clients_flat, x_end, G, mask, t,
                             tau, probs, extra, eta_g, use_kernel=False,
-                            mask_upload=None, ages=None):
+                            mask_upload=None, ages=None, place=None):
     mu = mask if mask_upload is None else mask_upload
     y = extra["y"]
-    denom = torch.clamp(torch.sum(mu), min=1.0)
-    diff_mean = flat_weighted_sum(mu, G - y) / denom
-    y_mean = flat_weighted_sum(torch.ones_like(mu), y) / mu.shape[0]
-    any_active = (torch.sum(mu) > 0).float()
+    total = client_sum(torch.sum(mu), place)
+    denom = torch.clamp(total, min=1.0)
+    diff_mean = flat_weighted_sum(mu, G - y, place) / denom
+    y_mean = flat_weighted_sum(torch.ones_like(mu), y,
+                               place) / n_clients(mu, place)
+    any_active = (total > 0).float()
     new_global = global_flat - eta_g * (any_active * diff_mean + y_mean)
     new_y = torch.where(mu[:, None] > 0, G, y)
     return new_global, None, _stateless_tau(mu, t, tau), dict(y=new_y)
@@ -559,7 +581,7 @@ def _fedawe_m_aggregate(*, global_tr, clients_tr, G, mask, t, tau, probs,
 
 def _fedawe_m_aggregate_flat(*, global_flat, clients_flat, x_end, G, mask, t,
                              tau, probs, extra, eta_g, use_kernel=False,
-                             mask_upload=None, ages=None):
+                             mask_upload=None, ages=None, place=None):
     """v ← β v + (gossip − x), x ← x + v on non-empty rounds; an empty
     round keeps the global (its gossip is the guarded previous global, so
     v decays by β)."""
@@ -567,10 +589,11 @@ def _fedawe_m_aggregate_flat(*, global_flat, clients_flat, x_end, G, mask, t,
     gossip, _, new_tau, _ = _fedawe_aggregate_flat(
         global_flat=global_flat, clients_flat=clients_flat, x_end=x_end, G=G,
         mask=mask, t=t, tau=tau, probs=probs, extra=(), eta_g=eta_g,
-        use_kernel=use_kernel, mask_upload=mask_upload)
+        use_kernel=use_kernel, mask_upload=mask_upload, place=place)
     beta = extra["beta"]
     v = beta * extra["v"] + (gossip - global_flat)
-    new_global = torch.where(torch.sum(mu) > 0, global_flat + v, global_flat)
+    new_global = torch.where(client_sum(torch.sum(mu), place) > 0,
+                             global_flat + v, global_flat)
     new_clients = torch.where(mu[:, None] > 0, new_global[None],
                               clients_flat)
     return new_global, new_clients, new_tau, dict(v=v, beta=beta)
@@ -630,13 +653,13 @@ def _fedar_aggregate(*, global_tr, clients_tr, G, mask, t, tau, probs, extra,
 
 def _fedar_aggregate_flat(*, global_flat, clients_flat, x_end, G, mask, t,
                           tau, probs, extra, eta_g, use_kernel=False,
-                          mask_upload=None, ages=None):
+                          mask_upload=None, ages=None, place=None):
     mu = mask if mask_upload is None else mask_upload
     r = _fedar_rect(mask, ages)
     mem = extra["mem"]
     mem = torch.where(mu[:, None] > 0, mem + r[:, None] * (G - mem), mem)
     new_global = global_flat - eta_g * flat_weighted_sum(
-        torch.ones_like(mask), mem) / mask.shape[0]
+        torch.ones_like(mask), mem, place) / n_clients(mask, place)
     return new_global, None, _stateless_tau(mu, t, tau), dict(mem=mem)
 
 

@@ -23,6 +23,13 @@ per-client column draws and the store, from which the round gathers its
 cohort's rows alone (``gather_batches_at``); ``contiguous_client_index``
 builds the index of a store of 10⁵ clients without a Python loop over
 them.
+
+Under a client placement (``sharding/placement.py``) a rank's store holds
+its rows of ``idx`` and ``counts`` and the whole ``arrays``
+(``device_store(place=)``), and its sampler (``make_device_sampler(
+place=)``) draws every round's columns over all m clients from the
+replicated key and keeps its rows, so a rank's batches and carry are the
+unplaced sampler's rows, bit for bit.
 """
 from __future__ import annotations
 
@@ -32,6 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import prng
+from repro_torch.sharding.placement import rows_of
 
 
 class FederatedDataset:
@@ -61,10 +69,11 @@ class FederatedDataset:
         pick = rng.choice(all_idx, size=min(n, len(all_idx)), replace=False)
         return {k: v[pick] for k, v in self.arrays.items()}
 
-    def device_store(self, device):
+    def device_store(self, device, *, place=None):
         """Device-resident store for on-device sampling: see module-level
         ``device_store``."""
-        return device_store(self.arrays, self.client_indices, device)
+        return device_store(self.arrays, self.client_indices, device,
+                            place=place)
 
 
 def padded_client_index(client_indices) -> Dict[str, np.ndarray]:
@@ -107,7 +116,7 @@ def _to_device(x, device):
 
 
 def device_store(arrays: Dict[str, np.ndarray], client_indices, device, *,
-                 padded=None):
+                 padded=None, place=None):
     """The on-device store consumed by ``make_device_sampler``:
 
       {'arrays': {k: [n, ...]}, 'idx': [m, cap] i64, 'counts': [m] i64}
@@ -115,7 +124,9 @@ def device_store(arrays: Dict[str, np.ndarray], client_indices, device, *,
     Integer arrays (labels, indices) are held as int64 for gathers; their
     values equal the reference store's int32 ones.  ``padded`` (a prebuilt
     ``{'idx', 'counts'}``, e.g. ``contiguous_client_index``) takes the
-    place of ``client_indices``."""
+    place of ``client_indices``.  A client placement ``place`` keeps the
+    rank's rows of ``idx`` and ``counts`` (the reference's ``shardings=``:
+    ``P(ca, None)`` and ``P(ca)``) and the whole ``arrays``."""
     if padded is None:
         if client_indices is None:
             raise ValueError("device_store needs client_indices or padded=")
@@ -123,8 +134,8 @@ def device_store(arrays: Dict[str, np.ndarray], client_indices, device, *,
     pad = padded
     return dict(
         arrays={k: _to_device(v, device) for k, v in arrays.items()},
-        idx=_to_device(pad["idx"], device),
-        counts=_to_device(pad["counts"], device),
+        idx=_to_device(rows_of(pad["idx"], place), device),
+        counts=_to_device(rows_of(pad["counts"], place), device),
     )
 
 
@@ -177,7 +188,8 @@ def gather_batches_at(store, cols, rows_idx, s, b):
 
 
 def make_device_sampler(m: int, s: int, b: int, mode: str = "uniform",
-                        min_count: int = 1, emit: str = "batches"):
+                        min_count: int = 1, emit: str = "batches",
+                        place=None):
     """Stateful round-batch sampler over a ``device_store``.
 
     ``mode="uniform"``: i.i.d. draws with replacement within each client
@@ -199,19 +211,31 @@ def make_device_sampler(m: int, s: int, b: int, mode: str = "uniform",
     ``emit="cols"`` returns ``{'cols': [m, s*b], 'store': store}``, the
     column draws and the store, for the cohort round, which gathers only
     its cohort's rows (``gather_batches_at``) while the draws and the
-    carry advance over the full population, as a dense run's."""
+    carry advance over the full population, as a dense run's.
+
+    ``place`` (a client placement; ``emit="batches"`` only) makes it the
+    sampler of one rank over a ``device_store(place=)`` store: its batches
+    and carry are the rank's rows of the unplaced sampler's, the uniform
+    columns drawn over all ``m`` clients and sliced, each epoch
+    permutation keyed by the client's global index.  ``sample.place`` is
+    ``place``."""
     if mode not in SAMPLING_MODES:
         raise ValueError(f"unknown sampling mode {mode!r}; "
                          f"expected one of {SAMPLING_MODES}")
     if emit not in ("batches", "cols"):
         raise ValueError(f"unknown emit mode {emit!r}; "
                          "expected 'batches' or 'cols'")
+    if place is not None and emit != "batches":
+        raise ValueError("a placed sampler emits batches (no cohort under "
+                         "a client placement)")
     q = s * b
+    # the clients this sampler draws for: all m, or the rank's rows
+    lo, rows = (0, m) if place is None else (place.lo, place.rows)
 
     def _emit(store, cols):
         if emit == "cols":
             return dict(cols=cols, store=store)
-        return _gather_batches(store, cols, m, s, b)
+        return _gather_batches(store, cols, rows, s, b)
 
     if mode == "uniform":
         def init_sampler_state(store, key):
@@ -219,9 +243,17 @@ def make_device_sampler(m: int, s: int, b: int, mode: str = "uniform",
             return {}
 
         def sample(store, sampler_state, key):
-            cols = prng.randint(key, (m, q), 0, store["counts"][:, None])
+            counts = store["counts"]
+            if place is not None:
+                # the other ranks' rows draw below 1 (their columns are
+                # dropped): randint is elementwise in its bound
+                counts = torch.nn.functional.pad(
+                    counts, (lo, m - lo - rows), value=1)
+            cols = rows_of(prng.randint(key, (m, q), 0, counts[:, None]),
+                           place)
             return _emit(store, cols), sampler_state
 
+        sample.place = place
         return init_sampler_state, sample
 
     # epoch offsets 0..n_off-1 can be touched within one round: the carried
@@ -235,7 +267,7 @@ def make_device_sampler(m: int, s: int, b: int, mode: str = "uniform",
         argsort, so the first ``counts[i]`` entries permute
         ``0..counts[i]-1``."""
         k = prng.fold_in(prng.fold_in(base_key, epochs),
-                         torch.arange(m, device=counts.device))
+                         torch.arange(lo, lo + rows, device=counts.device))
         u = prng.uniform(k, (cap,))
         pad = torch.arange(cap, device=counts.device) >= counts[:, None]
         u = torch.where(pad, float("inf"), u)
@@ -250,7 +282,8 @@ def make_device_sampler(m: int, s: int, b: int, mode: str = "uniform",
                 f"({smallest}): the epoch permutation stack would be too "
                 "short and sampling would silently repeat")
         cap = store["idx"].shape[1]
-        zeros = torch.zeros((m,), dtype=torch.int32, device=counts.device)
+        zeros = torch.zeros((rows,), dtype=torch.int32,
+                            device=counts.device)
         # every field owns its buffer (the carry is replaced, field by
         # field, every round)
         return dict(perm=_perms(key, zeros, counts, cap),
@@ -264,7 +297,7 @@ def make_device_sampler(m: int, s: int, b: int, mode: str = "uniform",
         cursor = sampler_state["cursor"].long()
         epoch = sampler_state["epoch"]
         base = sampler_state["key"]
-        rows = torch.arange(m, device=counts.device)
+        held = torch.arange(rows, device=counts.device)
         # global draw positions of this round, as (epoch offset, rank in
         # the epoch): a shard smaller than q wraps several times a round
         pos = cursor[:, None] + torch.arange(q, device=counts.device)
@@ -276,15 +309,16 @@ def make_device_sampler(m: int, s: int, b: int, mode: str = "uniform",
                             device=counts.device)
         new = _perms(base, epoch[None, :] + offs[:, None], counts, cap)
         stack = torch.cat([sampler_state["perm"][None], new], dim=0)
-        cols = stack[d, rows[:, None], r].long()                 # [m, q]
+        cols = stack[d, held[:, None], r].long()                 # [m, q]
         total = cursor + q
         wraps = total // counts
         return _emit(store, cols), dict(
-            perm=stack[wraps, rows],
+            perm=stack[wraps, held],
             cursor=(total % counts).to(torch.int32),
             epoch=epoch + wraps.to(torch.int32),
             key=base)
 
+    sample.place = place
     return init_sampler_state, sample
 
 

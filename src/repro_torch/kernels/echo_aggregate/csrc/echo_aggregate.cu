@@ -11,6 +11,14 @@
 //   * `echo_aggregate_pallas` (kernel.py:48; pallas_call :65), body
 //     `_kernel` (:23): neither.
 //
+// PARTIAL is the form a rank of a client placement launches on its own
+// rows: the kernel stops before the division and writes the float32
+// column sums sum_i w_i (x_in - c_i (x_in - y_in)) and, after them, the
+// weight sum sum_i w_i: N + 1 floats ([S, N + 1] on the seed axis), which
+// the caller all-reduces over the ranks; `echo_aggregate_finalize_kernel`
+// then divides by max(sum w, 1) and keeps g where sum w <= 0.  It reuses
+// the loads, the ring and the combine below unchanged.
+//
 // Per column n of the [m, N] stacks x (client starts) and y (post-local-SGD
 // clients):
 //
@@ -240,7 +248,7 @@ struct Args {
   float eta;
 };
 
-template <int DT, bool GUARD, bool UPLOAD>
+template <int DT, bool GUARD, bool UPLOAD, bool PARTIAL>
 __global__ void __launch_bounds__(kThreads)
     echo_aggregate_kernel(const Args a) {
   constexpr int ES = elem_bytes<DT>();
@@ -255,7 +263,7 @@ __global__ void __launch_bounds__(kThreads)
   const unsigned char* const xs = a.x + z * a.m * a.n * ES;
   const unsigned char* const ys = a.y + z * a.m * a.n * ES;
   const float* const gs = GUARD ? a.g + z * a.n : nullptr;
-  float* const outs = a.out + z * a.n;
+  float* const outs = a.out + z * (PARTIAL ? a.n + 1 : a.n);
   const float* const masks = a.mask + z * a.m;
   const float* const echos = a.echo + z * a.m;
   const float* const uploads = UPLOAD ? a.upload + z * a.m : nullptr;
@@ -413,6 +421,16 @@ __global__ void __launch_bounds__(kThreads)
   }
   if (tid >= kConsumers) return;
 
+  if (PARTIAL) {
+#pragma unroll
+    for (int q = 0; q < CPT; ++q) {
+      const int j = tid + q * kConsumers;
+      if (j < ncols) outs[c0 + j] = acc[q];
+    }
+    // every tile sums the same w in the same order: the first writes it
+    if (blockIdx.x == 0 && tid == 0) outs[a.n] = ws;
+    return;
+  }
   const float den = fmaxf(ws, 1.f);
   const bool keep = GUARD && !(ws > 0.f);
 #pragma unroll
@@ -427,11 +445,11 @@ __global__ void __launch_bounds__(kThreads)
 // take and asks for the largest shared-memory carveout (three blocks of
 // 65-70 KB an SM up to 3 slices), once per device (devices 0..63; any
 // others at every launch), on the calling thread's current device.
-template <int DT, bool GUARD, bool UPLOAD>
+template <int DT, bool GUARD, bool UPLOAD, bool PARTIAL>
 cudaError_t prepare() {
   constexpr int BN = kTileRowBytes / elem_bytes<DT>();
   static std::atomic<uint64_t> raised{0};
-  auto kernel = echo_aggregate_kernel<DT, GUARD, UPLOAD>;
+  auto kernel = echo_aggregate_kernel<DT, GUARD, UPLOAD, PARTIAL>;
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
@@ -473,23 +491,28 @@ cudaLaunchConfig_t config(long long n, int slices, int seeds,
 
 // Launches on the calling thread's current device (the wrapper selects
 // the tensors' device).
-template <int DT, bool GUARD, bool UPLOAD>
+template <int DT, bool GUARD, bool UPLOAD, bool PARTIAL = false>
 cudaError_t launch(const Args& a, int slices, int seeds,
                    cudaStream_t stream) {
-  cudaError_t err = prepare<DT, GUARD, UPLOAD>();
+  cudaError_t err = prepare<DT, GUARD, UPLOAD, PARTIAL>();
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg =
       config<DT>(a.n, slices, seeds, stream, attr);
-  err = cudaLaunchKernelEx(&cfg, echo_aggregate_kernel<DT, GUARD, UPLOAD>,
-                           a);
+  err = cudaLaunchKernelEx(
+      &cfg, echo_aggregate_kernel<DT, GUARD, UPLOAD, PARTIAL>, a);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
 template <int DT>
-cudaError_t launch_dtype(const Args& a, int guard, int slices, int seeds,
-                         cudaStream_t stream) {
+cudaError_t launch_dtype(const Args& a, int guard, int partial, int slices,
+                         int seeds, cudaStream_t stream) {
+  if (partial) {
+    if (a.upload != nullptr)
+      return launch<DT, false, true, true>(a, slices, seeds, stream);
+    return launch<DT, false, false, true>(a, slices, seeds, stream);
+  }
   if (a.upload != nullptr)
     return launch<DT, true, true>(a, slices, seeds, stream);
   if (guard) return launch<DT, true, false>(a, slices, seeds, stream);
@@ -499,9 +522,9 @@ cudaError_t launch_dtype(const Args& a, int guard, int slices, int seeds,
 // Blocks of the guarded float32 instantiation at `slices` resident on one
 // SM, and clusters of `slices` blocks resident on the card at once.
 cudaError_t occupancy(int slices, int* blocks_per_sm, int* clusters) {
-  cudaError_t err = prepare<0, true, false>();
+  cudaError_t err = prepare<0, true, false, false>();
   if (err != cudaSuccess) return err;
-  auto kernel = echo_aggregate_kernel<0, true, false>;
+  auto kernel = echo_aggregate_kernel<0, true, false, false>;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks_per_sm, kernel, kThreads,
       smem_bytes(kTileRowBytes / 4, slices));
@@ -512,14 +535,36 @@ cudaError_t occupancy(int slices, int* blocks_per_sm, int* clusters) {
   return cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
 }
 
+// The partial form's finalize, per column of each seed:
+// out = sum w > 0 ? sum / max(sum w, 1) : g, the fused kernel's epilogue
+// on the all-reduced [S, N + 1] partials.  It reads 2 and writes 1
+// float32 a column: bound by HBM bytes (and, at the FL path's N, by the
+// launch).
+__global__ void __launch_bounds__(256)
+    echo_aggregate_finalize_kernel(const float* parts, const float* g,
+                                   float* out, long long n,
+                                   long long total) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x
+                     + threadIdx.x;
+       i < total; i += stride) {
+    const long long z = i / n, c = i - z * n;
+    const float acc = parts[z * (n + 1) + c];
+    const float ws = parts[z * (n + 1) + n];
+    out[i] = ws > 0.f ? __fdiv_rn(acc, fmaxf(ws, 1.f)) : g[i];
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 // x, y: contiguous [seeds, m, n] stacks of dtype 0 (float32) or 1
 // (bfloat16), each at least element-aligned; g ([seeds, n], read with
-// guard), mask, upload ([seeds, m]; may be null; needs guard) and echo
-// ([seeds, m]) float32; out [seeds, n] float32.  block_cols must be the
+// guard), mask, upload ([seeds, m]; may be null; needs guard or partial)
+// and echo ([seeds, m]) float32; out [seeds, n] float32, or with partial
+// (which excludes guard) [seeds, n + 1]: the column sums and then the
+// weight sum, undivided.  block_cols must be the
 // kernel's tile for the dtype (1024 bytes of a row), slices in 1..8 and
 // seeds in 1..65535; the grid is (ceil(n / block_cols), slices, seeds) in
 // clusters of (1, slices, 1).  Runs on the calling thread's current device, which must
@@ -529,11 +574,11 @@ extern "C" {
 int echo_aggregate_fwd(const void* x, const void* y, const void* g,
                        const void* mask, const void* upload,
                        const void* echo, void* out, int dtype, int guard,
-                       long long m, long long n, float eta_g,
+                       int partial, long long m, long long n, float eta_g,
                        int block_cols, int slices, int seeds, void* stream) {
   if ((dtype != 0 && dtype != 1) || m < 1 || n < 1 || slices < 1 ||
       slices > kMaxSlices || seeds < 1 || seeds > 65535 ||
-      (upload != nullptr && !guard) ||
+      (upload != nullptr && !guard && !partial) || (partial && guard) ||
       block_cols != kTileRowBytes / (dtype == 0 ? 4 : 2) ||
       (n + block_cols - 1) / block_cols > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -549,9 +594,26 @@ int echo_aggregate_fwd(const void* x, const void* y, const void* g,
                eta_g};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      dtype == 0 ? launch_dtype<0>(a, guard, slices, seeds, st)
-                 : launch_dtype<1>(a, guard, slices, seeds, st);
+      dtype == 0 ? launch_dtype<0>(a, guard, partial, slices, seeds, st)
+                 : launch_dtype<1>(a, guard, partial, slices, seeds, st);
   return static_cast<int>(err);
+}
+
+// parts: contiguous float32 [seeds, n + 1] (the partial form's output,
+// summed over the ranks); g and out: [seeds, n] float32.  Returns the
+// launch's cudaError_t.
+int echo_aggregate_finalize(const void* parts, const void* g, void* out,
+                            long long n, int seeds, void* stream) {
+  if (n < 1 || seeds < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long total = n * seeds;
+  const long long blocks = (total + 255) / 256;
+  echo_aggregate_finalize_kernel<<<
+      static_cast<unsigned>(blocks < 4096 ? blocks : 4096), 256, 0,
+      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(parts), static_cast<const float*>(g),
+      static_cast<float*>(out), n, total);
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* echo_aggregate_error(int err) {

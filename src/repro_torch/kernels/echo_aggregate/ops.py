@@ -7,6 +7,14 @@ raveled into one ``echo_aggregate_flat`` call (one launch a round
 whatever the leaf count); ``echo_aggregate`` is the masked echo mean
 without the guard.
 
+Under a client placement (``sharding.placement``) a rank holds only its
+rows, and a rank's mean cannot be recombined with the others'.  There the
+update is three steps: ``echo_aggregate_partial`` (the kernel's partial
+form: the undivided column sums and weight sum, ``[N + 1]``) on the rank's
+rows, an all-reduce of those over the ranks, and
+``echo_aggregate_finalize`` (the division and the guard).  Both are custom
+operators with the same seed-axis vmap rule as the fused one.
+
 ``echo_aggregate_flat`` goes through the custom operator
 ``repro_torch::echo_aggregate_flat``, whose ``torch.func.vmap`` rule is
 the kernel's seed axis: under the seed-batched round
@@ -23,8 +31,10 @@ the kernel to the plain version or to anything else.  Each wrapper counts
 its kernel launches in plain integer attributes
 (``echo_aggregate_flat.launches`` for the fault-free update,
 ``echo_aggregate_flat.upload_launches`` for the ``upload=`` variant,
-``echo_aggregate.launches``), so a run can show that it went through the
-kernel; a launch over a seed axis counts once.  A caller resets them by
+``echo_aggregate.launches``, and the same two on
+``echo_aggregate_partial``, ``echo_aggregate_finalize.launches``), so a
+run can show that it went through the kernel; a launch over a seed axis
+counts once.  A caller resets them by
 assigning 0.
 
 ``launch_geometry`` chooses the kernel's grid from the shapes and the
@@ -42,8 +52,9 @@ import torch
 
 from repro_torch.core.flatten import FlatSpec
 from repro_torch.kernels.echo_aggregate import kernel, kernel_triton
-from repro_torch.kernels.echo_aggregate.ref import (echo_aggregate_fused_ref,
-                                                    echo_aggregate_ref)
+from repro_torch.kernels.echo_aggregate.ref import (
+    echo_aggregate_finalize_ref, echo_aggregate_fused_ref,
+    echo_aggregate_partial_ref, echo_aggregate_ref)
 
 STACK_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -160,20 +171,22 @@ def _sm_count(device):
     return _N_SM[idx]
 
 
-def _launch(x, y, g, mask, echo, eta_g, upload, *, guard, slices=None):
+def _launch(x, y, g, mask, echo, eta_g, upload, *, guard, slices=None,
+            partial=False):
     """One launch of the CUDA kernel on checked operands (with a seed
     axis, one launch for every seed); ``slices`` None takes
-    ``launch_geometry``'s."""
+    ``launch_geometry``'s.  ``partial`` writes ``[..., N + 1]``."""
     seeds = x.shape[0] if x.dim() == 3 else 1
     m, n = x.shape[-2:]
     block_cols, s = launch_geometry(m, n, x.element_size(),
                                     _sm_count(x.device), seeds)
-    out = torch.empty(x.shape[:-2] + (n,), dtype=torch.float32,
-                      device=x.device)
+    out = torch.empty(x.shape[:-2] + (n + 1 if partial else n,),
+                      dtype=torch.float32, device=x.device)
     kernel.launch(x, y, _f32(g) if guard else None, _f32(mask),
                   _f32(upload), _f32(echo), out, eta_g, guard=guard,
                   block_cols=block_cols,
-                  slices=s if slices is None else slices, seeds=seeds)
+                  slices=s if slices is None else slices, seeds=seeds,
+                  partial=partial)
     return out
 
 
@@ -225,26 +238,132 @@ def _(x, y, g, mask, echo, eta_g, upload):
     return x.new_empty(x.shape[:-2] + x.shape[-1:], dtype=torch.float32)
 
 
+def _seeds_first(S, t, d):
+    """``t`` with its seed axis ``d`` moved first, or broadcast to ``S``
+    seeds where it has none (None stays None)."""
+    if t is None:
+        return None
+    return t.movedim(d, 0) if d is not None \
+        else t.expand((S,) + tuple(t.shape))
+
+
 def _fused_seeds(info, in_dims, x, y, g, mask, echo, eta_g, upload):
     """The operator's vmap rule: every operand brought to a leading seed
     axis (an unbatched one broadcast, the stacks made contiguous where
     they are not), then the operator once on the ``[S, ...]`` tensors."""
     S = info.batch_size
-
-    def seeds_first(t, d):
-        if t is None:
-            return None
-        return t.movedim(d, 0) if d is not None \
-            else t.expand((S,) + tuple(t.shape))
-
-    x, y, g, mask, echo = (seeds_first(t, d) for t, d in zip(
+    x, y, g, mask, echo = (_seeds_first(S, t, d) for t, d in zip(
         (x, y, g, mask, echo), in_dims[:5]))
-    upload = seeds_first(upload, in_dims[6])
+    upload = _seeds_first(S, upload, in_dims[6])
     return _fused_op(x.contiguous(), y.contiguous(), g, mask, echo, eta_g,
                      upload), 0
 
 
 torch.library.register_vmap(_fused_op, _fused_seeds)
+
+
+def echo_aggregate_partial(x, y, mask, echo, eta_g, *, upload=None):
+    """The partial form on a rank's rows: ``[N + 1]`` float32 (``[S, N +
+    1]`` on the seed axis), the column sums ``sum_i w_i (x_i - eta_g
+    echo_i (x_i - y_i))`` and, last, the weight sum ``sum_i w_i`` (``w =
+    mask``,
+    times ``upload`` where given), undivided and unguarded: one counted
+    launch of the kernel's partial instantiation on the card.  A rank
+    whose block is empty (``m`` = 0) gets zeros without a launch."""
+    _check_eta(eta_g)
+    return _partial_op(x, y, mask, echo, eta_g, upload)
+
+
+echo_aggregate_partial.launches = 0
+echo_aggregate_partial.upload_launches = 0
+
+
+@torch.library.custom_op("repro_torch::echo_aggregate_partial",
+                         mutates_args=())
+def _partial_op(x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
+                echo: torch.Tensor, eta_g: float,
+                upload: Optional[torch.Tensor]) -> torch.Tensor:
+    if x.dim() in (2, 3) and x.shape[-2] == 0:
+        if x.shape != y.shape:
+            raise ValueError(f"x, y differ: {tuple(x.shape)}, "
+                             f"{tuple(y.shape)}")
+        return torch.zeros(x.shape[:-2] + (x.shape[-1] + 1,),
+                           dtype=torch.float32, device=x.device)
+    _check(x, y, dict(mask=mask, echo=echo, upload=upload))
+    if x.device.type == "cpu":
+        return echo_aggregate_partial_ref(x, y, mask, echo, eta_g,
+                                          upload=upload)
+    out = _launch(x, y, None, mask, echo, eta_g, upload, guard=False,
+                  partial=True)
+    if upload is None:
+        echo_aggregate_partial.launches += 1
+    else:
+        echo_aggregate_partial.upload_launches += 1
+    return out
+
+
+@_partial_op.register_fake
+def _(x, y, mask, echo, eta_g, upload):
+    return x.new_empty(x.shape[:-2] + (x.shape[-1] + 1,),
+                       dtype=torch.float32)
+
+
+def _partial_seeds(info, in_dims, x, y, mask, echo, eta_g, upload):
+    S = info.batch_size
+    x, y, mask, echo = (_seeds_first(S, t, d) for t, d in zip(
+        (x, y, mask, echo), in_dims[:4]))
+    upload = _seeds_first(S, upload, in_dims[5])
+    return _partial_op(x.contiguous(), y.contiguous(), mask, echo, eta_g,
+                       upload), 0
+
+
+torch.library.register_vmap(_partial_op, _partial_seeds)
+
+
+def echo_aggregate_finalize(parts, g):
+    """The update from the ranks' summed partials ``[N + 1]`` (or ``[S,
+    N + 1]``) and the previous global ``g`` ``[N]`` (``[S, N]``): ``acc /
+    max(sum w, 1)``, ``g`` where ``sum w <= 0``; one counted launch of the
+    finalize kernel on the card."""
+    return _finalize_op(parts, g)
+
+
+echo_aggregate_finalize.launches = 0
+
+
+@torch.library.custom_op("repro_torch::echo_aggregate_finalize",
+                         mutates_args=())
+def _finalize_op(parts: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    n = parts.shape[-1] - 1
+    if parts.dim() not in (1, 2) or n < 1 \
+            or tuple(g.shape) != tuple(parts.shape[:-1]) + (n,):
+        raise ValueError(f"parts must be [N + 1] (or [S, N + 1]) beside a "
+                         f"global [N] ([S, N]); got {tuple(parts.shape)} "
+                         f"and {tuple(g.shape)}")
+    if parts.dtype != torch.float32 or g.device != parts.device:
+        raise TypeError("parts must be float32 on the global's device")
+    if parts.device.type == "cpu":
+        return echo_aggregate_finalize_ref(parts, g)
+    _on_card(parts)
+    out = torch.empty(g.shape, dtype=torch.float32, device=g.device)
+    kernel.finalize(parts.contiguous(), _f32(g), out,
+                    seeds=parts.shape[0] if parts.dim() == 2 else 1)
+    echo_aggregate_finalize.launches += 1
+    return out
+
+
+@_finalize_op.register_fake
+def _(parts, g):
+    return g.new_empty(g.shape, dtype=torch.float32)
+
+
+def _finalize_seeds(info, in_dims, parts, g):
+    S = info.batch_size
+    return _finalize_op(_seeds_first(S, parts, in_dims[0]).contiguous(),
+                        _seeds_first(S, g, in_dims[1])), 0
+
+
+torch.library.register_vmap(_finalize_op, _finalize_seeds)
 
 
 def echo_aggregate_tree(clients_tr, x_end, mask, echo, eta_g, global_tr, *,

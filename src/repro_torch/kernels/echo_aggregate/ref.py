@@ -43,6 +43,29 @@ def echo_aggregate_fused_ref(x, y, g, mask, echo, eta_g, *, upload=None):
     return torch.where(w.sum(dim=-1)[..., None] > 0, acc, g.float())
 
 
+def echo_aggregate_partial_ref(x, y, mask, echo, eta_g, *, upload=None):
+    """The partial form on a rank's rows: ``[N + 1]`` float32 (``[S, N +
+    1]`` with a seed axis), the column sums ``sum_i w_i (x_i - eta_g
+    echo_i (x_i - y_i))`` and, last, the weight sum ``sum_i w_i``.  No
+    division and no guard: the ranks' partials add, and
+    ``echo_aggregate_finalize_ref`` of their sum is the fused update.  An
+    empty block (``m`` = 0) gives zeros."""
+    w = mask.float()
+    if upload is not None:
+        w = w * upload.float()
+    x32 = x.float()
+    xd = x32 - eta_g * echo.float()[..., None] * (x32 - y.float())
+    acc = (w[..., None] * xd).sum(dim=-2)
+    return torch.cat([acc, w.sum(dim=-1)[..., None]], dim=-1)
+
+
+def echo_aggregate_finalize_ref(parts, g):
+    """The fused update from summed partials ``[..., N + 1]``: ``acc /
+    max(sum w, 1)``, and the previous global ``g`` where ``sum w <= 0``."""
+    acc, ws = parts[..., :-1], parts[..., -1:]
+    return torch.where(ws > 0, acc / torch.clamp(ws, min=1.0), g.float())
+
+
 def slice_bounds(m, slices):
     """Row ranges of the CUDA kernel's slices: slice k takes rows
     ``[k m // slices, (k + 1) m // slices)``."""

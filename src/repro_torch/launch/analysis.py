@@ -1,9 +1,11 @@
 """Seed aggregation for the multi-seed experiment grid (per-seed metric
 histories to mean±std curves, per-seed finals to one table cell, the
-paper-style results table) and the model-flops helpers (the roofline
-terms, active parameters, 6·N·D / 2·N·D): ports of the reference's
-``repro/launch/analysis.py`` functions of those names.  Its HLO parsers
-read XLA's artifacts and have no counterpart here."""
+paper-style results table), the model-flops helpers (the roofline
+terms, active parameters, 6·N·D / 2·N·D) and the per-rank argument bytes
+of placed inputs (``argument_bytes``, the counterpart of the argument
+bytes of the reference's ``memory_analysis_numbers``): ports of the
+reference's ``repro/launch/analysis.py``.  Its HLO parsers read XLA's
+artifacts and have no counterpart here."""
 from __future__ import annotations
 
 import json
@@ -30,6 +32,31 @@ def roofline_terms(flops_per_dev: float, bytes_per_dev: float,
     total = max(compute_s, memory_s, collective_s)
     terms["bound_fraction"] = compute_s / total if total else 0.0
     return terms
+
+
+def argument_bytes(tree, spec_tree, mesh) -> float:
+    """Bytes one rank holds of the tensors of ``tree`` placed on ``mesh``
+    by ``spec_tree`` (a ``sharding`` spec beside each leaf): each leaf's
+    bytes over the product of the mesh axes its spec shards it on, summed
+    (``sharding.local_shape`` raises where a sharded dim does not
+    divide).  Leaves need only ``.shape`` and ``.dtype``."""
+    import torch
+    import torch.utils._pytree as pytree
+
+    from repro_torch.sharding.rules import _is_spec, local_shape
+
+    leaves = pytree.tree_flatten(tree)[0]
+    specs = pytree.tree_flatten(spec_tree, is_leaf=_is_spec)[0]
+    if len(leaves) != len(specs):
+        raise ValueError("a tree and its spec tree differ in structure")
+    total = 0.0
+    for leaf, spec in zip(leaves, specs):
+        if not hasattr(leaf, "shape"):
+            continue
+        size = torch.empty((), dtype=leaf.dtype).element_size()
+        total += float(np.prod(local_shape(tuple(leaf.shape), spec, mesh),
+                               dtype=np.float64)) * size
+    return total
 
 
 def active_param_count(cfg) -> int:

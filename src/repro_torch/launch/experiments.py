@@ -26,9 +26,16 @@ of it in one command:
     each moved once to the first device of its sub-mesh
     (``place_seed_batch``) and advanced there by its own seed chunk; the
     metrics join back in seed order.  A placement changes no number: each
-    seed evolves as in the unsplit chunk.  Clients are not split over
-    devices (that placement comes with ``sharding/``), and the mesh takes
-    the flat substrate only, as the reference's;
+    seed evolves as in the unsplit chunk.  Inside a ``torch.distributed``
+    process group (one process per device: ``torchrun --nproc-per-node N
+    -m repro_torch.launch.experiments --seed-mesh``) the mesh is a
+    ``DeviceMesh``: each rank builds and holds only its seed shard's rows
+    and, within them, its block of the clients over ``('pod', 'data')``
+    (``seed_chunk_placement``, ``build_seed_batch(place=)``), the round
+    all-reduces over the client blocks, and DTensor gathers back to every
+    rank only what the records read: the metrics and the globals the
+    evals score (``join_seed_shards`` gathers a whole carry on request).
+    The mesh takes the flat substrate only, as the reference's;
   * a **results table** (``launch/analysis.py``): per-seed histories to
     mean±std curves and a paper-style table under ``--out-dir``.
 
@@ -58,6 +65,7 @@ import fnmatch
 import json
 import os
 import re
+from typing import NamedTuple
 
 import torch
 import torch.utils._pytree as pytree
@@ -74,7 +82,12 @@ from repro_torch.data import (SAMPLING_MODES, init_seed_sampler_states,
                               make_device_sampler, pad_store, seed_data_keys)
 from repro_torch.device import resolve_device
 from repro_torch.launch import analysis, train
-from repro_torch.launch.mesh import mesh_axis_sizes
+from repro_torch.launch.mesh import in_process_group, mesh_axis_sizes
+from repro_torch.sharding import (P, flat_pspecs, placements,
+                                  sampler_pspecs, seed_pspecs)
+from repro_torch.sharding.placement import (ClientPlacement, client_axes,
+                                            client_placement)
+from repro_torch.sharding.rules import _is_spec
 
 # ---------------------------------------------------------------------------
 # scenario registry
@@ -299,7 +312,7 @@ _register_paper_grid()
 def build_seed_batch(cfg: FLConfig, template, base_rng, data_key,
                      init_sampler_state, store, n_seeds: int, *,
                      template_fn=None, model_rng=None, seed_ids=None,
-                     fault=None, stale=None):
+                     fault=None, stale=None, place=None):
     """Stacked per-seed carry for ``make_seeds_chunk_fn``: seed ``j`` is
     initialized exactly as a single-seed run with ``rng_j = fold_in(
     base_rng, j)`` and ``data_key_j = fold_in(data_key, j)``, then the
@@ -312,6 +325,12 @@ def build_seed_batch(cfg: FLConfig, template, base_rng, data_key,
     fold-in id of each stacked row, so permuting it permutes the per-seed
     results.  ``fault`` / ``stale`` are the same carry for every seed
     (the replay trace, cluster labels, the empty ring).
+
+    ``place`` (a ``SeedPlacement``) builds this rank's part and nothing
+    else: its rows ``place.seeds`` of the seeds, each seed's state born
+    with the rank's client rows (``init_fl_state(place=)``; ``fault`` and
+    ``stale`` are then the rank's carries), the sampler carries over the
+    rank's store (``device_store(place=)``).
 
     Returns ``(states, sampler_states, data_keys)`` with ``[S, ...]``
     leaves (``sampler_states`` is ``{}`` under uniform sampling)."""
@@ -328,14 +347,18 @@ def build_seed_batch(cfg: FLConfig, template, base_rng, data_key,
             return template
         return template_fn(prng.fold_in(model_rng, j))
 
-    states = stack_seeds([
-        init_fl_state(prng.fold_in(base_rng, j), cfg, tmpl(j),
-                      fault=fault, stale=stale)
-        for j in ids])
     if seed_ids is None:
         data_keys = seed_data_keys(data_key, n_seeds)
     else:
         data_keys = torch.stack([prng.fold_in(data_key, j) for j in ids])
+    clients = None
+    if place is not None:
+        ids, data_keys, clients = (ids[place.seeds], data_keys[place.seeds],
+                                   place.clients)
+    states = stack_seeds([
+        init_fl_state(prng.fold_in(base_rng, j), cfg, tmpl(j),
+                      fault=fault, stale=stale, place=clients)
+        for j in ids])
     sampler_states = init_seed_sampler_states(init_sampler_state, store,
                                               data_keys)
     return states, sampler_states, data_keys
@@ -374,7 +397,12 @@ def _on(tree, dev, rows=None):
 
 def join_seed_shards(tree):
     """A ``SeedShards`` carry joined into one ``[S, ...]`` tree on its
-    first shard's device, in seed order; any other tree as it is."""
+    first shard's device, in seed order; a ``PlacedCarry`` gathered whole
+    to every rank (a collective: every rank calls it; the runs gather only
+    what their records read, ``_eval_states``); any other tree as it
+    is."""
+    if isinstance(tree, PlacedCarry):
+        return _map_placed(_join_block, tree.local, tree.spec, tree.place.host)
     if not isinstance(tree, SeedShards):
         return tree
     flat = [pytree.tree_flatten(t) for t in tree]
@@ -405,6 +433,178 @@ def _check_flat(fl):
                          "(flat_state), as the reference's")
 
 
+# ---------------------------------------------------------------------------
+# the seed mesh inside a process group: seeds over 'seed', clients placed
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class SeedPlacement:
+    """A rank's part of a seed-mesh run inside a process group: the
+    ``DeviceMesh``, the rank's rows of the seed axis (all of them on a
+    mesh without a 'seed' axis), its block of each seed's clients, and
+    ``host``, the mesh's CPU twin over the same ranks, which the gathers
+    go through (gloo's all-gather of CUDA tensors crashed on the card
+    under torch 2.11; its all-reduce of them works)."""
+    mesh: object
+    seeds: slice
+    clients: ClientPlacement
+    host: object
+
+    @property
+    def n_seeds(self) -> int:
+        return self.seeds.stop - self.seeds.start
+
+
+class PlacedCarry(NamedTuple):
+    """A rank's rows of a seed-stacked carry (all it holds of it), beside
+    the spec tree and the ``SeedPlacement`` that place them
+    (``join_seed_shards`` gathers it whole)."""
+    local: object
+    spec: object
+    place: object
+
+
+def seed_chunk_placement(mesh, m, n_seeds) -> SeedPlacement:
+    """This rank's ``SeedPlacement`` of an ``n_seeds`` x ``m``-client
+    run on a ``DeviceMesh`` (the counterpart of the reference's
+    ``seed_chunk_shardings``' placement): seed rows by its 'seed'
+    coordinate, clients by ``sharding.placement.client_placement``.
+    Every rank of the mesh calls it (it makes the client groups and the
+    host mesh)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    ax = mesh_axis_sizes(mesh)
+    n = ax.get("seed", 1)
+    if n_seeds % n:
+        raise ValueError(f"{n_seeds} seeds do not split over a seed axis "
+                         f"of {n}")
+    per = n_seeds // n
+    at = mesh.get_coordinate()[list(ax).index("seed")] if "seed" in ax \
+        else 0
+    host = mesh if mesh.device_type == "cpu" else DeviceMesh(
+        "cpu", mesh.mesh, mesh_dim_names=mesh.mesh_dim_names)
+    return SeedPlacement(mesh, slice(at * per, (at + 1) * per),
+                         client_placement(mesh, m), host)
+
+
+def _seed_axis(mesh):
+    """What the leading seed dim rides on a placement's mesh: 'seed', or
+    nothing (replicated) on a mesh without one."""
+    return "seed" if "seed" in mesh_axis_sizes(mesh) else None
+
+
+def seed_chunk_shardings(place: SeedPlacement, states, sampler_states,
+                         store, data_keys):
+    """The spec trees of a seed chunk's carries on ``place.mesh``, the
+    reference's ``seed_chunk_shardings`` as partition specs:
+    ``seed_pspecs`` of ``flat_pspecs`` / ``sampler_pspecs`` over the
+    'seed' axis (replicated seeds on a mesh without one), the store's
+    ``idx`` / ``counts`` on the client axes and its arrays replicated,
+    the data keys and the ``[S, K]`` metrics on the seed axis.  The
+    carries may be whole or the rank's: the rules find the client axis
+    by its length, the ``tau`` vector's."""
+    mesh = place.mesh
+    sa = _seed_axis(mesh)
+    ca = client_axes(mesh)
+    m = int(states.tau.shape[-1])
+    return dict(
+        states=seed_pspecs(flat_pspecs(mesh, index_seed(states, 0),
+                                       multi_pod=True), seed_axes=sa),
+        sampler_states=seed_pspecs(
+            sampler_pspecs(mesh, index_seed(sampler_states, 0), m,
+                           multi_pod=True), seed_axes=sa),
+        store=dict(arrays={k: P(*([None] * v.dim()))
+                           for k, v in store["arrays"].items()},
+                   idx=P(ca, None), counts=P(ca)),
+        data_keys=P(sa, None),
+        metrics=P(sa, None))
+
+
+def grid_chunk_shardings(place: SeedPlacement, cells):
+    """``seed_chunk_shardings`` of every cell of a packed group: each
+    cell gets the placement it would get unpacked."""
+    return [seed_chunk_shardings(place, c["states"], c["sampler_states"],
+                                 c["store"], c["data_keys"]) for c in cells]
+
+
+def _map_placed(fn, tree, spec_tree, mesh):
+    """``fn(tensor, spec, mesh)`` on every tensor leaf of ``tree``
+    beside its spec; other leaves pass through."""
+    leaves, treedef = pytree.tree_flatten(tree)
+    specs = pytree.tree_flatten(spec_tree, is_leaf=_is_spec)[0]
+    if len(specs) != len(leaves):
+        raise ValueError("a carry and its spec tree differ in structure")
+    return pytree.tree_unflatten(
+        [fn(v, p, mesh) if torch.is_tensor(v) else v
+         for v, p in zip(leaves, specs)], treedef)
+
+
+def _join_block(v, spec, mesh):
+    """The whole tensor from every rank's block, on every rank, on
+    ``v``'s device; gathered over the CPU ``mesh``."""
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(v.cpu(), mesh, placements(spec, mesh),
+                              run_check=False).full_tensor().to(v.device)
+
+
+def _placed(place, specs, states, sampler_states, store, data_keys):
+    """A rank's built part of a seed batch as the placed executor's
+    carries: the states and sampler carries beside their spec trees."""
+    return (PlacedCarry(states, specs["states"], place),
+            PlacedCarry(sampler_states, specs["sampler_states"], place),
+            store, data_keys)
+
+
+def _eval_states(states):
+    """What an eval reads of a run's seed-stacked carry: of a
+    ``PlacedCarry`` the globals gathered over the seed axis (an
+    ``FLState`` of the ``[S, N]`` globals beside the flat spec and no
+    client leaves: an eval scores the global model), any other carry
+    joined (``join_seed_shards``)."""
+    if not isinstance(states, PlacedCarry):
+        return join_seed_shards(states)
+    st = states.local
+    g = _join_block(st.global_tr, states.spec.global_tr, states.place.host)
+    return type(st)(global_tr=g, clients_tr=None, tau=None, t=None,
+                    extra=None, markov=None, rng=None, spec=st.spec)
+
+
+def _final(states):
+    """A run's returned carry: a ``SeedShards`` one joined; a
+    ``PlacedCarry`` as it is (the rank's rows; ``join_seed_shards``
+    gathers it)."""
+    return states if isinstance(states, PlacedCarry) \
+        else join_seed_shards(states)
+
+
+def _join_placed_metrics(metrics, place):
+    spec = P(_seed_axis(place.mesh), None)
+    return {k: _join_block(v, spec, place.host) for k, v in metrics.items()}
+
+
+def _placed_call(body, place):
+    """A chunk ``body`` of the rank's carries as a call on
+    ``PlacedCarry`` ones (C-tuples of them for a packed group), its
+    metrics gathered to every rank."""
+    def local(c):
+        return tuple(x.local for x in c) if isinstance(c, tuple) \
+            and not isinstance(c, PlacedCarry) else c.local
+
+    def wrap(c, v):
+        if isinstance(c, PlacedCarry):
+            return c._replace(local=v)
+        return tuple(x._replace(local=y) for x, y in zip(c, v))
+
+    def call(states, sampler_states, store, data_keys):
+        st, ss, met = body(local(states), local(sampler_states), store,
+                           data_keys)
+        joined = (_join_placed_metrics(met, place) if isinstance(met, dict)
+                  else tuple(_join_placed_metrics(x, place) for x in met))
+        return wrap(states, st), wrap(sampler_states, ss), joined
+    return call
+
+
 def build_seed_executor(fl: FLConfig, round_fn, sample_fn, n_seeds, *,
                         mesh=None):
     """``make_chunk(k)``: a seed-batched chunk executor of ``k`` rounds, for
@@ -416,14 +616,25 @@ def build_seed_executor(fl: FLConfig, round_fn, sample_fn, n_seeds, *,
     another from the host (the seed chunk makes no host sync, so on
     distinct cards their work may overlap; not measured), and joins their
     ``[S_i, k]`` metrics in seed order on the first shard's device; each
-    shard device runs ``_round_fns``' round.
-    ``make_chunk.shards`` is the placement (None without a mesh)."""
+    shard device runs ``_round_fns``' round.  With a ``SeedPlacement``
+    (inside a process group) the rank runs its seed rows and client block
+    (``round_fn`` and ``sample_fn`` built for ``mesh.clients``), takes
+    and returns ``PlacedCarry`` carries and gathers the metrics to every
+    rank.  ``make_chunk.shards`` is the placement (None without a
+    mesh)."""
     if mesh is None:
         def make_chunk(k):
             return make_seeds_chunk_fn(fl, round_fn, sample_fn, k, n_seeds)
         make_chunk.shards = None
         return make_chunk
     _check_flat(fl)
+    if isinstance(mesh, SeedPlacement):
+        def make_chunk(k):
+            return _placed_call(make_seeds_chunk_fn(
+                fl, round_fn, sample_fn, k, mesh.n_seeds,
+                place=mesh.clients), mesh)
+        make_chunk.shards = mesh
+        return make_chunk
     shards = seed_shards(mesh, n_seeds)
     fns = _round_fns(round_fn, shards)
 
@@ -449,9 +660,17 @@ def place_seed_batch(shards, states, sampler_states, store, data_keys):
     call: shard ``i`` gets a copy of its rows of the states, sampler
     carries and data keys, and the shared store, on its device
     (``SeedShards`` each).  A copy changes no value.  No-op when
-    ``shards`` is None (an executor without a mesh)."""
+    ``shards`` is None (an executor without a mesh).  With a
+    ``SeedPlacement`` the batch is already the rank's part
+    (``build_seed_batch(place=)`` over a ``device_store(place=)`` store):
+    the states and sampler carries become ``PlacedCarry`` ones beside
+    their ``seed_chunk_shardings`` specs, and nothing is copied."""
     if shards is None:
         return states, sampler_states, store, data_keys
+    if isinstance(shards, SeedPlacement):
+        return _placed(shards, seed_chunk_shardings(
+            shards, states, sampler_states, store, data_keys), states,
+            sampler_states, store, data_keys)
     return (SeedShards(_on(states, d, r) for d, r in shards),
             SeedShards(_on(sampler_states, d, r) for d, r in shards),
             SeedShards(_on(store, d) for d, _ in shards),
@@ -492,8 +711,10 @@ def run_seed_rounds(states, chunk_fn, T, K, *, sampler_states, store,
     multiple; ``ckpt_fn(states, done, sampler_states)`` likewise per
     ``ckpt_every``.  A ``T % K`` tail needs ``make_tail_fn(k)``, demanded
     before the first call.  Seed-mesh carries (``SeedShards``) are joined
-    for ``eval_fn``, ``ckpt_fn`` and the result.  Returns ``(states,
-    histories)``, one history per seed."""
+    for ``eval_fn``, ``ckpt_fn`` and the result; of ``PlacedCarry`` ones
+    ``eval_fn`` gets the gathered globals (``_eval_states``), ``ckpt_fn``
+    the carries gathered whole, and the result is the rank's.  Returns
+    ``(states, histories)``, one history per seed."""
     if T % K and make_tail_fn is None:
         # fail before the first call rather than after T - T % K rounds
         raise ValueError(
@@ -516,7 +737,7 @@ def run_seed_rounds(states, chunk_fn, T, K, *, sampler_states, store,
                              n_seeds)
         done += k
         if eval_fn is not None and _crossed(done, k, eval_every):
-            joined = join_seed_shards(states)
+            joined = _eval_states(states)
             for j in range(n_seeds):
                 histories[j][-1].update(eval_fn(index_seed(joined, j)))
         if ckpt_fn is not None and _crossed(done, k, ckpt_every):
@@ -527,7 +748,7 @@ def run_seed_rounds(states, chunk_fn, T, K, *, sampler_states, store,
                             for h in histories) / n_seeds
             print(f"[round {done:5d}] seeds={n_seeds} "
                   f"mean_loss={mean_loss:.4f}")
-    return join_seed_shards(states), histories
+    return _final(states), histories
 
 
 def run_multi_seed(fl: FLConfig, round_fn, template, ds, *, sampling,
@@ -541,18 +762,20 @@ def run_multi_seed(fl: FLConfig, round_fn, template, ds, *, sampling,
     K`` tail executor is built as needed.  ``mesh`` (``launch/mesh.
     make_seed_mesh``) splits the seeds over its devices
     (``build_seed_executor``) and places the carries before the first
-    call.  Returns ``(states, histories, finals)``: the seed-stacked
-    final ``FLState``, one history per seed and, with ``eval_fn``, one
-    final eval per seed."""
+    call.  With a ``SeedPlacement`` (``mesh``) the run is the rank's:
+    ``round_fn`` is built for its client block, ``fault`` / ``stale`` are
+    its carries, and the store, the sampler carries and the states are
+    built with its rows only.  Returns ``(states, histories, finals)``:
+    the seed-stacked final ``FLState`` (a ``PlacedCarry`` of the rank's
+    rows under a ``SeedPlacement``), one history per seed and, with
+    ``eval_fn``, one final eval per seed."""
     K = _resolve_chunk_rounds(chunk_rounds, rounds)
-    store = ds.device_store(rng.device)
-    init_fn, sample_fn = make_device_sampler(
-        fl.m, fl.s, batch, mode=sampling,
-        min_count=min(len(ix) for ix in ds.client_indices),
-        emit="cols" if fl.sparse_cohort else "batches")
+    place = mesh if isinstance(mesh, SeedPlacement) else None
+    store = ds.device_store(rng.device, place=_clients(place))
+    init_fn, sample_fn = _samplers(fl, ds, batch, sampling, place)
     states, sampler_states, data_keys = build_seed_batch(
         fl, template, rng, data_key, init_fn, store, seeds,
-        template_fn=template_fn, fault=fault, stale=stale)
+        template_fn=template_fn, fault=fault, stale=stale, place=place)
     make_chunk = build_seed_executor(fl, round_fn, sample_fn, seeds,
                                      mesh=mesh)
     states, sampler_states, store, data_keys = place_seed_batch(
@@ -562,9 +785,39 @@ def run_multi_seed(fl: FLConfig, round_fn, template, ds, *, sampling,
         store=store, data_keys=data_keys, n_seeds=seeds,
         make_tail_fn=make_chunk, eval_fn=eval_fn, eval_every=eval_every,
         log_every=log_every)
-    finals = ([eval_fn(index_seed(states, j)) for j in range(seeds)]
-              if eval_fn is not None else [])
-    return states, histories, finals
+    return states, histories, _finals(eval_fn, states, seeds)
+
+
+def _finals(eval_fn, states, seeds):
+    """One final eval per seed of a run's returned carry (none without
+    ``eval_fn``)."""
+    if eval_fn is None:
+        return []
+    scored = _eval_states(states)
+    return [eval_fn(index_seed(scored, j)) for j in range(seeds)]
+
+
+def _clients(place):
+    """A ``SeedPlacement``'s client placement; None without one."""
+    return None if place is None else place.clients
+
+
+def _samplers(fl, ds, batch, sampling, place):
+    """The device sampler's ``(init, sample)`` over all m clients, or
+    over the rank's rows under a ``SeedPlacement`` ``place``."""
+    return make_device_sampler(
+        fl.m, fl.s, batch, mode=sampling,
+        min_count=min(len(ix) for ix in ds.client_indices),
+        emit="cols" if fl.sparse_cohort else "batches",
+        place=_clients(place))
+
+
+def _seed_placement(mesh, m, seeds):
+    """A ``DeviceMesh`` resolved to this rank's ``SeedPlacement``; any
+    other mesh (None, a ``SeedMesh``) as it is."""
+    if hasattr(mesh, "mesh_dim_names"):
+        return seed_chunk_placement(mesh, m, seeds)
+    return mesh
 
 
 def _pad_m_config(sc: Scenario, fl: FLConfig, base_p, pad_m: int, *,
@@ -600,7 +853,7 @@ def _pad_m_config(sc: Scenario, fl: FLConfig, base_p, pad_m: int, *,
 
 
 def _cell_task(sc: Scenario, *, m, s, batch, n_samples, preset, seed,
-               use_kernel, rounds=0, pad_m=0, device):
+               use_kernel, rounds=0, pad_m=0, device, place=None):
     """One cell's task and round function on ``device``: ``(fl,
     round_fn, params, ds, eval_fn, init_fn, fault_state, stale_state)``.
 
@@ -611,7 +864,9 @@ def _cell_task(sc: Scenario, *, m, s, batch, n_samples, preset, seed,
     (``_pad_m_config``) before the round function closes over base_p.
     ``preset`` names the task (``train.TASKS``: "image" or "lm").
     ``round_fn.on(dev)`` builds the same round over ``base_p`` on another
-    device (a seed-mesh shard's)."""
+    device (a seed-mesh shard's).  ``place``: the client placement the
+    round and the fault and stale carries are built for (a process-group
+    seed mesh's)."""
     args = argparse.Namespace(seed=seed, n_samples=n_samples, m=m,
                               alpha=sc.alpha, batch=batch)
     rng = prng.PRNGKey(seed, device)
@@ -636,7 +891,7 @@ def _cell_task(sc: Scenario, *, m, s, batch, n_samples, preset, seed,
         clusters = (faults.clusters_from_nu(nu)
                     if fc.blackout_len > 0 else None)
         fault_state = faults.init_fault_state(fc, trace=trace,
-                                              clusters=clusters)
+                                              clusters=clusters, place=place)
     stcfg = sc.staleness()
     stale_state = None
     if stcfg is not None and stcfg.needs_state:
@@ -649,7 +904,7 @@ def _cell_task(sc: Scenario, *, m, s, batch, n_samples, preset, seed,
                 prng.PRNGKey(seed + 3, device), m, rounds)
         stale_state = staleness.init_staleness_state(
             stcfg, FlatSpec.from_tree(params).size, m, dtrace=dtrace,
-            device=device)
+            device=device, place=place)
     if pad_m:
         fl, base_p = _pad_m_config(sc, fl, base_p, pad_m,
                                    has_fault=fault_state is not None,
@@ -658,7 +913,7 @@ def _cell_task(sc: Scenario, *, m, s, batch, n_samples, preset, seed,
     def round_on(dev):
         return make_round_fn(fl, loss_fn, {}, sc.availability(),
                              base_p.to(dev), fault_cfg=fc,
-                             staleness_cfg=stcfg)
+                             staleness_cfg=stcfg, place=place)
 
     rf = round_on(device)
     rf.on = round_on
@@ -684,16 +939,20 @@ def run_scenario(sc: Scenario, *, seeds=4, rounds=24, chunk_rounds=8,
     """Run one grid cell: S seeds of ``rounds`` rounds, K rounds per call
     of the seed-batched executor, on ``device`` (the card unless "cpu";
     raises when the card is missing).  ``mesh`` splits the seeds over its
-    devices (``build_seed_executor``); ``replicate='full'``
-    re-initializes the model per seed.  Returns the cell record: per-seed
-    final evals, their mean±std (``final``), mean±std curves (``curves``)
-    and the per-seed ``histories``."""
+    devices (``build_seed_executor``); a ``DeviceMesh`` (inside a process
+    group) runs the rank's part (``seed_chunk_placement``) and gathers the
+    results to every rank; ``replicate='full'`` re-initializes the model
+    per seed.  Returns the cell record: per-seed final evals, their
+    mean±std (``final``), mean±std curves (``curves``) and the per-seed
+    ``histories``."""
     K = _resolve_chunk_rounds(chunk_rounds, rounds)   # before the task
     dev = resolve_device(device)
+    mesh = _seed_placement(mesh, m, seeds)
     fl, rf, params, ds, eval_fn, init_fn, fault_state, stale_state = \
         _cell_task(
             sc, m=m, s=s, batch=batch, n_samples=n_samples, preset=preset,
-            seed=seed, use_kernel=use_kernel, rounds=rounds, device=dev)
+            seed=seed, use_kernel=use_kernel, rounds=rounds, device=dev,
+            place=getattr(mesh, "clients", None))
     _, histories, finals = run_multi_seed(
         fl, rf, params, ds, sampling=sc.sampling, batch=batch, seeds=seeds,
         rounds=rounds, chunk_rounds=K, rng=prng.PRNGKey(seed, dev),
@@ -711,33 +970,37 @@ def run_scenario(sc: Scenario, *, seeds=4, rounds=24, chunk_rounds=8,
 
 def build_cell(sc: Scenario, *, seeds, rounds, chunk_rounds, m, s, batch,
                n_samples, preset, seed, use_kernel=False,
-               replicate="shared", pad_m=0, device="cuda"):
+               replicate="shared", pad_m=0, device="cuda", mesh=None):
     """Everything one packed grid cell needs — task, round and sample
     functions, device store, stacked per-seed carry — without running it:
     the unit ``pack_cells`` groups and ``run_packed_grid`` drives.
     ``pad_m > m`` widens the client axis (``_pad_m_config``; the padded
     store rows own one dummy sample each, padded markov chains start
     off).  ``cap_paddable`` marks cells whose sampler cap
-    ``pack_cells(pad=True)`` may pad without changing their draws."""
+    ``pack_cells(pad=True)`` may pad without changing their draws.  A
+    ``SeedPlacement`` (``mesh``) builds the rank's part only: the round
+    and the sampler for its client block, and the store and carries with
+    its rows (``build_seed_batch(place=)``); it takes no ``pad_m``."""
     K = _resolve_chunk_rounds(chunk_rounds, rounds)   # before the task
     dev = resolve_device(device)
+    place = mesh if isinstance(mesh, SeedPlacement) else None
+    if place is not None and pad_m:
+        raise ValueError("pad_m widens the whole client axis; a placed "
+                         "cell builds only the rank's rows")
     fl, rf, params, ds, eval_fn, init_fn, fault_state, stale_state = \
         _cell_task(
             sc, m=m, s=s, batch=batch, n_samples=n_samples, preset=preset,
             seed=seed, use_kernel=use_kernel, rounds=rounds, pad_m=pad_m,
-            device=dev)
-    store = ds.device_store(dev)
+            device=dev, place=_clients(place))
+    store = ds.device_store(dev, place=_clients(place))
     if fl.m > m:
         store = pad_store(store, m=fl.m)
-    init_sampler, sample_fn = make_device_sampler(
-        fl.m, fl.s, batch, mode=sc.sampling,
-        min_count=min(len(ix) for ix in ds.client_indices),
-        emit="cols" if fl.sparse_cohort else "batches")
+    init_sampler, sample_fn = _samplers(fl, ds, batch, sc.sampling, place)
     states, sampler_states, data_keys = build_seed_batch(
         fl, params, prng.PRNGKey(seed, dev), prng.PRNGKey(seed + 1, dev),
         init_sampler, store, seeds,
         template_fn=init_fn if replicate == "full" else None,
-        fault=fault_state, stale=stale_state)
+        fault=fault_state, stale=stale_state, place=place)
     if fl.m > m and sc.kind == "markov":
         # padded clients must START off: base_p = 0 zeroes their turn-on
         # rate, but init_fl_state starts the whole chain on
@@ -826,9 +1089,12 @@ def run_packed_group(cells, *, mesh=None, eval_every=0, log_every=0):
     cell x seed x round of the group.  Per-cell results equal the
     unpacked ``run_seed_rounds`` drive.  ``mesh`` splits every cell's
     seeds as ``build_seed_executor`` does, the carries placed before the
-    first call (``place_seed_batch``) and the tail kept on the mesh.
-    Returns ``(states_t, histories_t)``: per-cell seed-stacked states and
-    per-cell, per-seed histories."""
+    first call (``place_seed_batch``) and the tail kept on the mesh.  A
+    ``SeedPlacement`` runs the rank's part of every cell (cells built for
+    it, ``build_cell(mesh=)``), each beside its ``grid_chunk_shardings``
+    specs.  Returns ``(states_t, histories_t)``: per-cell seed-stacked
+    states (``PlacedCarry`` ones of the rank's rows under a
+    ``SeedPlacement``) and per-cell, per-seed histories."""
     if not cells:
         raise ValueError("run_packed_group needs at least one cell")
     seeds, K, T = cells[0]["seeds"], cells[0]["K"], cells[0]["rounds"]
@@ -844,6 +1110,18 @@ def run_packed_group(cells, *, mesh=None, eval_every=0, log_every=0):
     if mesh is None:
         def make_packed(k):
             return make_grid_chunk_fn(pairs, k, seeds)
+    elif isinstance(mesh, SeedPlacement):
+        for c in cells:
+            _check_flat(c["fl"])
+        placed = [_placed(mesh, sp, *carry) for sp, carry in zip(
+            grid_chunk_shardings(mesh, cells),
+            zip(states_t, sampler_t, stores_t, keys_t))]
+        states_t, sampler_t, stores_t, keys_t = (
+            tuple(p[i] for p in placed) for i in range(4))
+
+        def make_packed(k):
+            return _placed_call(make_grid_chunk_fn(
+                pairs, k, mesh.n_seeds, place=mesh.clients), mesh)
     else:
         for c in cells:
             _check_flat(c["fl"])
@@ -875,14 +1153,14 @@ def run_packed_group(cells, *, mesh=None, eval_every=0, log_every=0):
             for ci, c in enumerate(cells):
                 if c["eval_fn"] is None:
                     continue
-                joined = join_seed_shards(states_t[ci])
+                joined = _eval_states(states_t[ci])
                 for j in range(seeds):
                     histories[ci][j][-1].update(
                         c["eval_fn"](index_seed(joined, j)))
         if _crossed(done, k, log_every):
             print(f"[round {done:5d}] packed group: {len(cells)} cells "
                   f"x {seeds} seeds", flush=True)
-    return tuple(join_seed_shards(st) for st in states_t), histories
+    return tuple(_final(st) for st in states_t), histories
 
 
 def run_packed_grid(names, *, seeds=4, rounds=24, chunk_rounds=8, m=16,
@@ -893,11 +1171,12 @@ def run_packed_grid(names, *, seeds=4, rounds=24, chunk_rounds=8, m=16,
     group them (``pack_cells``), advance each group (over ``mesh``'s seed
     shards with one), and return the per-cell records in input order (as
     ``run_scenario`` shapes them)."""
+    mesh = _seed_placement(mesh, m, seeds)
     cells = [build_cell(get_scenario(n), seeds=seeds, rounds=rounds,
                         chunk_rounds=chunk_rounds, m=m, s=s, batch=batch,
                         n_samples=n_samples, preset=preset, seed=seed,
                         use_kernel=use_kernel, replicate=replicate,
-                        device=device)
+                        device=device, mesh=mesh)
              for n in names]
     groups = pack_cells(cells, pad=pad)
     padded = sum(1 for c in cells if c.get("padded_cap"))
@@ -909,9 +1188,7 @@ def run_packed_grid(names, *, seeds=4, rounds=24, chunk_rounds=8, m=16,
                                            eval_every=eval_every,
                                            log_every=log_every)
         for c, st, hs in zip(group, states_t, hists):
-            finals = ([c["eval_fn"](index_seed(st, j))
-                       for j in range(seeds)]
-                      if c["eval_fn"] is not None else [])
+            finals = _finals(c["eval_fn"], st, seeds)
             recs[c["sc"].name] = _cell_record(
                 c["sc"], seeds=seeds, rounds=rounds, chunk_rounds=c["K"],
                 finals=finals, histories=hs)
@@ -995,7 +1272,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "--seeds and the visible cards, or the CPU with "
                          "--device cpu) and split each cell's seeds into "
                          "its seed-axis size of shards, each run on its "
-                         "own device; composes with --packed")
+                         "own device; under torchrun (one process per "
+                         "card, NCCL) the mesh is over the ranks and each "
+                         "seed's clients are split over ('pod', 'data'); "
+                         "composes with --packed")
     ap.add_argument("--out-dir", default="results",
                     help="per-cell JSON + the results table land here")
     ap.add_argument("--no-save", action="store_true")
@@ -1025,13 +1305,61 @@ def main(argv=None):
                          "(or --list)")
     names = match_scenarios(patterns)
 
-    mesh = None
+    mesh, own_group = None, False
     if args.seed_mesh:
         from repro_torch.launch.mesh import make_seed_mesh
+        own_group = _join_group_from_env(args.device)
         dev = resolve_device(args.device)
-        mesh = make_seed_mesh(args.seeds, devices=(
-            None if dev.type == "cuda" else [dev]))
+        if in_process_group():
+            mesh = make_seed_mesh(args.seeds, device_type=dev.type)
+        else:
+            mesh = make_seed_mesh(args.seeds, devices=(
+                None if dev.type == "cuda" else [dev]))
         print(f"seed mesh: {mesh_axis_sizes(mesh)}", flush=True)
+    try:
+        return _run_cli(args, names, mesh)
+    finally:
+        if own_group:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def _join_group_from_env(device):
+    """Under torchrun (``WORLD_SIZE`` > 1 in the environment, no group
+    yet) join its process group: NCCL with one card per rank (the rank's
+    card is ``LOCAL_RANK``), or gloo with ``--device cpu``.  More ranks on
+    a host than cards raises: NCCL refuses two ranks on one card, and
+    nothing switches the backend.  Returns whether it made the group."""
+    import torch.distributed as dist
+
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world <= 1 or in_process_group():
+        return False
+    if device == "cuda":
+        resolve_device(device)
+        per_host = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+        cards = torch.cuda.device_count()
+        if per_host > cards:
+            raise RuntimeError(
+                f"{per_host} ranks on this host and {cards} card(s): NCCL "
+                "takes one card per rank; launch --nproc-per-node at most "
+                f"{cards}")
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+        # NCCL for the round's all-reduces on the cards, gloo for the
+        # joins, which gather over the CPU (SeedPlacement.host)
+        dist.init_process_group("cpu:gloo,cuda:nccl")
+    else:
+        dist.init_process_group("gloo")
+    return True
+
+
+def _run_cli(args, names, mesh):
+    """The CLI's runs, table and files (rank 0 writes them under a
+    process group: every rank holds the same gathered records)."""
+    if in_process_group():
+        import torch.distributed as dist
+        if dist.get_rank() != 0:
+            args.no_save = True
     if args.compile_cache:
         from repro_torch.launch import compilecache
         print(f"compilation cache: {compilecache.enable(args.compile_cache)}",

@@ -1,16 +1,22 @@
-"""The seed mesh and the card's constants (the single-process half of the
-reference's ``repro/launch/mesh.py``).
+"""Meshes and the card's constants (the port of the reference's
+``repro/launch/mesh.py``).
 
-The reference sizes a ``('seed', 'pod', 'data')`` mesh over TPU chips and
-keeps the v5e constants its roofline divides by.  Here the constants are
-the H100 SXM's, and the seed mesh is a small record of the devices the
-seed axis is split over: each seed shard runs whole on the first device of
-its sub-mesh (``launch/experiments.py``'s ``seed_shards``), so a mesh over
-``[cuda:0, cuda:0]`` splits the seeds into two shards on one card.  The
-production and test meshes, which place clients over ``('pod', 'data')``,
-come with ``sharding/``.
+The reference sizes its meshes over TPU chips and keeps the v5e constants
+its roofline divides by.  Here the constants are the H100 SXM's.  Two
+kinds of mesh:
 
-Nothing here touches a device at import.
+  * inside a ``torch.distributed`` process group (one process per device:
+    ``torchrun``, or a fake group for the dryrun), the production and test
+    meshes and the seed mesh are ``DeviceMesh``es over the group's ranks,
+    with the reference's shapes and axis names; clients are placed over
+    ``('pod', 'data')`` (``sharding/placement.py``);
+  * without one, the seed mesh is a ``SeedMesh``, a small record of the
+    devices the seed axis is split over: each seed shard runs whole on
+    the first device of its sub-mesh (``launch/experiments.py``'s
+    ``seed_shards``), so a mesh over ``[cuda:0, cuda:0]`` splits the
+    seeds into two shards on one card.
+
+Nothing here touches a device or a process group at import.
 """
 from __future__ import annotations
 
@@ -27,6 +33,49 @@ HBM_BW = 3.35e12               # bytes/s of HBM3
 #: NVLink 4, bytes/s each way per card: the counterpart of the
 #: reference's ICI link rate, under its name
 ICI_BW = 450e9
+
+
+def in_process_group() -> bool:
+    """Whether a ``torch.distributed`` process group is initialised."""
+    import torch.distributed as dist
+
+    return dist.is_available() and dist.is_initialized()
+
+
+def _rank_mesh(shape, axes, device_type):
+    """A ``DeviceMesh`` of ``shape`` named ``axes`` over the first
+    ``prod(shape)`` ranks of the process group; raises, as the reference
+    does, when the group is short (or absent)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    n = math.prod(shape)
+    have = dist.get_world_size() if in_process_group() else 0
+    if have < n:
+        raise RuntimeError(
+            f"need {n} ranks for {axes}={shape}, have {have}: run inside a "
+            "process group of that size (torchrun, or launch/dryrun.py's "
+            "fake group)")
+    return DeviceMesh(device_type, torch.arange(n).reshape(shape),
+                      mesh_dim_names=axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_type="cuda"):
+    """('data', 'model') = (16, 16), or ('pod', 'data', 'model') = (2, 16,
+    16), over the process group's ranks (device type "cuda" unless the
+    caller asks for "cpu")."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _rank_mesh(shape, axes, device_type)
+
+
+def make_test_mesh(*, multi_pod: bool = False, device_type="cuda"):
+    """The miniature mesh: (2, 2) or (2, 2, 1), with the production axis
+    names."""
+    shape = (2, 2, 1) if multi_pod else (2, 2)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _rank_mesh(shape, axes, device_type)
 
 
 def seed_mesh_shape(n_seeds: int, n_devices: int, *, multi_pod: bool = False):
@@ -78,13 +127,35 @@ def _devices(devices):
 
 
 def make_seed_mesh(n_seeds: int, *, multi_pod: bool = False,
-                   test: bool = False, devices=None) -> SeedMesh:
-    """('seed', 'pod', 'data') mesh for the seed-batched grid executor,
-    over ``devices`` (default: every visible card).  Sized by
-    ``seed_mesh_shape``; ``test`` caps it at 8 devices.  When even the pod
-    axis does not fit, the mesh has no 'seed' axis: ``('data',)`` (or
-    ``('pod', 'data')``) over the devices there are, and every seed stays
-    in one shard (callers check ``'seed' in mesh.axis_names``)."""
+                   test: bool = False, devices=None, device_type="cuda"):
+    """('seed', 'pod', 'data') mesh for the seed-batched grid executor.
+
+    Inside a process group (and without ``devices``): a ``DeviceMesh``
+    over the group's ranks, sized by ``seed_mesh_shape`` from the world
+    size (``test`` caps it at 8); it must use every rank.  When even the
+    pod axis does not fit, it degrades to ``make_test_mesh`` /
+    ``make_production_mesh``, as the reference does.
+
+    Otherwise a ``SeedMesh`` over ``devices`` (default: every visible
+    card), sized the same way; when the pod axis does not fit it has no
+    'seed' axis: ``('data',)`` (or ``('pod', 'data')``) over the devices
+    there are, and every seed stays in one shard (callers check ``'seed'
+    in mesh.axis_names``)."""
+    if devices is None and in_process_group():
+        import torch.distributed as dist
+
+        world = dist.get_world_size()
+        budget = min(world, 8) if test else world
+        shape = seed_mesh_shape(n_seeds, budget, multi_pod=multi_pod)
+        if shape is None:
+            return (make_test_mesh(multi_pod=multi_pod,
+                                   device_type=device_type) if test
+                    else make_production_mesh(multi_pod=multi_pod,
+                                              device_type=device_type))
+        if math.prod(shape) != world:
+            raise ValueError(f"the seed mesh {shape} uses {math.prod(shape)}"
+                             f" of {world} ranks: launch that many")
+        return _rank_mesh(shape, ("seed", "pod", "data"), device_type)
     devs = _devices(devices)
     budget = min(len(devs), 8) if test else len(devs)
     if budget == 0:
@@ -101,11 +172,13 @@ def make_seed_mesh(n_seeds: int, *, multi_pod: bool = False,
 
 
 def mesh_axis_sizes(mesh):
-    return dict(zip(mesh.axis_names, mesh.shape))
+    """``{axis: size}`` of a ``SeedMesh`` or a ``DeviceMesh``."""
+    names = getattr(mesh, "mesh_dim_names", None) or mesh.axis_names
+    return dict(zip(names, mesh.shape))
 
 
 def n_chips(mesh):
-    return len(mesh.devices)
+    return math.prod(mesh.shape)
 
 
 def nvcc_release():

@@ -26,36 +26,19 @@ from repro import core as ref_core
 from repro.core import faults as ref_faults
 from repro.core import staleness as ref_stale
 from repro.data import federated as ref_fed
+from _torch_fl_port import (B, DIM, M, N_FLAT, S, arrays,  # noqa: F401
+                            setup_port as _setup_port)
 from repro_torch import core
-from repro_torch.core import faults, prng, staleness
-from repro_torch.data import federated as fed
+from repro_torch.core import prng
 
-M, S, B, DIM = 8, 3, 4, 4
-N_FLAT = DIM * DIM + 7                   # the linear model's flat width
 #: counts and integer-valued means: bit-equal between the packages
 EXACT = ("n_active", "n_dropped", "n_rejected", "n_stale", "mean_echo",
          "mean_staleness", "t")
 
 
-def arrays(nan_client=None):
-    rng = np.random.default_rng(0)
-    n = 48
-    x = rng.normal(size=(n, DIM)).astype(np.float32)
-    y = rng.normal(size=(n, DIM)).astype(np.float32)
-    idx = [np.arange(i, n, M) for i in range(M)]
-    if nan_client is not None:
-        x[idx[nan_client]] = np.nan      # every batch of that client is bad
-    return dict(x=x, y=y), idx
-
-
 def _jax_loss(tr, frozen, batch, rng):
     return (0.5 * jnp.mean((batch["x"] @ tr["w"] - batch["y"]) ** 2)
             + jnp.sum(tr["b"] ** 2))
-
-
-def _torch_loss(tr, frozen, batch, rng):
-    return (0.5 * torch.mean((batch["x"] @ tr["w"] - batch["y"]) ** 2)
-            + torch.sum(tr["b"] ** 2))
 
 
 def _setup_ref(strategy, fault, stale, *, use_kernel, trace, clusters,
@@ -85,38 +68,6 @@ def _setup_ref(strategy, fault, stale, *, use_kernel, trace, clusters,
                     jax.random.fold_in(key, seed))
     state = ref_core.init_fl_state(rng, cfg, tr0, fault=fault_state,
                                    stale=stale_state)
-    return dict(state=state, round_fn=rf, store=store, sample_fn=sample_fn,
-                data_key=key, sampler_state=init_fn(store, key), cfg=cfg,
-                template=tr0, init_fn=init_fn, fault=fault_state,
-                stale=stale_state)
-
-
-def _setup_port(strategy, fault, stale, *, use_kernel, trace, clusters,
-                dtrace, nan_client, base_p, kind, sampling, min_count,
-                seed=None, sparse=0, rdt="float32", flat=True):
-    store = fed.device_store(*arrays(nan_client), "cpu")
-    init_fn, sample_fn = fed.make_device_sampler(
-        M, S, B, mode=sampling, min_count=min_count,
-        emit="cols" if sparse else "batches")
-    cfg = core.FLConfig(m=M, s=S, eta_l=0.03, strategy=strategy,
-                        lr_schedule=False, grad_clip=0.0,
-                        use_kernel=use_kernel, flat_state=flat,
-                        sparse_cohort=sparse, resident_dtype=rdt)
-    fc = None if fault is None else faults.FaultCfg(**fault)
-    sc = None if stale is None else staleness.StalenessCfg(**stale)
-    rf = core.make_round_fn(
-        cfg, _torch_loss, {}, core.AvailabilityCfg(kind=kind, gamma=0.3),
-        torch.full((M,), base_p), fault_cfg=fc, staleness_cfg=sc)
-    tr0 = {"w": torch.ones((DIM, DIM)) * 0.1, "b": torch.zeros((7,))}
-    fault_state = faults.init_fault_state(fc, trace=trace,
-                                          clusters=clusters)
-    stale_state = staleness.init_staleness_state(sc, N_FLAT, M,
-                                                 dtrace=dtrace)
-    rng, key = prng.PRNGKey(0, "cpu"), prng.PRNGKey(42, "cpu")
-    if seed is not None:
-        rng, key = prng.fold_in(rng, seed), prng.fold_in(key, seed)
-    state = core.init_fl_state(rng, cfg, tr0, fault=fault_state,
-                               stale=stale_state)
     return dict(state=state, round_fn=rf, store=store, sample_fn=sample_fn,
                 data_key=key, sampler_state=init_fn(store, key), cfg=cfg,
                 template=tr0, init_fn=init_fn, fault=fault_state,

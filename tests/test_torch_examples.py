@@ -22,6 +22,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import numpy as np  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -110,6 +111,12 @@ def test_serve_demo_matches_the_reference(monkeypatch):
     def keep(self, *a, **kw):
         ref_init(self, *a, **kw)
         weights["p"] = self.params
+        # the reference hands jnp.asarray(self.pos), which on the CPU may
+        # alias the numpy buffer, to an asynchronously dispatched step and
+        # then increments self.pos: unless each step is waited for, it may
+        # read the next position (it raced under several test workers)
+        step = self._step
+        self._step = lambda *args: jax.block_until_ready(step(*args))
 
     def carry(self, *a, **kw):
         port_init(self, *a, **kw)

@@ -55,7 +55,10 @@ def test_every_module_imports_without_jax_or_repro():
                  "repro_torch.optim.optimizers",
                  "repro_torch.optim.schedules", "repro_torch.core.mixing",
                  "repro_torch.launch.mesh", "repro_torch.launch.compilecache",
-                 "repro_torch.launch.roofline"):
+                 "repro_torch.launch.roofline", "repro_torch.sharding",
+                 "repro_torch.sharding.rules",
+                 "repro_torch.sharding.placement",
+                 "repro_torch.launch.dryrun"):
         assert name in mods, name
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

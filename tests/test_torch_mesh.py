@@ -301,3 +301,91 @@ def test_cli_seed_mesh_prints_the_mesh_and_matches_the_unsplit_grid(capsys):
     assert rows == ex.main(flags)
     packed = ex.main(flags + ["--seed-mesh", "--packed"])
     assert packed == rows
+
+
+# ---------------------------------------------------------------------------
+# meshes over a process group (a fake one of `world` ranks, this process
+# its rank 0): the production, test and seed meshes as DeviceMeshes
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def fake_group():
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    def init(world):
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=world)
+
+    yield init
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("multi_pod", [False, True])
+def test_production_and_test_meshes_take_the_reference_shapes(fake_group,
+                                                              multi_pod):
+    """(16, 16) / (2, 16, 16) over 256 / 512 ranks and (2, 2) / (2, 2, 1)
+    over 4, with the reference's axis names, on the CPU device type asked
+    for; a short world, or none, raises as the reference does."""
+    from repro.launch import mesh as ref_mesh
+
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    for make, shape in (
+            (mesh.make_production_mesh,
+             (2, 16, 16) if multi_pod else (16, 16)),
+            (mesh.make_test_mesh, (2, 2, 1) if multi_pod else (2, 2))):
+        world = int(np.prod(shape))
+        fake_group(world)
+        m = make(multi_pod=multi_pod, device_type="cpu")
+        assert tuple(m.shape) == shape and m.mesh_dim_names == axes
+        assert m.device_type == "cpu"
+        assert mesh.mesh_axis_sizes(m) == dict(zip(axes, shape))
+        assert mesh.n_chips(m) == int(np.prod(shape))
+        ref_sig = getattr(ref_mesh, make.__name__)
+        assert ref_sig.__name__ == make.__name__
+        fake_group(world - 1)
+        with pytest.raises(RuntimeError, match="need"):
+            make(multi_pod=multi_pod, device_type="cpu")
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    with pytest.raises(RuntimeError, match="process group"):
+        mesh.make_test_mesh(multi_pod=multi_pod)
+
+
+@pytest.mark.parametrize("n_seeds, world, multi_pod, test, shape", [
+    (2, 4, False, False, (2, 1, 2)),
+    (4, 6, False, False, (2, 1, 3)),
+    (16, 8, False, True, (8, 1, 1)),
+    (4, 8, True, False, (4, 2, 1)),
+    (3, 6, True, False, (3, 2, 1)),
+])
+def test_make_seed_mesh_in_a_group(fake_group, n_seeds, world, multi_pod,
+                                   test, shape):
+    """Inside a process group the seed mesh is a ('seed', 'pod', 'data')
+    DeviceMesh over the ranks, sized as the reference sizes it."""
+    fake_group(world)
+    m = mesh.make_seed_mesh(n_seeds, multi_pod=multi_pod, test=test,
+                            device_type="cpu")
+    assert m.mesh_dim_names == ("seed", "pod", "data")
+    assert tuple(m.shape) == shape == ref_shape(
+        n_seeds, min(world, 8) if test else world, multi_pod=multi_pod)
+
+
+def test_make_seed_mesh_in_a_group_degrades_or_refuses(fake_group):
+    """Where the pod axis does not fit, the seed mesh degrades to the
+    test / production mesh as the reference's does (which then needs its
+    ranks); a seed mesh that would leave ranks idle is refused."""
+    fake_group(1)
+    assert ref_shape(2, 1, multi_pod=True) is None
+    with pytest.raises(RuntimeError, match="need 4 ranks"):
+        mesh.make_seed_mesh(2, multi_pod=True, test=True, device_type="cpu")
+    with pytest.raises(RuntimeError, match="need 512 ranks"):
+        mesh.make_seed_mesh(2, multi_pod=True, device_type="cpu")
+    fake_group(5)
+    assert ref_shape(2, 5, multi_pod=True) == (2, 2, 1)
+    with pytest.raises(ValueError, match="4 of 5 ranks"):
+        mesh.make_seed_mesh(2, multi_pod=True, device_type="cpu")
