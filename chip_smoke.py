@@ -366,6 +366,19 @@ printed as JSON lines:
         and ring ages bit-equal to the unplaced run's, losses, globals
         and client stacks within 1e-5, evals within 2 of 1 024; the wall
         time of the placed and the unplaced run in turns.
+     p. The dry run's counters against real runs, after phase 3o.
+        gemma2-2b's prefill at its published widths (bfloat16, K4, B 2,
+        prompt and cache 8 192) once on the card under
+        ``analysis.CollectiveCounter`` and once over fake CUDA tensors
+        (``FakeTensorMode``, as ``launch/dryrun.py`` runs its steps: no
+        card memory, no kernel): flops and bytes accessed equal, K4 26
+        times in the real run and never in the fake one, no collective,
+        the fake run's counted temp peak within 0.98-1.02 of the card's
+        allocated peak above the arguments; the counted flops beside
+        ``analysis.model_flops``.  A third placed fedawe/sine run of
+        phase 3o's ranks, after the timing turns, counted on rank 0: two
+        client all-reduces a round, of K1's ``[1, N + 1]`` partial and
+        the ``[4, 1]`` metric sums.
   4. numbers  — K1-K3: the Triton yardstick's global loads by width in
      its SASS at rows 8 bytes off 16 and at aligned rows; the CUDA kernel
      and the Triton yardstick in turns (K2's yardstick with its own weight
@@ -5390,8 +5403,9 @@ def placed_rank(rank, store_path, out_dir):
     """One rank of phase 3o, spawned: joins a gloo group through a
     ``FileStore`` (NCCL refuses two ranks on one card, and the four ranks
     share card 0), builds the ``(2, 1, 2)`` seed mesh, and runs the two
-    cells (the first twice, for the timing turns), counting every K1
-    form's launches from 0 just before each run.  Writes its counts and
+    cells (the first three times: two timing turns, then one whose
+    collectives rank 0 counts for phase 3p), counting every K1 form's
+    launches from 0 just before each run.  Writes its counts and
     times, and rank 0 the gathered results, under ``out_dir``."""
     import faulthandler
 
@@ -5400,7 +5414,7 @@ def placed_rank(rank, store_path, out_dir):
 
     from repro_torch.core import prng
     from repro_torch.kernels.echo_aggregate import ops
-    from repro_torch.launch import experiments, mesh
+    from repro_torch.launch import analysis, experiments, mesh
 
     faulthandler.enable()      # a crash in native code prints its stack
     torch.cuda.set_device(0)
@@ -5410,13 +5424,26 @@ def placed_rank(rank, store_path, out_dir):
     try:
         m = mesh.make_seed_mesh(PLACED_SEEDS, device_type="cuda")
         out = dict(mesh=mesh.mesh_axis_sizes(m), runs={})
-        for tag, name in PLACED_CELLS + (("sine_again", "fedawe/sine"),):
+        for tag, name in PLACED_CELLS + (("sine_again", "fedawe/sine"),
+                                         ("sine_counted", "fedawe/sine")):
             ops.echo_aggregate_flat.launches = 0
             ops.echo_aggregate_flat.upload_launches = 0
             ops.echo_aggregate_partial.launches = 0
             ops.echo_aggregate_partial.upload_launches = 0
             ops.echo_aggregate_finalize.launches = 0
-            r = placed_run(torch, experiments, prng, m, name)
+            if rank == 0 and tag == "sine_counted":
+                # phase 3p: the round's collectives, counted on rank 0 in
+                # a run of its own (the counter slows it: not a timing
+                # turn)
+                with analysis.CollectiveCounter() as counter:
+                    r = placed_run(torch, experiments, prng, m, name)
+                r["collectives"] = dict(
+                    counter.collective_bytes(),
+                    calls_by_op=dict(counter.calls_by_op),
+                    bytes_by_op=dict(counter.bytes_by_op),
+                    top=counter.collective_top())
+            else:
+                r = placed_run(torch, experiments, prng, m, name)
             r["launches"] = dict(
                 fused=ops.echo_aggregate_flat.launches,
                 fused_upload=ops.echo_aggregate_flat.upload_launches,
@@ -5490,7 +5517,7 @@ def placed_fl_path(torch, experiments, prng, ops, counts, smi):
                 fault=dict(fused=0, fused_upload=0, partial=0,
                            partial_upload=PLACED_ROUNDS,
                            finalize=PLACED_ROUNDS))
-    want["sine_again"] = want["sine"]
+    want["sine_again"] = want["sine_counted"] = want["sine"]
     held = (PLACED_SEEDS // 2, M_MAIN // 2, N_MAIN)
     for r, rk in enumerate(ranks):
         for tag, w in want.items():
@@ -5544,6 +5571,8 @@ def placed_fl_path(torch, experiments, prng, ops, counts, smi):
               unplaced_launches={t: unplaced[t]["launches"]
                                  for t in unplaced},
               placed_wall_s_turns=placed_s, unplaced_wall_s_turns=unplaced_s,
+              counted_run_wall_s=max(rk["runs"]["sine_counted"]["wall_s"]
+                                     for rk in ranks),
               placed_wall_s=sum(placed_s) / 2,
               unplaced_wall_s=sum(unplaced_s) / 2,
               rank_state_bytes={t: [rk["runs"][t]["held"]["state_bytes"]
@@ -5555,11 +5584,128 @@ def placed_fl_path(torch, experiments, prng, ops, counts, smi):
               unplaced_peak_bytes={t: unplaced[t]["peak_bytes"]
                                    for t in unplaced},
               spawned_s=spawned_s, tol=PLACED_TOL, **diffs))
-    return dict(partial=ranks[0]["runs"]["sine"]["launches"]["partial"],
+    return dict(collectives=ranks[0]["runs"]["sine_counted"]["collectives"],
+                partial=ranks[0]["runs"]["sine"]["launches"]["partial"],
                 partial_upload=ranks[0]["runs"]["fault"]["launches"]
                 ["partial_upload"],
                 finalize=sum(ranks[0]["runs"][t]["launches"]["finalize"]
                              for t, _ in PLACED_CELLS))
+
+
+# ---------------------------------------------------------------------------
+# phase 3p: the dry run's counters against real runs on the card
+
+#: the fake prefill's counted temp peak over the card's allocated peak
+#: above the arguments (read equal to the byte on an H100 in every run,
+#: 1 510 014 976 bytes: each allocation of the step is an operator's
+#: result)
+TEMP_RATIO = (0.98, 1.02)
+#: a placed round's metric sums, stacked into its second all-reduce
+#: (mu, loss, n_active, echo)
+PLACED_ROUND_SUMS = 4
+
+
+def lowering_prefill(torch, model, analysis, get_config, counts, smi):
+    """Phase 3p (a): gemma2-2b's prefill at its published widths
+    (bfloat16, K4, B ``LM_B``, prompt and cache ``LM_L``) once on the
+    card under ``analysis.CollectiveCounter``, then the same step over
+    fake CUDA tensors (``FakeTensorMode``: no card memory, no kernel), as
+    the dry run runs its steps.  Gates: the counted flops and bytes
+    accessed equal; K4 ``LM_LAYERS`` times in the real run, no launch in
+    the fake one; no collective in either; the fake run's counted temp
+    peak within ``TEMP_RATIO`` of ``torch.cuda.max_memory_allocated``
+    above the arguments in the real one."""
+    import torch.utils._pytree as pytree
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    cfg = lm_config(get_config, "bfloat16")
+    params = lm_weights(torch, model, cfg, seed=4)
+    tokens = lm_tokens(torch, cfg.vocab, seed=5)
+    args = (params, model.init_cache(cfg, LM_B, LM_L), tokens)
+
+    def step(params, cache, tokens):
+        return model.prefill(params, cfg, cache, tokens)
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    counts.reset()
+    t0 = time.perf_counter()
+    with analysis.CollectiveCounter() as real:
+        out = step(*args)
+    torch.cuda.synchronize()
+    real_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    real_launches = counts.read()
+    require(bool(torch.isfinite(out[0]).all()), "3p: non-finite logits")
+    real_mem = analysis.memory_numbers(real, args, out)
+    del out
+    mode = FakeTensorMode()
+    fake_args = pytree.tree_map(
+        lambda v: mode.from_tensor(v) if torch.is_tensor(v) else v, args)
+    held = torch.cuda.memory_allocated()
+    counts.reset()
+    t0 = time.perf_counter()
+    with mode, analysis.CollectiveCounter() as fake:
+        fake_out = step(*fake_args)
+    fake_s = time.perf_counter() - t0
+    fake_launches = counts.read()
+    fake_mem = analysis.memory_numbers(fake, fake_args, fake_out)
+    require(torch.cuda.memory_allocated() == held,
+            "3p: the fake prefill allocated card memory")
+    require(real_launches == dict(K1=0, K2=0, K3=0, K4=LM_LAYERS, K5=0),
+            f"3p real prefill launches {real_launches}")
+    require(not any(fake_launches.values()),
+            f"3p fake prefill launched {fake_launches}")
+    real_cost, fake_cost = (analysis.cost_numbers(c) for c in (real, fake))
+    require(real_cost == fake_cost,
+            f"3p counts differ: real {real_cost}, fake {fake_cost}")
+    require(real.calls == fake.calls == 0,
+            f"3p collectives {real.calls}, {fake.calls}")
+    ratio = fake.peak_bytes / peak
+    require(TEMP_RATIO[0] <= ratio <= TEMP_RATIO[1],
+            f"3p counted temp {fake.peak_bytes} against the card's {peak}")
+    rec = dict(phase="lowering_prefill", card=smi, arch=cfg.name,
+               dtype=cfg.dtype, batch=LM_B, prompt=LM_L,
+               flops=real_cost["flops"],
+               model_flops=analysis.model_flops(cfg, LM_B * LM_L,
+                                                "inference"),
+               bytes_accessed=real_cost["bytes accessed"],
+               temp_counted_fake=fake.peak_bytes,
+               temp_counted_real=real.peak_bytes,
+               max_allocated_above_args=peak, temp_ratio=ratio,
+               memory_real=real_mem, memory_fake=fake_mem,
+               launches_real=real_launches, launches_fake=fake_launches,
+               collectives=real.collective_bytes(), real_s=real_s,
+               fake_s=fake_s)
+    emit(rec)
+    del params, args, fake_args, fake_out
+    torch.cuda.empty_cache()
+    return rec
+
+
+def lowering_placed_round(placed, smi):
+    """Phase 3p (b): rank 0's collectives in a third placed fedawe/sine
+    run of phase 3o's ranks (counted there, after the timing turns): each
+    round exactly two client
+    all-reduces (``repro_torch::client_all_reduce``), of K1's partial form
+    over the rank's seed rows, ``[S, N + 1]`` float32, and of the stacked
+    metric sums, ``[PLACED_ROUND_SUMS, S]``."""
+    c = placed["collectives"]
+    op = "repro_torch::client_all_reduce"
+    rows = PLACED_SEEDS // 2
+    want = PLACED_ROUNDS * 4 * rows * (N_MAIN + 1 + PLACED_ROUND_SUMS)
+    calls, nbytes = c["calls_by_op"].get(op, 0), c["bytes_by_op"].get(op, 0)
+    require(calls == 2 * PLACED_ROUNDS and nbytes == want,
+            f"3p placed round: {calls} client all-reduces of {nbytes} "
+            f"bytes; want {2 * PLACED_ROUNDS} of {want}")
+    emit(dict(phase="lowering_placed_round", card=smi, rounds=PLACED_ROUNDS,
+              client_all_reduces=calls, client_all_reduce_bytes=nbytes,
+              per_round=dict(calls=calls / PLACED_ROUNDS,
+                             bytes=nbytes / PLACED_ROUNDS),
+              collectives={k: v for k, v in c.items()
+                           if k not in ("calls_by_op", "bytes_by_op")},
+              calls_by_op=c["calls_by_op"]))
 
 
 # ---------------------------------------------------------------------------
@@ -5804,7 +5950,7 @@ def main():
     from repro_torch.kernels.ssd_chunk import kernel as skernel
     from repro_torch.kernels.ssd_chunk import ops as sops
     from repro_torch.kernels.ssd_chunk import ref as sref
-    from repro_torch.launch import experiments, mesh, serve, train
+    from repro_torch.launch import analysis, experiments, mesh, serve, train
     from repro_torch.checkpointing import convert, io
     from repro_torch.models import cnn, layers, model, moe, reduced, ssm
 
@@ -6054,6 +6200,13 @@ def main():
     placed = placed_fl_path(torch, experiments, prng, ops, counts, smi)
     partial_times = time_partial(torch, ops, ref, smi)
     emit(dict(phase="placed_done", seconds=time.perf_counter() - t0))
+    # phase 3p: the dry run's counters against real runs, every count at 0
+    # just before each run: gemma2-2b's prefill on the card and over fake
+    # tensors, and the placed round's collectives counted in phase 3o
+    t0 = time.perf_counter()
+    lowering_prefill(torch, model, analysis, get_config, counts, smi)
+    lowering_placed_round(placed, smi)
+    emit(dict(phase="lowering_done", seconds=time.perf_counter() - t0))
 
     ssd_times = time_ssd(torch, sops, sref, get_config, smi)
     time_flash_sdpa(torch, fops, fref, smi, "zamba2-7b", ZAMBA_ATTN,

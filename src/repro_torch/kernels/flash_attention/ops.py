@@ -10,10 +10,18 @@ take the plain version (``ref.py``); CUDA tensors launch the CUDA kernel
 (``kernel.py``) or raise.  There is no fallback from the kernel to the
 plain version.  Launches are counted in the plain integer attribute
 ``flash_mha.launches``; a caller resets it by assigning 0.
+
+Both routes run inside the custom operator ``repro_torch::flash_mha``,
+so ``FakeTensorMode`` (its fake gives the output's shape and layout) and
+``FlopCounterMode`` see one operation: its flop formula counts the plain
+version's two products, ``4 B L H S D``, whatever the route.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels.flash_attention import kernel
 from repro_torch.kernels.flash_attention.ref import flash_mha_ref
@@ -98,6 +106,18 @@ def flash_mha(q, k, v, *, causal=True, window=None, softcap=0.0):
     soft-capped by ``softcap`` when it is nonzero and masked causally
     and by ``window``."""
     _check(q, k, v, causal, window, softcap)
+    return _flash_op(q, k, v, causal, window, softcap)
+
+
+flash_mha.launches = 0
+
+
+@torch.library.custom_op("repro_torch::flash_mha", mutates_args=())
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool, window: Optional[int],
+              softcap: float) -> torch.Tensor:
+    """``flash_mha`` on checked real tensors: the plain version on the
+    CPU, one counted launch of the kernel on the card."""
     if q.device.type == "cpu":
         return flash_mha_ref(q, k, v, causal=causal, window=window,
                              softcap=softcap)
@@ -110,4 +130,18 @@ def flash_mha(q, k, v, *, causal=True, window=None, softcap=0.0):
     return out
 
 
-flash_mha.launches = 0
+@_flash_op.register_fake
+def _(q, k, v, causal, window, softcap):
+    if q.device.type == "cpu":
+        # the plain version's [B, H, L, D] result, transposed
+        B, L, H, D = q.shape
+        return q.new_empty((B, H, L, D)).transpose(1, 2)
+    return q.new_empty(q.shape)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_mha)
+def flash_flops(q_shape, k_shape, v_shape, *args, out_shape=None, **kw):
+    """The plain version's products: ``q k^T`` and ``p v``, each ``2 B H
+    L S D`` (every score computed, masked or not)."""
+    B, L, H, D = q_shape
+    return 4 * B * L * H * k_shape[1] * D

@@ -15,6 +15,12 @@ the plain version.  Launches are counted in the plain integer attributes
 ``ssd_chunk.wgmma_launches`` (the tensor-core kernel's); a caller resets
 them by assigning 0.
 
+Both routes run inside the custom operator ``repro_torch::ssd_chunk``,
+so ``FakeTensorMode`` (its fake gives the kernels' output layouts) and
+``FlopCounterMode`` see one operation: its flop formula counts the plain
+version's three products, ``2 b h c K (K N + K P + N P)``, whatever the
+route.
+
 ``ssd_chunked`` (what ``models.ssm.mamba_block`` calls) regroups its
 operands to ``[b, h, c, K, .]`` by views only: the kernels read the model
 layout through strides, and B and C may be stride-0 expansions of their
@@ -28,6 +34,7 @@ the FP32-pipe kernel on any operands it takes.
 from __future__ import annotations
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels.ssd_chunk import kernel
 from repro_torch.kernels.ssd_chunk.ref import cumsum_f32, ssd_chunk_ref
@@ -143,9 +150,37 @@ def ssd_chunk(xdt, dA, B_, C_):
     [b,h,c,N,P], decay float32 [b,h,c]).  On the card y_diag is a view of
     ``[b, c, K, h, P]`` memory, the model layout of the scan's output."""
     _check(xdt, dA, B_, C_)
+    return _ssd_op(xdt, dA, B_, C_)
+
+
+@torch.library.custom_op("repro_torch::ssd_chunk", mutates_args=())
+def _ssd_op(xdt: torch.Tensor, dA: torch.Tensor, B_: torch.Tensor,
+            C_: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """``ssd_chunk`` on checked real tensors: the plain version on the
+    CPU, one counted launch of a kernel on the card."""
     if xdt.device.type == "cpu":
         return ssd_chunk_ref(xdt, dA, B_, C_)
     return _launch(xdt, dA, B_, C_, wgmma_route(xdt, dA, B_, C_))
+
+
+@_ssd_op.register_fake
+def _(xdt, dA, B_, C_):
+    b, h, c, K, P = xdt.shape
+    N = B_.shape[-1]
+    y = xdt.new_empty((b, c, K, h, P)).permute(0, 3, 1, 2, 4)
+    f32 = dict(dtype=torch.float32)
+    return y, xdt.new_empty((b, h, c, N, P), **f32), \
+        xdt.new_empty((b, h, c), **f32)
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_chunk)
+def ssd_flops(x_shape, a_shape, b_shape, c_shape, out_shape=None, **kw):
+    """The plain version's products: ``C B^T`` (``2 b h c K K N``), ``S
+    x`` (``2 b h c K K P``) and the states (``2 b h c K N P``)."""
+    b, h, c, K, P = x_shape
+    N = b_shape[-1]
+    return 2 * b * h * c * K * (K * N + K * P + N * P)
 
 
 def _ssd_chunk_simt(xdt, dA, B_, C_):

@@ -17,6 +17,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention.ops import flash_mha
+from repro_torch.models.placed import (decode_attention, is_placed,
+                                       local_attention, placed_like,
+                                       split_heads, write_cache)
 
 NEG_INF = -2.0e38
 
@@ -55,7 +58,8 @@ def rope_freqs(head_dim, theta, device=None):
 
 def apply_rope(x, positions, theta):
     """x: [..., L, n_heads, D]; positions: [..., L] (int)."""
-    inv = rope_freqs(x.shape[-1], theta, x.device)  # [D/2]
+    inv = placed_like(rope_freqs(x.shape[-1], theta, x.device), positions,
+                      replicate=True)  # [D/2]
     ang = positions[..., None].float() * inv  # [..., L, D/2]
     sin = torch.sin(ang)[..., None, :]  # broadcast over heads
     cos = torch.cos(ang)[..., None, :]
@@ -74,7 +78,7 @@ def causal_window_mask(q_pos, k_pos, window=None, causal=True):
     q_pos: [..., L], k_pos: [..., S] absolute positions.
     """
     d = q_pos[..., :, None] - k_pos[..., None, :]
-    m = torch.ones(d.shape, dtype=torch.bool, device=d.device)
+    m = torch.ones_like(d, dtype=torch.bool)
     if causal:
         m = m & (d >= 0)
     if window is not None:
@@ -166,14 +170,20 @@ def attention_decode(q, k_cache, v_cache, q_pos, cache_pos, *, window=None,
     (== window for rolling caches). cache_pos: [B, Sc] absolute position held
     in each cache slot (-1 = empty). q_pos: [B, 1].
     """
-    B, _, H, D = q.shape
-    K = k_cache.shape[2]
-    qg = q.reshape(B, 1, K, H // K, D)
-    s = _gqa_scores(qg, k_cache, D ** -0.5, attn_softcap)  # [B,K,G,1,Sc]
-    valid = (cache_pos >= 0) & (cache_pos <= q_pos)  # [B,Sc]
-    if window is not None:
-        valid = valid & (q_pos - cache_pos < window)
-    s = s.masked_fill(~valid[:, None, None, None, :], NEG_INF)
+    def scores(q, k_cache, q_pos, cache_pos):
+        B, _, H, D = q.shape
+        K = k_cache.shape[2]
+        qg = q.reshape(B, 1, K, H // K, D)
+        s = _gqa_scores(qg, k_cache, D ** -0.5, attn_softcap)  # [B,K,G,1,Sc]
+        valid = (cache_pos >= 0) & (cache_pos <= q_pos)  # [B,Sc]
+        if window is not None:
+            valid = valid & (q_pos - cache_pos < window)
+        return s.masked_fill(~valid[:, None, None, None, :], NEG_INF)
+
+    if is_placed(k_cache):
+        return decode_attention(scores, q, k_cache, v_cache, q_pos,
+                                cache_pos)
+    s = scores(q, k_cache, q_pos, cache_pos)
     return _gqa_out(torch.softmax(s, dim=-1), v_cache)  # [B,1,H,D]
 
 
@@ -210,26 +220,29 @@ def attn_qkvo(x, bp, cfg, positions, *, lora=None, kv_override=None,
             y = y + (cfg.lora_rank ** -0.5) * r.to(y.dtype)
         return y
 
-    q = proj(x, "q").reshape(B, L, cfg.n_heads, cfg.head_dim)
+    q = split_heads(proj(x, "q"), cfg.n_heads, cfg.head_dim)
     q = apply_rope(q, positions, cfg.rope_theta)
     if kv_override is not None:
         k, v, k_pos = kv_override
-        out = attention(q, k, v, positions, k_pos, window=None, causal=False,
-                        attn_softcap=cfg.attn_softcap, q_chunk=cfg.attn_chunk)
+
+        def cross(q, k, v, q_pos, k_pos):
+            return attention(q, k, v, q_pos, k_pos, window=None,
+                             causal=False, attn_softcap=cfg.attn_softcap,
+                             q_chunk=cfg.attn_chunk)
+        out = local_attention(cross, q, k, v, positions, k_pos,
+                              keep_seq=True)
         return proj(out.reshape(B, L, cfg.q_dim), "o")
-    k = proj(x, "k").reshape(B, L, cfg.n_kv_heads, cfg.head_dim)
-    v = proj(x, "v").reshape(B, L, cfg.n_kv_heads, cfg.head_dim)
+    k = split_heads(proj(x, "k"), cfg.n_kv_heads, cfg.head_dim)
+    v = split_heads(proj(x, "v"), cfg.n_kv_heads, cfg.head_dim)
     k = apply_rope(k, positions, cfg.rope_theta)
     if decode_cache is not None:
         if L != 1:
             raise ValueError(f"decode takes one token per row; got L={L}")
-        slot = decode_cache["slot"]  # [B] — write index
-        bidx = torch.arange(B, device=x.device)
+        slot = decode_cache["slot"][:, None]  # [B, 1] — write index
         k_cache, v_cache = decode_cache["k"], decode_cache["v"]
         cache_pos = decode_cache["pos"]
-        k_cache[bidx, slot] = k[:, 0].to(k_cache.dtype)
-        v_cache[bidx, slot] = v[:, 0].to(v_cache.dtype)
-        cache_pos[bidx, slot] = positions[:, 0].to(cache_pos.dtype)
+        for dst, val in ((k_cache, k), (v_cache, v), (cache_pos, positions)):
+            write_cache(dst, slot, val)
         out = attention_decode(q, k_cache, v_cache, positions, cache_pos,
                                window=window, attn_softcap=cfg.attn_softcap)
     else:
@@ -237,18 +250,21 @@ def attn_qkvo(x, bp, cfg, positions, *, lora=None, kv_override=None,
                      and prefill_cache is not None
                      and L % 128 == 0 and cfg.head_dim % 8 == 0)
         if use_flash:
-            out = flash_mha(q, k, v, causal=causal, window=window,
-                            softcap=cfg.attn_softcap)
+            def core(q, k, v, q_pos, k_pos):
+                return flash_mha(q, k, v, causal=causal, window=window,
+                                 softcap=cfg.attn_softcap)
         else:
-            out = attention(q, k, v, positions, positions, window=window,
-                            causal=causal, attn_softcap=cfg.attn_softcap,
-                            q_chunk=cfg.attn_chunk)
+            def core(q, k, v, q_pos, k_pos):
+                return attention(q, k, v, q_pos, k_pos, window=window,
+                                 causal=causal,
+                                 attn_softcap=cfg.attn_softcap,
+                                 q_chunk=cfg.attn_chunk)
+        out = local_attention(core, q, k, v, positions, positions,
+                              keep_seq=not use_flash)
         if prefill_cache is not None:
             alloc = prefill_cache["k"].shape[1]
             take = min(L, alloc)
             slots = positions[:, L - take:] % alloc  # [B, take]
-            bidx = torch.arange(B, device=x.device)[:, None]
             for name, val in (("k", k), ("v", v), ("pos", positions)):
-                dst = prefill_cache[name]
-                dst[bidx, slots] = val[:, L - take:].to(dst.dtype)
+                write_cache(prefill_cache[name], slots, val[:, L - take:])
     return proj(out.reshape(B, L, cfg.q_dim), "o")

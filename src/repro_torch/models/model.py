@@ -74,6 +74,10 @@ from repro_torch.models.config import BlockCfg, ModelConfig
 from repro_torch.models.layers import (apply_rope, attention, attn_qkvo,
                                        rms_norm, softcap, swiglu)
 from repro_torch.models.moe import moe_ffn
+from repro_torch.models.placed import embed as placed_embed
+from repro_torch.models.placed import (is_placed, keep_placements,
+                                       local_attention, local_mixer,
+                                       placed_like, split_heads)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -598,18 +602,19 @@ def encode(params, cfg: ModelConfig, enc_embeds, *, lead=0):
     gradient is recorded (policy "full" whatever ``remat_policy`` says,
     as the reference's encoder scan)."""
     B, Le = enc_embeds.shape[lead:lead + 2]
-    pos = torch.arange(Le, device=enc_embeds.device).expand(B, Le)
+    pos = placed_like(torch.arange(Le, device=enc_embeds.device)
+                      .expand(B, Le), enc_embeds, replicate=True)
     enc = params["enc"]
 
     def block(h, bp):
         x = rms_norm(h, bp["ln1"], cfg.norm_eps)
-        q = (x @ bp["wq"]).reshape(B, Le, cfg.n_heads, cfg.head_dim)
-        k = (x @ bp["wk"]).reshape(B, Le, cfg.n_kv_heads, cfg.head_dim)
-        v = (x @ bp["wv"]).reshape(B, Le, cfg.n_kv_heads, cfg.head_dim)
+        q = split_heads(x @ bp["wq"], cfg.n_heads, cfg.head_dim)
+        k = split_heads(x @ bp["wk"], cfg.n_kv_heads, cfg.head_dim)
+        v = split_heads(x @ bp["wv"], cfg.n_kv_heads, cfg.head_dim)
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
-        o = attention(q, k, v, pos, pos, causal=False,
-                      attn_softcap=cfg.attn_softcap, q_chunk=cfg.attn_chunk)
+        o = local_attention(_bidirectional(cfg), q, k, v, pos, pos,
+                            keep_seq=True)
         h = h + o.reshape(B, Le, cfg.q_dim) @ bp["wo"]
         return h + swiglu(rms_norm(h, bp["ln2"], cfg.norm_eps), bp["wi"],
                           bp["wd"])
@@ -619,15 +624,27 @@ def encode(params, cfg: ModelConfig, enc_embeds, *, lead=0):
         h = _unit_call(cfg, "full", block, lead, h,
                        _unit_slice(enc["stack"]["pos0"], u,
                                    0 if fixed else lead), fixed=fixed)
+        h = keep_placements(h, enc_embeds)
     return _cmap(lambda x, g: rms_norm(x, g, cfg.norm_eps), lead, h,
                  enc["ln_f"], fixed=fixed)
+
+
+def _bidirectional(cfg):
+    """The plain bidirectional attention of the encoder and the
+    cross-attention, as a ``placed.local_attention`` body."""
+    def body(q, k, v, q_pos, k_pos):
+        return attention(q, k, v, q_pos, k_pos, causal=False,
+                         attn_softcap=cfg.attn_softcap,
+                         q_chunk=cfg.attn_chunk)
+    return body
 
 
 def _enc_kv(enc_out):
     """The cross-attention's source: the encoder output and its key
     positions [B, Le]."""
     B, Le, _ = enc_out.shape
-    return enc_out, torch.arange(Le, device=enc_out.device).expand(B, Le)
+    return enc_out, placed_like(torch.arange(Le, device=enc_out.device)
+                                .expand(B, Le), enc_out, replicate=True)
 
 
 def _cross_attn(x, wp, cfg, positions, enc_kv):
@@ -636,8 +653,8 @@ def _cross_attn(x, wp, cfg, positions, enc_kv):
     (``attn_qkvo(kv_override=)``)."""
     enc_out, k_pos = enc_kv
     B, Le, _ = enc_out.shape
-    k = (enc_out @ wp["wk"]).reshape(B, Le, cfg.n_kv_heads, cfg.head_dim)
-    v = (enc_out @ wp["wv"]).reshape(B, Le, cfg.n_kv_heads, cfg.head_dim)
+    k = split_heads(enc_out @ wp["wk"], cfg.n_kv_heads, cfg.head_dim)
+    v = split_heads(enc_out @ wp["wv"], cfg.n_kv_heads, cfg.head_dim)
     return attn_qkvo(x, wp, cfg, positions, kv_override=(k, v, k_pos))
 
 
@@ -653,10 +670,14 @@ def apply_block(blk: BlockCfg, bp, h, cfg, positions, *, shared=None,
     None for the other kinds.  The cache (prefill/decode modes) is
     written in place."""
     if blk.kind == "mamba":
-        return h + ssm.mamba_block(
-            rms_norm(h, bp["ln1"], cfg.norm_eps), bp, cfg, mode=mode,
-            decode_cache=cache if mode == "decode" else None,
-            prefill_cache=cache if mode == "prefill" else None), None
+        def mixer(x, bp, cache):
+            return ssm.mamba_block(
+                x, bp, cfg, mode=mode,
+                decode_cache=cache if mode == "decode" else None,
+                prefill_cache=cache if mode == "prefill" else None)
+
+        return h + local_mixer(mixer, rms_norm(h, bp["ln1"], cfg.norm_eps),
+                               bp, cache), None
     if blk.kind == "shared_attn":
         bp = shared
     x = rms_norm(h, bp["ln1"], cfg.norm_eps)
@@ -699,6 +720,7 @@ def _run_stack(h, params, cfg: ModelConfig, positions, *, enc_kv=None,
     shared = params.get("shared")
     stack, tail = params.get("stack", {}), params.get("tail", {})
     lora = params.get("lora") or {}
+    h0 = h
     blocks = [(blk, _unit_slice(stack.get(f"pos{j}", {}), u),
                _block_lora(lora.get("stack"), f"pos{j}", u),
                _unit_slice(caches["stack"][f"pos{j}"], u))
@@ -710,6 +732,7 @@ def _run_stack(h, params, cfg: ModelConfig, positions, *, enc_kv=None,
     for blk, bp, lp, c in blocks:
         h, _ = apply_block(blk, bp, h, cfg, positions, shared=shared,
                            lora=lp, enc_kv=enc_kv, cache=c, mode=mode)
+        h = keep_placements(h, h0)
     return h
 
 
@@ -771,7 +794,12 @@ def _train_stack(h, params, cfg: ModelConfig, positions, enc_out, lead):
 def _embed(params, cfg, tokens, embeds=None):
     """Token embeddings in cfg.dtype; a frontend's stub ``embeds`` [B, F,
     d] take the place of the first F."""
-    h = params["embed"][tokens].to(_dt(cfg))
+    if is_placed(tokens):
+        # vocab-parallel: each rank looks up its rows, then one sum
+        # (``placed.embed``), where ``[tokens]`` would gather the table
+        h = placed_embed(params["embed"], tokens).to(_dt(cfg))
+    else:
+        h = params["embed"][tokens].to(_dt(cfg))
     if embeds is not None:
         F = embeds.shape[1]
         h = torch.cat([embeds.to(h.dtype), h[:, F:]], dim=1)
@@ -947,8 +975,9 @@ def prefill(params, cfg: ModelConfig, cache, tokens, *, embeds=None,
     into ``cache["enc_out"]``, and the cross-attention reads it uncast."""
     B, L = tokens.shape
     h = _embed(params, cfg, tokens, embeds)
-    positions = torch.arange(start_pos, start_pos + L,
-                             device=h.device).expand(B, L)
+    positions = placed_like(torch.arange(start_pos, start_pos + L,
+                                         device=h.device).expand(B, L),
+                            tokens)
     enc_kv = None
     if cfg.enc_dec:
         enc_out = encode(params, cfg, enc_embeds)

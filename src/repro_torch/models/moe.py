@@ -27,16 +27,25 @@ place or through ``out=``, so the layer also runs under the client
 gradient through the mean router probabilities, as the reference's does
 (the top-1 fractions, counts, carry none).
 
-The reference's ``_constrain_expert_buffer`` (an environment switch that
-pins the buffer's sharding over a device mesh) is not ported: it does
-nothing without a mesh.
+Over DTensors (a step placed over a device mesh, ``launch/dryrun.py``)
+the dispatch plan is one ``local_map`` region: the routing is
+replicated and every rank computes the whole plan, replicated
+(``models/placed.py``).  ``_constrain_expert_buffer`` is the reference's
+sharding hint on the ``[E, B * cap, d]`` expert buffer, read from
+``REPRO_MOE_CONSTRAIN``: "1" redistributes it to ``Shard(0)`` over
+'model' (experts sharded: the tokens travel to the experts' ranks), "D"
+to ``Shard(2)`` over 'data' (the feature dim, to meet 'data'-sharded
+expert weights); on a plain tensor it does nothing.
 """
 from __future__ import annotations
+
+import os
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import swiglu
+from repro_torch.models.placed import batch_rows, is_placed, placed_like
 
 
 def _route(x, router_w, top_k):
@@ -51,7 +60,8 @@ def _route(x, router_w, top_k):
     # fraction of tokens whose top-1 is e: counts of 0/1 terms, exact in
     # float32 whatever the order of the adds (and without a gradient, as
     # the reference's one-hot has none)
-    top1 = topi[..., 0, None] == torch.arange(E, device=x.device)
+    top1 = topi[..., 0, None] == placed_like(
+        torch.arange(E, device=x.device), topi, replicate=True)
     fe = top1.float().sum(1) / L
     return topw, topi, E * (me * fe).sum(-1)
 
@@ -96,6 +106,40 @@ def dispatch(topi, n_experts, cap):
     return src.reshape(-1), dest, dest < G * cap
 
 
+def _dispatch_plan(topi, n_experts, cap):
+    """``dispatch``; over DTensors one ``local_map`` region: ``topi``
+    replicated, the plan computed on every rank and replicated."""
+    if not is_placed(topi):
+        return dispatch(topi, n_experts, cap)
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    R = (Replicate(),) * topi.device_mesh.ndim
+    return local_map(lambda t: dispatch(t, n_experts, cap),
+                     out_placements=(R, R, R), in_placements=(R,),
+                     device_mesh=topi.device_mesh,
+                     redistribute_inputs=True)(topi)
+
+
+def _constrain_expert_buffer(eb, E):
+    """The sharding hint on the ``[E, B * cap, d]`` expert buffer
+    (``REPRO_MOE_CONSTRAIN``, module note): "1" -> ``Shard(0)`` over
+    'model', "D" -> ``Shard(2)`` over 'data', every other mesh dim
+    replicated; unset or "0", a plain tensor, or a mesh without that
+    axis: ``eb`` as it is."""
+    mode = os.environ.get("REPRO_MOE_CONSTRAIN", "0")
+    if mode == "0" or not is_placed(eb):
+        return eb
+    from torch.distributed.tensor import Replicate, Shard
+
+    axis, dim = ("data", 2) if mode == "D" else ("model", 0)
+    names = eb.device_mesh.mesh_dim_names or ()
+    if axis not in names:
+        return eb
+    return eb.redistribute(placements=[
+        Shard(dim) if n == axis else Replicate() for n in names])
+
+
 def moe_ffn(x, bp, cfg):
     """x: [B, L, d] -> (y, aux_loss).
 
@@ -106,10 +150,11 @@ def moe_ffn(x, bp, cfg):
     E, k = cfg.n_experts, cfg.top_k
     topw, topi, aux = _route(x, bp["router"], k)
     cap = capacity(cfg, L)
-    src, dest, keep = dispatch(topi, E, cap)
+    src, dest, keep = _dispatch_plan(topi, E, cap)
     xt = x.reshape(B * L, d)
     eb = torch.cat([xt, xt.new_zeros(1, d)]).index_select(0, src)
-    g, u = torch.bmm(eb.view(E, B * cap, d), bp["wi_e"]).chunk(2, dim=-1)
+    eb = _constrain_expert_buffer(eb.view(E, B * cap, d), E)
+    g, u = torch.bmm(eb, bp["wi_e"]).chunk(2, dim=-1)
     # the expert outputs and a zero row for the dropped slots
     out = F.pad(torch.bmm(F.silu(g) * u, bp["wd_e"]).view(E * B * cap, d),
                 (0, 0, 0, 1))
@@ -117,7 +162,9 @@ def moe_ffn(x, bp, cfg):
     y = (out.index_select(0, dest) * w[:, None]).view(B * L, k, d).sum(1)
     if cfg.n_shared_experts and "wi_s" in bp:
         y = y + swiglu(xt, bp["wi_s"], bp["wd_s"])
-    return y.view(B, L, d), aux.mean()
+    # over DTensors the tokens' rows go back to the input's batch shards
+    # first: torch 2.13's view mis-sizes a dim sharded on two mesh dims
+    return batch_rows(y, xt).view(B, L, d), aux.mean()
 
 
 def moe_ffn_dense_ref(x, bp, cfg):

@@ -77,11 +77,18 @@ def test_tiny_places_on_the_test_meshes(mesh_kind):
 
 @pytest.mark.parametrize("mesh_kind", ["single", "multi"])
 def test_every_combination_is_recorded_on_the_production_meshes(
-        tmp_path, mesh_kind, capsys):
+        tmp_path, mesh_kind, capsys, monkeypatch):
     """``--all`` writes one record per arch x supported shape; the ones
     that fit are ``ok`` with bytes equal to the independent count and the
     roofline's analytic terms; the rest carry their error; ``--skip-done``
-    skips what is done."""
+    skips what is done.  The placement half only: each step is built but
+    not run (``execute`` a no-op; ``test_torch_dryrun_lowering.py`` and
+    ``test_torch_dryrun_production.py`` run steps)."""
+    from repro_torch.launch import analysis
+
+    monkeypatch.setattr(dryrun, "execute",
+                        lambda step, args: (None,
+                                            analysis.CollectiveCounter()))
     out = tmp_path / "dry.json"
     dryrun.main(["--all", "--mesh", mesh_kind, "--out", str(out)])
     recs = json.loads(out.read_text())
