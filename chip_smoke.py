@@ -379,6 +379,27 @@ printed as JSON lines:
         phase 3o's ranks, after the timing turns, counted on rank 0: two
         client all-reduces a round, of K1's ``[1, N + 1]`` partial and
         the ``[4, 1]`` metric sums.
+     q. The tree-state placed round, after phase 3p.  (a) ``tiny`` on
+        tree state (float32, FedAWE with K1, m 8, 2 rounds) over phase
+        3o's four gloo ranks on card 0, a (4, 1) ('data', 'model') mesh:
+        each rank's ``TreePlacement`` holds two client rows, each leaf a
+        DTensor on the 'model' sub-mesh; K1's partial form and the
+        finalize once per rank a round, the fused K1 never (once a round
+        in the unplaced tree round run here beside it); globals and
+        client rows within 1e-5 of it, τ, markov, keys, t and counts
+        bit-equal, the client leaves on ``client_stack_pspecs``'
+        placements; rank 0's collectives counted and printed; the partial
+        form at the rank's ``[2, 156 224]`` held against its plain
+        version and timed.  On the (2, 2) mesh DTensor's all-gathers over
+        'model' of CUDA tensors through gloo segfaulted (torch 2.11), so
+        that case runs over four cards under NCCL in
+        ``tools/chip_probe_nccl.py --tree``.  (b) gemma2-2b's dry-run tree
+        step at published widths, 4 of its 26 layers, as rank 0 of the
+        (16, 16) mesh over fake CUDA tensors in a fake group, against the
+        same step's CPU record in this run: collective bytes equal, flops
+        within 1.0-1.1 of the CPU record's (DTensor's strategy choice
+        depends on the mesh's device type), the counted temp peak plus
+        the arguments under 80 GB, no card memory allocated.
   4. numbers  — K1-K3: the Triton yardstick's global loads by width in
      its SASS at rows 8 bytes off 16 and at aligned rows; the CUDA kernel
      and the Triton yardstick in turns (K2's yardstick with its own weight
@@ -435,7 +456,8 @@ printed as JSON lines:
      N: kernel and plain version in turns, in CUDA graphs, beside the
      bound.  Each line carries the card's name and power limit.
   5. the ``{"kernels": [...]}`` line (K1 / K2's partial form and the
-     finalize with phase 3o's launches; K1 also at the LM training
+     finalize with phase 3o's launches, K1's partial form on the tree
+     route with phase 3q's; K1 also at the LM training
      stack's [8, N] and the LoRA stack's [4, N], with the full-width
      runs' launches; K4 also at gemma3-27b's windowed and global shapes,
      with the LoRA prefill's launches of each); the last line is
@@ -5452,6 +5474,8 @@ def placed_rank(rank, store_path, out_dir):
                 r = {k: r[k] for k in ("launches", "wall_s", "peak_bytes",
                                        "held")}
             out["runs"][tag] = r
+        # phase 3q (a) on the same ranks
+        out["tree"] = tree_placed_rank(torch, rank)
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -5584,7 +5608,8 @@ def placed_fl_path(torch, experiments, prng, ops, counts, smi):
               unplaced_peak_bytes={t: unplaced[t]["peak_bytes"]
                                    for t in unplaced},
               spawned_s=spawned_s, tol=PLACED_TOL, **diffs))
-    return dict(collectives=ranks[0]["runs"]["sine_counted"]["collectives"],
+    return dict(ranks=ranks,
+                collectives=ranks[0]["runs"]["sine_counted"]["collectives"],
                 partial=ranks[0]["runs"]["sine"]["launches"]["partial"],
                 partial_upload=ranks[0]["runs"]["fault"]["launches"]
                 ["partial_upload"],
@@ -5706,6 +5731,303 @@ def lowering_placed_round(placed, smi):
               collectives={k: v for k, v in c.items()
                            if k not in ("calls_by_op", "bytes_by_op")},
               calls_by_op=c["calls_by_op"]))
+
+
+# ---------------------------------------------------------------------------
+# phase 3q: the tree-state placed round, K1's partial form on each rank's
+# column shards
+
+#: phase 3q (a): ``tiny`` on tree state, float32, FedAWE with K1, m = 8
+#: over a ('data', 'model') mesh of phase 3o's four ranks on card 0: (4,
+#: 1), two client rows a rank.  On the (2, 2) mesh each leaf's model dims
+#: would be split over two ranks, and DTensor's all-gathers over 'model'
+#: of CUDA tensors through gloo segfaulted there (torch 2.11), as its
+#: gathers did in phase 3o; ``tools/chip_probe_nccl.py --tree`` runs the
+#: (2, 2) case over four cards under NCCL
+TREE_PLACED_M, TREE_PLACED_ROUNDS = 8, 2
+TREE_PLACED_MESH = (4, 1)
+TREE_PLACED_B, TREE_PLACED_L = 2, 16
+#: globals and client leaves against the unplaced tree round: the ranks'
+#: partial sums and DTensor's reductions over 'model' add in another
+#: order
+TREE_PLACED_TOL = 1e-5
+#: phase 3q (b): the dry run's tree step at the arch's published widths,
+#: its depth cut to ``TREE_STEP_LAYERS`` (two of its 13 local/global
+#: units): each full-depth run takes about 53 s of this host's CPU
+#: (DTensor's and FakeTensor's dispatch), twice that for the pair; the
+#: full depth's record is the CPU dry run's (``PERF.md``)
+TREE_STEP_ARCH, TREE_STEP_LAYERS = "gemma2-2b", 4
+#: the fake CUDA step's counted flops over the CPU record's.  Not 1 on
+#: torch 2.11: DTensor picks a matmul's strategy by a redistribution cost
+#: that depends on the mesh's device type, and under the CUDA mesh five
+#: of the unit's projections run whole on a few more calls (1.038 at 4
+#: layers, 1.056 at 2, read on an H100 host); the collective bytes are
+#: equal
+TREE_STEP_FLOPS_RATIO = (1.0, 1.1)
+CARD_BYTES = 80e9
+
+
+def tree_placed_inputs(torch, np, dev):
+    """Phase 3q (a)'s inputs on ``dev``: ``tiny``'s weights from a seed
+    (float32) and ``TREE_PLACED_ROUNDS`` token batches ``[m, s, B, L]``
+    drawn with numpy."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model
+
+    cfg = get_config("tiny")
+    params = tree_map(lambda k, v: v.to(dev), model.init_params(
+        torch.Generator().manual_seed(11), cfg))
+    rng = np.random.default_rng(12)
+    shape = (TREE_PLACED_M, cfg.local_steps, TREE_PLACED_B, TREE_PLACED_L)
+    batches = []
+    for _ in range(TREE_PLACED_ROUNDS):
+        toks = rng.integers(0, cfg.vocab, shape)
+        batches.append(dict(
+            tokens=torch.from_numpy(toks.astype(np.int32)).to(dev),
+            labels=torch.from_numpy(np.roll(toks, -1, -1).astype(np.int32))
+            .to(dev), mask=torch.ones(shape, device=dev)))
+    return cfg, params, batches
+
+
+def tree_placed_run(torch, place):
+    """Phase 3q (a)'s FedAWE run on tree state with K1 on card 0:
+    unplaced (``place`` None: the fused K1 once a round) or as a rank of
+    a ``TreePlacement`` (its rows and blocks over 'model': the partial
+    form, the all-reduce, the finalize).  Returns the state and the
+    metrics of each round."""
+    import numpy as np
+
+    from repro_torch.core import (AvailabilityCfg, FLConfig, init_fl_state,
+                                  make_round_fn, prng)
+    from repro_torch.models import model
+    from repro_torch.sharding.placement import rows_of
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg, params, batches = tree_placed_inputs(torch, np, dev)
+    trainable, frozen = model.split_trainable(params, cfg)
+    fl = FLConfig(m=TREE_PLACED_M, s=cfg.local_steps, eta_l=0.05,
+                  strategy="fedawe", use_kernel=True, grad_clip=0.5)
+    round_fn = make_round_fn(
+        fl, model.lm_loss_fn(cfg), frozen,
+        AvailabilityCfg(kind="sine", gamma=0.3, period=4),
+        torch.full((TREE_PLACED_M,), 0.6, device=dev), place=place)
+    state = init_fl_state(prng.PRNGKey(3, dev), fl, trainable, place=place)
+    hist = []
+    for b in batches:
+        state, metrics = round_fn(state, {k: rows_of(v, place)
+                                          for k, v in b.items()})
+        hist.append(metrics)
+    torch.cuda.synchronize()
+    return state, [{k: float(v) for k, v in h.items()} for h in hist]
+
+
+def tree_placed_rank(torch, rank, shape=TREE_PLACED_MESH):
+    """Phase 3q (a) on one rank of four: a ``shape`` ('data', 'model')
+    mesh over the group's ranks, the run on its ``TreePlacement`` with
+    every K1 form's count from 0 just before it (rank 0 under
+    ``analysis.CollectiveCounter``), then its results gathered whole over
+    'model' through a CPU twin of the sub-mesh (gloo's all-gather of
+    CUDA tensors segfaulted on the card, torch 2.11)."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.core.tree_util import tree_leaves
+    from repro_torch.kernels.echo_aggregate import ops
+    from repro_torch.launch import analysis, mesh
+    from repro_torch.sharding import placements
+    from repro_torch.sharding.placement import tree_placement
+
+    m = DeviceMesh("cuda", torch.arange(4, device="cpu").reshape(shape),
+                   mesh_dim_names=("data", "model"))
+    place = tree_placement(m, TREE_PLACED_M)
+    host = DeviceMesh("cpu", m.mesh,
+                      mesh_dim_names=m.mesh_dim_names)["model"]
+    ops.echo_aggregate_flat.launches = 0
+    ops.echo_aggregate_flat.upload_launches = 0
+    ops.echo_aggregate_partial.launches = 0
+    ops.echo_aggregate_partial.upload_launches = 0
+    ops.echo_aggregate_finalize.launches = 0
+    collectives = None
+    t0 = time.perf_counter()
+    if rank == 0:
+        with analysis.CollectiveCounter() as counter:
+            state, hist = tree_placed_run(torch, place)
+        collectives = dict(counter.collective_bytes(),
+                           calls_by_op=dict(counter.calls_by_op),
+                           bytes_by_op=dict(counter.bytes_by_op),
+                           top=counter.collective_top())
+    else:
+        state, hist = tree_placed_run(torch, place)
+    wall = time.perf_counter() - t0
+    launches = dict(fused=ops.echo_aggregate_flat.launches,
+                    fused_upload=ops.echo_aggregate_flat.upload_launches,
+                    **partial_launches(ops))
+
+    def whole(x):
+        return DTensor.from_local(x.to_local().cpu(), host, x.placements,
+                                  run_check=False).full_tensor()
+
+    trainable = state.global_tr
+    want = [tuple(placements(sp, place.sub))
+            for sp in tree_leaves(place.client_specs(trainable))]
+    return dict(
+        mesh=mesh.mesh_axis_sizes(m), rows=(place.lo, place.hi),
+        global_tr=[whole(v) for v in tree_leaves(state.global_tr)],
+        clients=[whole(v) for v in tree_leaves(state.clients_tr)],
+        n_local=sum(v.to_local().numel()
+                    for v in tree_leaves(state.global_tr)),
+        kept=[tuple(v.placements) for v in tree_leaves(state.clients_tr)]
+        == want, tau=state.tau.cpu(), rng=state.rng.cpu(),
+        markov=state.markov.cpu(), t=int(state.t), hist=hist,
+        launches=launches, wall_s=wall, collectives=collectives)
+
+
+def tree_placed_path(torch, ops, ref, ranks, counts, smi,
+                     shape=TREE_PLACED_MESH, backend="gloo"):
+    """Phase 3q (a): the unplaced tree round in this process (the fused
+    K1 once a round), against the ranks' run (``tree_placed_rank``,
+    spawned with phase 3o's).  Gates: every rank's partial form and
+    finalize once a round, the fused K1 never; the globals and each
+    rank's client rows within ``TREE_PLACED_TOL``, τ, markov, the key, t
+    and the counts bit-equal, the client leaves on
+    ``client_stack_pspecs``' placements; then the partial form at the
+    rank's column shards ``[rows, N_local]`` held against its plain
+    version (``PARTIAL_TOL``) and timed, beside its bound."""
+    from repro_torch.core.tree_util import tree_leaves
+
+    counts.reset()
+    state, hist = tree_placed_run(torch, None)
+    unplaced = counts.read()
+    require(unplaced["K1"] == TREE_PLACED_ROUNDS,
+            f"3q unplaced tree launches {unplaced}")
+    g_want = [v.cpu() for v in tree_leaves(state.global_tr)]
+    c_want = [v.cpu() for v in tree_leaves(state.clients_tr)]
+    per = dict(fused=0, fused_upload=0, partial=TREE_PLACED_ROUNDS,
+               partial_upload=0, finalize=TREE_PLACED_ROUNDS)
+    rows = TREE_PLACED_M // shape[0]
+    diff = 0.0
+    for r, rk in enumerate(ranks):
+        t = rk["tree"]
+        require(t["mesh"] == dict(data=shape[0], model=shape[1]),
+                f"3q mesh {t['mesh']}")
+        require(t["launches"] == per, f"3q rank {r} launches "
+                f"{t['launches']}")
+        require(t["kept"], f"3q rank {r}: client leaves off their "
+                "placements")
+        lo, hi = t["rows"]
+        require(hi - lo == rows, f"3q rank {r} rows {lo, hi}")
+        for a, b in zip(t["global_tr"], g_want):
+            diff = max(diff, (a - b).abs().max().item())
+        for a, b in zip(t["clients"], c_want):
+            diff = max(diff, (a - b[lo:hi]).abs().max().item())
+        require(torch.equal(t["tau"], state.tau.cpu()[lo:hi])
+                and torch.equal(t["markov"], state.markov.cpu()[lo:hi])
+                and torch.equal(t["rng"], state.rng.cpu())
+                and t["t"] == int(state.t), f"3q rank {r}: τ, markov, "
+                "key or t differ from the unplaced run")
+        for ha, hb in zip(t["hist"], hist):
+            require(ha["n_active"] == hb["n_active"]
+                    and abs(ha["loss"] - hb["loss"]) <= TREE_PLACED_TOL,
+                    f"3q rank {r} metrics {ha} {hb}")
+    require(diff <= TREE_PLACED_TOL, f"3q placed tree round differs by "
+            f"{diff}")
+    n = ranks[0]["tree"]["n_local"]
+    # the partial form at the rank's column shards, against its plain
+    # version, then timed in turns (operand sets rotating through more
+    # than the L2)
+    errs, sets = 0.0, []
+    for j in range(64):
+        a = make_inputs(torch, rows, n, torch.float32, seed=300 + j)
+        sets.append(a)
+        if j < 4:
+            got = call_partial(ops.echo_aggregate_partial, a, 0, rows, False)
+            want = call_partial(ref.echo_aggregate_partial_ref, a, 0, rows,
+                                False)
+            errs = max(errs, (got - want).abs().max().item())
+    require(errs <= PARTIAL_TOL * max(1.0, n / N_MAIN),
+            f"3q partial form at [{rows}, {n}] off by {errs}")
+
+    def kern(i):
+        return call_partial(ops.echo_aggregate_partial, sets[i % 64], 0,
+                            rows, False)
+
+    def plain(i):
+        return call_partial(ref.echo_aggregate_partial_ref, sets[i % 64], 0,
+                            rows, False)
+    t = [graph_ms(torch, f, 64) for f in (kern, plain, plain, kern)]
+    b_ms, b_by, nbytes = partial_bound(rows, n, False)
+    timing = dict(ms=(t[0] + t[3]) / 2, turns_ms=[t[0], t[3]],
+                  plain_ms=(t[1] + t[2]) / 2, bound_ms=b_ms, bound_by=b_by)
+    del sets
+    rec = dict(phase="tree_placed_path", card=smi, arch="tiny",
+               dtype="float32", m=TREE_PLACED_M, rows_per_rank=rows,
+               n_local=n, rounds=TREE_PLACED_ROUNDS, mesh=ranks[0]["tree"]
+               ["mesh"], backend=backend, launches_per_rank=per,
+               unplaced_launches=unplaced, max_diff=diff,
+               tol=TREE_PLACED_TOL, placed_wall_s=max(
+                   rk["tree"]["wall_s"] for rk in ranks),
+               rank0_collectives=ranks[0]["tree"]["collectives"],
+               partial_max_abs_err=errs, partial_bytes=nbytes,
+               partial_share=b_ms / timing["ms"], **{
+                   f"partial_{k}": v for k, v in timing.items()})
+    emit(rec)
+    return dict(timing, max_abs_err=errs, launches=per["partial"])
+
+
+def lowering_tree_step(torch, smi):
+    """Phase 3q (b): the dry run's tree step of ``TREE_STEP_ARCH`` x
+    train_4k at full width (``TREE_STEP_LAYERS`` deep) as rank 0 of the
+    (16, 16) mesh over fake CUDA tensors in a fake group
+    (``dryrun.run_one(device="cuda")``), then the CPU dry run's record of
+    the same combination.  Gates: both ``ok``; the collective bytes
+    equal, the counted flops within ``TREE_STEP_FLOPS_RATIO`` of the
+    CPU record's; the counted temp peak plus the step's argument bytes
+    under the card's 80 GB; no card memory allocated by the fake
+    step."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+
+    cfg = get_config(TREE_STEP_ARCH).replace(n_layers=TREE_STEP_LAYERS)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    rec = dryrun.run_one(TREE_STEP_ARCH, "train_4k", "single", cfg=cfg,
+                         verbose=False, device="cuda")
+    wall = time.perf_counter() - t0
+    require(rec["ok"], f"3q tree step: {rec.get('error')}\n"
+            f"{rec.get('traceback', '')}")
+    require(torch.cuda.memory_allocated() == held,
+            "3q: the fake tree step allocated card memory")
+    t0 = time.perf_counter()
+    cpu = dryrun.run_one(TREE_STEP_ARCH, "train_4k", "single", cfg=cfg,
+                         verbose=False)
+    cpu_wall = time.perf_counter() - t0
+    require(cpu["ok"], f"3q CPU tree step: {cpu.get('error')}")
+    got, want = (dict(flops=r["cost"]["flops"],
+                      collective_bytes=r["collectives"]["total"])
+                 for r in (rec, cpu))
+    ratio = got["flops"] / want["flops"]
+    require(got["collective_bytes"] == want["collective_bytes"]
+            and TREE_STEP_FLOPS_RATIO[0] <= ratio
+            <= TREE_STEP_FLOPS_RATIO[1], f"3q tree step counted {got} "
+            f"over CUDA tensors; the CPU dry run's record {want}")
+    mem = rec["memory"]
+    need = mem["temp_size_in_bytes"] + mem["step_argument_size_in_bytes"]
+    require(need < CARD_BYTES, f"3q tree step needs {need} bytes")
+    emit(dict(phase="lowering_tree_step", card=smi, arch=TREE_STEP_ARCH,
+              n_layers=TREE_STEP_LAYERS, shape="train_4k",
+              mesh=rec["mesh_axes"], state=rec["state"],
+              flops=got["flops"], cpu_flops=want["flops"],
+              flops_over_cpu=ratio, analytic_flops=rec["analytic"]
+              ["flops_per_dev"], flops_over_analytic=got["flops"]
+              / rec["analytic"]["flops_per_dev"],
+              collectives=rec["collectives"],
+              collective_ops=rec["collective_ops"],
+              temp_bytes=mem["temp_size_in_bytes"],
+              step_argument_bytes=mem["step_argument_size_in_bytes"],
+              need_bytes=need, run_s=rec["run_s"], wall_s=wall,
+              cpu_run_s=cpu["run_s"], cpu_wall_s=cpu_wall))
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -6207,6 +6529,16 @@ def main():
     lowering_prefill(torch, model, analysis, get_config, counts, smi)
     lowering_placed_round(placed, smi)
     emit(dict(phase="lowering_done", seconds=time.perf_counter() - t0))
+    # phase 3q: the tree-state placed round, every count at 0 just before
+    # each run: tiny over phase 3o's ranks on a (2, 2) ('data', 'model')
+    # mesh (K1's partial form on each rank's column shards) against the
+    # unplaced tree round, and gemma2-2b's dry-run tree step over fake
+    # CUDA tensors against the CPU dry run's record
+    t0 = time.perf_counter()
+    tree_partial = tree_placed_path(torch, ops, ref, placed["ranks"], counts,
+                                    smi)
+    lowering_tree_step(torch, smi)
+    emit(dict(phase="tree_placed_done", seconds=time.perf_counter() - t0))
 
     ssd_times = time_ssd(torch, sops, sref, get_config, smi)
     time_flash_sdpa(torch, fops, fref, smi, "zamba2-7b", ZAMBA_ATTN,
@@ -6270,6 +6602,17 @@ def main():
             max_err_of_largest=partial_errs[f"{v} partial, of the largest"],
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=None))
+    # K1's partial form on the tree route: a TreePlacement rank's rows of
+    # phase 3q's tiny round over its column shards, [4, N_local] float32;
+    # its launches rank 0's there
+    kernels.append(dict(
+        name=f"{names['K1']}, partial form, tree route", route="cuda",
+        source="src/repro_torch/kernels/echo_aggregate/csrc/"
+               "echo_aggregate.cu",
+        replaces=replaces["K1"], launches=tree_partial["launches"],
+        max_abs_err=tree_partial["max_abs_err"], ms=tree_partial["ms"],
+        plain_ms=tree_partial["plain_ms"], bound_ms=tree_partial["bound_ms"],
+        bound_by=tree_partial["bound_by"], library_ms=None))
     t = partial_times["finalize"]
     kernels.append(dict(
         name="echo_aggregate_finalize (K1 / K2 partial form's finalize)",

@@ -57,8 +57,14 @@ process per device under a process group) a rank's state holds its rows
 of every client-stacked leaf, as ``sharding.flat_pspecs`` places them,
 and the round reduces over clients by explicit all-reduces: the
 aggregation's (FedAWE's kernel route: one, of the ``[N + 1]`` partial),
-and one of the round's metric sums stacked (``client_totals``).  The flat
-substrate only, no cohort.  Without one every path is as before.
+and one of the round's metric sums stacked (``client_totals``).  Tree
+state is placed too, under a ``TreePlacement``: each of the rank's
+client leaves (and the global) is a DTensor over the mesh's 'model'
+axis as ``client_stack_pspecs`` places it, local SGD runs over DTensors
+one client row at a time (``placed_local_sgd``; DTensor decides the
+collectives over 'model'), and the strategy aggregates the rank's
+column shards (``strategies.aggregate_placed``).  No placement takes
+the cohort.  Without one every path is as before.
 
 A cohort round gathers the round's active clients, at most ``c_max``,
 into a float32 ``[c, N]`` working set, runs local SGD and aggregation
@@ -84,14 +90,19 @@ from repro_torch.core import staleness as _stale
 from repro_torch.core.availability import (AvailabilityCfg, probs_at,
                                            sample_active)
 from repro_torch.core.flatten import FlatSpec, resident_dtype
-from repro_torch.core.strategies import get_strategy
+from repro_torch.core.strategies import (aggregate_placed, broadcast_rows,
+                                         get_strategy, same_paths)
 from repro_torch.core.tree_util import (_bshape, tree_broadcast,
                                         tree_client_norm, tree_client_scale,
                                         tree_from_paths, tree_leaves,
                                         tree_map, tree_paths)
 from repro_torch.data.federated import gather_batches_at
 from repro_torch.device import float32_policy
-from repro_torch.sharding.placement import client_sum, rows_of
+from repro_torch.models.placed import is_placed
+from repro_torch.sharding.placement import (TreePlacement, client_sum,
+                                            row_of, rows_of, stack_rows,
+                                            wrap_like)
+from repro_torch.sharding.rules import placements
 
 
 @dataclasses.dataclass(frozen=True)
@@ -173,12 +184,13 @@ def init_fl_state(rng, cfg: FLConfig, trainable_template, *, fault=None,
     float32 column sum) unless ``stale`` is given: with a ring the round
     runs in dense lanes, and the memory keeps its dense float32 form.
 
-    With a client placement ``place`` (the flat substrate) the state is
-    born with the rank's rows only, as ``sharding.flat_pspecs`` places
-    them: the client stack, a memory strategy's memory and the ``[m]``
-    vectors hold ``place.rows`` clients, and ``fault`` and ``stale`` are
-    the rank's carries (``init_fault_state(place=)``,
-    ``init_staleness_state(place=)``)."""
+    With a client placement ``place`` the state is born with the rank's
+    rows only, as ``sharding.flat_pspecs`` places them: the client stack,
+    a memory strategy's memory and the ``[m]`` vectors hold ``place.rows``
+    clients, and ``fault`` and ``stale`` are the rank's carries
+    (``init_fault_state(place=)``, ``init_staleness_state(place=)``).  On
+    tree state (a ``TreePlacement``) each leaf is also only the rank's
+    block over 'model' (``_init_tree_placed``)."""
     float32_policy()
     strat = get_strategy(cfg.strategy)
     dev = rng.device
@@ -191,6 +203,10 @@ def init_fl_state(rng, cfg: FLConfig, trainable_template, *, fault=None,
     tau = torch.full((m,), -1, dtype=torch.int32, device=dev)
     t = torch.zeros((), dtype=torch.int32, device=dev)
     markov = torch.ones((m,), dtype=torch.float32, device=dev)
+    if not cfg.flat_state and place is not None:
+        return _init_tree_placed(cfg, strat, place, trainable_template, dev,
+                                 tau=tau, t=t, markov=markov, rng=rng,
+                                 fault=fault)
     if not cfg.flat_state:
         g = tree_map(lambda x: x.to(dev).clone(), trainable_template)
         return FLState(
@@ -215,12 +231,44 @@ def init_fl_state(rng, cfg: FLConfig, trainable_template, *, fault=None,
                    fault=fault, stale=stale)
 
 
+def _init_tree_placed(cfg, strat, place, template, dev, **fields):
+    """Tree state under a ``TreePlacement``: the rank's block of the
+    global over 'model' (``param_pspecs``), its client rows the global's
+    block broadcast and copied (``client_stack_pspecs``' placements), and
+    a strategy state built on those blocks, an entry shaped like the
+    trainable tree placed as the global or the client leaves are.  Only
+    the rank's share is built: no leaf is made whole and sliced."""
+    from torch.distributed.tensor import DTensor
+
+    g = tree_map(lambda x: wrap_like(x.to_local().clone(), x),
+                 place.place_params(tree_map(lambda x: x.to(dev), template)))
+    clients = tree_map(
+        lambda x, spec: DTensor.from_local(
+            x.to_local().unsqueeze(0).expand(
+                (place.rows,) + tuple(x.to_local().shape)).contiguous(),
+            place.sub, placements(spec, place.sub), run_check=False),
+        g, place.client_specs(template))
+    extra = strat.init_extra(tree_map(lambda x: x.to_local(), g), place.rows)
+    if isinstance(extra, dict):
+        def placed(e):
+            return tree_map(lambda v, x, c: wrap_like(
+                v, c if v.dim() > x.dim() else x), e, g, clients)
+        extra = {k: placed(e) if same_paths(e, g) else e
+                 for k, e in extra.items()}
+    return FLState(global_tr=g, clients_tr=clients, extra=extra,
+                   **{k: v.clone() if k == "rng" else v
+                      for k, v in fields.items()})
+
+
 def _check_placed(cfg: FLConfig, place):
-    """A client placement needs the flat substrate without the cohort,
-    and the config's m."""
-    if not cfg.flat_state or cfg.sparse_cohort:
-        raise ValueError("a client placement needs the flat [m, N] "
-                         "substrate (flat_state) and no sparse cohort")
+    """A client placement takes no sparse cohort, and the config's m;
+    tree state needs a ``TreePlacement`` (its leaves over 'model')."""
+    if cfg.sparse_cohort:
+        raise ValueError("a client placement takes no sparse cohort")
+    if not cfg.flat_state and not isinstance(place, TreePlacement):
+        raise ValueError("tree state under a client placement needs a "
+                         "TreePlacement (sharding.placement.tree_placement"
+                         "): its leaves are sharded over 'model'")
     if place.m != cfg.m:
         raise ValueError(f"the placement is of {place.m} clients; the "
                          f"config has {cfg.m}")
@@ -273,6 +321,32 @@ def _per_client(v, leaf):
     return v
 
 
+def _placed_as(g, x):
+    """A gradient of a DTensor leaf ``x`` with ``x``'s placements: DTensor's
+    backward may return it replicated or as a partial sum; left so, the
+    step would move the leaf off its placements."""
+    if is_placed(g) and g.placements != x.placements:
+        return g.redistribute(placements=x.placements)
+    return g
+
+
+def placed_local_sgd(trainable, frozen, batches, rng, **kw):
+    """``local_sgd`` over a ``TreePlacement``'s client rows: leaves and
+    batches ``[rows, ...]`` DTensors over 'model' (their client dim
+    local), ``rng`` ``[rows, 2]``.  One client at a time (``row_of``): its
+    steps run over DTensors one client wide, and DTensor's propagation
+    decides the collectives over 'model'; the rows come back stacked."""
+    outs, losses = [], []
+    for r in range(rng.shape[0]):
+        x, loss = local_sgd(tree_map(lambda v: row_of(v, r), trainable),
+                            frozen, {k: row_of(v, r)
+                                     for k, v in batches.items()},
+                            rng[r], **kw)
+        outs.append(x)
+        losses.append(loss)
+    return tree_map(lambda *xs: stack_rows(xs), *outs), torch.stack(losses)
+
+
 def local_sgd(trainable, frozen, batches, rng, *, s, eta_l, loss_fn,
               grad_clip=0.0):
     """s local SGD steps for every client at once.
@@ -312,7 +386,11 @@ def local_sgd(trainable, frozen, batches, rng, *, s, eta_l, loss_fn,
         with torch.enable_grad():
             xg = tree_map(lambda a: a.detach().requires_grad_(True), x)
             loss = per_client(xg, frozen, mb, sub)
-            grads = torch.autograd.grad(loss.sum(), tree_leaves(xg))
+            if is_placed(loss):
+                loss = loss.full_tensor()
+            leaves = tree_leaves(xg)
+            grads = [_placed_as(gr, a) for gr, a in zip(
+                torch.autograd.grad(loss.sum(), leaves), leaves)]
         g = _clip(tree_from_paths(paths, grads), grad_clip, lead)
         x = tree_map(lambda xx, gg: (xx.float() - _per_client(eta_l, xx)
                                      * gg.float()).to(xx.dtype), x, g)
@@ -384,8 +462,14 @@ def make_round_fn_with_frozen(cfg: FLConfig, loss_fn: Callable,
     the m clients is made whole from the replicated key and sliced, every
     sum over clients is all-reduced over the rank's group and the
     population means divide by the global m, so masks, τ and keys are the
-    unplaced round's bits and the global agrees to float32 rounding.  The
-    flat substrate only, without the cohort.
+    unplaced round's bits and the global agrees to float32 rounding.  On
+    tree state ``place`` is a ``TreePlacement``: the leaves are DTensors
+    over 'model' (the batch and a frozen base are placed on the way in,
+    ``place_batch`` / ``place_params``), local SGD runs one client row at
+    a time over them, and the server update is the flat aggregate on the
+    rank's column shards (``strategies.aggregate_placed``: FedAWE's K1
+    partial form, the all-reduce over the client axes and the finalize).
+    No placement takes the cohort.
 
     On tree state (``cfg.flat_state`` False) the round runs local SGD on
     the client-stacked tree, forms ``G = start − x_end`` and sanitizes
@@ -406,6 +490,7 @@ def make_round_fn_with_frozen(cfg: FLConfig, loss_fn: Callable,
     if place is not None:
         _check_placed(cfg, place)
         m_held = place.rows
+    tree_placed = place is not None and not cfg.flat_state
 
     # The round is three parts: what comes before local SGD (keys,
     # availability, faults, the ring's drain and delays, the cohort), local
@@ -466,6 +551,8 @@ def make_round_fn_with_frozen(cfg: FLConfig, loss_fn: Callable,
         never a copy; nothing writes into it in place."""
         if strat.stateful_clients:
             return state.clients_tr
+        if tree_placed:
+            return broadcast_rows(state.global_tr, state.clients_tr)
         lead = state.t.dim()
         return tree_map(lambda g: g.unsqueeze(lead).expand(
             g.shape[:lead] + (n,) + g.shape[lead:]), state.global_tr)
@@ -474,6 +561,12 @@ def make_round_fn_with_frozen(cfg: FLConfig, loss_fn: Callable,
         spec = state.spec
         kw = dict(s=cfg.s, eta_l=eta_at(state.t), loss_fn=loss_fn,
                   grad_clip=cfg.grad_clip)
+        if tree_placed:
+            # the batch's and the frozen base's blocks over 'model' (a
+            # DTensor passes as it is)
+            return placed_local_sgd(
+                start, place.place_params(frozen) if frozen else frozen,
+                place.place_batch(batches), rngs, **kw)
         if spec is None:
             return local_sgd(start, frozen, batches, rngs, **kw)
         x_end_tr, losses = local_sgd(spec.unflatten_stacked(start), frozen,
@@ -539,10 +632,9 @@ def make_round_fn_with_frozen(cfg: FLConfig, loss_fn: Callable,
                 # values, not just zero weight
                 keep = mask_upload > 0
                 x_end_eff = tree_map(
-                    lambda xe, st: torch.where(_bshape(keep, xe), xe, st),
-                    x_end_eff, start)
-                G_eff = tree_map(
-                    lambda g: torch.where(_bshape(keep, g), g, 0.0), G_eff)
+                    lambda xe, st: _rows_where(keep, xe, st), x_end_eff,
+                    start)
+                G_eff = tree_map(lambda g: _rows_where(keep, g, 0.0), G_eff)
         if staleness_cfg is not None:
             mu0 = deliver if mask_upload is None else mask_upload
             w_disc = mu0 if staleness_cfg.gamma >= 1.0 else mu0 * torch.pow(
@@ -559,6 +651,10 @@ def make_round_fn_with_frozen(cfg: FLConfig, loss_fn: Callable,
             new_global, new_clients, new_tau, new_extra = \
                 strat.aggregate_flat(global_flat=state.global_tr,
                                      clients_flat=start, place=place, **agg)
+        elif tree_placed:
+            new_global, new_clients, new_tau, new_extra = aggregate_placed(
+                strat, global_tr=state.global_tr, clients_tr=start,
+                place=place, **agg)
         else:
             new_global, new_clients, new_tau, new_extra = strat.aggregate(
                 global_tr=state.global_tr, clients_tr=start, **agg)
@@ -717,6 +813,16 @@ def make_round_fn_with_frozen(cfg: FLConfig, loss_fn: Callable,
     round_fn.seeds = seeds_round_fn
     round_fn.place = place
     return round_fn
+
+
+def _rows_where(keep, a, b):
+    """``a`` where the client row's ``keep`` holds, else ``b`` (a leaf
+    like ``a``, or a number); on a placed leaf, on its local block."""
+    if is_placed(a):
+        bl = b.to_local() if is_placed(b) else b
+        al = a.to_local()
+        return wrap_like(torch.where(_bshape(keep, al), al, bl), a)
+    return torch.where(_bshape(keep, a), a, b)
 
 
 def _check_same_place(round_fn, sample_fn, place):

@@ -36,7 +36,9 @@ import torch
 from repro_torch.core.availability import AvailabilityCfg, availability_trace
 from repro_torch.core import prng
 from repro_torch.core.tree_util import tree_leaves
-from repro_torch.sharding.placement import n_clients, rows_of
+from repro_torch.models.placed import is_placed
+from repro_torch.sharding.placement import (mesh_sum, n_clients,
+                                            owns_block, rows_of)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,13 +139,21 @@ def compute_mask(cfg: FaultCfg, fault_state, mask, t):
 def update_norms_sq(G):
     """Per-client squared innovation norm over a client-stacked update:
     one ``[m]`` float32 vector whether ``G`` is the flat ``[m, N]`` buffer
-    or a tree of ``[m, ...]`` leaves."""
-    tot = None
+    or a tree of ``[m, ...]`` leaves.  Leaves that are DTensors (a
+    ``TreePlacement``'s rows over 'model') add their local blocks, a
+    replicated block once (``owns_block``), and the sum is reduced over
+    their mesh in one all-reduce."""
+    tot, mesh = None, None
     for leaf in tree_leaves(G):
+        if is_placed(leaf):
+            mesh, own = leaf.device_mesh, owns_block(leaf)
+            leaf = leaf.to_local()
+            if not own:
+                leaf = torch.zeros_like(leaf)
         x = leaf.float().reshape(leaf.shape[0], -1)
         s = torch.sum(x * x, dim=1)
         tot = s if tot is None else tot + s
-    return tot
+    return tot if mesh is None else mesh_sum(tot, mesh)
 
 
 def _fates(cfg: FaultCfg, survive_u, mask, G):

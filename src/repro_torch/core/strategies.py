@@ -51,7 +51,11 @@ reduction over clients goes through ``client_sum`` (an all-reduce over the
 rank's group; nothing without a placement), and the population means
 divide by the global m (``n_clients``), not by the rows held.  FedAWE's
 kernel route becomes the kernel's partial form, the all-reduce and the
-finalize.  The tree and cohort paths take no placement.
+finalize.  On tree state under a ``TreePlacement`` (client leaves
+sharded over 'model' as well) ``aggregate_placed`` runs the flat
+aggregate on the rank's column shards: every aggregate of the ten is
+columnwise in N, so none needs a sum over 'model'.  The cohort path
+takes no placement.
 
 ``mask_upload`` and ``ages`` keep the reference's signature: under fault
 injection ``mask_upload`` is the delivered-update weight; under the
@@ -66,12 +70,15 @@ from typing import Any, Callable, Optional
 import torch
 
 from repro_torch.core.cohort import cohort_payload
-from repro_torch.sharding.placement import client_sum, n_clients
+from repro_torch.core.flatten import FlatSpec
+from repro_torch.models.placed import is_placed
+from repro_torch.sharding.placement import client_sum, n_clients, wrap_like
 from repro_torch.core.tree_util import (_bshape, tree_broadcast,
                                         tree_leaves, tree_map,
                                         tree_masked_mean, tree_mean,
-                                        tree_select, tree_select_broadcast,
-                                        tree_sub, tree_zeros_like)
+                                        tree_paths, tree_select,
+                                        tree_select_broadcast, tree_sub,
+                                        tree_zeros_like)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -682,6 +689,80 @@ FEDAR = Strategy("fedar", False, _memory_init("mem"), _fedar_aggregate,
                  aggregate_cohort=_fedar_aggregate_cohort,
                  init_extra_cohort=_memory_init_cohort("mem"),
                  cohort_memory=("mem",))
+
+
+# ---------------------------------------------------------------------------
+# tree state under a TreePlacement: the flat aggregate on column shards
+# ---------------------------------------------------------------------------
+
+def _local(x):
+    return x.to_local() if is_placed(x) else x
+
+
+def same_paths(value, tree):
+    """Whether ``value`` is a tree with ``tree``'s leaf paths (a strategy
+    state shaped like the trainable tree: a memory, a velocity)."""
+    return isinstance(value, dict) and bool(value) and \
+        [p for p, _ in tree_paths(value)] == [p for p, _ in tree_paths(tree)]
+
+
+def broadcast_rows(global_tr, clients_tr):
+    """The global's local blocks broadcast over the rank's client rows
+    (views), as DTensors with the client leaves' placements."""
+    return tree_map(lambda g, c: wrap_like(g.to_local().unsqueeze(0).expand(
+        c.to_local().shape), c), global_tr, clients_tr)
+
+
+def aggregate_placed(strat: Strategy, *, global_tr, clients_tr, x_end, G,
+                     mask, t, tau, probs, extra, eta_g, place,
+                     use_kernel=False, mask_upload=None, ages=None):
+    """``strat``'s round on tree state under a ``TreePlacement``: the
+    rank's client rows and its column shards over 'model'.
+
+    Every flat aggregate is columnwise in N, so the local blocks of the
+    leaves — the global's, and those of the rank's client leaves, ``x_end``
+    and ``G`` — ravel into ``[N_local]`` and ``[rows, N_local]``
+    (``FlatSpec`` over the local blocks), ``aggregate_flat(place=)`` runs
+    on them (its sums over clients are all-reduced over the rank's client
+    group only), and the results come back as views of the new buffers in
+    DTensors with the leaves' placements.  An extra entry shaped like the
+    trainable tree (a memory, FedAWE-M's velocity) is raveled and placed
+    back the same way; the rest passes as it is.  A stateless strategy's
+    client stack mirrors the new global (``broadcast_rows``).  With
+    ``use_kernel`` FedAWE's update is one partial launch, one all-reduce
+    and one finalize per rank."""
+    g_loc = tree_map(_local, global_tr)
+    spec = FlatSpec.from_tree(g_loc)
+
+    def ravel(tree):
+        loc = tree_map(_local, tree)
+        return (spec.flatten_stacked(loc) if tree_leaves(loc)[0].dim()
+                > len(spec.shapes[0]) else spec.flatten(loc))
+
+    def unravel(flat, like):
+        views = (spec.unflatten_stacked(flat) if flat.dim() == 2
+                 else spec.unflatten(flat))
+        return tree_map(wrap_like, views, like)
+
+    shaped = {}
+    if isinstance(extra, dict):
+        shaped = {k: v for k, v in extra.items() if same_paths(v, global_tr)}
+        extra = dict(extra, **{k: ravel(v) for k, v in shaped.items()})
+    stateful = strat.stateful_clients
+    new_g, new_c, new_tau, new_extra = strat.aggregate_flat(
+        global_flat=spec.flatten(g_loc),
+        clients_flat=ravel(clients_tr) if stateful else None,
+        x_end=ravel(x_end) if stateful else None, G=ravel(G), mask=mask,
+        t=t, tau=tau, probs=probs, extra=extra, eta_g=eta_g,
+        use_kernel=use_kernel, mask_upload=mask_upload, ages=ages,
+        place=place)
+    new_global = unravel(new_g, global_tr)
+    new_clients = (broadcast_rows(new_global, clients_tr) if new_c is None
+                   else unravel(new_c, clients_tr))
+    if shaped:
+        new_extra = dict(new_extra, **{k: unravel(new_extra[k], v)
+                                       for k, v in shaped.items()})
+    return new_global, new_clients, new_tau, new_extra
 
 
 REGISTRY = {s.name: s for s in

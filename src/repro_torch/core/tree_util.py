@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.models.placed import is_placed
+
 
 def tree_paths(tree, prefix=()):
     """``[(path, leaf)]`` in jax's flatten order."""
@@ -94,8 +96,17 @@ def tree_client_norm(tree, lead=1):
     """Per-client global L2 norm ``[m]`` (``[S, m]`` with ``lead=2``) of a
     client-stacked tree: each leaf's sum of squares, summed over leaves in
     flatten order."""
-    return sum((x.float() * x.float()).reshape(x.shape[:lead] + (-1,))
-               .sum(-1) for x in tree_leaves(tree)) ** 0.5
+    return sum(_client_sum_sq(x, lead) for x in tree_leaves(tree)) ** 0.5
+
+
+def _client_sum_sq(x, lead):
+    """Each client's sum of squares of one leaf; a DTensor (one client's
+    leaf over a mesh) sums its dims in place, where a flattening view
+    would gather its shards."""
+    x = x.float()
+    if is_placed(x):
+        return (x * x).sum(dim=tuple(range(lead, x.dim())))
+    return (x * x).reshape(x.shape[:lead] + (-1,)).sum(-1)
 
 
 def tree_masked_mean(tree, mask):

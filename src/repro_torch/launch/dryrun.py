@@ -9,13 +9,19 @@ fake process group of 256 or 512 ranks (4 with ``--test-mesh``) as rank
 0, under ``FakeTensorMode``: shapes only, no weights are allocated, no
 rank communicates.
 
-  train_4k     -> the placed flat FedAWE round (``build_train_step``):
-                  ``engine.make_round_fn_with_frozen(place=)`` over rank
-                  0's client rows of ``fl_clients(mesh)`` clients (the
-                  'model' ranks replicate those rows), K1's partial form
-                  and its all-reduces (``sharding/placement.py``); the
-                  record says ``"state": "flat"`` (the reference lowers
-                  the tree-state round here)
+  train_4k     -> the reference's step, the placed FedAWE round on tree
+                  state (``build_train_step``):
+                  ``engine.make_round_fn_with_frozen(place=)`` with a
+                  ``TreePlacement`` over rank 0's client rows of
+                  ``fl_clients(mesh)`` clients and its blocks over
+                  'model' (``client_stack_pspecs``), local SGD over
+                  DTensors, K1's partial form on the rank's column
+                  shards and its all-reduce (``sharding/placement.py``);
+                  the record says ``"state": "tree"``
+  train_4k, --variant dp_client / zero_client -> the same step with the
+                  block weights replicated over 'model' and the
+                  within-client batch over it, or the weights stored
+                  sharded and the batch over 'model' (``train_modes``)
   train_4k, --variant flat_chunk[K][+epoch][+seeds[S]][+mesh][+faults]
                [+staleness] -> the placed chunk executors
                   (``build_chunk_train_step``): K rounds per call, the
@@ -29,9 +35,12 @@ rank communicates.
 The serving steps take DTensor params (``param_pspecs``, ``fsdp`` for a
 LoRA base), caches (``cache_pspecs``) and inputs
 (``serve_batch_pspecs``; ``seq_shard`` puts the prompt's sequence on
-'model' where it divides by 16); DTensor's sharding propagation decides
-where the collectives go.  The regions that run on local blocks instead,
-with the placements they take (``models/placed.py``, ``models/moe.py``):
+'model' where it divides by 16); the tree step its client leaves, global,
+batch and frozen base over 'model' (the base by ``param_pspecs``
+without the reference's FSDP over 'data': that axis holds the explicit
+client rows).  DTensor's sharding propagation decides where the
+collectives go.  The regions that run on local blocks instead, with the
+placements they take (``models/placed.py``, ``models/moe.py``):
 
   * the attention core (``placed.local_attention``: self-attention plain
     or K4, the encoder's and the cross-attention's plain):
@@ -56,7 +65,22 @@ with the placements they take (``models/placed.py``, ``models/moe.py``):
     placements), every weight replicated; the output the input's
     placements;
   * the MoE dispatch plan (``moe.dispatch`` under ``local_map``): the
-    routing replicated, the plan computed on every rank, replicated.
+    routing replicated, the plan computed on every rank, replicated;
+  * the training loss's cross-entropy (``placed.token_nll_sum``): the
+    logits keep their vocab shard (last dim) and batch shard (dim 0),
+    labels and mask the batch shard, all else replicated; each rank's
+    block maximum ``Partial("max")``, its sum of exponentials and its
+    labels' logits ``Partial("sum")``, reduced to the rows' placements.
+
+In the tree step's training forward and backward the residual stream's
+partial sums are reduced before each norm (``placed.reduce_partial``)
+and each normed input's gradient is brought back to its forward
+placements (``placed.grad_like_forward``), the tensor-parallel "g" and
+"f" operators; the attention output's merged heads take their gradient
+back the same way (``layers._merged_heads``), and the attention region's
+inputs get contiguous gradients (``placed.contiguous_grad``).  Every
+weight gradient is redistributed to its leaf's placements before the
+step (``engine._placed_as``).
 
 Between blocks the residual stream is brought back to the embedding's
 placements (``placed.keep_placements``), and the MoE layer's output rows
@@ -88,9 +112,10 @@ traceback; the sweep goes on.
     python -m repro_torch.launch.dryrun --all --mesh multi \\
         --out results/dryrun_torch.json
 
-A variant is checked before anything runs (``check_variant``): the
-reference's ``dp_client`` and ``zero_client`` (the tree-state placed
-round's knobs, ROADMAP item 18b) and any unknown token raise.
+A variant is checked before anything runs (``check_variant``): any
+unknown token raises, and so do ``dp_client`` and ``zero_client`` beside
+``flat_chunk[K]`` (the flat chunk places nothing over 'model'; the
+reference ignores them there).
 
 Results append to ``--out`` so an interrupted sweep resumes
 (``--skip-done``, keyed by the variant too).  It runs on the CPU: no
@@ -173,24 +198,54 @@ def decode_input_specs(cfg, shape):
 # the arguments of each shape kind, with their specs
 # ---------------------------------------------------------------------------
 
-def train_args(cfg, shape, mesh, multi_pod):
-    """The FL round's arguments and specs: the flat state at
-    ``fl_clients(mesh)`` clients, the frozen base, the round batch."""
-    from repro_torch.core import FLConfig, init_fl_state, prng
+def train_modes(variant):
+    """The weights' storage and the within-client batch's modes of the
+    tree step, as the reference's knobs set them: ``dp_client`` ("dp",
+    "dp"), ``zero_client`` ("tp", "dp"), else ("tp", "tp")."""
+    toks = variant.split("+")
+    mode = "dp" if "dp_client" in toks else "tp"
+    batch_mode = "dp" if "dp_client" in toks or "zero_client" in toks \
+        else "tp"
+    return mode, batch_mode
+
+
+def train_args(cfg, shape, mesh, multi_pod, variant="baseline"):
+    """The FL round's arguments and specs at ``fl_clients(mesh)``
+    clients: the state, the frozen base, the round batch.  The baseline
+    and its knobs: tree state as the reference places it (the global by
+    ``param_pspecs``, the client stack by ``client_stack_pspecs``, the
+    [m] vectors over the client axes as ``flat_pspecs`` places them, the
+    batch by ``batch_pspecs``; ``train_modes``); a chunk variant: the
+    flat state by ``flat_pspecs``."""
+    from repro_torch.core import FLConfig, FLState, init_fl_state, prng
     from repro_torch.models.model import init_params, split_trainable
+    from repro_torch.sharding import client_stack_pspecs
+    from repro_torch.sharding.rules import _axis_sizes, _client_axes
 
     m = fl_clients(mesh)
+    flat = bool(_chunk_k(variant))
+    mode, batch_mode = train_modes(variant)
     fl = FLConfig(m=m, s=cfg.local_steps, eta_l=0.01, eta_g=1.0,
                   strategy="fedawe", lr_schedule=False, grad_clip=0.0,
-                  flat_state=True)
-    params = init_params(torch.Generator(), cfg)
+                  flat_state=flat)
+    params = init_params(_generator(), cfg)
     trainable, frozen = split_trainable(params, cfg)
-    state = init_fl_state(prng.PRNGKey(0, "cpu"), fl, trainable)
+    state = init_fl_state(prng.PRNGKey(0, _device()), fl, trainable)
     batch = train_input_specs(cfg, shape, m)
     args = dict(state=state, frozen=frozen, batch=batch)
-    specs = dict(state=flat_pspecs(mesh, state, multi_pod=multi_pod),
+    if flat:
+        state_spec = flat_pspecs(mesh, state, multi_pod=multi_pod)
+    else:
+        ca = _client_axes(_axis_sizes(mesh), multi_pod)
+        state_spec = FLState(
+            global_tr=param_pspecs(cfg, mesh, trainable, mode=mode),
+            clients_tr=client_stack_pspecs(cfg, mesh, trainable,
+                                           multi_pod=multi_pod, mode=mode),
+            tau=P(ca), t=P(), extra=(), markov=P(ca), rng=P(None))
+    specs = dict(state=state_spec,
                  frozen=param_pspecs(cfg, mesh, frozen, fsdp=True),
-                 batch=batch_pspecs(mesh, batch, multi_pod=multi_pod))
+                 batch=batch_pspecs(mesh, batch, multi_pod=multi_pod,
+                                    mode=batch_mode))
     return args, specs
 
 
@@ -200,7 +255,7 @@ def serve_args(cfg, shape, mesh):
     from repro_torch.models.model import init_cache, init_params
 
     B = shape.global_batch
-    params = init_params(torch.Generator(), cfg)
+    params = init_params(_generator(), cfg)
     cache = init_cache(cfg, B, shape.seq_len, device="cpu")
     tok_spec, pos_spec = serve_batch_pspecs(mesh, B)
     if shape.kind == "prefill":
@@ -259,7 +314,7 @@ def mesh_world(mesh_kind, test_mesh):
     return 512 if mesh_kind == "multi" else 256
 
 
-def make_mesh(mesh_kind, test_mesh, variant="baseline"):
+def make_mesh(mesh_kind, test_mesh, variant="baseline", device_type="cpu"):
     """The combination's ``DeviceMesh`` inside the fake group: the
     production or test mesh, or under ``+mesh`` with ``+seeds[S]`` the
     ('seed', 'pod', 'data') mesh ``make_seed_mesh`` sizes over the
@@ -267,10 +322,21 @@ def make_mesh(mesh_kind, test_mesh, variant="baseline"):
     multi_pod = mesh_kind == "multi"
     if _chunk_mesh(variant) and _chunk_seeds(variant):
         return make_seed_mesh(_chunk_seeds(variant), multi_pod=multi_pod,
-                              test=test_mesh, device_type="cpu")
+                              test=test_mesh, device_type=device_type)
     if test_mesh:
-        return make_test_mesh(multi_pod=multi_pod, device_type="cpu")
-    return make_production_mesh(multi_pod=multi_pod, device_type="cpu")
+        return make_test_mesh(multi_pod=multi_pod, device_type=device_type)
+    return make_production_mesh(multi_pod=multi_pod,
+                                device_type=device_type)
+
+
+def _device():
+    """The device the step's tensors are made on: "cpu", or the card's
+    under ``run_one(device="cuda")`` (the default device there)."""
+    return torch.get_default_device()
+
+
+def _generator():
+    return torch.Generator(device=_device())
 
 
 # ---------------------------------------------------------------------------
@@ -282,21 +348,28 @@ KNOBS = ("baseline", "dots_remat", "moe_hint", "moe_dshard", "seq_shard",
          "epoch", "mesh", "faults", "staleness")
 #: the variant's tokens that take an optional count: flat_chunk[K], seeds[S]
 COUNTED_KNOBS = ("flat_chunk", "seeds")
-#: the reference's knobs of the tree-state placed round (ROADMAP item 18b)
-NOT_PORTED = ("dp_client", "zero_client")
+#: the tree step's knobs (``train_modes``)
+TREE_KNOBS = ("dp_client", "zero_client")
 
 
 def check_variant(variant):
     """``variant`` as it is, where each of its '+'-joined tokens is a knob
-    of this dry run; else a ``ValueError`` naming the token."""
-    for tok in variant.split("+"):
-        if tok in NOT_PORTED:
-            raise ValueError(f"variant {variant!r}: {tok} is not ported (the "
-                             "tree-state placed round, ROADMAP item 18b)")
+    of this dry run; else a ``ValueError`` naming the token.  A tree
+    step's knob beside ``flat_chunk[K]`` is refused too: the flat chunk
+    places no leaf over 'model', so the knob would change nothing (the
+    reference ignores it there), and no record may describe a knob that
+    did nothing."""
+    toks = variant.split("+")
+    for tok in toks:
         counted = any(tok.startswith(k) and tok[len(k):].isdigit()
                       for k in COUNTED_KNOBS)
-        if tok not in KNOBS + COUNTED_KNOBS and not counted:
+        if tok not in KNOBS + COUNTED_KNOBS + TREE_KNOBS and not counted:
             raise ValueError(f"variant {variant!r}: unknown knob {tok!r}")
+    tree = [t for t in toks if t in TREE_KNOBS]
+    if tree and _chunk_k(variant):
+        raise ValueError(f"variant {variant!r}: {tree[0]} is a knob of the "
+                         "tree-state round; the flat chunk executors place "
+                         "no leaf over 'model', so it would change nothing")
     return variant
 
 
@@ -362,9 +435,9 @@ def _chunk_staleness(variant):
 # ---------------------------------------------------------------------------
 
 def _fl_parts(cfg, mesh, place, *, fault_cfg=None,
-              staleness_cfg=None):
-    """The FedAWE config, the rank's round (K1's partial form over
-    ``place``), the trainable and frozen trees."""
+              staleness_cfg=None, flat=True):
+    """The FedAWE config (flat or tree state), the rank's round (K1's
+    partial form over ``place``), the trainable and frozen trees."""
     from repro_torch.core import (AvailabilityCfg, FLConfig,
                                   make_round_fn_with_frozen)
     from repro_torch.models.model import (init_params, lm_loss_fn,
@@ -373,9 +446,9 @@ def _fl_parts(cfg, mesh, place, *, fault_cfg=None,
     m = fl_clients(mesh)
     fl = FLConfig(m=m, s=cfg.local_steps, eta_l=0.01, eta_g=1.0,
                   strategy="fedawe", lr_schedule=False, grad_clip=0.0,
-                  flat_state=True, use_kernel=True)
+                  flat_state=flat, use_kernel=True)
     trainable, frozen = split_trainable(
-        init_params(torch.Generator(), cfg), cfg)
+        init_params(_generator(), cfg), cfg)
     av = AvailabilityCfg(kind="sine", gamma=0.3, period=20)
     base_p = torch.full((m,), 0.5)
     round_fn = make_round_fn_with_frozen(
@@ -384,21 +457,28 @@ def _fl_parts(cfg, mesh, place, *, fault_cfg=None,
     return fl, round_fn, trainable, frozen
 
 
-def build_train_step(cfg, shape, mesh):
-    """One placed flat FedAWE round: ``round_fn(state, frozen, batch)``
-    on rank 0's client rows (state, ``[rows, s, b, L]`` batch) and the
-    whole frozen base."""
+def build_train_step(cfg, shape, mesh, variant="baseline"):
+    """The reference's train step: one placed FedAWE round on tree state
+    (``round_fn(state, frozen, batch)``) over rank 0's client rows and
+    its blocks over 'model': its client leaves and global as
+    ``client_stack_pspecs`` / ``param_pspecs`` place them, the frozen
+    base by ``param_pspecs`` over 'model', the ``[rows, s, b, L]`` batch
+    by ``batch_pspecs`` (``train_modes(variant)``), K1's partial form on
+    the rank's column shards."""
     from repro_torch.core import init_fl_state, prng
-    from repro_torch.sharding.placement import client_placement, rows_of
+    from repro_torch.sharding.placement import rows_of, tree_placement
 
+    mode, batch_mode = train_modes(variant)
     with unset_fake_temporarily():     # the mesh's rank grid, on the host
-        place = client_placement(mesh, fl_clients(mesh))
-    fl, round_fn, trainable, frozen = _fl_parts(cfg, mesh, place)
-    state = init_fl_state(prng.PRNGKey(0, "cpu"), fl, trainable,
+        place = tree_placement(mesh, fl_clients(mesh), mode=mode,
+                               batch_mode=batch_mode)
+    fl, round_fn, trainable, frozen = _fl_parts(cfg, mesh, place,
+                                                flat=False)
+    state = init_fl_state(prng.PRNGKey(0, _device()), fl, trainable,
                           place=place)
-    batch = {k: rows_of(v, place) for k, v in
-             train_input_specs(cfg, shape, fl.m).items()}
-    return round_fn, (state, frozen, batch)
+    batch = place.place_batch({k: rows_of(v, place) for k, v in
+                               train_input_specs(cfg, shape, fl.m).items()})
+    return round_fn, (state, place.place_params(frozen), batch)
 
 
 #: samples per client in the dry run's store
@@ -564,7 +644,7 @@ def _place_and_count(rec, cfg, shape, mesh, mesh_kind, variant, mode):
     ax = mesh_axis_sizes(mesh)
     with mode:
         if shape.kind == "train":
-            args, specs = train_args(cfg, shape, mesh, multi_pod)
+            args, specs = train_args(cfg, shape, mesh, multi_pod, variant)
         else:
             args, specs = serve_args(cfg, shape, mesh)
     if shape.kind == "train":
@@ -611,12 +691,13 @@ def _run_step(rec, cfg, shape, mesh, variant, mode, args, specs):
     K = _chunk_k(variant)
     with mode:
         if shape.kind == "train":
-            rec["state"] = "flat"
+            rec["state"] = "flat" if K else "tree"
             if K:
                 step, step_args = build_chunk_train_step(cfg, shape, mesh,
                                                          variant)
             else:
-                step, step_args = build_train_step(cfg, shape, mesh)
+                step, step_args = build_train_step(cfg, shape, mesh,
+                                                   variant)
         elif shape.kind == "prefill":
             step, step_args = build_prefill_step(cfg, shape, mesh, args,
                                                  specs, variant)
@@ -629,8 +710,9 @@ def _run_step(rec, cfg, shape, mesh, variant, mode, args, specs):
     rec["cost"] = analysis.cost_numbers(counter)
     mem = analysis.memory_numbers(counter, step_args, out)
     if shape.kind == "train":
-        # the round's own arguments: the rank's rows, and the frozen base
-        # whole (the placed round does not shard it)
+        # the round's own arguments: the rank's rows (and blocks over
+        # 'model' on tree state), the frozen base over 'model' (whole in
+        # a flat chunk), not over 'data' as the reference's FSDP spec
         mem["step_argument_size_in_bytes"] = mem["argument_size_in_bytes"]
     # the record's argument size stays the placed arguments' (placement
     # half)
@@ -638,6 +720,10 @@ def _run_step(rec, cfg, shape, mesh, variant, mode, args, specs):
     rec["memory"].update(mem)
     rec["collectives"] = counter.collective_bytes()
     rec["collective_top"] = counter.collective_top()
+    # per operator: the client all-reduces (``repro_torch::
+    # client_all_reduce``) apart from DTensor's collectives over 'model'
+    rec["collective_ops"] = {op: [n, counter.bytes_by_op[op]]
+                             for op, n in counter.calls_by_op.items()}
     rec["roofline_counted"] = analysis.roofline_terms(
         rec["cost"]["flops"], rec["cost"]["bytes accessed"],
         rec["collectives"]["total"])
@@ -650,11 +736,14 @@ def _run_step(rec, cfg, shape, mesh, variant, mode, args, specs):
 
 
 def run_one(arch, shape_name, mesh_kind, *, test_mesh=False, verbose=True,
-            variant="baseline", cfg=None, shape=None):
+            variant="baseline", cfg=None, shape=None, device="cpu"):
     """One combination inside a fake group of ``mesh_world`` ranks: its
     record (``ok`` with its numbers, or its ``error``).  ``cfg`` (a
     ``ModelConfig``, e.g. a reduced one) and ``shape`` (an
-    ``InputShape``) take the place of ``arch``'s and ``shape_name``'s."""
+    ``InputShape``) take the place of ``arch``'s and ``shape_name``'s.
+    ``device="cuda"`` makes the mesh and the fake tensors the card's (a
+    CUDA fake tensor allocates nothing); the flat chunk variants keep
+    their host-side store and sampler carries on the CPU."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     check_variant(variant)
@@ -670,8 +759,9 @@ def run_one(arch, shape_name, mesh_kind, *, test_mesh=False, verbose=True,
     if clear is not None:
         clear()
     t0 = time.time()
-    with fake_group(mesh_world(mesh_kind, test_mesh)):
-        mesh = make_mesh(mesh_kind, test_mesh, variant)
+    with fake_group(mesh_world(mesh_kind, test_mesh)), torch.device(device):
+        mesh = make_mesh(mesh_kind, test_mesh, variant,
+                         device_type=torch.device(device).type)
         ax = mesh_axis_sizes(mesh)
         rec = dict(arch=arch, shape=shape_name, mesh=mesh_kind,
                    chips=n_chips(mesh), ok=False, variant=variant,
@@ -738,9 +828,10 @@ VARIANT_HELP = (
     "seedsS: the ('seed', 'pod', 'data') mesh of make_seed_mesh), faults "
     "(mid-round dropout, sanitization and a [2K, m] replay trace in the "
     "chunk), staleness (bounded-delay uploads through a [tau_max, m, N] "
-    "pending ring in the chunk).  The reference's dp_client and "
-    "zero_client are not ported (ROADMAP item 18b) and raise, as does any "
-    "unknown knob")
+    "pending ring in the chunk), dp_client (the tree step's block weights "
+    "replicated over 'model', the within-client batch over it), "
+    "zero_client (weights stored sharded, the batch over 'model'); the "
+    "last two raise beside flat_chunk, as does any unknown knob")
 
 
 def _variant_arg(text):

@@ -57,8 +57,9 @@ def _rank_mesh(shape, axes, device_type):
             f"need {n} ranks for {axes}={shape}, have {have}: run inside a "
             "process group of that size (torchrun, or launch/dryrun.py's "
             "fake group)")
-    return DeviceMesh(device_type, torch.arange(n).reshape(shape),
-                      mesh_dim_names=axes)
+    # the rank grid stays on the host under a default device
+    grid = torch.arange(n, device="cpu").reshape(shape)
+    return DeviceMesh(device_type, grid, mesh_dim_names=axes)
 
 
 def make_production_mesh(*, multi_pod: bool = False, device_type="cuda"):

@@ -17,7 +17,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention.ops import flash_mha
-from repro_torch.models.placed import (decode_attention, is_placed,
+from repro_torch.models.placed import (decode_attention, grad_like_forward,
+                                       is_placed,
                                        local_attention, placed_like,
                                        split_heads, write_cache)
 
@@ -191,6 +192,15 @@ def attention_decode(q, k_cache, v_cache, q_pos, cache_pos, *, window=None,
 # attention block application
 # ---------------------------------------------------------------------------
 
+def _merged_heads(out, B, L, cfg):
+    """The attention output ``[B, L, H, D]`` viewed ``[B, L, H·D]``, its
+    gradient brought back to the view's placements over DTensors
+    (``grad_like_forward``): the output projection's backward may return
+    it sharded over more ranks than the heads divide into, which the
+    view's backward cannot split."""
+    return grad_like_forward(out.reshape(B, L, cfg.q_dim))
+
+
 def attn_qkvo(x, bp, cfg, positions, *, lora=None, kv_override=None,
               decode_cache=None, prefill_cache=None, window=None,
               causal=True):
@@ -231,7 +241,7 @@ def attn_qkvo(x, bp, cfg, positions, *, lora=None, kv_override=None,
                              q_chunk=cfg.attn_chunk)
         out = local_attention(cross, q, k, v, positions, k_pos,
                               keep_seq=True)
-        return proj(out.reshape(B, L, cfg.q_dim), "o")
+        return proj(_merged_heads(out, B, L, cfg), "o")
     k = split_heads(proj(x, "k"), cfg.n_kv_heads, cfg.head_dim)
     v = split_heads(proj(x, "v"), cfg.n_kv_heads, cfg.head_dim)
     k = apply_rope(k, positions, cfg.rope_theta)
@@ -267,4 +277,4 @@ def attn_qkvo(x, bp, cfg, positions, *, lora=None, kv_override=None,
             slots = positions[:, L - take:] % alloc  # [B, take]
             for name, val in (("k", k), ("v", v), ("pos", positions)):
                 write_cache(prefill_cache[name], slots, val[:, L - take:])
-    return proj(out.reshape(B, L, cfg.q_dim), "o")
+    return proj(_merged_heads(out, B, L, cfg), "o")

@@ -75,9 +75,12 @@ from repro_torch.models.layers import (apply_rope, attention, attn_qkvo,
                                        rms_norm, softcap, swiglu)
 from repro_torch.models.moe import moe_ffn
 from repro_torch.models.placed import embed as placed_embed
-from repro_torch.models.placed import (is_placed, keep_placements,
+from repro_torch.models.placed import (grad_like_forward, is_placed,
+                                       keep_placements,
                                        local_attention, local_mixer,
-                                       placed_like, split_heads)
+                                       reduce_partial,
+                                       placed_like, split_heads,
+                                       token_nll_sum)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -658,6 +661,17 @@ def _cross_attn(x, wp, cfg, positions, enc_kv):
     return attn_qkvo(x, wp, cfg, positions, kv_override=(k, v, k_pos))
 
 
+def _normed(h, g, cfg, mode="train"):
+    """``rms_norm(h, g)``.  In training over DTensors the residual's
+    partial sums are reduced first (``placed.reduce_partial``) and the
+    result's gradient comes back with its forward placements
+    (``placed.grad_like_forward``): the tensor-parallel "g" and "f"
+    operators.  The serving steps leave placements to propagation."""
+    if mode != "train":
+        return rms_norm(h, g, cfg.norm_eps)
+    return grad_like_forward(rms_norm(reduce_partial(h), g, cfg.norm_eps))
+
+
 def apply_block(blk: BlockCfg, bp, h, cfg, positions, *, shared=None,
                 lora=None, enc_kv=None, cache=None, mode="train"):
     """One block, residual: ``mamba`` runs the Mamba2 mixer; ``attn`` and
@@ -676,11 +690,11 @@ def apply_block(blk: BlockCfg, bp, h, cfg, positions, *, shared=None,
                 decode_cache=cache if mode == "decode" else None,
                 prefill_cache=cache if mode == "prefill" else None)
 
-        return h + local_mixer(mixer, rms_norm(h, bp["ln1"], cfg.norm_eps),
-                               bp, cache), None
+        return h + local_mixer(mixer, _normed(h, bp["ln1"], cfg, mode), bp,
+                               cache), None
     if blk.kind == "shared_attn":
         bp = shared
-    x = rms_norm(h, bp["ln1"], cfg.norm_eps)
+    x = _normed(h, bp["ln1"], cfg, mode)
     dec = pre = None
     if cache is not None and mode == "decode":
         alloc = cache["k"].shape[1]
@@ -693,9 +707,9 @@ def apply_block(blk: BlockCfg, bp, h, cfg, positions, *, shared=None,
     if enc_kv is not None and "wq_x" in bp:
         xp = {"wq": bp["wq_x"], "wk": bp["wk_x"], "wv": bp["wv_x"],
               "wo": bp["wo_x"]}
-        h = h + _cross_attn(rms_norm(h, bp["ln_x"], cfg.norm_eps), xp, cfg,
+        h = h + _cross_attn(_normed(h, bp["ln_x"], cfg, mode), xp, cfg,
                             positions, enc_kv)
-    x = rms_norm(h, bp["ln2"], cfg.norm_eps)
+    x = _normed(h, bp["ln2"], cfg, mode)
     if blk.kind == "moe":
         y, aux = moe_ffn(x, bp, cfg)
         return h + y, aux
@@ -756,10 +770,12 @@ def _train_stack(h, params, cfg: ModelConfig, positions, enc_out, lead):
         def run(h, bps, lps, shared, enc_out):
             enc_kv = None if enc_out is None else _enc_kv(enc_out)
             aux = torch.zeros((), dtype=torch.float32, device=h.device)
+            h0 = h
             for i, (blk, bp) in enumerate(zip(kinds, bps)):
                 h, a = apply_block(blk, bp, h, cfg, positions, shared=shared,
                                    lora=lps.get(i), enc_kv=enc_kv,
                                    mode="train")
+                h = keep_placements(h, h0)
                 if a is not None:
                     aux = aux + a
             return h, aux
@@ -820,11 +836,12 @@ def forward_hidden(params, cfg: ModelConfig, tokens, *, embeds=None,
     h = _cmap(lambda e, t, x: _embed({"embed": e}, cfg, t, x), lead,
               params["embed"], tokens, embeds, fixed=fixed)
     if positions is None:
-        positions = torch.arange(L, device=h.device).expand(B, L)
+        positions = placed_like(torch.arange(L, device=h.device)
+                                .expand(B, L), tokens)
     enc_out = (encode(params, cfg, enc_embeds, lead=lead) if cfg.enc_dec
                else None)
     h, aux = _train_stack(h, params, cfg, positions, enc_out, lead)
-    return _cmap(lambda g, x: rms_norm(x, g, cfg.norm_eps), lead,
+    return _cmap(lambda g, x: _normed(x, g, cfg), lead,
                  params["ln_f"], h, fixed=fixed), aux
 
 
@@ -864,9 +881,7 @@ def lm_loss(params, cfg: ModelConfig, batch, *, lead=0):
     def ce(h_c, w, labels_c, mask_c):
         W = w.T if cfg.tie_embeddings else w
         logits = softcap((h_c @ W).float(), cfg.logit_softcap)
-        logz = torch.logsumexp(logits, dim=-1)
-        ll = torch.gather(logits, -1, labels_c[..., None].long())[..., 0]
-        return torch.sum((logz - ll) * mask_c)
+        return token_nll_sum(logits, labels_c, mask_c)
 
     L, ck = h.shape[-2], cfg.loss_chunk
     fixed = _frozen_base(cfg, 1)

@@ -36,7 +36,9 @@ to them):
     keeps its vocab shard (dim 0) and is otherwise replicated, the tokens
     keep their batch shard on the other mesh dims; each rank looks up
     the tokens in its rows (zeros for the others'), and the blocks' sum
-    is reduced once, to the tokens' placements.  DTensor's own strategy
+    is reduced once, to the tokens' batch shards (a reduce-scatter where
+    the tokens were split over a vocab-sharded mesh dim, as a training
+    batch over 'model' is).  DTensor's own strategy
     for ``embedding`` (``MaskPartial``) loses its mask at the second
     reduction of the residual stream.
   * ``write_cache``, the prefill's and decode's write of K/V/positions at
@@ -139,6 +141,71 @@ def _shard_dim(p):
     return p.dim if isinstance(p, Shard) else None
 
 
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward makes the gradient contiguous."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def contiguous_grad(x):
+    """``x``, with its gradient made contiguous on the way back where a
+    gradient is recorded: a region's input gradients come back from its
+    local backward in whatever strides it left, and DTensor's ``view``
+    rule (the projections' backward views ``[B, L, n] -> [B·L, n]``)
+    does not reshape a non-contiguous local block."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _ContiguousGrad.apply(x)
+    return x
+
+
+class _GradLikeForward(torch.autograd.Function):
+    """The identity on a DTensor, whose backward redistributes the
+    gradient to the forward's placements."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.placements = x.placements
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if g.placements != ctx.placements:
+            g = g.redistribute(placements=ctx.placements)
+        return g
+
+
+def reduce_partial(x):
+    """``x`` with every partial sum of its placements reduced (the
+    residual stream after a tensor-parallel projection: one all-reduce
+    a sub-block, the "g" operator); plain tensors as they are."""
+    if not is_placed(x):
+        return x
+    from torch.distributed.tensor import Partial, Replicate
+
+    pl = tuple(Replicate() if isinstance(p, Partial) else p
+               for p in x.placements)
+    return x if pl == tuple(x.placements) else x.redistribute(placements=pl)
+
+
+def grad_like_forward(x):
+    """``x``; on a DTensor through which a gradient is recorded, its
+    gradient comes back with ``x``'s placements (one reduction of a
+    partial sum, or a local slice of a replicated gradient).  Placed on
+    a block's normed input (the tensor-parallel "f" operator): without
+    it DTensor keeps the residual stream's gradient a partial sum, and
+    every weight gradient after it is computed whole on every rank and
+    reduced at the end."""
+    if is_placed(x) and torch.is_grad_enabled() and x.requires_grad:
+        return _GradLikeForward.apply(x)
+    return x
+
+
 def local_attention(body, q, k, v, q_pos, k_pos, *, keep_seq):
     """``body(q, k, v, q_pos, k_pos)`` (q ``[B, L, H, D]``, k and v ``[B,
     S, K, D]``, positions ``[B, L]`` / ``[B, S]``) on each rank's block
@@ -168,6 +235,7 @@ def local_attention(body, q, k, v, q_pos, k_pos, *, keep_seq):
         for out, pl in zip((pq, pkv, pqp, pkp), row):
             out.append(pl)
     pq, pkv, pqp, pkp = map(tuple, (pq, pkv, pqp, pkp))
+    q, k, v = (contiguous_grad(t) for t in (q, k, v))
     return local_map(body, out_placements=(pq,),
                      in_placements=(pq, pkv, pkv, pqp, pkp),
                      device_mesh=mesh, redistribute_inputs=True)(
@@ -285,11 +353,19 @@ def embed(table, tokens):
         rows = t[torch.where(inside, idx, 0)]
         return rows * inside[..., None].to(rows.dtype)
 
+    # the table's gradient: its vocab blocks, and a partial sum over the
+    # mesh dims the tokens keep a batch shard on
+    gtab = tuple(Shard(0) if v else (Partial() if _shard_dim(p) == 0 else R)
+                 for v, p in zip(vocab, ptok))
     out = local_map(lookup, out_placements=(pout,), in_placements=(ptab,
                                                                    ptok),
-                    device_mesh=mesh, redistribute_inputs=True)(
-        table, tokens)
-    return out.redistribute(placements=ptok)
+                    in_grad_placements=(gtab, ptok), device_mesh=mesh,
+                    redistribute_inputs=True)(table, tokens)
+    # the blocks' sum lands on the tokens' own batch shards: where the
+    # tokens were gathered for a vocab-sharded table (a batch over 'model'
+    # in training), a reduce-scatter keeps their batch split
+    return out.redistribute(placements=tuple(
+        Shard(0) if _shard_dim(p) == 0 else R for p in tokens.placements))
 
 
 def local_mixer(body, x, params, cache):
@@ -298,7 +374,7 @@ def local_mixer(body, x, params, cache):
     DTensor, with the module note's placements; else as it is."""
     if not is_placed(x):
         return body(x, params, cache)
-    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
     R = Replicate()
@@ -313,9 +389,64 @@ def local_mixer(body, x, params, cache):
             else None
         return body(x, w, c)
 
+    # each rank's weight gradient covers its batch block only: a partial
+    # sum over the mesh dims the batch is sharded on
+    gw = tuple(Partial() if _shard_dim(p) == 0 else R for p in x.placements)
+    in_pl = ((pb,) + (pw,) * len(names)
+             + tuple(tuple(cache[k].placements) for k in held))
     return local_map(
-        block, out_placements=(pb,),
-        in_placements=(pb,) + (pw,) * len(names)
-        + tuple(tuple(cache[k].placements) for k in held),
+        block, out_placements=(pb,), in_placements=in_pl,
+        in_grad_placements=(pb,) + (gw,) * len(names) + in_pl[1 + len(names):],
         device_mesh=x.device_mesh, redistribute_inputs=True)(
         x, *(params[k] for k in names), *(cache[k] for k in held))
+
+
+def token_nll_sum(logits, labels, mask):
+    """``sum((logsumexp(logits) - logits[labels]) * mask)`` over every
+    token (logits ``[..., V]`` float32, labels and mask ``[...]``).  On a
+    DTensor whose vocab (last dim) is sharded, the vocab-parallel
+    cross-entropy of the module note: each rank takes its block's maximum
+    (``Partial("max")``, reduced), its block's sum of exponentials and
+    the logit of each label that falls in its block (both
+    ``Partial("sum")``); the token rows keep their batch shard (dim 0),
+    every other dim is replicated.  DTensor's own ``gather`` on sharded
+    logits goes through ``MaskPartial``, which fails on the gathered
+    rows' shape."""
+    if not is_placed(logits):
+        logz = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+        return torch.sum((logz - ll) * mask)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = logits.device_mesh
+    last = logits.dim() - 1
+    R = Replicate()
+    dims = [_shard_dim(p) for p in logits.placements]
+    plog = tuple(Shard(last) if d == last else Shard(0) if d == 0 else R
+                 for d in dims)
+    prow = tuple(Shard(0) if d == 0 else R for d in dims)
+    pmax = tuple(Partial("max") if d == last else p
+                 for d, p in zip(dims, prow))
+    psum = tuple(Partial("sum") if d == last else p
+                 for d, p in zip(dims, prow))
+    lo = _block_start(mesh, plog, logits.shape, last)
+
+    def block_stats(lg, lab):
+        idx = lab.long() - lo
+        inside = (idx >= 0) & (idx < lg.shape[-1])
+        ll = torch.gather(lg, -1, torch.where(inside, idx, 0)[..., None])
+        return lg.detach().amax(-1), ll[..., 0] * inside.to(lg.dtype)
+
+    def block_sumexp(lg, top):
+        return torch.exp(lg - top[..., None]).sum(-1)
+
+    top, ll = local_map(block_stats, out_placements=(pmax, psum),
+                        in_placements=(plog, prow), device_mesh=mesh,
+                        redistribute_inputs=True)(logits, labels)
+    top = top.redistribute(placements=prow)
+    s = local_map(block_sumexp, out_placements=(psum,),
+                  in_placements=(plog, prow), device_mesh=mesh,
+                  redistribute_inputs=True)(logits, top)
+    logz = top + torch.log(s.redistribute(placements=prow))
+    return torch.sum((logz - ll.redistribute(placements=prow)) * mask)

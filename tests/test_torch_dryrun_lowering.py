@@ -20,6 +20,7 @@ placements on a fake process group, under the per-rank counters.
   * K4 and K5 as custom operators: fake implementations and flop
     formulas equal to their plain versions'."""
 import json
+import math
 import os
 import time
 
@@ -210,12 +211,10 @@ def test_tiny_runs_every_shape_on_the_test_meshes(mesh_kind, shape_name):
     assert ax == ({"data": 2, "model": 2} if mesh_kind == "single"
                   else {"pod": 2, "data": 2, "model": 1})
     if shape_name == "train_4k":
-        # the baseline: one placed flat round, exactly its two
-        # all-reduces
-        assert rec["state"] == "flat"
-        assert rec["collectives"]["count"] == 2
-        assert rec["collectives"]["all-reduce"] == rec["collectives"][
-            "total"] == _round_bytes(get_config("tiny"))
+        # the baseline: one placed tree round; its two client all-reduces
+        # exactly, and DTensor's over 'model' as the placements give them
+        assert rec["state"] == "tree"
+        _tree_account(rec, mesh_kind, "baseline")
         assert rec["memory"]["alias_size_in_bytes"] > 0
         ana = rec["analytic"]["coll_bytes_per_dev"]
         assert rec["roofline"]["collective_s"] == pytest.approx(
@@ -226,6 +225,82 @@ def test_tiny_runs_every_shape_on_the_test_meshes(mesh_kind, shape_name):
         # the cache is written in place: an output aliases it
         assert rec["memory"]["alias_size_in_bytes"] >= \
             rec["memory"]["by_argument"]["cache"]
+
+
+CLIENT_OP = "repro_torch::client_all_reduce"
+
+
+def _local_numel(cfg, mesh_kind, mode):
+    """N_local: the elements of a rank's blocks of the trainable tree on
+    the test mesh, as ``param_pspecs(mode=)`` places them."""
+    from torch.utils._pytree import tree_flatten
+
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.sharding import local_shape, param_pspecs
+    from repro_torch.sharding.rules import _is_spec
+
+    params = _fake_params(cfg)
+    with dryrun.fake_group(4):
+        mesh = make_test_mesh(multi_pod=mesh_kind == "multi",
+                              device_type="cpu")
+        specs = param_pspecs(cfg, mesh, params, mode=mode)
+        leaves = tree_flatten(params)[0]
+        return sum(math.prod(local_shape(tuple(v.shape), p, mesh))
+                   for v, p in zip(leaves, tree_flatten(
+                       specs, is_leaf=_is_spec)[0]))
+
+
+def _fake_params(cfg):
+    from repro_torch.models.model import init_params
+
+    with FakeTensorMode():
+        return init_params(torch.Generator(), cfg)
+
+
+def _top(rec):
+    """``collective_top``'s entries as {(kind, shapes): executions}."""
+    out = {}
+    for entry in rec["collective_top"]:
+        kind, sig, n = entry.split(":")[0].split(" ")
+        out[(kind, sig)] = int(n[1:])
+    return out
+
+
+def _tree_account(rec, mesh_kind, variant):
+    """The tree step's collectives on the test mesh: the two client
+    all-reduces exactly (K1's ``[N_local + 1]`` float32 partial on the
+    rank's column shards, the four metric sums); on the (2, 2, 1) mesh
+    ('model' of one rank) nothing else; on the (2, 2) mesh what the
+    placements give: under "tp" storage with the batch replicated, the
+    residual stream's all-reduce (``[b, L, d]``) once per embedding and
+    sub-block forward (the "g" operator) and once per norm backward (the
+    "f" operator) in each of the s local steps, and no weight moves;
+    under ``dp_client`` each replicated weight's gradient is
+    all-reduced."""
+    cfg = get_config("tiny")
+    mode, batch_mode = dryrun.train_modes(variant)
+    n_local = _local_numel(cfg, mesh_kind, mode)
+    ops = rec["collective_ops"]
+    assert ops[CLIENT_OP] == [2, 4 * (n_local + 1) + 4 * 4]
+    if mesh_kind == "multi":
+        assert list(ops) == [CLIENT_OP]
+        assert rec["collectives"]["total"] == ops[CLIENT_OP][1]
+        return
+    s, shape = cfg.local_steps, dryrun.SHAPES["train_4k"]
+    b = shape.global_batch // rec["clients"]
+    top = _top(rec)
+    weights = {f"f32[{','.join(map(str, v.shape))}]"
+               for v in torch.utils._pytree.tree_leaves(_fake_params(cfg))}
+    if batch_mode == "tp":
+        resid = ("all-reduce", f"f32[{b},{shape.seq_len},{cfg.d_model}]")
+        assert top[resid] == 2 * s * (2 * cfg.n_layers + 1)
+        assert not any(sig in weights for _, sig in top)
+    if mode == "dp":
+        # the stacked leaves' gradients, per local step and unit
+        n_units = cfg.n_layers // len(cfg.pattern)
+        for sig in weights:
+            if sig.count(",") == 2:
+                assert top.get(("all-reduce", sig), 0) >= s * n_units, sig
 
 
 CHUNKS = {
@@ -402,14 +477,37 @@ def test_cli_variant_and_skip_done(tmp_path, capsys):
     assert len(json.loads(out.read_text())) == 2
 
 
+@pytest.mark.parametrize("mesh_kind", ["single", "multi"])
+@pytest.mark.parametrize("variant", ["dp_client", "zero_client"])
+def test_tree_knobs_run_on_the_test_meshes(variant, mesh_kind):
+    """``dp_client`` and ``zero_client`` run the tree step with their
+    storage and batch modes: ``ok``, ``"state": "tree"``, the client
+    all-reduces exactly and DTensor's collectives as the placements give
+    them; a rank's arguments grow under ``dp_client`` and stay under
+    ``zero_client``."""
+    rec = dryrun.run_one("tiny", "train_4k", mesh_kind, test_mesh=True,
+                         verbose=False, variant=variant)
+    _common(rec)
+    assert rec["state"] == "tree" and rec["variant"] == variant
+    _tree_account(rec, mesh_kind, variant)
+    base = dryrun.run_one("tiny", "train_4k", mesh_kind, test_mesh=True,
+                          verbose=False)
+    got = rec["memory"]["by_argument"]["state"]
+    want = base["memory"]["by_argument"]["state"]
+    if variant == "dp_client" and mesh_kind == "single":
+        assert got > want
+    else:
+        assert got == want
+
+
 @pytest.mark.parametrize("variant", [
-    "dp_client", "zero_client", "flat_chunk4+dp_client", "flat_chunkx",
+    "flat_chunk4+dp_client", "flat_chunk2+zero_client", "flat_chunkx",
     "flat_chunk4+epochs", "moe-hint"])
 def test_unported_and_unknown_variants_raise(variant, capsys):
-    """The reference's tree-state knobs and any unknown token are refused
-    before anything runs: no record describes a run that did not
-    happen."""
-    with pytest.raises(ValueError, match="not ported|unknown knob"):
+    """A tree-state knob beside a flat chunk (where it would change
+    nothing) and any unknown token are refused before anything runs: no
+    record describes a run that did not happen."""
+    with pytest.raises(ValueError, match="tree-state round|unknown knob"):
         dryrun.run_one("tiny", "train_4k", "single", test_mesh=True,
                        variant=variant)
     with pytest.raises(SystemExit):

@@ -1,7 +1,18 @@
-"""The placed FL path of ``chip_smoke.py``'s phase 3o over the cards of
-one host, one rank a card, the round's all-reduces over NCCL:
+"""The placed FL paths of ``chip_smoke.py``'s phases 3o and 3q over the
+cards of one host, one rank a card, the collectives over NCCL:
 
-    torchrun --nproc-per-node 4 tools/chip_probe_nccl.py
+    torchrun --nproc-per-node 4 tools/chip_probe_nccl.py [--tree]
+
+With ``--tree``, phase 3q (a)'s tree-state placed round alone, on the
+(2, 2) ('data', 'model') mesh that one card cannot take (DTensor's
+all-gathers over 'model' of CUDA tensors through gloo segfaulted there):
+``tiny`` in float32, FedAWE with K1, m = 8, four client rows a rank and
+each leaf's model dims over two cards; rank 0 runs the unplaced tree
+round on its card and holds the ranks' results to phase 3q's gates
+(``chip_smoke.tree_placed_path``: within ``TREE_PLACED_TOL``, the partial
+form and the finalize once a round on every rank, the fused K1 never, τ,
+keys and counts bit-equal), printing rank 0's counted collectives.
+Without it:
 
 fedawe/sine and fedawe/stale_d2+midround (m 100, s 5, batch 32, the
 full-width CNN, 2 seeds, 16 rounds in chunks of 8, with the kernel) over
@@ -87,6 +98,27 @@ def _profile(torch, run):
                 device_ms=sum(us for _, us in kernels) / 1e3)
 
 
+def _tree(torch, dist, rank, smi):
+    """Phase 3q (a) on the (2, 2) mesh over the four cards: every rank's
+    run, gathered to rank 0, held there against the unplaced tree
+    round."""
+    from repro_torch.kernels.echo_aggregate import kernel, ops, ref
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.ssd_chunk import ops as sops
+
+    if rank == 0:
+        kernel.LIBRARY.build()      # one nvcc; the other ranks load it
+    dist.barrier()
+    kernel.LIBRARY.build()
+    got = dict(tree=cs.tree_placed_rank(torch, rank, shape=(2, 2)))
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, got)
+    if rank == 0:
+        cs.tree_placed_path(torch, ops, ref, ranks,
+                            cs.Counts(ops, fops, sops), smi, shape=(2, 2),
+                            backend="nccl")
+
+
 def main():
     import torch
     import torch.distributed as dist
@@ -102,11 +134,15 @@ def main():
     rank = dist.get_rank()
     t0 = time.perf_counter()
     try:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60, check=True).stdout.strip()
         if rank == 0:
-            print(subprocess.run(
-                ["nvidia-smi", "--query-gpu=name,power.limit",
-                 "--format=csv,noheader"], capture_output=True, text=True,
-                timeout=60, check=True).stdout.strip(), flush=True)
+            print(smi, flush=True)
+        if "--tree" in sys.argv[1:]:
+            _tree(torch, dist, rank, smi)
+            return 0
         m = mesh.make_seed_mesh(cs.PLACED_SEEDS, device_type="cuda")
         cs.require(mesh.mesh_axis_sizes(m) == {"seed": 2, "pod": 1,
                                                "data": 2},
