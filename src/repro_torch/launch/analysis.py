@@ -32,7 +32,7 @@ import numpy as np
 import torch
 from torch._subclasses.fake_tensor import FakeTensor, unset_fake_temporarily
 from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils.flop_counter import flop_registry
+from torch.utils.flop_counter import conv_flop_count, flop_registry
 
 from repro_torch.launch.mesh import HBM_BW, ICI_BW, PEAK_FLOPS_BF16
 
@@ -182,6 +182,30 @@ def _propagation_marked():
         ShardingPropagator._fake_mode_lock = held
 
 
+def conv_backward_flops(grad_out, x, w, *args, out_val=None, **kwargs):
+    """``aten.convolution_backward``'s flops: each gradient it is asked
+    for (``output_mask``'s first two entries) costs the forward
+    convolution's products, ``conv_flop_count`` on the input, weight and
+    output shapes; the weight's shape carries the groups, so a depthwise
+    convolution counts ``1/groups`` of a dense one's."""
+    names = ("bias_sizes", "stride", "padding", "dilation", "transposed",
+             "output_padding", "groups", "output_mask")
+    a = dict(zip(names, args), **kwargs)
+    fwd = conv_flop_count(list(x.shape), list(w.shape),
+                          list(grad_out.shape), a["transposed"])
+    return fwd * (int(a["output_mask"][0]) + int(a["output_mask"][1]))
+
+
+#: formulas that take the place of the registry's
+_FORMULAS = {torch.ops.aten.convolution_backward: conv_backward_flops}
+
+
+def _signature(tensors):
+    """``"bf16[65536,2304],bf16[2304,1152]"``: dtypes and shapes."""
+    return ",".join(f"{_SHORT.get(t.dtype, str(t.dtype))}"
+                    f"[{','.join(map(str, t.shape))}]" for t in tensors)
+
+
 class CollectiveCounter(TorchDispatchMode):
     """Counts what one rank executes while it is on, real or fake tensors
     alike:
@@ -191,7 +215,10 @@ class CollectiveCounter(TorchDispatchMode):
         its executions for ``collective_top``;
       * ``flops``: each operation's count by ``FlopCounterMode``'s
         formulas (``torch.utils.flop_counter.flop_registry``, which the
-        port's kernels register themselves in), on local shapes;
+        port's kernels register themselves in), on local shapes; a
+        convolution's backward by ``conv_backward_flops`` (the
+        registry's counts a grouped convolution's weight gradient as a
+        dense one's);
       * ``bytes_accessed``: the bytes of every tensor argument and result
         of each operation that is not a view;
       * memory: the bytes of every storage an operation allocates (a
@@ -210,6 +237,10 @@ class CollectiveCounter(TorchDispatchMode):
         self.bytes_by_op = collections.Counter()
         self._top = collections.Counter()
         self._top_bytes = collections.Counter()
+        #: flops and executions per (operator, operand shapes), for
+        #: ``flops_top``
+        self._flops_by = collections.Counter()
+        self._flops_calls = collections.Counter()
         self.flops = 0
         self.bytes_accessed = 0
         self.live_bytes = 0
@@ -264,9 +295,14 @@ class CollectiveCounter(TorchDispatchMode):
         kind = _KIND.get(func._schema.name)
         if kind is not None:
             self._collective(func._schema.name, kind, ins)
-        formula = flop_registry.get(func._overloadpacket)
+        formula = _FORMULAS.get(func._overloadpacket) \
+            or flop_registry.get(func._overloadpacket)
         if formula is not None:
-            self.flops += int(formula(*args, **kwargs, out_val=out))
+            f = int(formula(*args, **kwargs, out_val=out))
+            self.flops += f
+            key = (func._overloadpacket.__name__, _signature(ins[:2]))
+            self._flops_by[key] += f
+            self._flops_calls[key] += 1
         self.bytes_accessed += sum(map(_nbytes, ins)) \
             + sum(map(_nbytes, outs))
         if not _writes(func):
@@ -277,9 +313,7 @@ class CollectiveCounter(TorchDispatchMode):
         b = sum(map(_nbytes, operands))
         self.calls_by_op[op] += 1
         self.bytes_by_op[op] += b
-        sig = ",".join(f"{_SHORT.get(t.dtype, str(t.dtype))}"
-                       f"[{','.join(map(str, t.shape))}]"
-                       for t in operands[:2])
+        sig = _signature(operands[:2])
         self._top[(kind, sig)] += 1
         self._top_bytes[(kind, sig)] += b
 
@@ -313,6 +347,14 @@ class CollectiveCounter(TorchDispatchMode):
         out["count"] = self.calls
         out["total"] = sum(self.bytes_by_op.values())
         return out
+
+    def flops_top(self, k: int = 12) -> List[str]:
+        """The ``k`` (operator, first two operand shapes) with the most
+        flops: operator, shapes, executions, flops."""
+        items = sorted(((f, key) for key, f in self._flops_by.items()),
+                       reverse=True)[:k]
+        return [f"{op} {sig} x{self._flops_calls[(op, sig)]}: {f:.4g}"
+                for f, (op, sig) in items]
 
     def collective_top(self, k: int = 12) -> List[str]:
         """The ``k`` (kind, shapes) with the most bytes, as the

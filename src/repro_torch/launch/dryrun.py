@@ -72,15 +72,37 @@ placements they take (``models/placed.py``, ``models/moe.py``):
     block maximum ``Partial("max")``, its sum of exponentials and its
     labels' logits ``Partial("sum")``, reduced to the rows' placements.
 
-In the tree step's training forward and backward the residual stream's
-partial sums are reduced before each norm (``placed.reduce_partial``)
-and each normed input's gradient is brought back to its forward
-placements (``placed.grad_like_forward``), the tensor-parallel "g" and
-"f" operators; the attention output's merged heads take their gradient
-back the same way (``layers._merged_heads``), and the attention region's
-inputs get contiguous gradients (``placed.contiguous_grad``).  Every
-weight gradient is redistributed to its leaf's placements before the
-step (``engine._placed_as``).
+In the tree step's training forward and backward every projection's
+and region's placements are written down (``models/placed.py``'s note),
+so that DTensor chooses no strategy by a cost that depends on the mesh's
+device type (a fake CUDA step counts what the CPU record counts) and
+nothing the reference's compiled step splits over 'model' runs whole:
+
+  * every projection (``placed.project``): column-sharded weights take
+    the input replicated and give the output's last dim sharded,
+    row-sharded ones take that shard and give a partial sum, and an
+    input whose rows are sharded (``dp_client``, ``zero_client``) gathers
+    the weights;
+  * the gated MLP (``placed.local_swiglu``): the gate/up product moves to
+    a row shard for its halves and back for the down projection;
+  * the attention (``placed.local_attention(train=True)``): the kv heads
+    where they divide 'model', else the batch, else rows x kv-head groups
+    with each rank's block a ``Partial`` sum;
+  * the Mamba2 mixer (``placed.local_mixer(split=)``): the batch where it
+    divides, else rows x head groups whose gated norm finishes on the
+    summed parts (``ssm.mamba_parts``, ``ssm.mamba_combine``);
+  * the loss where the head's vocab does not divide 'model' or the
+    tokens are already split (``placed.local_head_nll``): the tokens
+    split, the head gathered once, each rank's sum a ``Partial``;
+    elsewhere the vocab-parallel cross-entropy above.
+
+The residual stream's partial sums are reduced before each norm
+(``placed.reduce_partial``) and each normed input's gradient is brought
+back to its forward placements (``placed.grad_like_forward``), the
+tensor-parallel "g" and "f" operators, in the encoder's blocks too; the
+attention region's inputs get contiguous gradients
+(``placed.contiguous_grad``).  Every weight gradient is redistributed to
+its leaf's placements before the step (``engine._placed_as``).
 
 Between blocks the residual stream is brought back to the embedding's
 placements (``placed.keep_placements``), and the MoE layer's output rows
@@ -95,8 +117,9 @@ The record keeps the reference's keys where they mean the same
 ``clients``, ``model_flops``, ``analytic``, ``roofline``, ``cost``,
 ``memory``, ``collectives``, ``collective_top``, ``chunk_rounds``,
 ``sampling``, ``seeds``, ``faults``, ``staleness``,
-``useful_flops_ratio``, ``ok``, ``error``, ``traceback``); ``run_s`` (the
-step's wall time on the CPU, fake tensors) takes the place of
+``useful_flops_ratio``, ``ok``, ``error``, ``traceback``), ``flops_top``
+(the counted flops by operator and operand shapes, the most first);
+``run_s`` (the step's wall time on the CPU, fake tensors) takes the place of
 ``lower_s`` and ``compile_s``, and ``roofline_counted`` (the counted
 flops, bytes and collective bytes) that of ``roofline_hlo``.  The counts
 are ``launch/analysis.CollectiveCounter``'s, per rank.  ``roofline``
@@ -720,6 +743,8 @@ def _run_step(rec, cfg, shape, mesh, variant, mode, args, specs):
     rec["memory"].update(mem)
     rec["collectives"] = counter.collective_bytes()
     rec["collective_top"] = counter.collective_top()
+    # the operators and shapes that count the most flops
+    rec["flops_top"] = counter.flops_top()
     # per operator: the client all-reduces (``repro_torch::
     # client_all_reduce``) apart from DTensor's collectives over 'model'
     rec["collective_ops"] = {op: [n, counter.bytes_by_op[op]]

@@ -18,9 +18,10 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention.ops import flash_mha
 from repro_torch.models.placed import (decode_attention, grad_like_forward,
-                                       is_placed,
-                                       local_attention, placed_like,
-                                       split_heads, write_cache)
+                                       heads_back, is_placed,
+                                       local_attention, local_swiglu,
+                                       placed_like, project, split_heads,
+                                       write_cache)
 
 NEG_INF = -2.0e38
 
@@ -42,8 +43,11 @@ def softcap(x, cap):
     return torch.tanh(x / cap) * cap
 
 
-def swiglu(x, wi, wd):
-    """Fused gate+up projection: wi [d, 2*ff], wd [ff, d]."""
+def swiglu(x, wi, wd, *, train=False):
+    """Fused gate+up projection: wi [d, 2*ff], wd [ff, d].  ``train``
+    over DTensors: ``placed.local_swiglu``'s placements."""
+    if train and is_placed(x):
+        return local_swiglu(x, wi, wd)
     g, u = (x @ wi).chunk(2, dim=-1)
     return (F.silu(g) * u) @ wd
 
@@ -203,7 +207,7 @@ def _merged_heads(out, B, L, cfg):
 
 def attn_qkvo(x, bp, cfg, positions, *, lora=None, kv_override=None,
               decode_cache=None, prefill_cache=None, window=None,
-              causal=True):
+              causal=True, train=False):
     """Compute one attention sub-block given params dict ``bp``.
 
     lora: the block's adapters (``a_n`` [in, r], ``b_n`` [r, out] for n in
@@ -218,15 +222,26 @@ def attn_qkvo(x, bp, cfg, positions, *, lora=None, kv_override=None,
     prefill_cache: dict(k, v, pos) — full-sequence forward that also writes
     the (last `alloc`) K/V entries into the cache.
     causal: the self-attention's mask (the encoder's is bidirectional).
+    train: the training forward; over DTensors every projection goes
+    through ``placed.project`` and the attention region splits what it
+    would replicate (``placed.local_attention``).
     Returns the block's output.  Unlike the reference, which returns new
     cache arrays beside it, the caches are updated IN PLACE.
     """
     B, L, _ = x.shape
 
+    def merged(out):
+        o = _merged_heads(out, B, L, cfg)
+        return heads_back(o, x) if train else o
+
     def proj(inp, name):
+        ab = None if lora is None else (lora[f"a_{name}"],
+                                        lora[f"b_{name}"])
+        if train:
+            return project(inp, bp[f"w{name}"], ab, cfg.lora_rank ** -0.5)
         y = inp @ bp[f"w{name}"]
-        if lora is not None:
-            r = (inp @ lora[f"a_{name}"]) @ lora[f"b_{name}"]
+        if ab is not None:
+            r = (inp @ ab[0]) @ ab[1]
             y = y + (cfg.lora_rank ** -0.5) * r.to(y.dtype)
         return y
 
@@ -240,8 +255,8 @@ def attn_qkvo(x, bp, cfg, positions, *, lora=None, kv_override=None,
                              causal=False, attn_softcap=cfg.attn_softcap,
                              q_chunk=cfg.attn_chunk)
         out = local_attention(cross, q, k, v, positions, k_pos,
-                              keep_seq=True)
-        return proj(_merged_heads(out, B, L, cfg), "o")
+                              keep_seq=True, train=train)
+        return proj(merged(out), "o")
     k = split_heads(proj(x, "k"), cfg.n_kv_heads, cfg.head_dim)
     v = split_heads(proj(x, "v"), cfg.n_kv_heads, cfg.head_dim)
     k = apply_rope(k, positions, cfg.rope_theta)
@@ -270,11 +285,11 @@ def attn_qkvo(x, bp, cfg, positions, *, lora=None, kv_override=None,
                                  attn_softcap=cfg.attn_softcap,
                                  q_chunk=cfg.attn_chunk)
         out = local_attention(core, q, k, v, positions, positions,
-                              keep_seq=not use_flash)
+                              keep_seq=not use_flash, train=train)
         if prefill_cache is not None:
             alloc = prefill_cache["k"].shape[1]
             take = min(L, alloc)
             slots = positions[:, L - take:] % alloc  # [B, take]
             for name, val in (("k", k), ("v", v), ("pos", positions)):
                 write_cache(prefill_cache[name], slots, val[:, L - take:])
-    return proj(_merged_heads(out, B, L, cfg), "o")
+    return proj(merged(out), "o")

@@ -75,12 +75,12 @@ from repro_torch.models.layers import (apply_rope, attention, attn_qkvo,
                                        rms_norm, softcap, swiglu)
 from repro_torch.models.moe import moe_ffn
 from repro_torch.models.placed import embed as placed_embed
-from repro_torch.models.placed import (grad_like_forward, is_placed,
-                                       keep_placements,
-                                       local_attention, local_mixer,
-                                       reduce_partial,
-                                       placed_like, split_heads,
-                                       token_nll_sum)
+from repro_torch.models.placed import (grad_like_forward, heads_back,
+                                       is_placed, keep_placements,
+                                       local_attention,
+                                       local_head_nll, local_mixer,
+                                       placed_like, project, reduce_partial,
+                                       split_heads, token_nll_sum)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -590,7 +590,7 @@ def _unit_call(cfg, policy, body, lead, *args, fixed=()):
                       *args, use_reentrant=False, **kw)
 
 
-def encode(params, cfg: ModelConfig, enc_embeds, *, lead=0):
+def encode(params, cfg: ModelConfig, enc_embeds, *, lead=0, mode="train"):
     """Encoder pass (enc-dec models). enc_embeds: [B, Le, d] -> [B, Le, d]
     (with ``lead`` leading client axes on the parameters and the input).
 
@@ -603,24 +603,34 @@ def encode(params, cfg: ModelConfig, enc_embeds, *, lead=0):
     frame embeddings enter uncast and the plain attention runs whatever
     the backend; under ``cfg.remat`` each block is checkpointed while a
     gradient is recorded (policy "full" whatever ``remat_policy`` says,
-    as the reference's encoder scan)."""
+    as the reference's encoder scan).  ``mode`` is the caller's
+    ("train", or "prefill"): in training over DTensors the blocks take
+    the tensor-parallel operators and explicit projections
+    (``_normed``, ``placed.project``), as the decoder's do."""
     B, Le = enc_embeds.shape[lead:lead + 2]
+    train = mode == "train"
     pos = placed_like(torch.arange(Le, device=enc_embeds.device)
                       .expand(B, Le), enc_embeds, replicate=True)
     enc = params["enc"]
 
+    def proj(x, w):
+        return project(x, w) if train else x @ w
+
     def block(h, bp):
-        x = rms_norm(h, bp["ln1"], cfg.norm_eps)
-        q = split_heads(x @ bp["wq"], cfg.n_heads, cfg.head_dim)
-        k = split_heads(x @ bp["wk"], cfg.n_kv_heads, cfg.head_dim)
-        v = split_heads(x @ bp["wv"], cfg.n_kv_heads, cfg.head_dim)
+        x = _normed(h, bp["ln1"], cfg, mode)
+        q = split_heads(proj(x, bp["wq"]), cfg.n_heads, cfg.head_dim)
+        k = split_heads(proj(x, bp["wk"]), cfg.n_kv_heads, cfg.head_dim)
+        v = split_heads(proj(x, bp["wv"]), cfg.n_kv_heads, cfg.head_dim)
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
         o = local_attention(_bidirectional(cfg), q, k, v, pos, pos,
-                            keep_seq=True)
-        h = h + o.reshape(B, Le, cfg.q_dim) @ bp["wo"]
-        return h + swiglu(rms_norm(h, bp["ln2"], cfg.norm_eps), bp["wi"],
-                          bp["wd"])
+                            keep_seq=True, train=train)
+        o = o.reshape(B, Le, cfg.q_dim)
+        if train:
+            o = heads_back(grad_like_forward(o), x)
+        h = h + proj(o, bp["wo"])
+        return h + swiglu(_normed(h, bp["ln2"], cfg, mode), bp["wi"],
+                          bp["wd"], train=train)
 
     h, fixed = enc_embeds, _frozen_base(cfg, 1)
     for u in range(cfg.n_enc_layers):
@@ -628,7 +638,7 @@ def encode(params, cfg: ModelConfig, enc_embeds, *, lead=0):
                        _unit_slice(enc["stack"]["pos0"], u,
                                    0 if fixed else lead), fixed=fixed)
         h = keep_placements(h, enc_embeds)
-    return _cmap(lambda x, g: rms_norm(x, g, cfg.norm_eps), lead, h,
+    return _cmap(lambda x, g: _normed(x, g, cfg, mode), lead, h,
                  enc["ln_f"], fixed=fixed)
 
 
@@ -650,15 +660,19 @@ def _enc_kv(enc_out):
                                 .expand(B, Le), enc_out, replicate=True)
 
 
-def _cross_attn(x, wp, cfg, positions, enc_kv):
+def _cross_attn(x, wp, cfg, positions, enc_kv, train=False):
     """Cross-attention of x on the encoder output: K and V projected from
     it in this block (unroped), q roped at the decoder positions
-    (``attn_qkvo(kv_override=)``)."""
+    (``attn_qkvo(kv_override=)``); ``train`` as ``attn_qkvo``'s."""
     enc_out, k_pos = enc_kv
-    B, Le, _ = enc_out.shape
-    k = split_heads(enc_out @ wp["wk"], cfg.n_kv_heads, cfg.head_dim)
-    v = split_heads(enc_out @ wp["wv"], cfg.n_kv_heads, cfg.head_dim)
-    return attn_qkvo(x, wp, cfg, positions, kv_override=(k, v, k_pos))
+
+    def proj(w):
+        return project(enc_out, w) if train else enc_out @ w
+
+    k = split_heads(proj(wp["wk"]), cfg.n_kv_heads, cfg.head_dim)
+    v = split_heads(proj(wp["wv"]), cfg.n_kv_heads, cfg.head_dim)
+    return attn_qkvo(x, wp, cfg, positions, kv_override=(k, v, k_pos),
+                     train=train)
 
 
 def _normed(h, g, cfg, mode="train"):
@@ -683,6 +697,7 @@ def apply_block(blk: BlockCfg, bp, h, cfg, positions, *, shared=None,
     ``_cross_attn``).  Returns (h, aux): aux the MoE block's router loss,
     None for the other kinds.  The cache (prefill/decode modes) is
     written in place."""
+    train = mode == "train"
     if blk.kind == "mamba":
         def mixer(x, bp, cache):
             return ssm.mamba_block(
@@ -690,8 +705,15 @@ def apply_block(blk: BlockCfg, bp, h, cfg, positions, *, shared=None,
                 decode_cache=cache if mode == "decode" else None,
                 prefill_cache=cache if mode == "prefill" else None)
 
+        def part(x, bp, n_h, g):
+            return ssm.mamba_parts(x, bp, cfg, n_h, g)
+
+        # the training mixer splits over rows x head groups (one SSM
+        # group, or head groups that divide the SSM groups)
+        split = (cfg.ssm_heads if cfg.ssm_groups == 1 else cfg.ssm_groups,
+                 part, lambda p, s: ssm.mamba_combine(p, s, cfg))
         return h + local_mixer(mixer, _normed(h, bp["ln1"], cfg, mode), bp,
-                               cache), None
+                               cache, split=split if train else None), None
     if blk.kind == "shared_attn":
         bp = shared
     x = _normed(h, bp["ln1"], cfg, mode)
@@ -703,17 +725,17 @@ def apply_block(blk: BlockCfg, bp, h, cfg, positions, *, shared=None,
     elif cache is not None and mode == "prefill":
         pre = cache
     h = h + attn_qkvo(x, bp, cfg, positions, lora=lora, decode_cache=dec,
-                      prefill_cache=pre, window=blk.window)
+                      prefill_cache=pre, window=blk.window, train=train)
     if enc_kv is not None and "wq_x" in bp:
         xp = {"wq": bp["wq_x"], "wk": bp["wk_x"], "wv": bp["wv_x"],
               "wo": bp["wo_x"]}
         h = h + _cross_attn(_normed(h, bp["ln_x"], cfg, mode), xp, cfg,
-                            positions, enc_kv)
+                            positions, enc_kv, train)
     x = _normed(h, bp["ln2"], cfg, mode)
     if blk.kind == "moe":
-        y, aux = moe_ffn(x, bp, cfg)
+        y, aux = moe_ffn(x, bp, cfg, train=train)
         return h + y, aux
-    return h + swiglu(x, bp["wi"], bp["wd"]), None
+    return h + swiglu(x, bp["wi"], bp["wd"], train=train), None
 
 
 def _block_lora(tree, key, u=None, lead=0):
@@ -880,24 +902,52 @@ def lm_loss(params, cfg: ModelConfig, batch, *, lead=0):
 
     def ce(h_c, w, labels_c, mask_c):
         W = w.T if cfg.tie_embeddings else w
-        logits = softcap((h_c @ W).float(), cfg.logit_softcap)
+        logits = softcap(project(h_c, W).float(), cfg.logit_softcap)
         return token_nll_sum(logits, labels_c, mask_c)
 
     L, ck = h.shape[-2], cfg.loss_chunk
     fixed = _frozen_base(cfg, 1)
-    if ck and L > ck and L % ck == 0:
+    total = _placed_nll(ce, h, head, labels, mask, cfg)
+    if total is None and ck and L > ck and L % ck == 0:
         total = torch.zeros(h.shape[:lead], dtype=torch.float32,
                             device=h.device)
         for i in range(0, L, ck):
             total = total + _cmap(ce, lead, h[..., i:i + ck, :], head,
                                   labels[..., i:i + ck], mask[..., i:i + ck],
                                   fixed=fixed)
-    else:
+    elif total is None:
         total = _cmap(ce, lead, h, head, labels, mask, fixed=fixed)
     loss = total / torch.clamp(mask.sum(dim=(-2, -1)), min=1.0)
     if cfg.is_moe:
         loss = loss + cfg.router_aux_coef * aux
     return loss
+
+
+def _placed_nll(ce, h, head, labels, mask, cfg):
+    """The training loss's token sum over DTensors where the head's vocab
+    is not sharded (its rows or columns split d_model instead) or the
+    tokens already are: ``placed.local_head_nll`` (the tokens split over
+    the ranks, the head gathered once), its ``loss_chunk`` chunks of the
+    tokens run by each rank on its own.  None elsewhere (plain tensors, a
+    vocab-sharded head over replicated tokens: the vocab-parallel
+    cross-entropy of ``token_nll_sum``)."""
+    if not is_placed(h):
+        return None
+    vocab = 0 if cfg.tie_embeddings else 1
+    rows = any(getattr(p, "dim", None) == 0 for p in h.placements)
+    if not rows and all(getattr(p, "dim", None) == vocab
+                        for p in head.placements):
+        return None
+    chunk = cfg.loss_chunk * math.prod(h.shape[:-2])
+
+    def body(h, w, labels, mask):
+        T = h.shape[0]
+        if not (cfg.loss_chunk and T > chunk and T % chunk == 0):
+            return ce(h, w, labels, mask)
+        return sum(ce(h[i:i + chunk], w, labels[i:i + chunk],
+                      mask[i:i + chunk]) for i in range(0, T, chunk))
+
+    return local_head_nll(body, h, head, labels, mask)
 
 
 def lm_loss_fn(cfg: ModelConfig):
@@ -995,7 +1045,7 @@ def prefill(params, cfg: ModelConfig, cache, tokens, *, embeds=None,
                             tokens)
     enc_kv = None
     if cfg.enc_dec:
-        enc_out = encode(params, cfg, enc_embeds)
+        enc_out = encode(params, cfg, enc_embeds, mode="prefill")
         if enc_out.shape != cache["enc_out"].shape:
             raise ValueError(f"enc_embeds give an encoder output of shape "
                              f"{tuple(enc_out.shape)}; the cache holds "

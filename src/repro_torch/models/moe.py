@@ -140,12 +140,13 @@ def _constrain_expert_buffer(eb, E):
         Shard(dim) if n == axis else Replicate() for n in names])
 
 
-def moe_ffn(x, bp, cfg):
+def moe_ffn(x, bp, cfg, *, train=False):
     """x: [B, L, d] -> (y, aux_loss).
 
     bp: router [d, E] (float32), wi_e [E, d, 2 * eff], wd_e [E, eff, d],
     optional wi_s / wd_s: the shared experts' SwiGLU, added on every
-    token.  aux is the mean over the sequences of their router losses."""
+    token (``train``: as ``layers.swiglu``'s).  aux is the mean over the
+    sequences of their router losses."""
     B, L, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     topw, topi, aux = _route(x, bp["router"], k)
@@ -161,7 +162,7 @@ def moe_ffn(x, bp, cfg):
     w = topw.reshape(-1).to(x.dtype) * keep
     y = (out.index_select(0, dest) * w[:, None]).view(B * L, k, d).sum(1)
     if cfg.n_shared_experts and "wi_s" in bp:
-        y = y + swiglu(xt, bp["wi_s"], bp["wd_s"])
+        y = y + swiglu(xt, bp["wi_s"], bp["wd_s"], train=train)
     # over DTensors the tokens' rows go back to the input's batch shards
     # first: torch 2.13's view mis-sizes a dim sharded on two mesh dims
     return batch_rows(y, xt).view(B, L, d), aux.mean()

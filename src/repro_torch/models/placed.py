@@ -50,6 +50,36 @@ to them):
     sort, ``searchsorted``, gathers over the whole batch): the routing is
     replicated and the plan computed on every rank, replicated.
 
+The training forward of the tree step (one client over the one-dim
+'model' mesh, ``train=True``) writes every placement down, so that
+DTensor chooses no strategy by a cost (which depends on the mesh's device
+type) and nothing the reference's compiled step splits runs whole:
+
+  * ``project``, every projection (q, k, v, o, the MLP's, the cross-
+    attention's, the head's logits): tensor-parallel by the weight's
+    shard (its columns: the input replicated, the output sharded; its
+    rows: the input's last dim sharded, the output a partial sum), or,
+    where the input's rows are sharded (``dp_client``, ``zero_client``),
+    the weights gathered;
+  * ``local_swiglu``: the gate/up product moved to a row shard for its
+    halves and the gate, and back for the down projection (the
+    activations travel, no weight does);
+  * ``local_attention`` with ``train``: the kv heads where they divide,
+    else the batch, else rows x kv-head groups (``_split_attention``:
+    each rank's block zero-padded, a ``Partial`` sum); ``heads_back``
+    returns a batch-split output to the heads' shard for the output
+    projection;
+  * ``local_mixer`` with ``split``: the batch where it divides, else rows
+    x head groups whose gated norm is finished on the summed parts;
+  * ``local_head_nll``: where the head's vocab does not divide (its
+    d_model is sharded instead) or the tokens already are split, the
+    tokens split over the ranks and the head gathered once, so no
+    ``[tokens, vocab]`` tensor crosses ranks.
+
+Shard-to-shard moves go through a gather (``_via_replicate``): DTensor
+moves a shard with an all-to-all on a CUDA mesh and with an all-gather
+and a slice on a CPU one, and the two must count the same.
+
 Between blocks the residual stream is brought back to the embedding's
 placements (``keep_placements``): left to propagation it would gather
 partial sums and new shardings layer after layer, and each new layout is
@@ -170,7 +200,11 @@ class _GradLikeForward(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x):
-        ctx.placements = x.placements
+        from torch.distributed.tensor import Replicate
+
+        # a partial sum's gradient is the whole gradient, replicated
+        ctx.placements = tuple(Replicate() if p.is_partial() else p
+                               for p in x.placements)
         return x.view_as(x)
 
     @staticmethod
@@ -206,13 +240,16 @@ def grad_like_forward(x):
     return x
 
 
-def local_attention(body, q, k, v, q_pos, k_pos, *, keep_seq):
+def local_attention(body, q, k, v, q_pos, k_pos, *, keep_seq, train=False):
     """``body(q, k, v, q_pos, k_pos)`` (q ``[B, L, H, D]``, k and v ``[B,
     S, K, D]``, positions ``[B, L]`` / ``[B, S]``) on each rank's block
     when ``q`` is a DTensor, with the placements of the module note
     (``keep_seq``: the queries may keep a sequence shard, the plain
     attention's end-aligned-free masks allow it; K4's do not); else
-    ``body`` on the tensors as they are."""
+    ``body`` on the tensors as they are.  With ``train`` (the training
+    forward) a mesh dim that would leave the region replicated splits it
+    instead: the kv heads where they divide, else the batch, else (a
+    one-dim mesh) rows x kv-head groups (``_split_attention``)."""
     if not is_placed(q):
         return body(q, k, v, q_pos, k_pos)
     from torch.distributed.tensor import Replicate, Shard
@@ -221,25 +258,244 @@ def local_attention(body, q, k, v, q_pos, k_pos, *, keep_seq):
     mesh = q.device_mesh
     B, K = q.shape[0], k.shape[2]
     R = Replicate()
+    batch = (Shard(0), Shard(0), Shard(0), Shard(0))
+    heads = (Shard(2), Shard(2), R, R)
     pq, pkv, pqp, pkp = [], [], [], []
     for i, p in enumerate(q.placements):
         n, d = mesh.size(i), _shard_dim(p)
         if d == 0 and B % n == 0:
-            row = (Shard(0), Shard(0), Shard(0), Shard(0))
+            row = batch
         elif d == 2 and K % n == 0:
-            row = (Shard(2), Shard(2), R, R)
+            row = heads
         elif d == 1 and keep_seq:
             row = (Shard(1), R, Shard(1), R)
+        elif train and K % n == 0:
+            row = heads
+        elif train and B % n == 0:
+            row = batch
+        elif train and mesh.ndim == 1 and _row_groups(n, B, K):
+            return _split_attention(body, q, k, v, q_pos, k_pos,
+                                    *_row_groups(n, B, K))
         else:
             row = (R, R, R, R)
         for out, pl in zip((pq, pkv, pqp, pkp), row):
             out.append(pl)
     pq, pkv, pqp, pkp = map(tuple, (pq, pkv, pqp, pkp))
-    q, k, v = (contiguous_grad(t) for t in (q, k, v))
+    q, k, v = (contiguous_grad(_via_replicate(t, pl))
+               for t, pl in ((q, pq), (k, pkv), (v, pkv)))
     return local_map(body, out_placements=(pq,),
                      in_placements=(pq, pkv, pkv, pqp, pkp),
                      device_mesh=mesh, redistribute_inputs=True)(
         q, k, v, q_pos, k_pos)
+
+
+def _row_groups(n, rows, heads):
+    """``(n_b, n_h)``: ``n`` ranks as ``n_b = gcd(n, rows)`` groups of
+    rows times ``n_h = n / n_b`` groups of heads, where ``n_h`` divides
+    ``heads``; else None."""
+    import math
+
+    n_b = math.gcd(n, rows)
+    n_h = n // n_b
+    return (n_b, n_h) if heads % n_h == 0 else None
+
+
+def _coordinate(mesh):
+    """This rank's index on a one-dim mesh."""
+    return mesh.get_coordinate()[0]
+
+
+def _split_attention(body, q, k, v, q_pos, k_pos, n_b, n_h):
+    """The training attention over a one-dim mesh of ``n_b · n_h`` ranks
+    where neither the kv heads nor the batch divide it: rank ``r`` takes
+    rows group ``r // n_h`` and kv-head group ``r % n_h`` (with their
+    query heads) of the replicated inputs, and returns its block
+    zero-padded to the whole output, a ``Partial`` sum; the inputs'
+    gradients come back the same way."""
+    import torch.nn.functional as F
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    B, _, H, _ = q.shape
+    K = k.shape[2]
+    rg, hg = divmod(_coordinate(mesh), n_h)
+    rows, kh = B // n_b, K // n_h
+    qh = kh * (H // K)
+    rs, qs, ks = (slice(rg * rows, (rg + 1) * rows),
+                  slice(hg * qh, (hg + 1) * qh), slice(hg * kh, (hg + 1) * kh))
+
+    def block(q, k, v, q_pos, k_pos):
+        o = body(q[rs, :, qs], k[rs, :, ks], v[rs, :, ks], q_pos[rs],
+                 k_pos[rs])
+        return F.pad(o, (0, 0, qs.start, H - qs.stop, 0, 0, rs.start,
+                         B - rs.stop))
+
+    R, P = (Replicate(),), (Partial(),)
+    q, k, v = (contiguous_grad(t) for t in (q, k, v))
+    return local_map(block, out_placements=(P,),
+                     in_placements=(R, R, R, R, R),
+                     in_grad_placements=(P, P, P, R, R), device_mesh=mesh,
+                     redistribute_inputs=True)(q, k, v, q_pos, k_pos)
+
+
+def _via_replicate(t, placements):
+    """``t`` on its way to ``placements``: each mesh dim whose shard moves
+    to another tensor dim is first gathered (the redistribution then
+    slices), so that a CPU and a CUDA mesh take the same collectives
+    (DTensor moves a shard with an all-to-all on CUDA, with an all-gather
+    and a slice on the CPU); else ``t``."""
+    from torch.distributed.tensor import Replicate
+
+    if not is_placed(t):
+        return t
+    pl = [Replicate() if _shard_dim(p) is not None and p != q else p
+          for p, q in zip(t.placements, placements)]
+    return t if tuple(pl) == tuple(t.placements) else t.redistribute(
+        placements=pl)
+
+
+def _to(t, placements):
+    """``t`` redistributed to ``placements`` through ``_via_replicate``."""
+    placements = tuple(placements)
+    if tuple(t.placements) == placements:
+        return t
+    return _via_replicate(t, placements).redistribute(placements=placements)
+
+
+def project(x, w, lora=None, scale=1.0):
+    """``x @ w`` (``w`` ``[in, out]``), plus ``scale · ((x @ a) @ b)``
+    cast to its dtype where ``lora = (a, b)`` is given.  Over DTensors
+    (the training forward) one region whose placements are written here,
+    per mesh dim, so that DTensor chooses no strategy:
+
+      * ``x`` sharded on a leading (row) dim: the rows stay, the weights
+        are gathered whole, the output keeps the rows; the weights'
+        gradients are partial sums;
+      * ``w`` sharded on its columns: ``x`` replicated, the output
+        sharded on its last dim; ``x``'s gradient a partial sum;
+      * ``w`` sharded on its rows: ``x`` sharded on its last dim, the
+        output a partial sum;
+      * else replicated.
+
+    The adapter ``a`` follows ``x``'s contraction (replicated, or its
+    rows with ``w``'s), ``b`` the output's columns (or whole, its
+    gradient a partial sum); beside a row-sharded ``w`` on a one-dim
+    mesh, ``_row_lora``."""
+    def body(x, w, *ab):
+        y = x @ w
+        if ab:
+            a, b = ab
+            y = y + scale * ((x @ a) @ b).to(y.dtype)
+        return y
+
+    ab = tuple(lora or ())
+    if not (is_placed(x) or is_placed(w)):
+        return body(x, w, *ab)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    R, S, last = Replicate(), Shard, x.dim() - 1
+    cols = []
+    for p, q in zip(x.placements, w.placements):
+        d, e = _shard_dim(p), _shard_dim(q)
+        # (x, w, y, grad x, grad w, a, b, grad a, grad b)
+        if d is not None and d < last:
+            cols.append((S(d), R, S(d), S(d), Partial(), R, R, Partial(),
+                         Partial()))
+        elif e == 1:
+            cols.append((R, S(1), S(last), Partial(), S(1), R, S(1),
+                         Partial(), S(1)))
+        elif e == 0:
+            cols.append((S(last), S(0), Partial(), S(last), S(0), S(0), R,
+                         S(0), Partial()))
+        else:
+            cols.append((R,) * 9)
+    px, pw, py, gx, gw, pa, pb, ga, gb = map(tuple, zip(*cols))
+    mesh = x.device_mesh
+    row_lora = ab and mesh.ndim == 1 and py[0] == Partial()
+    args = (x, w) + (() if row_lora else ab)
+    in_pl = (px, pw, pa, pb)[:len(args)]
+    in_grad = (gx, gw, ga, gb)[:len(args)]
+    args = tuple(_to(t, pl) for t, pl in zip(args, in_pl))
+    y = local_map(body, out_placements=(py,), in_placements=in_pl,
+                  in_grad_placements=in_grad, device_mesh=mesh)(*args)
+    return y + _row_lora(args[0], *ab, scale, y.dtype) if row_lora else y
+
+
+def _row_lora(x, a, b, scale, dtype):
+    """``scale · ((x @ a) @ b)`` beside a row-parallel projection on a
+    one-dim mesh (``x``'s last dim sharded, the output a partial sum):
+    each rank's rows of the contraction give a partial ``x @ a``,
+    reduced once (``[tokens, rank]``), whose product with the rank's
+    columns of ``b`` is zero-padded to the output's width: a partial sum,
+    as the main product's.  Gathering ``b`` instead would compute the
+    whole ``[tokens, out]`` product on every rank."""
+    import torch.nn.functional as F
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, last = x.device_mesh, x.dim() - 1
+    S, R, P = Shard, (Replicate(),), (Partial(),)
+    t = local_map(lambda x, a: x @ a, out_placements=(P,),
+                  in_placements=((S(last),), (S(0),)), device_mesh=mesh,
+                  redistribute_inputs=True)(x, _to(a, (S(0),)))
+    t = t.redistribute(placements=R)
+    out = b.shape[-1]
+    width = out // mesh.size(0)
+    lo = _coordinate(mesh) * width
+
+    def cols(t, b):
+        y = (scale * ((t @ b).to(dtype)))
+        return F.pad(y, (lo, out - lo - width))
+
+    return local_map(cols, out_placements=(P,), in_placements=(R, (S(1),)),
+                     in_grad_placements=(P, (S(1),)), device_mesh=mesh)(
+        t, _to(b, (S(1),)))
+
+
+def local_swiglu(x, wi, wd):
+    """The gated MLP ``(silu(g) · u) @ wd`` with ``g, u`` the halves of
+    ``x @ wi``, in the training forward over DTensors: both products
+    through ``project``.  Where ``wi``'s columns are sharded, a rank's
+    block of ``x @ wi`` holds columns of ``g`` or of ``u``, not both:
+    the product moves to a row shard (its leading dims, the first that
+    divides) for the halves and the gate, and back to its column shard
+    for ``wd``'s rows (each move a gather and a slice: the activations
+    travel, no weight does)."""
+    import torch.nn.functional as F
+    from torch.distributed.tensor import Replicate, Shard
+
+    y = project(x, wi)
+    last = y.dim() - 1
+    back = tuple(y.placements)
+    rows = []
+    for i, p in enumerate(back):
+        n = y.device_mesh.size(i)
+        if _shard_dim(p) != last:
+            rows.append(p)
+            continue
+        lead = [j for j in range(last) if y.shape[j] % n == 0]
+        rows.append(Shard(lead[0]) if lead else Replicate())
+    g, u = _to(y, rows).chunk(2, dim=-1)
+    return project(_to(F.silu(g) * u, back), wd)
+
+
+def heads_back(o, x):
+    """The merged attention output ``o`` [B, L, H·D] of a training region
+    that split a leading dim the block's input ``x`` keeps whole (the
+    batch where the kv heads do not divide): that dim gathered and the
+    heads' dim sharded instead, for the output projection's rows (a
+    gather and a slice); else ``o``."""
+    if not is_placed(o):
+        return o
+    from torch.distributed.tensor import Shard
+
+    last = o.dim() - 1
+    pl = tuple(Shard(last) if _shard_dim(p) not in (None, last)
+               and _shard_dim(p) != _shard_dim(px) else p
+               for p, px in zip(o.placements, x.placements))
+    return _to(o, pl)
 
 
 def _block_start(mesh, placements, shape, dim):
@@ -368,17 +624,36 @@ def embed(table, tokens):
         Shard(0) if _shard_dim(p) == 0 else R for p in tokens.placements))
 
 
-def local_mixer(body, x, params, cache):
+def local_mixer(body, x, params, cache, *, split=None):
     """``body(x, params, cache)`` (a Mamba2 mixer; ``cache`` a dict or
     None, written in place) on each rank's batch block when ``x`` is a
-    DTensor, with the module note's placements; else as it is."""
+    DTensor, with the module note's placements; else as it is.
+
+    ``split`` (the training forward: ``(heads, part, combine)``) splits a
+    one-dim mesh's mixer that would run replicated: over the batch where
+    it divides (the output's rows gathered back to ``x``'s placements),
+    else over rows x head groups (``_row_groups``): rank ``r``'s
+    ``part(x_rows, params, n_h, r % n_h)`` gives its head group's
+    output before the gated norm's ``1/rms`` and its sum of squares,
+    zero-padded to the whole rows and summed over the ranks (``Partial``),
+    and ``combine(p, s)`` finishes the norm on the sums.  The weights'
+    gradients are partial sums, reduced once to their placements."""
     if not is_placed(x):
         return body(x, params, cache)
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
     R = Replicate()
-    pb = tuple(Shard(0) if _shard_dim(p) == 0 else R for p in x.placements)
+    mesh, B = x.device_mesh, x.shape[0]
+    rows = split is not None and mesh.ndim == 1 and cache is None \
+        and _shard_dim(x.placements[0]) != 0
+    if rows and B % mesh.size(0):
+        groups = _row_groups(mesh.size(0), B, split[0])
+        if groups is not None:
+            return _split_mixer(x, params, groups, *split[1:])
+        rows = False
+    pb = tuple(Shard(0) if _shard_dim(p) == 0 or rows else R
+               for p in x.placements)
     names = sorted(params)
     held = sorted(cache or {})
     pw = tuple(R for _ in x.placements)
@@ -391,14 +666,69 @@ def local_mixer(body, x, params, cache):
 
     # each rank's weight gradient covers its batch block only: a partial
     # sum over the mesh dims the batch is sharded on
-    gw = tuple(Partial() if _shard_dim(p) == 0 else R for p in x.placements)
+    gw = tuple(Partial() if p == Shard(0) else R for p in pb)
     in_pl = ((pb,) + (pw,) * len(names)
              + tuple(tuple(cache[k].placements) for k in held))
-    return local_map(
+    y = local_map(
         block, out_placements=(pb,), in_placements=in_pl,
         in_grad_placements=(pb,) + (gw,) * len(names) + in_pl[1 + len(names):],
-        device_mesh=x.device_mesh, redistribute_inputs=True)(
-        x, *(params[k] for k in names), *(cache[k] for k in held))
+        device_mesh=mesh, redistribute_inputs=True)(
+        _via_replicate(x, pb), *(params[k] for k in names),
+        *(cache[k] for k in held))
+    return y.redistribute(placements=x.placements) if rows else y
+
+
+def _split_mixer(x, params, groups, part, combine):
+    """``local_mixer``'s rows x head-groups split (its note)."""
+    import torch.nn.functional as F
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    n_b, n_h = groups
+    mesh, B = x.device_mesh, x.shape[0]
+    rg, hg = divmod(_coordinate(mesh), n_h)
+    rs = slice(rg * (B // n_b), (rg + 1) * (B // n_b))
+    names = sorted(params)
+
+    def block(x, *leaves):
+        p, s = part(x[rs], dict(zip(names, leaves)), n_h, hg)
+        return (F.pad(p, (0, 0, 0, 0, rs.start, B - rs.stop)),
+                F.pad(s, (0, 0, rs.start, B - rs.stop)))
+
+    R, P = (Replicate(),), (Partial(),)
+    p, s = local_map(block, out_placements=(P, P),
+                     in_placements=(R,) * (1 + len(names)),
+                     in_grad_placements=(P,) * (1 + len(names)),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        _via_replicate(x, R), *(_via_replicate(params[k], R)
+                                for k in names))
+    return combine(p.redistribute(placements=R), s.redistribute(placements=R))
+
+
+def local_head_nll(ce, h, w, labels, mask):
+    """``ce(h, w, labels, mask)`` (the cross-entropy's masked sum over
+    tokens: h ``[T, d]``, labels and mask ``[T]``) over DTensors on a
+    one-dim mesh: the tokens (every leading dim of ``h`` flattened) split
+    over the ranks, the head's weight ``w`` gathered whole once, each
+    rank's sum a ``Partial``; ``h``'s gradient comes back in its token
+    shards and ``w``'s as a partial sum.  No ``[tokens, vocab]`` tensor
+    crosses ranks.  None where the tokens do not divide the mesh."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = h.device_mesh
+    d = h.shape[-1]
+    T = h.numel() // d
+    if mesh.ndim != 1 or T % mesh.size(0):
+        return None
+    S, R, P = (Shard(0),), (Replicate(),), (Partial(),)
+    lead = labels.dim()
+    h, labels, mask = (_via_replicate(t.reshape((T,) + tuple(
+        t.shape[lead:])), S) for t in (h, labels, mask))
+    return local_map(ce, out_placements=(P,), in_placements=(S, R, S, S),
+                     in_grad_placements=(S, P, S, S), device_mesh=mesh,
+                     redistribute_inputs=True)(
+        h, _via_replicate(w, R), labels, mask)
 
 
 def token_nll_sum(logits, labels, mask):

@@ -191,7 +191,14 @@ def mamba_block(x, bp, cfg, *, mode=None, decode_cache=None,
     if (mode == "decode") != (decode_cache is not None) \
             or (prefill_cache is not None and mode != "prefill"):
         raise ValueError(f"mode {mode!r} does not take the caches given")
-    train = mode == "train"
+    y, z = _mixer(x, bp, cfg, mode == "train", decode_cache, prefill_cache)
+    y = rms_norm(y * F.silu(z), bp["ln_out"], cfg.norm_eps)
+    return y @ bp["out_proj"]
+
+
+def _mixer(x, bp, cfg, train, decode_cache=None, prefill_cache=None):
+    """``mamba_block`` up to its gated norm: the SSD output with its skip
+    ``y`` [B, L, di] and the gate ``z``."""
     B, L, d = x.shape
     di, G, N, H, P = (cfg.ssm_inner, cfg.ssm_groups, cfg.ssm_state,
                       cfg.ssm_heads, cfg.ssm_head_dim)
@@ -250,8 +257,59 @@ def mamba_block(x, bp, cfg, *, mode=None, decode_cache=None,
 
     y = y + xs * bp["D"].to(xs.dtype)[:, None]
     y = y.reshape(B, L, di)
-    y = rms_norm(y * F.silu(z), bp["ln_out"], cfg.norm_eps)
-    return y @ bp["out_proj"]
+    return y, z
+
+
+def head_group(bp, cfg, n_h, g):
+    """Head group ``g`` of ``n_h`` of a Mamba2 block: the weights of its
+    heads (their z, x and dt columns of ``in_proj`` and ``out_proj``'s
+    rows, their conv channels, A, D, dt bias and norm scale; the B and C
+    columns of their SSM groups, all of them with one group) and its
+    config.  The whole block for one group."""
+    if n_h == 1:
+        return bp, cfg
+    di, G, N, H = cfg.ssm_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
+    dg, hg = di // n_h, H // n_h
+    gg = G // n_h if G % n_h == 0 else G
+    lo = g * gg if G % n_h == 0 else 0
+
+    def ar(start, n):
+        return torch.arange(start, start + n, device=bp["in_proj"].device)
+
+    zx = ar(g * dg, dg)
+    bc = torch.cat([ar(di + lo * N, gg * N), ar(di + G * N + lo * N, gg * N)])
+    cols = torch.cat([zx, di + zx, di + bc, 2 * di + 2 * G * N + ar(g * hg,
+                                                                    hg)])
+    conv = torch.cat([zx, bc])
+    heads = ar(g * hg, hg)
+    part = dict(in_proj=bp["in_proj"].index_select(1, cols),
+                out_proj=bp["out_proj"].index_select(0, zx),
+                ln_out=bp["ln_out"].index_select(0, zx),
+                conv_w=bp["conv_w"].index_select(0, conv),
+                conv_b=bp["conv_b"].index_select(0, conv))
+    part.update({k: bp[k].index_select(0, heads)
+                 for k in ("A_log", "D", "dt_bias")})
+    return part, cfg.replace(ssm_heads=hg, ssm_groups=gg)
+
+
+def mamba_parts(x, bp, cfg, n_h=1, g=0):
+    """Head group ``g`` of ``n_h``'s share of a training ``mamba_block``
+    (``head_group``): its output with the gated norm's ``1/rms`` left
+    out, ``((v · (1 + ln_out)) @ out_proj)`` with ``v = y · silu(z)``,
+    and ``v``'s float32 sum of squares over its channels.  Summed over
+    the groups, ``mamba_combine`` of the two is the block's output."""
+    bp, cfg = head_group(bp, cfg, n_h, g)
+    y, z = _mixer(x, bp, cfg, True)
+    v = (y * F.silu(z)).float()
+    p = (v * (1.0 + bp["ln_out"].float())).to(x.dtype) @ bp["out_proj"]
+    return p, (v * v).sum(-1)
+
+
+def mamba_combine(p, s, cfg):
+    """The block's output from ``mamba_parts``' sums over the head
+    groups: ``p / rms``, the rms over all ``cfg.ssm_inner`` channels."""
+    r = torch.rsqrt(s / cfg.ssm_inner + cfg.norm_eps)
+    return (p.float() * r[..., None]).to(p.dtype)
 
 
 def init_mamba_cache(cfg, batch, dtype, device):
